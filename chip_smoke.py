@@ -16,7 +16,18 @@ Phases, each of which raises on failure:
      random weights) with the launch counts zeroed just before, and fail if a
      kernel of the path was never launched;
   5. compare energies and forces of a 4-structure request on the card with
-     the CPU plain path.
+     the CPU plain path;
+  6. train: 2 warm-up + 5 timed flagship force-training steps (bf16 compute,
+     f32 master weights, guarded AdamW, EMA; bench.py:308-359's step) on
+     labelled batches of 16 structures x 30 atoms, with the launch counts
+     zeroed just before the timed steps; fail if a kernel of the path (the
+     four K1 kinds, K2a, K2b, K2c) was never launched, a loss is not finite
+     or the guard skipped a step;
+  7. one float32 training step of a 2-layer flagship-width model on 2
+     structures, on the card and on the CPU plain path from the same
+     weights: loss and gradients must agree, and so must the parameters and
+     EMA that the card's step and the CPU's optimizer make of the card's
+     gradients.
 The line before the last is the kernels' JSON record and the card; the last
 line is the device JSON.  Without a CUDA device the script exits non-zero
 and prints no result.
@@ -38,6 +49,7 @@ import torch  # noqa: E402
 
 CUTOFF, MAX_NEIGHBORS = 6.0, 20        # bench.py:338-340
 N_STRUCTURES, N_ATOMS, N_REQUESTS = 16, 30, 3
+N_WARMUP_STEPS, N_TRAIN_STEPS = 2, 5
 # H100 SXM published peaks: HBM3 bandwidth, dense FP32 / BF16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -149,34 +161,34 @@ def check_kernels(batch, tag: str) -> list[dict]:
     H = cfg["ffn_hidden_channels"]
     A, Fm = grid.tables("cuda")
     P = A.shape[0]
-    for name, back in (("s2act.k1", False), ("s2act.k2", True)):
+    # (name, kernel, plain version, inputs, outputs, multiply-adds per P K, TPU line)
+    s2_specs = [
+        ("s2act.k1", lambda x, do, dd: s2act.k1(x, grid),
+         lambda x, do, dd: s2act.k1_plain(x, A, Fm), 1, 1, 2, 122),
+        ("s2act.k2", lambda x, do, dd: s2act.k2(x, do, grid),
+         lambda x, do, dd: s2act.k2_plain(x, do, A, Fm), 2, 1, 3, 133),
+        ("s2act.k3", lambda x, do, dd: s2act.k3(x, do, dd, grid),
+         lambda x, do, dd: s2act.k3_plain(x, do, dd, A, Fm), 3, 2, 5, 144),
+    ]
+    for name, kern, plain, n_in, n_out, macs, line in s2_specs:
         errs = {}
         for dt in (torch.float32, torch.bfloat16):
-            x = torch.randn(N, K, H, generator=gen, device=dev).to(dt)
-            do = torch.randn(N, K, H, generator=gen, device=dev).to(dt)
-            if back:
-                got, want = s2act.k2(x, do, grid), s2act.k2_plain(x, do, A, Fm)
-            else:
-                got, want = s2act.k1(x, grid), s2act.k1_plain(x, A, Fm)
+            ins = [torch.randn(N, K, H, generator=gen, device=dev).to(dt) for _ in range(3)]
+            got, want = kern(*ins), plain(*ins)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            limit = (1e-5 if dt == torch.float32 else 1e-2) * want.float().abs().max().item()
-            if not err <= limit:
-                raise RuntimeError(f"{name} {dt}: max abs err {err:.3e} > {limit:.3e}")
+            err, limit = 0.0, 0.0
+            for g_, w_ in zip(*(((o,) if n_out == 1 else o) for o in (got, want))):
+                e_ = (g_.float() - w_.float()).abs().max().item()
+                l_ = (1e-5 if dt == torch.float32 else 1e-2) * w_.float().abs().max().item()
+                if not e_ <= l_:
+                    raise RuntimeError(f"{name} {dt}: max abs err {e_:.3e} > {l_:.3e}")
+                err, limit = max(err, e_), max(limit, l_)
             errs[dt] = (err, limit)
-        x = torch.randn(N, K, H, generator=gen, device=dev)
-        do = torch.randn(N, K, H, generator=gen, device=dev)
-        if back:
-            ms = time_ms(lambda: s2act.k2(x, do, grid), flush)
-            plain_ms = time_ms(lambda: s2act.k2_plain(x, do, A, Fm), flush)
-            nbytes, flops = 4 * 3 * N * K * H, 6.0 * P * K * N * H
-        else:
-            ms = time_ms(lambda: s2act.k1(x, grid), flush)
-            plain_ms = time_ms(lambda: s2act.k1_plain(x, A, Fm), flush)
-            nbytes, flops = 4 * 2 * N * K * H, 4.0 * P * K * N * H
-        nbytes += 4 * 2 * A.numel()
-        b_ms, b_by = bound(nbytes, flops, torch.float32)
-        line = 133 if back else 122
+        ins = [torch.randn(N, K, H, generator=gen, device=dev) for _ in range(3)]
+        ms = time_ms(lambda: kern(*ins), flush)
+        plain_ms = time_ms(lambda: plain(*ins), flush)
+        nbytes = 4 * (n_in + n_out) * N * K * H + 4 * 2 * A.numel()
+        b_ms, b_by = bound(nbytes, 2.0 * macs * P * K * N * H, torch.float32)
         records.append(dict(
             name=name, route="cuda", source=f"{src}/s2act.cu",
             replaces=f"{TPU_PKG}/ops/pallas/s2act.py:{line}", launches=0,
@@ -189,6 +201,168 @@ def check_kernels(batch, tag: str) -> list[dict]:
               f"bf16 {errs[torch.bfloat16][0]:.2e} (limit {errs[torch.bfloat16][1]:.1e})  "
               f"[{tag}]", flush=True)
     return records
+
+
+def train_phase(counters: dict, tag: str) -> dict:
+    """Phase 6: the flagship bf16 force-training step (bench.py:308-359)."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import (
+        as_tensors,
+        collate,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.synthetic import (
+        labelled_structures,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.inference import pad_sizes
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        FLAGSHIP,
+        EquiformerV2MatPES,
+        init_weights,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.schedules import (
+        warmup_cosine,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        GuardedAdamW,
+        create_train_state,
+        make_matpes_train_step,
+    )
+
+    model = EquiformerV2MatPES(**FLAGSHIP, alpha_drop=0.0, drop_path_rate=0.0,
+                               compute_dtype=torch.bfloat16)
+    init_weights(model, torch.Generator().manual_seed(0)).to("cuda")
+    opt = GuardedAdamW(model.named_parameters(), warmup_cosine(2e-4, 100, 10000), 1e-3, 1.0)
+    state = create_train_state(model, opt)
+    step = make_matpes_train_step(state, generator=torch.Generator("cuda").manual_seed(0))
+    rng = np.random.default_rng(2)
+    n_pad, e_pad = pad_sizes([N_ATOMS] * N_STRUCTURES, MAX_NEIGHBORS, MAX_NEIGHBORS)
+    batches = []
+    for _ in range(N_WARMUP_STEPS + N_TRAIN_STEPS):
+        pb = collate(labelled_structures(rng, N_STRUCTURES, N_ATOMS), CUTOFF,
+                     MAX_NEIGHBORS, n_pad, e_pad)
+        if pb.overflow_atoms or pb.overflow_edges:
+            raise RuntimeError("training batch overflowed its pads")
+        batches.append(as_tensors(pb, "cuda"))
+    print(f"training: flagship bf16 step, {N_STRUCTURES} structures x {N_ATOMS} atoms, "
+          f"N_pad {n_pad}, E_pad {e_pad}, AdamW wd 1e-3, warmup_cosine(2e-4, 100, 10000), "
+          f"EMA 0.999  [{tag}]", flush=True)
+
+    def run(i, batch):
+        before = {n: d[k] for n, (d, k) in counters.items()}
+        t = time.perf_counter()
+        loss, m = step(batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        loss = float(loss)
+        if not (np.isfinite(loss) and m["accepted"]):
+            raise RuntimeError(f"training step {i}: loss {loss}, accepted {m['accepted']}")
+        per = {n: d[k] - before[n] for n, (d, k) in counters.items()}
+        print(f"train step {i}: {dt * 1e3:.1f} ms, {N_STRUCTURES / dt:.1f} graphs/s, "
+              f"loss {loss:.4f} (E {float(m['energy_l1']):.4f}, F {float(m['force_l1']):.4f}), "
+              f"|g| {float(m['grad_norm']):.3f}, lr {m['lr']:.3e}, launches {per}  [{tag}]",
+              flush=True)
+        return dt
+
+    for i in range(N_WARMUP_STEPS):
+        run(f"warm-up {i}", batches[i])
+    for d, k in counters.values():
+        d[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = [run(i, b) for i, b in enumerate(batches[N_WARMUP_STEPS:])]
+    launches = {n: d[k] for n, (d, k) in counters.items()}
+    med = float(np.median(times))
+    print(f"training: median step {med * 1e3:.1f} ms ({min(times) * 1e3:.1f}-"
+          f"{max(times) * 1e3:.1f}), {N_STRUCTURES / med:.1f} graphs/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches per step "
+          f"{ {n: c / N_TRAIN_STEPS for n, c in launches.items()} }  [{tag}]", flush=True)
+    idle = [n for n, c in launches.items() if c == 0]
+    if idle:
+        raise RuntimeError(f"kernels never launched on the training path: {idle}")
+    return launches
+
+
+def train_parity_phase(tag: str) -> None:
+    """Phase 7: one f32 step, 2 layers at the flagship widths, 2 structures,
+    on the card and on the CPU plain path from the same weights: loss and
+    gradients must agree (gradients after the step's clip; each device
+    scales by its own norm).  The update is then held on identical
+    gradients: the card's clipped gradients go through the guarded AdamW and
+    the EMA on the CPU, and every parameter and EMA entry must agree with
+    the card's to 1e-2 lr.  (From the two devices' own gradients it could
+    not: Adam's first update lr g / (|g| + eps) is sign-like where |g| is
+    near eps, so a float32 difference in g moves such an entry by up to
+    2 lr.)  The learning rate is the schedule's peak, 2e-4, so that 1e-2 lr
+    lies well above one float32 ulp of the weights."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import (
+        as_tensors,
+        collate,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.synthetic import (
+        labelled_structures,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.inference import pad_sizes
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        FLAGSHIP,
+        EquiformerV2MatPES,
+        init_weights,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        GuardedAdamW,
+        create_train_state,
+        ema_update,
+        make_matpes_train_step,
+    )
+
+    lr = 2e-4
+    cfg = dict(FLAGSHIP, num_layers=2, alpha_drop=0.0, drop_path_rate=0.0)
+    weights = init_weights(EquiformerV2MatPES(**cfg), torch.Generator().manual_seed(3))
+    weights = {k: v.clone() for k, v in weights.state_dict().items()}
+    samples = labelled_structures(np.random.default_rng(3), 2, N_ATOMS)
+    n_pad, e_pad = pad_sizes([N_ATOMS] * 2, MAX_NEIGHBORS, MAX_NEIGHBORS)
+    pb = collate(samples, CUTOFF, MAX_NEIGHBORS, n_pad, e_pad)
+
+    def train_state(dev):
+        model = EquiformerV2MatPES(**cfg)
+        model.load_state_dict(weights)
+        model.to(dev)
+        return create_train_state(model, GuardedAdamW(model.named_parameters(),
+                                                      lambda step: lr, 1e-3, 1.0))
+
+    res = {}
+    for dev in ("cuda", "cpu"):
+        state = train_state(dev)
+        loss, m = make_matpes_train_step(state)(as_tensors(pb, dev))
+        named = list(state.model.named_parameters())
+        res[dev] = dict(
+            loss=float(loss), gnorm=float(m["grad_norm"]),
+            grads={n: p.grad.detach().cpu() for n, p in named},
+            params={n: p.detach().cpu() for n, p in named},
+            ema={n: e.cpu() for n, e in state.ema.items()})
+    g, c = res["cuda"], res["cpu"]
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    num = sum(float(((g["grads"][k].double() - c["grads"][k].double()) ** 2).sum())
+              for k in c["grads"])
+    den = sum(float((c["grads"][k].double() ** 2).sum()) for k in c["grads"])
+    grad_rel = (num / den) ** 0.5
+    # the CPU's update from the card's clipped gradients (re-clipping them
+    # scales by 1 to within a float32 rounding)
+    replay = train_state("cpu")
+    for n, p in replay.model.named_parameters():
+        p.grad = g["grads"][n].clone()
+    if not replay.optimizer.step()["accepted"]:
+        raise RuntimeError("the card's gradients are not finite")
+    ema_update(replay.ema, replay.model)
+    want = dict(replay.model.named_parameters())
+    dp = max(float((g["params"][k] - want[k].detach()).abs().max()) for k in want)
+    de = max(float((g["ema"][k] - replay.ema[k]).abs().max()) for k in want)
+    n_all = sum(v.numel() for v in want.values())
+    print(f"gpu vs cpu plain path, one f32 training step (2 layers, 2 structures): "
+          f"loss {g['loss']:.6f} vs {c['loss']:.6f}, rel err {loss_rel:.2e} (limit 1e-4); "
+          f"|g| {g['gnorm']:.4f} vs {c['gnorm']:.4f}, gradient rel L2 err {grad_rel:.2e} "
+          f"(limit 1e-3); on the card's gradients, all {n_all} entries after the step: "
+          f"params max |diff| {dp:.2e}, EMA {de:.2e} (limit {1e-2 * lr:.1e} = 1e-2 lr)  "
+          f"[{tag}]", flush=True)
+    if not (loss_rel <= 1e-4 and grad_rel <= 1e-3 and dp <= 1e-2 * lr and de <= 1e-2 * lr):
+        raise RuntimeError("the training step on the card disagrees with the CPU plain path")
 
 
 def main() -> int:
@@ -228,8 +402,10 @@ def main() -> int:
         spills = [f"{r['name']} {r['spill_bytes']} B" for r in rep if r["spill_bytes"]]
         print(f"  ptxas {name}.cu: {len(rep)} kernel instances, {min(regs)}-{max(regs)} "
               f"registers, spill stores: {', '.join(spills) or 'none'}")
-        for r in rep:  # the instances the serving path runs
-            if r["name"].startswith(("pairs_kernel<f32,4,2,", "s2act_kernel<f32,25,")):
+        for r in rep:  # the instances the serving and training paths run
+            if r["name"].startswith(("pairs_kernel<f32,4,2,", "pairs_kernel<bf16,4,2,",
+                                     "s2act_kernel<f32,25,", "s2act_kernel<bf16,25,",
+                                     "s2act_k3_kernel<f32,25>", "s2act_k3_kernel<bf16,25>")):
                 print(f"    {r['name']}: {r['registers']} registers, "
                       f"{r['spill_bytes']} B spill stores")
 
@@ -276,11 +452,12 @@ def main() -> int:
     print(f"launches over {N_REQUESTS} requests: {launches}  [{tag}]", flush=True)
     print(f"peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  "
           f"[{tag}]", flush=True)
-    idle = [n for n, c in launches.items() if c == 0]
+    # K2c is the grad-of-grad kernel: training runs it, serving never does
+    idle = [n for n, c in launches.items() if c == 0 and n != "s2act.k3"]
     if idle:
         raise RuntimeError(f"kernels never launched on the serving path: {idle}")
     for r in records:
-        r["launches"] = launches[r["name"]]
+        r["launches_serving"] = launches[r["name"]]
 
     # phase 5: the card against the CPU plain path
     small = random_structures(np.random.default_rng(1), 4, N_ATOMS)
@@ -295,6 +472,15 @@ def main() -> int:
           f"[{tag}]", flush=True)
     if not (e_rel <= 1e-4 and f_abs <= 1e-3):
         raise RuntimeError("the card disagrees with the CPU plain path")
+    del pred, cpu_model
+
+    # phase 6: train, counting launches from zero over the timed steps
+    train_launches = train_phase(counters, tag)
+    for r in records:
+        r["launches"] = train_launches[r["name"]]
+
+    # phase 7: one f32 training step, the card against the CPU plain path
+    train_parity_phase(tag)
 
     print(json.dumps({"kernels": records}))
     print(tag)

@@ -1,4 +1,4 @@
-"""PyTorch + CUDA port of the MatPES GATA-V2 serving path.
+"""PyTorch + CUDA port of the MatPES GATA-V2 serving and force-training paths.
 
 Mirrors the layout of ``equivarianttransformermpnn4quantumcomputations_tpu``
 (the JAX reference): every file here has its counterpart at the same relative

@@ -1,0 +1,88 @@
+"""MatPES training configs: the port's own copy of the JAX package's
+configs/matpes.py (``config``, ``config_debug``) and of the ``synthetic``
+config of its train/train_matpes.py.
+
+``config`` is the production step: the flagship GATA-V2 model (6 layers,
+128 channels, lmax 4 / mmax 2, S2 grid 18), batches of 16, AdamW
+(lr 2e-4, weight decay 1e-3) on a warmup + cosine schedule, bf16 compute
+with f32 master weights.  ``synthetic`` trains the debug model on
+``data/synthetic.py:SyntheticCrystals`` and needs no dataset on disk.
+"""
+
+config = {
+    # data
+    "data_path": "datasets/MatPES/MatPES-PBE-2025.1.json.gz",
+    "split_path": "datasets/MatPES/MatPES-PBE-split.json.gz",
+    "cache_dir": "datasets/MatPES/cache",
+    "batch_size": 16,
+    "max_train": None,
+    "max_val": None,
+    "max_test": None,
+    # model (reference equiformerv2_MatPES_GATAV2.py defaults)
+    "gata": True,
+    "num_layers": 6,
+    "sphere_channels": 128,
+    "attn_hidden_channels": 128,
+    "num_heads": 8,
+    "attn_alpha_channels": 32,
+    "attn_value_channels": 16,
+    "ffn_hidden_channels": 512,
+    "lmax": 4,
+    "mmax": 2,
+    "grid_resolution": 18,
+    "edge_channels": 128,
+    "num_rbf": 600,
+    "max_num_elements": 100,
+    "cutoff": 6.0,
+    "max_neighbors": 20,
+    "alpha_drop": 0.05,
+    "drop_path_rate": 0.05,
+    "avg_degree": 12.0,
+    "normalize_attn_output": True,
+    "use_phi_every_layer": False,
+    # loss weights (reference train_MatPES_GATAWandB.py:79-81)
+    "w_energy": 1.0,
+    "w_force": 1.0,
+    "w_stress": 0.0,
+    "regress_stress": False,
+    # optimization
+    "lr": 2e-4,
+    "weight_decay": 1e-3,
+    "epochs": 100,
+    "warmup_epochs": 1,
+    "grad_clip": 1.0,
+    "ema_decay": 0.999,
+    # run
+    "run_dir": "runs/matpes_gata",
+    "seed": 0,
+    "log_every": 50,
+    "ckpt_every_epochs": 1,
+    "use_wandb": False,
+    "scan_layers": False,
+    "remat": False,
+    "inner_ckpt": False,
+    "mixed_precision": True,
+}
+
+config_debug = {
+    **config,
+    "max_train": 256,
+    "max_val": 64,
+    "max_test": 64,
+    "epochs": 2,
+    "num_layers": 2,
+    "batch_size": 8,
+    "run_dir": "runs/matpes_debug",
+    "scan_layers": True,
+    "mixed_precision": False,
+}
+
+# the JAX CLI's --config synthetic (train/train_matpes.py:120-127)
+synthetic = {
+    **config_debug,
+    "synthetic": True,
+    "max_train": 48,
+    "max_val": 16,
+    "cutoff": 5.0,
+    "run_dir": "runs/matpes_synthetic",
+}

@@ -21,8 +21,10 @@ from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
+import torch
 
-__all__ = ["GraphSample", "radius_graph", "radius_graph_pbc", "collate", "PaddedBatch"]
+__all__ = ["GraphSample", "radius_graph", "radius_graph_pbc", "collate", "PaddedBatch",
+           "as_tensors"]
 
 @dataclass
 class GraphSample:
@@ -32,6 +34,10 @@ class GraphSample:
     pos: np.ndarray                   # [n, 3] float
     cell: np.ndarray | None = None    # [3, 3] float (PBC) or None
     pbc: bool = False
+    # labels (optional)
+    energy: float | None = None           # total or per-atom energy
+    forces: np.ndarray | None = None      # [n, 3]
+    stress: np.ndarray | None = None      # [6] Voigt
 
 
 def radius_graph(pos: np.ndarray, cutoff: float, max_neighbors: int | None):
@@ -116,6 +122,18 @@ def _cap_per_dst(src, dst, dist, k: int):
     return src[keep], dst[keep]
 
 
+_INDEX_KEYS = ("atomic_numbers", "edge_src", "edge_dst", "graph_idx")
+
+
+def as_tensors(pb: "PaddedBatch", device) -> dict:
+    """The batch as torch tensors on ``device``; index arrays as int64."""
+    out = {}
+    for k, v in pb.asdict().items():
+        t = torch.as_tensor(v, device=device)
+        out[k] = t.long() if k in _INDEX_KEYS else t
+    return out
+
+
 @dataclass
 class PaddedBatch:
     """Static-shape fixed-degree batch (all numpy; tensors are made at use)."""
@@ -132,13 +150,16 @@ class PaddedBatch:
     edge_shift: np.ndarray       # [E_pad, 3] int32
     edge_mask: np.ndarray        # [E_pad] bool
     cell: np.ndarray             # [B, 3, 3] f32 (identity when non-PBC)
+    energy: np.ndarray | None = None     # [B]
+    forces: np.ndarray | None = None     # [N_pad, 3]
+    stress: np.ndarray | None = None     # [B, 6]
     # atoms/edges dropped because the static pads were too small (host-side
     # ints, never shipped to the device); non-zero means wrong physics
     overflow_atoms: int = 0
     overflow_edges: int = 0
 
     def asdict(self):
-        return {
+        d = {
             "atomic_numbers": self.atomic_numbers,
             "pos": self.pos,
             "graph_idx": self.graph_idx,
@@ -151,6 +172,11 @@ class PaddedBatch:
             "edge_mask": self.edge_mask,
             "cell": self.cell,
         }
+        for k in ("energy", "forces", "stress"):
+            v = getattr(self, k)
+            if v is not None:
+                d[k] = v
+        return d
 
 
 def collate(
@@ -205,6 +231,11 @@ def collate(
     eshift = np.zeros((e_pad, 3), np.int32)
     emask = np.zeros(e_pad, bool)
     cell = np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))
+    # labels, present when the first sample has them (the JAX collate's rule)
+    y0 = samples[0]
+    energy = np.zeros(B, np.float32) if y0.energy is not None else None
+    forces = np.zeros((n_pad, 3), np.float32) if y0.forces is not None else None
+    stress = np.zeros((B, 6), np.float32) if y0.stress is not None else None
 
     overflow_atoms = 0
     overflow_edges = 0
@@ -224,6 +255,12 @@ def collate(
         natoms[b] = n
         if s.cell is not None:
             cell[b] = s.cell
+        if energy is not None:
+            energy[b] = s.energy
+        if forces is not None:
+            forces[sl] = s.forces[:n]
+        if stress is not None:
+            stress[b] = s.stress
         if s.pbc and s.cell is not None:
             src, dst, shift = radius_graph_pbc(
                 s.pos[:n].astype(np.float64), s.cell, cutoff, max_neighbors
@@ -271,6 +308,9 @@ def collate(
         edge_shift=eshift,
         edge_mask=emask,
         cell=cell,
+        energy=energy,
+        forces=forces,
+        stress=stress,
         overflow_atoms=overflow_atoms,
         overflow_edges=overflow_edges,
     )

@@ -15,14 +15,14 @@ Example:
 
 from __future__ import annotations
 
-import contextlib
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from .data.graph import GraphSample, collate, radius_graph, radius_graph_pbc
+from .data.graph import GraphSample, as_tensors, collate, radius_graph, radius_graph_pbc
 from .models.matpes import energy_and_forces
+from .utils.precision import full_f32_products
 
 __all__ = ["Predictor", "pad_sizes"]
 
@@ -45,20 +45,6 @@ def pad_sizes(n_atoms: Sequence[int], in_degree: int,
     n_max = max(-(-n_pad // B), max(n_atoms))
     k = max_neighbors if max_neighbors is not None else max(1, in_degree)
     return B * n_max, B * n_max * k
-
-
-@contextlib.contextmanager
-def _full_f32_products():
-    """TF32 off for the duration of one forward and its force backward:
-    geometry (frames, Wigner, angles) needs full float32 products.  The
-    caller's settings are restored on exit."""
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 class Predictor:
@@ -107,13 +93,8 @@ class Predictor:
 
     def predict_batch(self, structures: Sequence[dict]) -> dict:
         pb = self.collate(structures)
-        batch = {k: torch.as_tensor(v, device=self.device)
-                 for k, v in pb.asdict().items()}
-        batch["edge_src"] = batch["edge_src"].long()
-        batch["edge_dst"] = batch["edge_dst"].long()
-        batch["graph_idx"] = batch["graph_idx"].long()
-        batch["atomic_numbers"] = batch["atomic_numbers"].long()
-        with _full_f32_products():
+        batch = as_tensors(pb, self.device)
+        with full_f32_products():
             outs = energy_and_forces(self.model, batch)
 
         natoms = np.asarray(pb.natoms)

@@ -6,10 +6,16 @@ from positions inside the forward, so forces flow by autograd; the per-edge
 Wigner values are built once per forward in the dense pairs form and shared
 by every rotate (kernel K1 on the GPU).
 
-Only the configuration of the MatPES GATA-V2 serving path is ported:
+Only the configuration of the MatPES GATA-V2 model is ported:
 ``gata=True``, separable S2 activations, 'rms_norm_sh', unshared atom-edge
-embeddings, float32 compute.  Batches come in the fixed-degree layout
+embeddings.  Batches come in the fixed-degree layout
 (``data/graph.py:collate``): k = E / N edge slots per node.
+
+``compute_dtype=torch.bfloat16`` follows the JAX package's casts: the node
+features, the edge scalars, ``t_ij`` and ``rl_ij`` enter the block stack in
+bfloat16, the geometry (displacements, Wigner values, RBF) and the
+edge-degree embedding stay float32, norms compute in float32, and the
+final norm's output is float32.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import torch.nn as nn
 
 from ..nn.block import TransBlock
 from ..nn.embedding import EdgeDegreeEmbedding
-from ..nn.layers import GaussianSmearing
+from ..nn.layers import GaussianSmearing, Linear
 from ..nn.norms import EquivariantRMSNormSH
 from ..ops.cuda.rotate_dense import compute_wigner_dense
 from ..ops.irreps import layout as get_layout
@@ -39,9 +45,12 @@ class EquiformerV2Backbone(nn.Module):
                  ffn_hidden_channels: int, lmax: int, mmax: int,
                  grid_resolution: Optional[int], edge_channels: int,
                  num_rbf: int, max_num_elements: int, cutoff: float,
-                 avg_degree: float):
+                 avg_degree: float, alpha_drop: float = 0.0,
+                 drop_path_rate: float = 0.0, proj_drop: float = 0.0,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.lmax, self.mmax = lmax, mmax
+        self.compute_dtype = compute_dtype
         self.sphere_channels = sphere_channels
         lay_full, lay_red = get_layout(lmax, lmax), get_layout(lmax, mmax)
         self.K_full = lay_full.num_coefficients_full
@@ -52,21 +61,24 @@ class EquiformerV2Backbone(nn.Module):
             sphere_channels, lay_red, max_num_elements, edge_channels_list,
             avg_degree,
         )
-        self.h_proj = nn.Linear(sphere_channels, edge_channels)
-        self.W_erp = nn.Linear(num_rbf, edge_channels)
+        self.h_proj = Linear(sphere_channels, edge_channels)
+        self.W_erp = Linear(num_rbf, edge_channels)
         grid_full = s2grid(lmax, lmax, grid_resolution)
         self.blocks = nn.ModuleList(
             TransBlock(lay_full, lay_red, grid_full, sphere_channels,
                        attn_hidden_channels, num_heads, attn_alpha_channels,
                        attn_value_channels, ffn_hidden_channels,
-                       max_num_elements, edge_channels_list, edge_channels)
+                       max_num_elements, edge_channels_list, edge_channels,
+                       alpha_drop, drop_path_rate, proj_drop)
             for _ in range(num_layers)
         )
         self.norm = EquivariantRMSNormSH(lmax, sphere_channels)
 
     def forward(self, atomic_numbers, pos, graph_idx, edge_src, edge_dst,
-                edge_shift, edge_mask, cell) -> torch.Tensor:
-        """Node features [N, (lmax+1)^2, sphere_channels] after the final norm."""
+                edge_shift, edge_mask, cell,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Node features [N, (lmax+1)^2, sphere_channels] after the final norm
+        (float32).  ``generator`` draws the dropout masks in ``train()``."""
         N, E = atomic_numbers.shape[0], edge_src.shape[0]
         if E % N:
             raise ValueError("the batch must be in the fixed-degree layout "
@@ -98,7 +110,11 @@ class EquiformerV2Backbone(nn.Module):
         t_ij = self.h_proj(gather_nodes(h, edge_src) + gather_dst(h, k))
         t_ij = t_ij * self.W_erp(phi_r)
 
+        cdt = self.compute_dtype
+        x, t_ij, rl_ij, edge_scalars = x.to(cdt), t_ij.to(cdt), rl_ij.to(cdt), phi_r.to(cdt)
+        num_graphs = cell.shape[0]
         for block in self.blocks:
-            x, t_ij = block(x, atomic_numbers, phi_r, edge_src, edge_dst,
-                            edge_mask, wigner, t_ij, rl_ij, k)
+            x, t_ij = block(x, atomic_numbers, edge_scalars, edge_src, edge_dst,
+                            edge_mask, wigner, t_ij, rl_ij, k, graph_idx,
+                            num_graphs, generator)
         return self.norm(x).float()

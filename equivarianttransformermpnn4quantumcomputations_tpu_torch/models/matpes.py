@@ -5,8 +5,10 @@ Port of the JAX package's models/matpes.py (``EquiformerV2MatPES`` with
 without stress).  Batches come in the fixed-degree layout
 (``data/graph.py:collate``), whatever layout a converted checkpoint
 was trained with: the layout changes no parameter.  Forces
-are ``-d(sum E)/d pos`` by ``torch.autograd.grad``; serving needs only this
-first derivative, so no graph is kept for a second one.
+are ``-d(sum E)/d pos`` by ``torch.autograd.grad``.  Serving
+(``energy_and_forces``) needs only this first derivative and keeps no graph;
+force training (``matpes_energy_forces`` with ``create_graph=True``) keeps
+it, so the loss backward is a grad-of-grad through every kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from ..ops.s2grid import s2grid
 from ..ops.segment import segment_sum
 from .backbone import EquiformerV2Backbone
 
-__all__ = ["EquiformerV2MatPES", "energy_and_forces", "init_weights", "FLAGSHIP"]
+__all__ = ["EquiformerV2MatPES", "energy_and_forces", "matpes_energy_forces",
+           "init_weights", "FLAGSHIP"]
 
 # The flagship MatPES GATA-V2 configuration (bench.py:327-335); served with
 # cutoff 6.0 and 20 neighbours (bench.py:338-340).
@@ -34,7 +37,12 @@ FLAGSHIP = dict(
 
 
 class EquiformerV2MatPES(nn.Module):
-    """Backbone + scalar energy head (the JAX package's defaults)."""
+    """Backbone + scalar energy head (the JAX package's defaults).
+
+    ``alpha_drop``, ``drop_path_rate`` and ``proj_drop`` act only in
+    ``train()`` mode; ``compute_dtype`` is the block stack's type
+    (models/backbone.py).
+    """
 
     def __init__(self, num_layers: int = 6, sphere_channels: int = 128,
                  attn_hidden_channels: int = 128, num_heads: int = 8,
@@ -42,7 +50,10 @@ class EquiformerV2MatPES(nn.Module):
                  ffn_hidden_channels: int = 512, lmax: int = 4, mmax: int = 2,
                  grid_resolution: int | None = 18, edge_channels: int = 128,
                  num_rbf: int = 600, max_num_elements: int = 100,
-                 cutoff: float = 6.0, avg_degree: float = 12.0):
+                 cutoff: float = 6.0, avg_degree: float = 12.0,
+                 alpha_drop: float = 0.05, drop_path_rate: float = 0.05,
+                 proj_drop: float = 0.0,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.backbone = EquiformerV2Backbone(
             num_layers=num_layers, sphere_channels=sphere_channels,
@@ -52,21 +63,26 @@ class EquiformerV2MatPES(nn.Module):
             ffn_hidden_channels=ffn_hidden_channels, lmax=lmax, mmax=mmax,
             grid_resolution=grid_resolution, edge_channels=edge_channels,
             num_rbf=num_rbf, max_num_elements=max_num_elements, cutoff=cutoff,
-            avg_degree=avg_degree,
+            avg_degree=avg_degree, alpha_drop=alpha_drop,
+            drop_path_rate=drop_path_rate, proj_drop=proj_drop,
+            compute_dtype=compute_dtype,
         )
         self.energy_block = FeedForward(
             sphere_channels, ffn_hidden_channels, 1, lmax,
             s2grid(lmax, lmax, grid_resolution),
         )
 
-    def forward(self, batch: dict, pos: torch.Tensor | None = None) -> dict:
-        """Returns energy [B, 1] (per atom), energy_total [B], node_energy [N]."""
+    def forward(self, batch: dict, pos: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> dict:
+        """Returns energy [B, 1] (per atom), energy_total [B], node_energy [N].
+
+        ``generator`` draws the dropout masks in ``train()`` mode."""
         if pos is None:
             pos = batch["pos"]
         x = self.backbone(
             batch["atomic_numbers"], pos, batch["graph_idx"], batch["edge_src"],
             batch["edge_dst"], batch["edge_shift"], batch["edge_mask"],
-            batch["cell"],
+            batch["cell"], generator,
         )
         node_energy = self.energy_block(x)[:, 0, 0]
         num_graphs = batch["cell"].shape[0]
@@ -80,15 +96,35 @@ class EquiformerV2MatPES(nn.Module):
         }
 
 
-def energy_and_forces(model: EquiformerV2MatPES, batch: dict) -> dict:
-    """Energy outputs plus forces F = -dE_total/d pos (masked to real atoms)."""
+def matpes_energy_forces(model: EquiformerV2MatPES, batch: dict,
+                         create_graph: bool = False, params: dict | None = None,
+                         generator: torch.Generator | None = None) -> dict:
+    """Energy outputs plus forces F = -dE_total/d pos (masked to real atoms).
+
+    The counterpart of the JAX package's ``matpes_energy_forces_stress``
+    with ``regress_stress=False``.  ``create_graph=True`` keeps the graph of
+    the force pass, so a loss of the forces can be differentiated by the
+    parameters (force training).  ``params``: a name -> tensor mapping to
+    call the model with (``torch.func.functional_call``), e.g. the bfloat16
+    copies of mixed precision.
+    """
     pos = batch["pos"].detach().requires_grad_(True)
     with torch.enable_grad():
-        outs = model(batch, pos=pos)
-        (dpos,) = torch.autograd.grad(outs["energy_total"].sum(), pos)
-    result = {k: v.detach() for k, v in outs.items()}
+        if params is None:
+            outs = model(batch, pos=pos, generator=generator)
+        else:
+            outs = torch.func.functional_call(
+                model, params, (batch,), dict(pos=pos, generator=generator))
+        (dpos,) = torch.autograd.grad(outs["energy_total"].sum(), pos,
+                                      create_graph=create_graph)
+    result = dict(outs) if create_graph else {k: v.detach() for k, v in outs.items()}
     result["forces"] = -dpos * batch["node_mask"][:, None].to(dpos.dtype)
     return result
+
+
+def energy_and_forces(model: EquiformerV2MatPES, batch: dict) -> dict:
+    """Serving: energy outputs and forces, no graph kept."""
+    return matpes_energy_forces(model, batch, create_graph=False)
 
 
 @torch.no_grad()

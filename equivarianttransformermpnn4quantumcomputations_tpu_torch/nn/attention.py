@@ -17,7 +17,7 @@ attention-output normalization, are not ported yet.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -26,7 +26,7 @@ from ..ops.irreps import IrrepsLayout
 from ..ops.rotation import rotate_from_edge, rotate_to_edge_m0
 from ..ops.segment import gather_dst, gather_nodes, softmax_over_slots, sum_over_slots
 from .gata import GATAValueActivation
-from .layers import smooth_leaky_relu
+from .layers import LayerNorm, keep_mask, smooth_leaky_relu
 from .so3_layers import SO2Conv, SO3Linear
 
 __all__ = ["GraphAttention"]
@@ -37,9 +37,11 @@ class GraphAttention(nn.Module):
                  sphere_channels: int, hidden_channels: int, num_heads: int,
                  attn_alpha_channels: int, attn_value_channels: int,
                  output_channels: int, max_num_elements: int,
-                 edge_channels_list: Sequence[int], edge_channels: int):
+                 edge_channels_list: Sequence[int], edge_channels: int,
+                 alpha_drop: float = 0.0):
         super().__init__()
         lmax = layout_full.lmax
+        self.alpha_drop = alpha_drop
         self.layout_red = layout_red
         self.num_heads = num_heads
         self.alpha_ch = num_heads * attn_alpha_channels
@@ -53,7 +55,7 @@ class GraphAttention(nn.Module):
         self.so2_conv_1 = SO2Conv(layout_red, 2 * sphere_channels, hidden_channels,
                                   extra_m0=extra_m0, rad_channels=tuple(ec),
                                   m0_only=True)
-        self.alpha_norm = nn.LayerNorm(attn_alpha_channels, eps=1e-5)
+        self.alpha_norm = LayerNorm(attn_alpha_channels, eps=1e-5)
         self.alpha_dot = nn.Parameter(torch.empty(num_heads, attn_alpha_channels))
         self.value_act = GATAValueActivation(
             sphere_channels, hidden_channels, edge_channels, lmax, layout_red.mmax
@@ -63,7 +65,8 @@ class GraphAttention(nn.Module):
         self.proj = SO3Linear(num_heads * attn_value_channels, output_channels, lmax)
 
     def forward(self, x, atomic_numbers, edge_scalars, edge_src, edge_dst,
-                edge_mask, wigner, t_ij, rl_ij, k: int):
+                edge_mask, wigner, t_ij, rl_ij, k: int,
+                generator: Optional[torch.Generator] = None):
         """Fixed-degree layout: k edge slots per node (ops/segment.py)."""
         x_edge = torch.cat(
             [edge_scalars,
@@ -92,6 +95,10 @@ class GraphAttention(nn.Module):
         msg = self.value_act(attn_output, t_ij, h_j, X_j, rl_ij)
 
         msg, _ = self.so2_conv_2(msg, None)
+        if self.alpha_drop > 0.0 and self.training:
+            keep = 1.0 - self.alpha_drop
+            alpha = alpha * keep_mask(alpha.shape, keep, generator,
+                                      alpha.device).to(alpha.dtype) / keep
         E, Kr = msg.shape[0], msg.shape[1]
         msg = msg.reshape(E, Kr, self.num_heads, self.attn_value_channels)
         msg = (msg * alpha[:, None, :, None].to(msg.dtype)).reshape(E, Kr, -1)

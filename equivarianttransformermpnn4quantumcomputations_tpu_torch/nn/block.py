@@ -1,15 +1,18 @@
-"""GATA transformer block, inference only (port of the JAX package's
-nn/block.py ``TransBlock`` with ``gata=True``).
+"""GATA transformer block (port of the JAX package's nn/block.py
+``TransBlock`` with ``gata=True``, ``GraphDropPath`` and
+``EquivariantDropout``).
 
 HTR refines the edge stream, then pre-norm attention and pre-norm FFN, each
-with a residual.  Drop-path and equivariant dropout are the identity at
-inference and are not part of the port.
+with a residual.  Both residual branches pass drop-path (whole graphs) and
+equivariant dropout (whole channels); both are active only in
+``train()`` mode, with masks drawn from the caller's ``torch.Generator``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
+import torch
 import torch.nn as nn
 
 from ..ops.irreps import IrrepsLayout
@@ -18,9 +21,43 @@ from ..ops.segment import gather_dst, gather_nodes
 from .attention import GraphAttention
 from .ffn import FeedForward
 from .gata import HTR
+from .layers import keep_mask
 from .norms import EquivariantRMSNormSH
 
-__all__ = ["TransBlock"]
+__all__ = ["TransBlock", "GraphDropPath", "EquivariantDropout"]
+
+
+class GraphDropPath(nn.Module):
+    """Drop whole graphs from the residual branch (reference drop.py:49-68)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, graph_idx, num_graphs: int,
+                generator: Optional[torch.Generator] = None):
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        m = keep_mask((num_graphs,), keep, generator, x.device)[graph_idx].to(x.dtype)
+        return x * m.reshape((-1,) + (1,) * (x.dim() - 1)) / keep
+
+
+class EquivariantDropout(nn.Module):
+    """Channel dropout with one mask shared across the coefficient axis
+    (reference drop.py:119-149): masking whole channels preserves
+    equivariance."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        m = keep_mask((x.shape[0], 1, x.shape[2]), keep, generator, x.device)
+        return x * m.to(x.dtype) / keep
 
 
 class TransBlock(nn.Module):
@@ -29,7 +66,9 @@ class TransBlock(nn.Module):
                  attn_hidden_channels: int, num_heads: int,
                  attn_alpha_channels: int, attn_value_channels: int,
                  ffn_hidden_channels: int, max_num_elements: int,
-                 edge_channels_list: Sequence[int], edge_channels: int):
+                 edge_channels_list: Sequence[int], edge_channels: int,
+                 alpha_drop: float = 0.0, drop_path_rate: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         lmax = layout_full.lmax
         self.htr = HTR(sphere_channels, edge_channels, lmax)
@@ -38,18 +77,24 @@ class TransBlock(nn.Module):
             layout_full, layout_red, sphere_channels, attn_hidden_channels,
             num_heads, attn_alpha_channels, attn_value_channels,
             sphere_channels, max_num_elements, edge_channels_list,
-            edge_channels,
+            edge_channels, alpha_drop,
         )
+        self.drop_path = GraphDropPath(drop_path_rate)
+        self.proj_drop = EquivariantDropout(proj_drop)
         self.ffn_norm = EquivariantRMSNormSH(lmax, sphere_channels)
         self.ffn = FeedForward(sphere_channels, ffn_hidden_channels,
                                sphere_channels, lmax, grid_full)
 
     def forward(self, x, atomic_numbers, edge_scalars, edge_src, edge_dst,
-                edge_mask, wigner, t_ij, rl_ij, k: int):
+                edge_mask, wigner, t_ij, rl_ij, k: int, graph_idx,
+                num_graphs: int, generator: Optional[torch.Generator] = None):
         X_i = gather_nodes(x, edge_src)[:, 1:, :]
         X_j = gather_dst(x, k)[:, 1:, :]
         t_ij = self.htr(t_ij, X_i, X_j, rl_ij)
-        x = x + self.ga(self.attn_norm(x), atomic_numbers, edge_scalars,
-                        edge_src, edge_dst, edge_mask, wigner, t_ij, rl_ij, k)
-        x = x + self.ffn(self.ffn_norm(x))
+        h = self.ga(self.attn_norm(x), atomic_numbers, edge_scalars, edge_src,
+                    edge_dst, edge_mask, wigner, t_ij, rl_ij, k, generator)
+        h = self.drop_path(h, graph_idx, num_graphs, generator)
+        x = x + self.proj_drop(h, generator)
+        h = self.drop_path(self.ffn(self.ffn_norm(x)), graph_idx, num_graphs, generator)
+        x = x + self.proj_drop(h, generator)
         return x, t_ij

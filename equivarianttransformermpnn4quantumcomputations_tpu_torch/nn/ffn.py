@@ -11,6 +11,7 @@ import torch.nn as nn
 
 from ..ops.s2grid import S2Grid
 from .activations import separable_s2_activation
+from .layers import Linear
 from .so3_layers import SO3Linear
 
 __all__ = ["FeedForward"]
@@ -21,7 +22,7 @@ class FeedForward(nn.Module):
                  output_channels: int, lmax: int, grid_full: S2Grid):
         super().__init__()
         self.grid = grid_full
-        self.gating_linear = nn.Linear(sphere_channels, hidden_channels)
+        self.gating_linear = Linear(sphere_channels, hidden_channels)
         self.so3_linear_1 = SO3Linear(sphere_channels, hidden_channels, lmax)
         self.so3_linear_2 = SO3Linear(hidden_channels, output_channels, lmax)
 

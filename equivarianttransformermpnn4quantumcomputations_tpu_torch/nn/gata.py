@@ -14,6 +14,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .layers import Linear
+
 __all__ = ["HTR", "GATAValueActivation"]
 
 
@@ -33,12 +35,12 @@ class HTR(nn.Module):
         super().__init__()
         hidden = hidden_channels or edge_channels
         self.lmax = lmax
-        self.W_vq = nn.Linear(sphere_channels, hidden, bias=False)
+        self.W_vq = Linear(sphere_channels, hidden, bias=False)
         for l in range(1, lmax + 1):
-            setattr(self, f"W_vk_{l}", nn.Linear(sphere_channels, hidden, bias=False))
-        self.gamma_w = nn.Linear(hidden, edge_channels)
-        self.gamma_t_1 = nn.Linear(edge_channels, edge_channels)
-        self.gamma_t_2 = nn.Linear(edge_channels, edge_channels)
+            setattr(self, f"W_vk_{l}", Linear(sphere_channels, hidden, bias=False))
+        self.gamma_w = Linear(hidden, edge_channels)
+        self.gamma_t_1 = Linear(edge_channels, edge_channels)
+        self.gamma_t_2 = Linear(edge_channels, edge_channels)
 
     def forward(self, t_ij, X_i, X_j, rl_ij):
         """t_ij [E, edge_C]; X_i / X_j [E, K-1, sphere_C]; rl_ij [E, K-1]."""
@@ -79,9 +81,9 @@ class GATAValueActivation(nn.Module):
         super().__init__()
         S = 1 + 2 * lmax
         self.C, self.lmax, self.mmax = hidden_channels, lmax, mmax
-        self.W_rs = nn.Linear(edge_channels, S * hidden_channels)
-        self.gamma_s = nn.Linear(sphere_channels, S * hidden_channels)
-        self.xj_proj = nn.Linear(sphere_channels, hidden_channels, bias=False)
+        self.W_rs = Linear(edge_channels, S * hidden_channels)
+        self.gamma_s = Linear(sphere_channels, S * hidden_channels)
+        self.xj_proj = Linear(sphere_channels, hidden_channels, bias=False)
 
     def forward(self, attn_output, t_ij, h_j, X_j, rl_ij):
         C, lmax = self.C, self.lmax

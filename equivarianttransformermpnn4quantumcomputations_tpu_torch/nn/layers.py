@@ -1,24 +1,59 @@
-"""Basic layers: radial MLP, distance smearing, scalar activations.
+"""Basic layers: dense and layer-norm with the JAX package's dtype rules,
+radial MLP, distance smearing, scalar activations.
 
 Port of the JAX package's nn/layers.py (the parts the MatPES GATA-V2
-serving path uses).
+serving and training paths use).  Under mixed precision every float
+parameter arrives as a bfloat16 copy (train/trainer.py:cast_params), while
+some inputs stay float32 (the geometry-fed edge embedding, the energy head
+after the f32 final norm).  ``Linear`` therefore computes in the promoted
+type of input and weight, as Flax's ``Dense`` does, and ``LayerNorm``
+always computes in float32 and returns the input's type, as the JAX
+package's norms do.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["RadialMLP", "GaussianSmearing", "smooth_leaky_relu"]
+__all__ = ["Linear", "LayerNorm", "RadialMLP", "GaussianSmearing", "smooth_leaky_relu",
+           "keep_mask"]
 
 
 def smooth_leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     a = negative_slope
     return ((1 + a) / 2.0) * x + ((1 - a) / 2.0) * x * (2.0 * torch.sigmoid(x) - 1.0)
+
+
+def keep_mask(shape, keep: float, generator: Optional[torch.Generator],
+              device: torch.device) -> torch.Tensor:
+    """Bernoulli(keep) booleans of ``shape`` on ``device``, drawn from
+    ``generator`` (on its own device; the default generator when None)."""
+    gdev = generator.device if generator is not None else device
+    u = torch.rand(shape, generator=generator, device=gdev)
+    return (u < keep).to(device)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in the promoted type of input and weight."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with float32 statistics and affine, cast back to the
+    input's type."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
 
 
 class RadialMLP(nn.Module):
@@ -32,17 +67,17 @@ class RadialMLP(nn.Module):
         super().__init__()
         chs = list(channels)
         self.linears = nn.ModuleList(
-            nn.Linear(chs[i - 1], chs[i]) for i in range(1, len(chs))
+            Linear(chs[i - 1], chs[i]) for i in range(1, len(chs))
         )
         self.norms = nn.ModuleList(
-            nn.LayerNorm(chs[i], eps=1e-5) for i in range(1, len(chs) - 1)
+            LayerNorm(chs[i], eps=1e-5) for i in range(1, len(chs) - 1)
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, lin in enumerate(self.linears):
             x = lin(x)
             if i < len(self.norms):
-                x = F.silu(self.norms[i](x.float()).to(x.dtype))
+                x = F.silu(self.norms[i](x))
         return x
 
 

@@ -1,20 +1,24 @@
-"""K2: fused S2 point-sample activation and its first adjoint, for Hopper.
+"""K2: fused S2 point-sample activation and its two adjoints, for Hopper.
 
-Port of the JAX package's ops/pallas/s2act.py (kernels ``_k1`` and ``_k2``).
-The S2 activation ``out = F^T silu(A x)`` (to-grid, SiLU, from-grid; tables
-of ops/s2grid.py) is the largest op of the network: its grid tensor is
-~P/K = 13x the coefficient tensor.  The kernels in ``csrc/s2act.cu`` keep it
-out of device memory:
+Port of the JAX package's ops/pallas/s2act.py (kernels ``_k1``, ``_k2`` and
+``_k3``).  The S2 activation ``out = F^T silu(A x)`` (to-grid, SiLU,
+from-grid; tables of ops/s2grid.py) is the largest op of the network: its
+grid tensor is ~P/K = 13x the coefficient tensor.  The kernels in
+``csrc/s2act.cu`` keep it out of device memory:
 
 * K2a: ``out = F^T silu(A x)``;
-* K2b: ``dx = A^T (silu'(A x) * (F dout))``, the backward of K2a.
+* K2b: ``dx = A^T (silu'(A x) * (F dout))``, the backward of K2a;
+* K2c: ``ddout = F^T (silu'(A x) * (A ddx))`` and
+  ``dx2 = A^T (silu''(A x) * (F dout) * (A ddx))``, the backward of K2b
+  (the JAX package's ``_k3``), which force training runs in the loss
+  backward.
 
-``s2act_fused`` sits in ``_S2Act`` (backward = ``_S2ActBackward``, i.e. K2b).
-K2b's own backward is the s2act grad-of-grad kernel K3 (the JAX package's
-``_k3``, called K2c in PERF.md), which only force training needs; it is not
-ported yet and raises.
-CPU tensors run the plain PyTorch versions (``k1_plain``, ``k2_plain``);
-CUDA tensors launch the kernels; nothing falls back.
+``s2act_fused`` sits in ``_S2Act`` (backward = ``_S2ActBackward``, i.e.
+K2b), whose backward is ``_S2ActGradOfGrad`` (K2c).  K2c's own backward
+raises: third order is not supported, as in the JAX package, whose chain
+ends at ``_k3``.
+CPU tensors run the plain PyTorch versions (``k1_plain``, ``k2_plain``,
+``k3_plain``); CUDA tensors launch the kernels; nothing falls back.
 """
 
 from __future__ import annotations
@@ -26,13 +30,14 @@ import torch.nn.functional as Fn
 
 from ..s2grid import S2Grid
 
-__all__ = ["s2act_fused", "s2act_reference", "k1_plain", "k2_plain", "launches"]
+__all__ = ["s2act_fused", "s2act_reference", "k1_plain", "k2_plain", "k3_plain",
+           "launches"]
 
 _CHUNK = 32  # grid points per shared-memory stage (csrc/s2act.cu: CHUNK)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches (the launch wrapper adds one per launch)
-launches = {"k1": 0, "k2": 0}
+launches = {"k1": 0, "k2": 0, "k3": 0}
 
 
 def k1_plain(x: torch.Tensor, A: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
@@ -53,6 +58,22 @@ def k2_plain(x: torch.Tensor, dout: torch.Tensor, A: torch.Tensor,
     return torch.matmul(A.t(), s * (1.0 + g * (1.0 - s)) * h).to(x.dtype)
 
 
+def k3_plain(x: torch.Tensor, dout: torch.Tensor, ddx: torch.Tensor,
+             A: torch.Tensor, F: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2c: (ddout, dx2), the vjp of K2b at (x, dout) for ddx."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    A, F = A.to(acc), F.to(acc)
+    g = torch.matmul(A, x.to(acc))
+    u = torch.matmul(A, ddx.to(acc))
+    h = torch.matmul(F, dout.to(acc))
+    s = torch.sigmoid(g)
+    d1 = s * (1.0 + g * (1.0 - s))
+    d2 = s * (1.0 - s) * (2.0 + g * (1.0 - 2.0 * s))
+    ddout = torch.matmul(F.t(), d1 * u)
+    dx2 = torch.matmul(A.t(), d2 * h * u)
+    return ddout.to(x.dtype), dx2.to(x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_tables(grid: S2Grid, device: str):
     """A and F zero-padded to [Pp, KP]: Pp a multiple of the chunk, KP of 4."""
@@ -64,19 +85,24 @@ def _kernel_tables(grid: S2Grid, device: str):
     return Fn.pad(A, pad).contiguous(), Fn.pad(F, pad).contiguous()
 
 
+def _check(x: torch.Tensor, *others: torch.Tensor, grid: S2Grid) -> None:
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"s2act kernel takes float32 or bfloat16, not {x.dtype}")
+    for t in (x, *others):
+        if not t.is_contiguous():
+            raise ValueError("s2act inputs must be contiguous")
+        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError("s2act inputs must match x in shape, dtype and device")
+    K = x.shape[1]
+    if grid.to_grid_np.shape[1] != K:
+        raise ValueError(f"x has {K} coefficients, the grid has {grid.to_grid_np.shape[1]}")
+
+
 def _launch(backward: bool, x, dout, grid: S2Grid) -> torch.Tensor:
     from . import build
 
     N, K, C = x.shape
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"s2act kernel takes float32 or bfloat16, not {x.dtype}")
-    if not x.is_contiguous() or (dout is not None and not dout.is_contiguous()):
-        raise ValueError("s2act inputs must be contiguous")
-    if dout is not None and (dout.shape != x.shape or dout.dtype != x.dtype
-                             or dout.device != x.device):
-        raise ValueError("dout must match x in shape, dtype and device")
-    if grid.to_grid_np.shape[1] != K:
-        raise ValueError(f"x has {K} coefficients, the grid has {grid.to_grid_np.shape[1]}")
+    _check(x, *(() if dout is None else (dout,)), grid=grid)
     A, F = _kernel_tables(grid, str(x.device))
     out = torch.empty_like(x)
     lib = build.library("s2act")
@@ -89,6 +115,25 @@ def _launch(backward: bool, x, dout, grid: S2Grid) -> torch.Tensor:
     build.check("s2act", rc, "s2act.k2" if backward else "s2act.k1")
     launches["k2" if backward else "k1"] += 1
     return out
+
+
+def _launch_k3(x, dout, ddx, grid: S2Grid) -> tuple[torch.Tensor, torch.Tensor]:
+    from . import build
+
+    N, K, C = x.shape
+    _check(x, dout, ddx, grid=grid)
+    A, F = _kernel_tables(grid, str(x.device))
+    ddout, dx2 = torch.empty_like(x), torch.empty_like(x)
+    lib = build.library("s2act")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.etq_s2act_k3(
+        _DTYPE_CODE[x.dtype], K, x.data_ptr(), dout.data_ptr(), ddx.data_ptr(),
+        A.data_ptr(), F.data_ptr(), ddout.data_ptr(), dx2.data_ptr(),
+        N, C, A.shape[0], stream,
+    )
+    build.check("s2act", rc, "s2act.k3")
+    launches["k3"] += 1
+    return ddout, dx2
 
 
 def k1(x: torch.Tensor, grid: S2Grid) -> torch.Tensor:
@@ -107,18 +152,41 @@ def k2(x: torch.Tensor, dout: torch.Tensor, grid: S2Grid) -> torch.Tensor:
     return k2_plain(x, dout, A, F)
 
 
+def k3(x: torch.Tensor, dout: torch.Tensor, ddx: torch.Tensor,
+       grid: S2Grid) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2c on CUDA tensors, its plain version on CPU tensors: (ddout, dx2)."""
+    if x.is_cuda:
+        return _launch_k3(x, dout, ddx, grid)
+    A, F = grid.tables(str(x.device))
+    return k3_plain(x, dout, ddx, A, F)
+
+
+class _S2ActGradOfGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dout, ddx, grid):
+        return k3(x, dout, ddx, grid)
+
+    @staticmethod
+    def backward(ctx, g_ddout, g_dx2):
+        raise NotImplementedError(
+            "third-order derivatives of the fused S2 activation are not "
+            "supported: the chain ends at K2c (the JAX package's _k3 has no "
+            "custom_vjp either)"
+        )
+
+
 class _S2ActBackward(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dout, grid):
+        ctx.save_for_backward(x, dout)
+        ctx.grid = grid
         return k2(x, dout, grid)
 
     @staticmethod
     def backward(ctx, ddx):
-        raise NotImplementedError(
-            "grad-of-grad of the fused S2 activation needs the s2act kernel K3 "
-            "(the JAX package's ops/pallas/s2act.py:_k3; K2c in PERF.md), which "
-            "is not ported yet; serving (energy + forces) never calls it"
-        )
+        x, dout = ctx.saved_tensors
+        ddout, dx2 = _S2ActGradOfGrad.apply(x, dout, ddx.contiguous(), ctx.grid)
+        return dx2, ddout, None
 
 
 class _S2Act(torch.autograd.Function):

@@ -1,0 +1,206 @@
+"""Training harness of the MatPES force-training step: guarded AdamW, EMA,
+mixed precision, loss.
+
+Port of the JAX package's train/trainer.py (the MatPES parts):
+
+* ``GuardedAdamW``: one global-norm reduction over all gradients feeds both
+  the clip scale ``min(1, clip / |g|)`` and the skip decision; a non-finite
+  norm skips the update and freezes the AdamW moments and the schedule
+  count, keeping ``notfinite_count``, ``total_notfinite`` and
+  ``last_finite`` (the JAX package's ``_guarded_clip_adamw``).  The AdamW
+  update is ``torch.optim.AdamW`` (betas 0.9 / 0.999, eps 1e-8), the same
+  arithmetic as ``optax.adamw``; weight decay applies where ``decays`` says
+  (the JAX package's ``_wd_mask``).  The learning rate of an update is
+  ``schedule(number of accepted updates so far)``, optax's count.  The
+  finiteness test reads the norm on the host: one synchronisation a step.
+  Updates are skipped for as long as the norm stays non-finite (the JAX
+  package's ``make_optimizer`` sets no practical limit either).
+* ``ema_update`` after every step (decay 0.999), as the JAX step does.
+* ``cast_params``: bfloat16 copies of every float parameter, called through
+  ``torch.func.functional_call``, so gradients land on the float32 masters.
+* ``matpes_loss``: L1 on per-atom energy + masked L1 on forces.
+* ``make_matpes_train_step``: forces by autograd with ``create_graph=True``,
+  so the loss backward is a grad-of-grad through every kernel; the step
+  computes in the model's ``compute_dtype`` (bfloat16: through
+  ``cast_params``); TF32 is off inside each step (the geometry is float32).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Iterable
+
+import torch
+import torch.nn as nn
+
+from ..models.matpes import matpes_energy_forces
+from ..utils.precision import full_f32_products
+
+__all__ = ["decays", "wd_mask", "GuardedAdamW", "TrainState", "create_train_state",
+           "ema_update", "cast_params", "matpes_loss", "make_matpes_train_step"]
+
+
+def decays(name: str, p: torch.Tensor) -> bool:
+    """Weight decay applies: >=2-D matrices named 'weight', outside
+    embeddings and norms (the JAX package's ``_wd_mask`` on its names)."""
+    low = name.lower()
+    return (p.dim() >= 2 and "embed" not in low and "norm" not in low
+            and name.rsplit(".", 1)[-1] == "weight")
+
+
+def wd_mask(model: nn.Module) -> dict[str, bool]:
+    return {n: decays(n, p) for n, p in model.named_parameters()}
+
+
+class GuardedAdamW:
+    """Global-norm clip + non-finite skip + masked AdamW (see module doc)."""
+
+    def __init__(self, named_parameters: Iterable[tuple[str, nn.Parameter]],
+                 schedule: Callable[[int], float], weight_decay: float = 0.0,
+                 grad_clip: float = 1.0):
+        named = [(n, p) for n, p in named_parameters if p.requires_grad]
+        self.params = [p for _, p in named]
+        groups = [
+            dict(params=[p for n, p in named if decays(n, p)], weight_decay=weight_decay),
+            dict(params=[p for n, p in named if not decays(n, p)], weight_decay=0.0),
+        ]
+        self.opt = torch.optim.AdamW([g for g in groups if g["params"]], lr=schedule(0),
+                                     betas=(0.9, 0.999), eps=1e-8)
+        self.schedule = schedule
+        self.grad_clip = grad_clip
+        self.count = 0            # accepted updates: the schedule's step
+        self.notfinite_count = 0  # consecutive non-finite steps
+        self.total_notfinite = 0
+        self.last_finite = True
+
+    def step(self) -> dict:
+        """Apply one update from the parameters' ``.grad``; returns the
+        global norm (a tensor), the learning rate used and whether the
+        update was applied."""
+        for p in self.params:
+            if p.grad is None:  # unused this step: a zero gradient, as in JAX
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        finite = bool(torch.isfinite(gnorm))  # the step's one host sync
+        self.notfinite_count = 0 if finite else self.notfinite_count + 1
+        self.total_notfinite += 0 if finite else 1
+        self.last_finite = finite
+        lr = self.schedule(self.count)
+        if finite:
+            scale = torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+            torch._foreach_mul_(grads, scale)
+            for g in self.opt.param_groups:
+                g["lr"] = lr
+            self.opt.step()
+            self.count += 1
+        return {"grad_norm": gnorm.detach(), "lr": lr, "accepted": finite}
+
+    def state_dict(self) -> dict:
+        return {"adamw": self.opt.state_dict(), "count": self.count,
+                "notfinite_count": self.notfinite_count,
+                "total_notfinite": self.total_notfinite,
+                "last_finite": self.last_finite}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.opt.load_state_dict(sd["adamw"])
+        self.count = int(sd["count"])
+        self.notfinite_count = int(sd["notfinite_count"])
+        self.total_notfinite = int(sd["total_notfinite"])
+        self.last_finite = bool(sd["last_finite"])
+
+
+@dataclass
+class TrainState:
+    """Model (float32 masters), optimizer, EMA of the parameters, step."""
+
+    model: nn.Module
+    optimizer: GuardedAdamW
+    ema: dict[str, torch.Tensor] = field(default_factory=dict)
+    step: int = 0
+
+    def state_dict(self) -> dict:
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "ema": self.ema, "step": self.step}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.model.load_state_dict(sd["model"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        for k, v in sd["ema"].items():
+            self.ema[k].copy_(v)
+        self.step = int(sd["step"])
+
+
+def create_train_state(model: nn.Module, optimizer: GuardedAdamW) -> TrainState:
+    """The EMA starts as a copy of the parameters."""
+    ema = {n: p.detach().clone() for n, p in model.named_parameters()}
+    return TrainState(model, optimizer, ema)
+
+
+@torch.no_grad()
+def ema_update(ema: dict[str, torch.Tensor], model: nn.Module, decay: float = 0.999):
+    """ema = ema * decay + p * (1 - decay), in place."""
+    names = list(ema)
+    params = dict(model.named_parameters())
+    e = [ema[n] for n in names]
+    torch._foreach_mul_(e, decay)
+    torch._foreach_add_(e, [params[n].detach() for n in names], alpha=1.0 - decay)
+
+
+def cast_params(model: nn.Module, dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    """Compute copies of the float parameters (mixed precision: f32
+    masters, bf16 compute); gradients flow back through the casts."""
+    return {n: p.to(dtype) if p.is_floating_point() else p
+            for n, p in model.named_parameters()}
+
+
+def matpes_loss(outs: dict, batch: dict, w_energy: float = 1.0, w_force: float = 1.0,
+                w_stress: float = 0.0):
+    """L1 on per-atom energy + L1 on forces over real atoms (reference
+    train_MatPES_GATAWandB.py:79-81).  Stress is not part of this port."""
+    if w_stress > 0.0:
+        raise NotImplementedError("stress regression is not ported yet")
+    e_pred = outs["energy"][:, 0].float()
+    e_l1 = torch.mean(torch.abs(e_pred - batch["energy"]))
+    mask = batch["node_mask"]
+    m = mask[:, None].to(e_pred.dtype)
+    f_l1 = torch.sum(torch.abs(outs["forces"] - batch["forces"]) * m) / torch.clamp(
+        3.0 * mask.sum(), min=1.0)
+    loss = w_energy * e_l1 + w_force * f_l1
+    return loss, {"energy_l1": e_l1, "force_l1": f_l1}
+
+
+def make_matpes_train_step(state: TrainState, w_energy: float = 1.0,
+                           w_force: float = 1.0, w_stress: float = 0.0,
+                           ema_decay: float = 0.999,
+                           generator: torch.Generator | None = None):
+    """``step(batch) -> (loss, metrics)``, updating ``state`` in place.
+
+    The model runs in ``train()`` mode (dropout masks from ``generator``).
+    A model built with ``compute_dtype=torch.bfloat16`` computes with
+    bfloat16 copies of its float32 master weights.  A step whose gradient
+    norm is not finite applies no update (``metrics["accepted"]`` is
+    False); the EMA and ``state.step`` move every step, as in the JAX
+    package.
+    """
+    if w_stress > 0.0:
+        raise NotImplementedError("stress regression is not ported yet")
+    model = state.model
+    cdt = model.backbone.compute_dtype
+
+    def step(batch: dict):
+        model.train()
+        with full_f32_products():
+            model.zero_grad(set_to_none=True)
+            params = cast_params(model, cdt) if cdt != torch.float32 else None
+            outs = matpes_energy_forces(model, batch, create_graph=True, params=params,
+                                        generator=generator)
+            loss, metrics = matpes_loss(outs, batch, w_energy, w_force)
+            loss.backward()
+            info = state.optimizer.step()
+            ema_update(state.ema, model, ema_decay)
+        state.step += 1
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return loss.detach(), {**metrics, "loss": loss.detach(), **info}
+
+    return step

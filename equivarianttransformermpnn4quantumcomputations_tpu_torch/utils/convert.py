@@ -24,7 +24,7 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["flax_to_state_dict", "flatten"]
+__all__ = ["flax_to_state_dict", "flatten", "port_name"]
 
 
 def flatten(tree, prefix=()):
@@ -60,13 +60,19 @@ def _rename(path: tuple) -> tuple:
     return tuple(out)
 
 
-def _leaf(path: tuple, value: np.ndarray):
+def _leaf(path: tuple, value: np.ndarray | None):
     *mods, leaf = path
     if leaf == "kernel":
-        return mods + ["weight"], value.T
+        return mods + ["weight"], None if value is None else value.T
     if leaf in ("embedding", "scale"):
         return mods + ["weight"], value
     return mods + [leaf], value
+
+
+def port_name(path: tuple) -> str:
+    """The port's parameter name of the unrolled Flax param at ``path``."""
+    mods, _ = _leaf(_rename(path), None)
+    return ".".join(mods)
 
 
 def flax_to_state_dict(params) -> dict[str, torch.Tensor]:
@@ -85,5 +91,6 @@ def flax_to_state_dict(params) -> dict[str, torch.Tensor]:
     sd = {}
     for path, value in expanded.items():
         mods, v = _leaf(_rename(path), value)
-        sd[".".join(mods)] = torch.as_tensor(np.ascontiguousarray(v, dtype=np.float32))
+        # a copy: arrays from JAX are read-only
+        sd[".".join(mods)] = torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
     return sd

@@ -1,16 +1,21 @@
-"""Where the serving time goes on the card: torch.profiler over one request.
+"""Where the time goes on the card: torch.profiler over one serving request
+or one training step.
 
     python -m equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling \
-        [--structures 16] [--atoms 30] [--json PATH]
+        [--train] [--structures 16] [--atoms 30] [--json PATH]
 
-Serves the flagship Predictor (``models/matpes.py:FLAGSHIP``, seeded random
-weights) on one CUDA device, warms up with two requests, times one request
-unprofiled, then profiles one with ``torch.profiler`` (CPU and CUDA
-activities) and prints: the request time with and without the profiler,
-the summed kernel time, the device busy share (union of kernel intervals
-over the profiled request's wall time), the number of kernel launches, the
-kernel time by bucket and the top kernels.  Every line carries the card's
-name and power limit.  Without a CUDA device it raises.
+Serving (default): the flagship Predictor (``models/matpes.py:FLAGSHIP``,
+seeded random weights) answers requests of random periodic structures.
+``--train``: one flagship force-training step in bf16 (f32 master weights,
+guarded AdamW, EMA; dropout off as in bench.py) on labelled structures
+(``data/synthetic.py:labelled_structures``).  Either way it warms up twice,
+times one call unprofiled, then profiles one with ``torch.profiler`` (CPU and CUDA
+activities) and prints: the call's time with and without the profiler,
+the host time of the graph build and collate, the summed kernel time, the
+device busy share (union of kernel intervals over the profiled call's wall
+time), the number of kernel launches, the kernel time by bucket and the top
+kernels.  Every line carries the card's name and power limit.  Without a
+CUDA device it raises.
 """
 
 from __future__ import annotations
@@ -23,10 +28,11 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["random_structures", "profile_request"]
+__all__ = ["random_structures", "profile_call", "main"]
 
 _BUCKETS = (
-    ("port kernels (pairs, s2act)", ("pairs_kernel", "s2act_kernel")),
+    ("port kernels (pairs, s2act)", ("pairs_kernel", "s2act_kernel", "s2act_k3_kernel")),
+    ("optimizer (multi-tensor)", ("multi_tensor",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "gemv", "splitK")),
     ("gather / scatter / index", ("index", "gather", "scatter")),
     ("reductions", ("reduce_kernel",)),
@@ -54,22 +60,25 @@ def _bucket(name: str) -> str:
     return "other"
 
 
-def profile_request(pred, structures) -> dict:
-    """Profile one ``pred.predict_batch(structures)`` on the card."""
+def profile_call(fn) -> dict:
+    """Time one ``fn()`` on the card unprofiled, then profile another."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t = time.perf_counter()
-    pred.predict_batch(structures)
+    fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        pred.predict_batch(structures)
+        fn()
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t
+    # device events, less the spans of record_function annotations (such as
+    # the optimizer's step) that the profiler also puts on the device timeline
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
@@ -89,8 +98,8 @@ def profile_request(pred, structures) -> dict:
         per_kernel[e.name] = (ms + us / 1e3, n + 1)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     return dict(
-        request_ms=wall * 1e3,
-        request_ms_profiled=wall_prof * 1e3,
+        ms=wall * 1e3,
+        ms_profiled=wall_prof * 1e3,
         kernel_ms=sum(buckets.values()),
         device_busy_ms=busy / 1e3,
         device_busy_share=busy / 1e3 / (wall_prof * 1e3),
@@ -100,11 +109,52 @@ def profile_request(pred, structures) -> dict:
     )
 
 
-def main(argv=None) -> int:
+def _serving(args) -> tuple[str, dict]:
     from ..inference import Predictor
     from ..models.matpes import FLAGSHIP, EquiformerV2MatPES, init_weights
 
+    model = init_weights(EquiformerV2MatPES(**FLAGSHIP), torch.Generator().manual_seed(0))
+    pred = Predictor(model, model.state_dict(), FLAGSHIP["cutoff"], 20, device="cuda")
+    req = random_structures(np.random.default_rng(0), args.structures, args.atoms)
+    for _ in range(2):
+        pred.predict_batch(req)
+    t = time.perf_counter()
+    pred.collate(req)
+    host_ms = (time.perf_counter() - t) * 1e3
+    return "request", dict(host_graph_build_ms=host_ms,
+                           **profile_call(lambda: pred.predict_batch(req)))
+
+
+def _training(args) -> tuple[str, dict]:
+    from ..data.graph import as_tensors, collate
+    from ..data.synthetic import labelled_structures
+    from ..inference import pad_sizes
+    from ..models.matpes import FLAGSHIP, EquiformerV2MatPES, init_weights
+    from ..train.schedules import warmup_cosine
+    from ..train.trainer import GuardedAdamW, create_train_state, make_matpes_train_step
+
+    model = EquiformerV2MatPES(**FLAGSHIP, alpha_drop=0.0, drop_path_rate=0.0,
+                               compute_dtype=torch.bfloat16)
+    init_weights(model, torch.Generator().manual_seed(0)).to("cuda")
+    opt = GuardedAdamW(model.named_parameters(), warmup_cosine(2e-4, 100, 10000), 1e-3, 1.0)
+    state = create_train_state(model, opt)
+    step = make_matpes_train_step(state, generator=torch.Generator("cuda").manual_seed(0))
+    samples = labelled_structures(np.random.default_rng(0), args.structures, args.atoms)
+    n_pad, e_pad = pad_sizes([args.atoms] * args.structures, 20, 20)
+    t = time.perf_counter()
+    pb = collate(samples, FLAGSHIP["cutoff"], 20, n_pad, e_pad)
+    host_ms = (time.perf_counter() - t) * 1e3
+    batch = as_tensors(pb, "cuda")
+    for _ in range(2):
+        step(batch)
+    return "training step", dict(host_graph_build_ms=host_ms,
+                                 **profile_call(lambda: step(batch)))
+
+
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--train", action="store_true",
+                    help="profile a flagship bf16 training step, not a serving request")
     ap.add_argument("--structures", type=int, default=16)
     ap.add_argument("--atoms", type=int, default=30)
     ap.add_argument("--json", default=None, help="write the record here too")
@@ -115,20 +165,14 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    model = init_weights(EquiformerV2MatPES(**FLAGSHIP), torch.Generator().manual_seed(0))
-    pred = Predictor(model, model.state_dict(), FLAGSHIP["cutoff"], 20, device="cuda")
-    req = random_structures(np.random.default_rng(0), args.structures, args.atoms)
-    for _ in range(2):
-        pred.predict_batch(req)
-    t = time.perf_counter()
-    pred.collate(req)
-    graph_ms = (time.perf_counter() - t) * 1e3
-    rec = dict(device=card, structures=args.structures, atoms=args.atoms,
-               graph_build_ms=graph_ms, **profile_request(pred, req))
-    print(f"request {rec['request_ms']:.1f} ms (profiled {rec['request_ms_profiled']:.1f} ms, "
-          f"host graph build {graph_ms:.1f} ms), kernels {rec['kernel_ms']:.1f} ms in "
-          f"{rec['kernel_launches']} launches, device busy {rec['device_busy_ms']:.1f} ms = "
-          f"{100 * rec['device_busy_share']:.1f} % of the profiled request  [{card}]")
+    what, rec = (_training if args.train else _serving)(args)
+    rec = dict(device=card, what=what, structures=args.structures, atoms=args.atoms,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30, **rec)
+    print(f"{what} {rec['ms']:.1f} ms (profiled {rec['ms_profiled']:.1f} ms, "
+          f"host graph build + collate {rec['host_graph_build_ms']:.1f} ms), kernels "
+          f"{rec['kernel_ms']:.1f} ms in {rec['kernel_launches']} launches, device busy "
+          f"{rec['device_busy_ms']:.1f} ms = {100 * rec['device_busy_share']:.1f} % of "
+          f"the profiled call, peak memory {rec['peak_memory_gib']:.2f} GiB  [{card}]")
     for b, ms in rec["buckets_ms"].items():
         print(f"  {b:30s} {ms:8.2f} ms  [{card}]")
     for k in rec["top_kernels"]:

@@ -8,7 +8,9 @@ machine without JAX it runs alone:
 
 Tolerances: float32 max abs error <= 1e-5 max|plain| (the order of the f32
 sums differs), bfloat16 <= 1e-2 max|plain| (one bf16 rounding of the output
-is 2^-8 relative).
+is 2^-8 relative).  The training step on the card against the CPU: loss
+1e-4 relative, gradients 1e-3 relative L2; parameters and EMA after the
+step, from the card's gradients on both sides, 1e-2 lr absolute.
 """
 
 import numpy as np
@@ -103,6 +105,41 @@ def test_s2act_kernel_matches_plain(dev, key, backward, dtype):
     _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("key", [(2, 2, None), (4, 4, 18), (4, 2, 18)], ids=str)
+def test_s2act_grad_of_grad_kernel_matches_plain(dev, key, dtype):
+    """K2c: both outputs against k3_plain."""
+    grid = s2grid(*key)
+    K = grid.to_grid_np.shape[1]
+    g = torch.Generator(device=dev).manual_seed(4)
+    x, do, ddx = (torch.randn(37, K, 136, generator=g, device=dev).to(dtype) for _ in range(3))
+    A, F = grid.tables("cuda")
+    before = s2act.launches["k3"]
+    got = s2act.k3(x, do, ddx, grid)
+    assert s2act.launches["k3"] == before + 1
+    for a, b in zip(got, s2act.k3_plain(x, do, ddx, A, F)):
+        _close(a, b, dtype)
+
+
+def test_s2act_double_backward_on_the_card_runs_k3(dev):
+    """create_graph through the fused activation: the outer backward
+    launches K2c once and agrees with the CPU's plain path."""
+    grid = s2grid(4, 4, 12)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(21, 25, 64, generator=g, device=dev)
+
+    def gradgrad(x):
+        x = x.clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad(s2act.s2act_fused(x, grid).square().sum(), x,
+                                    create_graph=True)
+        return torch.autograd.grad(gx.square().sum(), x)[0]
+
+    before = s2act.launches["k3"]
+    got = gradgrad(x)
+    assert s2act.launches["k3"] == before + 1
+    torch.testing.assert_close(got.cpu(), gradgrad(x.cpu()), rtol=1e-4, atol=1e-4)
+
+
 def test_narrow_s2_site_on_the_card_launches_the_kernel(dev):
     """A 32-channel S2 site on the card runs K2a and K2b, not the tensor ops."""
     grid = s2grid(4, 4, 12)
@@ -141,9 +178,75 @@ def test_model_on_the_card_matches_the_cpu(dev):
     gpu = Predictor(model, state, 5.0, 8, device="cuda").predict_batch(structs)
     after = {**{f"r.{k}": c for k, c in rd.launches.items()},
              **{f"s.{k}": c for k, c in s2act.launches.items()}}
-    assert all(after[k] > before[k] for k in before), (before, after)
+    # K2c is the grad-of-grad kernel: serving never runs it
+    assert all(after[k] > before[k] for k in before if k != "s.k3"), (before, after)
     cpu = Predictor(EquiformerV2MatPES(**cfg), state, 5.0, 8,
                     device="cpu").predict_batch(structs)
     np.testing.assert_allclose(gpu["energy"], cpu["energy"], rtol=1e-4)
     for a, b in zip(gpu["forces"], cpu["forces"]):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-3 * max(1.0, np.abs(b).max()))
+
+
+def test_training_step_on_the_card_matches_the_cpu(dev):
+    """One float32 force-training step of a small model whose rotations take
+    K1 and whose S2 sites take K2a / K2b / K2c: loss and gradients on the
+    card against the CPU plain path, and the card's updated parameters and
+    EMA against the CPU's optimizer applied to the card's gradients."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import (
+        as_tensors,
+        collate,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.synthetic import (
+        labelled_structures,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        GuardedAdamW,
+        create_train_state,
+        ema_update,
+        make_matpes_train_step,
+    )
+
+    cfg = dict(num_layers=2, sphere_channels=16, attn_hidden_channels=16, num_heads=2,
+               attn_alpha_channels=8, attn_value_channels=8, ffn_hidden_channels=128,
+               lmax=4, mmax=2, grid_resolution=12, edge_channels=16, num_rbf=32,
+               cutoff=5.0, alpha_drop=0.0, drop_path_rate=0.0)
+    weights = init_weights(EquiformerV2MatPES(**cfg), torch.Generator().manual_seed(0))
+    weights = {k: v.clone() for k, v in weights.state_dict().items()}
+    pb = collate(labelled_structures(np.random.default_rng(0), 2, 9), 5.0, 8, 32, 256)
+    lr, out = 1e-3, {}
+
+    def train_state(d):
+        model = EquiformerV2MatPES(**cfg)
+        model.load_state_dict(weights)
+        model.to(d)
+        return create_train_state(model, GuardedAdamW(model.named_parameters(),
+                                                      lambda s: lr, 1e-3, 1.0))
+
+    for d in ("cuda", "cpu"):
+        state = train_state(d)
+        before = {**{f"r.{k}": c for k, c in rd.launches.items()},
+                  **{f"s.{k}": c for k, c in s2act.launches.items()}}
+        loss, _ = make_matpes_train_step(state)(as_tensors(pb, d))
+        after = {**{f"r.{k}": c for k, c in rd.launches.items()},
+                 **{f"s.{k}": c for k, c in s2act.launches.items()}}
+        if d == "cuda":
+            assert all(after[k] > before[k] for k in before), (before, after)
+        out[d] = (float(loss), {n: p.grad.cpu() for n, p in state.model.named_parameters()},
+                  {n: p.detach().cpu() for n, p in state.model.named_parameters()},
+                  {n: e.cpu() for n, e in state.ema.items()})
+    (lg, gg, pg, eg), (lc, gc, _, _) = out["cuda"], out["cpu"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    num = sum(float(((gg[k] - gc[k]) ** 2).sum()) for k in gc)
+    den = sum(float((gc[k] ** 2).sum()) for k in gc)
+    assert (num / den) ** 0.5 <= 1e-3
+    # the update on identical gradients: Adam's first step lr g / (|g| + eps)
+    # is sign-like where |g| is near eps, so only the same g holds every
+    # entry to 1e-2 lr
+    replay = train_state("cpu")
+    for n, p in replay.model.named_parameters():
+        p.grad = gg[n].clone()
+    assert replay.optimizer.step()["accepted"]
+    ema_update(replay.ema, replay.model)
+    for k, p in replay.model.named_parameters():
+        torch.testing.assert_close(pg[k], p.detach(), rtol=0, atol=1e-2 * lr, msg=k)
+        torch.testing.assert_close(eg[k], replay.ema[k], rtol=0, atol=1e-2 * lr, msg=k)

@@ -48,6 +48,9 @@ def test_port_has_every_module_of_the_slice():
                 "nn/attention.py", "nn/ffn.py", "nn/block.py",
                 "models/backbone.py", "models/matpes.py", "data/graph.py",
                 "utils/convert.py", "inference.py",
+                "data/synthetic.py", "data/loader.py", "configs/matpes.py",
+                "train/schedules.py", "train/trainer.py", "train/checkpoint.py",
+                "train/train_matpes.py", "utils/logging.py", "utils/profiling.py",
                 "csrc/rotate_dense.cu", "csrc/s2act.cu"):
         assert (PORT / rel).is_file(), rel
 
