@@ -10,7 +10,10 @@ Phases, each of which raises on failure:
   3. hold every kernel against its plain PyTorch version at the shapes the
      serving path gives it, in float32 and bfloat16, and time kernel, plain
      version and (where one exists) a single PyTorch call computing the same
-     function, beside the least time the card could take;
+     function, beside the least time the card could take; K3 (the fused
+     SO(2) convolution and its adjoint) at QM9's conv 1 and conv 2 and the
+     flagship's conv 2, with its grad-of-grad, the three cuBLAS GEMMs of the
+     site (library) and the port's unfused SO2Conv beside it;
   4. serve 3 requests of 16 periodic structures of 30 atoms through the
      flagship MatPES GATA-V2 ``Predictor`` (bench.py:327-335 widths, seeded
      random weights) with the launch counts zeroed just before, and fail if a
@@ -50,6 +53,7 @@ import torch  # noqa: E402
 CUTOFF, MAX_NEIGHBORS = 6.0, 20        # bench.py:338-340
 N_STRUCTURES, N_ATOMS, N_REQUESTS = 16, 30, 3
 N_WARMUP_STEPS, N_TRAIN_STEPS = 2, 5
+QM9_MOLECULES, QM9_ATOMS = 64, 18      # configs/qm9.py batch; QM9's mean size
 # H100 SXM published peaks: HBM3 bandwidth, dense FP32 / BF16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -200,6 +204,144 @@ def check_kernels(batch, tag: str) -> list[dict]:
               f"err f32 {errs[torch.float32][0]:.2e} (limit {errs[torch.float32][1]:.1e}) "
               f"bf16 {errs[torch.bfloat16][0]:.2e} (limit {errs[torch.bfloat16][1]:.1e})  "
               f"[{tag}]", flush=True)
+    return records
+
+
+def _k3_gradgrad(x, ws, cout, extra, plain: bool):
+    """Gradients (x, every W) of |d/dx (|y|^2 + |extra|^2) / 2|^2 through
+    K3 (kernel chain: fwd, adj, fwd, adj) or through autograd of the plain
+    version."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
+        so2conv as k3,
+    )
+
+    x = x.detach().requires_grad_(True)
+    ws = [w.detach().requires_grad_(True) for w in ws]
+    conv = k3.fwd_plain if plain else k3.so2conv_fused
+    y, ex = conv(x, ws, 4, 2, cout, extra)
+    inner = 0.5 * y.float().square().sum()
+    if extra:
+        inner = inner + 0.5 * ex.float().square().sum()
+    (gx,) = torch.autograd.grad(inner, x, create_graph=True)
+    return torch.autograd.grad(gx.float().square().sum(), [x, *ws])
+
+
+def check_k3(e_flagship: int, e_qm9: int, tag: str) -> list[dict]:
+    """Phase 3, K3: forward, adjoint and grad-of-grad against the plain
+    versions at three sites, f32 and bf16; times at each site in f32."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.nn.so3_layers import SO2Conv
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
+        so2conv as k3,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.irreps import layout
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    groups = k3._row_maps(4, 2)
+    idx = [torch.as_tensor(r, device=dev) for r in groups]
+    K = sum(map(len, groups))
+    sites = [("QM9 conv 1", e_qm9, 256, 128, 384), ("QM9 conv 2", e_qm9, 128, 128, 0),
+             ("flagship conv 2", e_flagship, 128, 128, 0)]
+    rows = {"fwd": [], "adj": []}
+    for site, E, cin, cout, extra in sites:
+        def weights(dt):
+            return [(torch.randn(len(r) * cin, (extra if g == 0 else 0) + len(r) * cout,
+                                 generator=gen, device=dev) / (len(r) * cin) ** 0.5).to(dt)
+                    for g, r in enumerate(groups)]
+        errs = {"fwd": {}, "adj": {}, "gradgrad": {}}
+        for dt in (torch.float32, torch.bfloat16):
+            ws = weights(dt)
+            x = torch.randn(E, K, cin, generator=gen, device=dev).to(dt)
+            dy = torch.randn(E, K, cout, generator=gen, device=dev).to(dt)
+            dex = torch.randn(E, extra, generator=gen, device=dev).to(dt) if extra else None
+            got = k3.fwd(x, ws, 4, 2, cout, extra)
+            want = k3.fwd_plain(x, ws, 4, 2, cout, extra)
+            pairs = {"fwd": list(zip(got, want))[: 2 if extra else 1],
+                     "adj": [(k3.adj(dy, dex, ws, 4, 2, cin),
+                              k3.adj_plain(dy, dex, ws, 4, 2, cin))],
+                     "gradgrad": list(zip(_k3_gradgrad(x, ws, cout, extra, False),
+                                          _k3_gradgrad(x, ws, cout, extra, True)))}
+            torch.cuda.synchronize()
+            for what, ps in pairs.items():
+                err = lim = 0.0
+                for g_, w_ in ps:
+                    e_ = (g_.float() - w_.float()).abs().max().item()
+                    l_ = (1e-5 if dt == torch.float32 else 1e-2) * w_.float().abs().max().item()
+                    if not e_ <= l_:
+                        raise RuntimeError(f"so2conv {what} at {site} {dt}: max abs err "
+                                           f"{e_:.3e} > {l_:.3e}")
+                    err, lim = max(err, e_), max(lim, l_)
+                errs[what][dt] = (err, lim)
+        ws = weights(torch.float32)
+        x = torch.randn(E, K, cin, generator=gen, device=dev)
+        dy = torch.randn(E, K, cout, generator=gen, device=dev)
+        dex = torch.randn(E, extra, generator=gen, device=dev) if extra else None
+        # cuBLAS on inputs already in the GEMM layout (the library yardstick)
+        xg = [x.index_select(1, r).reshape(E, -1).contiguous() for r in idx]
+        dyg = [k3._group_rows(dy, dex if g == 0 else None, r).contiguous()
+               for g, r in enumerate(idx)]
+        # the port's unfused SO2Conv of the same site (no radial weights)
+        conv = SO2Conv(layout(4, 2), cin, cout, extra_m0=extra).to(dev).requires_grad_(False)
+        with torch.no_grad():
+            conv.w_m0.copy_(ws[0])
+            for m in (1, 2):
+                n_in = ws[m].shape[0] // 2
+                n_out = ws[m].shape[1] // 2
+                getattr(conv, f"w_m{m}_r").copy_(ws[m][:n_in, :n_out])
+                getattr(conv, f"w_m{m}_i").copy_(ws[m][:n_in, n_out:])
+        xr = x.clone().requires_grad_(True)
+        y_un, ex_un = conv(xr)
+        outs_un = [y_un] + ([ex_un] if extra else [])
+        cots_un = [dy] + ([dex] if extra else [])
+        flops = 2.0 * E * sum(w.numel() for w in ws)
+        wbytes = 4 * sum(w.numel() for w in ws)
+        timed = {
+            "fwd": dict(
+                ms=time_ms(lambda: k3.fwd(x, ws, 4, 2, cout, extra), flush),
+                plain_ms=time_ms(lambda: k3.fwd_plain(x, ws, 4, 2, cout, extra), flush),
+                library_ms=time_ms(lambda: [a @ w for a, w in zip(xg, ws)], flush),
+                unfused_ms=time_ms(lambda: conv(x), flush),
+                bytes=4 * (x.numel() + E * K * cout + E * extra) + wbytes),
+            "adj": dict(
+                ms=time_ms(lambda: k3.adj(dy, dex, ws, 4, 2, cin), flush),
+                plain_ms=time_ms(lambda: k3.adj_plain(dy, dex, ws, 4, 2, cin), flush),
+                library_ms=time_ms(lambda: [a @ w.t() for a, w in zip(dyg, ws)], flush),
+                unfused_ms=time_ms(lambda: torch.autograd.grad(
+                    outs_un, xr, cots_un, retain_graph=True), flush),
+                bytes=4 * (dy.numel() + E * extra + x.numel()) + wbytes),
+        }
+        for kind, t in timed.items():
+            b_ms, b_by = bound(t.pop("bytes"), flops, torch.float32)
+            rows[kind].append(dict(
+                site=site, shape=[E, K, cin if kind == "fwd" else cout],
+                **t, bound_ms=b_ms, bound_by=b_by,
+                err_f32=errs[kind][torch.float32][0], err_bf16=errs[kind][torch.bfloat16][0],
+                gradgrad_err_f32=errs["gradgrad"][torch.float32][0],
+                gradgrad_err_bf16=errs["gradgrad"][torch.bfloat16][0]))
+            print(f"kernel so2conv.{kind:4s} {site:16s} E {E} Cin {cin} Cout {cout} extra "
+                  f"{extra}: ms {t['ms']:.4f}  plain {t['plain_ms']:.4f}  bound {b_ms:.4f} "
+                  f"({b_by})  library(3 cuBLAS GEMMs) {t['library_ms']:.4f}  unfused SO2Conv "
+                  f"{t['unfused_ms']:.4f}  err f32 {errs[kind][torch.float32][0]:.2e} "
+                  f"(limit {errs[kind][torch.float32][1]:.1e}) bf16 "
+                  f"{errs[kind][torch.bfloat16][0]:.2e} (limit "
+                  f"{errs[kind][torch.bfloat16][1]:.1e})  [{tag}]", flush=True)
+        print(f"kernel so2conv grad-of-grad {site}: err f32 "
+              f"{errs['gradgrad'][torch.float32][0]:.2e} (limit "
+              f"{errs['gradgrad'][torch.float32][1]:.1e}) bf16 "
+              f"{errs['gradgrad'][torch.bfloat16][0]:.2e} (limit "
+              f"{errs['gradgrad'][torch.bfloat16][1]:.1e})  [{tag}]", flush=True)
+        del conv, y_un, ex_un, outs_un, xr, xg, dyg
+    records = []
+    for kind, line in (("fwd", 111), ("adj", 140)):
+        main = rows[kind][0]   # QM9 conv 1, the largest site of the main path
+        records.append(dict(
+            name=f"so2conv.{kind}", route="cuda", source=f"{PKG}/csrc/so2conv.cu",
+            replaces=f"{TPU_PKG}/ops/pallas/so2conv.py:{line}", launches=0,
+            max_abs_err=main["err_f32"], ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"], unfused_ms=main["unfused_ms"],
+            sites=rows[kind]))
     return records
 
 
@@ -365,6 +507,146 @@ def train_parity_phase(tag: str) -> None:
         raise RuntimeError("the training step on the card disagrees with the CPU plain path")
 
 
+def qm9_phase(counters: dict, tag: str) -> tuple[dict, dict]:
+    """Phase 8: the QM9 step with K3 (and the composed A/B without it), and
+    3 evaluation requests.  Returns the launches of the timed K3 steps and
+    of the requests."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import as_tensors
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.train_qm9 import (
+        predict,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling import (
+        qm9_batch,
+        qm9_train_state,
+    )
+
+    rng = np.random.default_rng(5)
+    pbs = [qm9_batch(rng, QM9_MOLECULES, QM9_ATOMS)
+           for _ in range(N_WARMUP_STEPS + N_TRAIN_STEPS + N_REQUESTS)]
+    batches = [as_tensors(pb, "cuda") for pb in pbs]
+    train, requests = batches[:-N_REQUESTS], batches[-N_REQUESTS:]
+    arms = {on: qm9_train_state(conv_fused=on) for on in (True, False)}
+    n_pad, e_pad = pbs[0].pos.shape[0], pbs[0].edge_src.shape[0]
+    print(f"QM9: full-width EquiformerV2QM9 (8 layers, 128 channels, lmax 4 / mmax 2, "
+          f"8 heads, FFN 512, 600 RBF, default S2 grid), f32, {QM9_MOLECULES} molecules x "
+          f"{QM9_ATOMS} atoms, N_pad {n_pad}, E_pad {e_pad} "
+          f"({int(pbs[0].edge_mask.sum())} real edges), AdamW lr 5e-4 wd 5e-3, EMA 0.999, "
+          f"dropouts of configs/qm9.py  [{tag}]", flush=True)
+
+    def run(on: bool, i, batch):
+        before = {n: d[k] for n, (d, k) in counters.items()}
+        t = time.perf_counter()
+        loss, m = arms[on][1](batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        loss = float(loss)
+        if not (np.isfinite(loss) and m["accepted"]):
+            raise RuntimeError(f"QM9 step {i} (conv_fused {on}): loss {loss}, "
+                               f"accepted {m['accepted']}")
+        per = {n: d[k] - before[n] for n, (d, k) in counters.items()}
+        print(f"QM9 step {i} conv_fused {'on ' if on else 'off'}: {dt * 1e3:.1f} ms, "
+              f"{QM9_MOLECULES / dt:.1f} molecules/s, loss {loss:.4f}, "
+              f"|g| {float(m['grad_norm']):.3f}, launches {per}  [{tag}]", flush=True)
+        return dt
+
+    for on in (True, False):
+        for i in range(N_WARMUP_STEPS):
+            run(on, f"warm-up {i}", train[i])
+    timed = train[N_WARMUP_STEPS:]
+    times = {True: [], False: []}
+    peak = {}
+    for block, on in enumerate((True, False, False, True)):   # in turns: A B B A
+        if block < 2:
+            torch.cuda.reset_peak_memory_stats()
+        if block == 0:
+            for d, k in counters.values():
+                d[k] = 0
+        times[on] += [run(on, i, b) for i, b in enumerate(timed)]
+        if block == 0:
+            launches = {n: d[k] for n, (d, k) in counters.items()}
+        if block < 2:
+            peak[on] = torch.cuda.max_memory_allocated() / 2**30
+    for on in (True, False):
+        med = float(np.median(times[on]))
+        print(f"QM9 training, conv_fused {'on ' if on else 'off'}: median step "
+              f"{med * 1e3:.1f} ms ({min(times[on]) * 1e3:.1f}-{max(times[on]) * 1e3:.1f} over "
+              f"{len(times[on])} steps in two blocks), {QM9_MOLECULES / med:.1f} molecules/s, "
+              f"peak memory {peak[on]:.3f} GiB  [{tag}]", flush=True)
+    print(f"QM9 composed A/B: step with K3 / without = "
+          f"{np.median(times[True]) / np.median(times[False]):.3f}; launches per step "
+          f"with K3 {({n: c / N_TRAIN_STEPS for n, c in launches.items()})}  [{tag}]",
+          flush=True)
+    idle = [n for n, c in launches.items() if c == 0]
+    if idle:
+        raise RuntimeError(f"kernels never launched on the QM9 training path: {idle}")
+
+    state = arms[True][0]
+    del arms[False]
+    for d, k in counters.values():
+        d[k] = 0
+    for i, batch in enumerate(requests):
+        t = time.perf_counter()
+        pred = predict(state.model, batch, state.ema)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if pred.shape != (QM9_MOLECULES, 12) or not torch.isfinite(pred).all():
+            raise RuntimeError(f"QM9 request {i}: bad predictions of shape {tuple(pred.shape)}")
+        print(f"QM9 request {i}: {QM9_MOLECULES} molecules, {dt * 1e3:.1f} ms, "
+              f"{QM9_MOLECULES / dt:.1f} molecules/s  [{tag}]", flush=True)
+    eval_launches = {n: d[k] for n, (d, k) in counters.items()}
+    print(f"launches over {N_REQUESTS} QM9 requests: {eval_launches}  [{tag}]", flush=True)
+    return launches, eval_launches
+
+
+def qm9_parity_phase(tag: str) -> None:
+    """Phase 9: one f32 QM9 step (conv_fused on, dropout off), 2 layers at
+    full width, 8 molecules, on the card and on the CPU plain path from the
+    same weights: loss <= 1e-4 relative, gradients (after each device's own
+    clip) <= 1e-3 relative L2."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.configs.qm9 import config
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import as_tensors
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        init_weights,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.train_qm9 import (
+        build_model,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        GuardedAdamW,
+        create_train_state,
+        make_qm9_train_step,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling import (
+        qm9_batch,
+    )
+
+    cfg = dict(config, num_layers=2, alpha_drop=0.0, drop_path_rate=0.0, conv_fused=True)
+    weights = init_weights(build_model(cfg), torch.Generator().manual_seed(4)).state_dict()
+    pb = qm9_batch(np.random.default_rng(6), 8, QM9_ATOMS)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg)
+        model.load_state_dict(weights)
+        model.to(dev)
+        state = create_train_state(model, GuardedAdamW(model.named_parameters(),
+                                                       lambda step: 5e-4, 5e-3, 1.0))
+        loss, m = make_qm9_train_step(state)(as_tensors(pb, dev))
+        res[dev] = dict(loss=float(loss), gnorm=float(m["grad_norm"]),
+                        grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    g, c = res["cuda"], res["cpu"]
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    num = sum(float(((g["grads"][k].double() - c["grads"][k].double()) ** 2).sum())
+              for k in c["grads"])
+    den = sum(float((c["grads"][k].double() ** 2).sum()) for k in c["grads"])
+    grad_rel = (num / den) ** 0.5
+    print(f"QM9 gpu vs cpu plain path, one f32 training step (2 layers, full width, "
+          f"8 molecules, conv_fused on): loss {g['loss']:.6f} vs {c['loss']:.6f}, rel err "
+          f"{loss_rel:.2e} (limit 1e-4); |g| {g['gnorm']:.4f} vs {c['gnorm']:.4f}, gradient "
+          f"rel L2 err {grad_rel:.2e} (limit 1e-3)  [{tag}]", flush=True)
+    if not (loss_rel <= 1e-4 and grad_rel <= 1e-3):
+        raise RuntimeError("the QM9 training step on the card disagrees with the CPU plain path")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -379,6 +661,7 @@ def main() -> int:
         build,
         rotate_dense,
         s2act,
+        so2conv,
     )
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling import (
         random_structures,
@@ -405,7 +688,9 @@ def main() -> int:
         for r in rep:  # the instances the serving and training paths run
             if r["name"].startswith(("pairs_kernel<f32,4,2,", "pairs_kernel<bf16,4,2,",
                                      "s2act_kernel<f32,25,", "s2act_kernel<bf16,25,",
-                                     "s2act_k3_kernel<f32,25>", "s2act_k3_kernel<bf16,25>")):
+                                     "s2act_kernel<f32,19,", "s2act_kernel<bf16,19,",
+                                     "s2act_k3_kernel<f32,25>", "s2act_k3_kernel<bf16,25>",
+                                     "so2conv_kernel<")):
                 print(f"    {r['name']}: {r['registers']} registers, "
                       f"{r['spill_bytes']} B spill stores")
 
@@ -426,11 +711,14 @@ def main() -> int:
 
     # phase 3: kernels against their plain versions
     records = check_kernels(batch, tag)
+    records += check_k3(int(pb.edge_src.shape[0]),
+                        QM9_MOLECULES * QM9_ATOMS * (QM9_ATOMS - 1), tag)
 
     # phase 4: serve, counting launches from zero
     counters = {**{f"rotate_pairs.{k}": (rotate_dense.launches, k)
                    for k in rotate_dense.launches},
                 **{f"s2act.{k}": (s2act.launches, k) for k in s2act.launches}}
+    k3_counters = {f"so2conv.{k}": (so2conv.launches, k) for k in so2conv.launches}
     for d, k in counters.values():
         d[k] = 0
     torch.cuda.reset_peak_memory_stats()
@@ -457,7 +745,7 @@ def main() -> int:
     if idle:
         raise RuntimeError(f"kernels never launched on the serving path: {idle}")
     for r in records:
-        r["launches_serving"] = launches[r["name"]]
+        r["launches_serving"] = launches.get(r["name"], 0)
 
     # phase 5: the card against the CPU plain path
     small = random_structures(np.random.default_rng(1), 4, N_ATOMS)
@@ -477,10 +765,26 @@ def main() -> int:
     # phase 6: train, counting launches from zero over the timed steps
     train_launches = train_phase(counters, tag)
     for r in records:
-        r["launches"] = train_launches[r["name"]]
+        r["launches"] = train_launches.get(r["name"], 0)
 
     # phase 7: one f32 training step, the card against the CPU plain path
     train_parity_phase(tag)
+
+    # phase 8: QM9 with K3 (K1 to / from, K2a / K2b at the edge site, the
+    # FFNs and the heads, K3 at both conv sites), counting from zero
+    qm9_counters = {**{f"rotate_pairs.{k}": (rotate_dense.launches, k)
+                       for k in ("to", "from")},
+                    **{f"s2act.{k}": (s2act.launches, k) for k in ("k1", "k2")},
+                    **k3_counters}
+    qm9_train, qm9_eval = qm9_phase(qm9_counters, tag)
+    for r in records:
+        r["launches_qm9_train"] = qm9_train.get(r["name"], 0)
+        r["launches_qm9_eval"] = qm9_eval.get(r["name"], 0)
+        if r["name"].startswith("so2conv."):
+            r["launches"] = r["launches_qm9_train"]
+
+    # phase 9: one f32 QM9 step, the card against the CPU plain path
+    qm9_parity_phase(tag)
 
     print(json.dumps({"kernels": records}))
     print(tag)

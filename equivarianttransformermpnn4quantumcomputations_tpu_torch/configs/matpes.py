@@ -40,6 +40,7 @@ config = {
     "avg_degree": 12.0,
     "normalize_attn_output": True,
     "use_phi_every_layer": False,
+    "conv_fused": False,             # kernel K3 at the full SO(2)-conv site (conv 2)
     # loss weights (reference train_MatPES_GATAWandB.py:79-81)
     "w_energy": 1.0,
     "w_force": 1.0,

@@ -35,6 +35,7 @@ class GraphSample:
     cell: np.ndarray | None = None    # [3, 3] float (PBC) or None
     pbc: bool = False
     # labels (optional)
+    y: np.ndarray | None = None           # [T] molecular targets (QM9)
     energy: float | None = None           # total or per-atom energy
     forces: np.ndarray | None = None      # [n, 3]
     stress: np.ndarray | None = None      # [6] Voigt
@@ -150,6 +151,7 @@ class PaddedBatch:
     edge_shift: np.ndarray       # [E_pad, 3] int32
     edge_mask: np.ndarray        # [E_pad] bool
     cell: np.ndarray             # [B, 3, 3] f32 (identity when non-PBC)
+    y: np.ndarray | None = None          # [B, T]
     energy: np.ndarray | None = None     # [B]
     forces: np.ndarray | None = None     # [N_pad, 3]
     stress: np.ndarray | None = None     # [B, 6]
@@ -172,7 +174,7 @@ class PaddedBatch:
             "edge_mask": self.edge_mask,
             "cell": self.cell,
         }
-        for k in ("energy", "forces", "stress"):
+        for k in ("y", "energy", "forces", "stress"):
             v = getattr(self, k)
             if v is not None:
                 d[k] = v
@@ -233,6 +235,7 @@ def collate(
     cell = np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))
     # labels, present when the first sample has them (the JAX collate's rule)
     y0 = samples[0]
+    y = np.zeros((B,) + np.shape(y0.y), np.float32) if y0.y is not None else None
     energy = np.zeros(B, np.float32) if y0.energy is not None else None
     forces = np.zeros((n_pad, 3), np.float32) if y0.forces is not None else None
     stress = np.zeros((B, 6), np.float32) if y0.stress is not None else None
@@ -255,6 +258,8 @@ def collate(
         natoms[b] = n
         if s.cell is not None:
             cell[b] = s.cell
+        if y is not None:
+            y[b] = s.y
         if energy is not None:
             energy[b] = s.energy
         if forces is not None:
@@ -308,6 +313,7 @@ def collate(
         edge_shift=eshift,
         edge_mask=emask,
         cell=cell,
+        y=y,
         energy=energy,
         forces=forces,
         stress=stress,

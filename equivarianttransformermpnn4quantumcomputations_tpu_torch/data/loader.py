@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator
+from typing import Iterator, Sequence
 
 import numpy as np
 
@@ -44,6 +44,8 @@ class PaddedLoader:
 
     Args:
         dataset: indexable of GraphSample.
+        indices: the subset of the dataset to iterate (None: all of it),
+            e.g. one part of ``data/qm9.py:qm9_random_split``.
         shuffle: a numpy shuffle seeded by ``seed + epoch`` (``set_epoch``).
         prefetch: number of batches built ahead on a daemon thread (0: none).
 
@@ -54,8 +56,11 @@ class PaddedLoader:
 
     def __init__(self, dataset, batch_size: int, cutoff: float,
                  max_neighbors: int | None, n_pad: int, e_pad: int,
-                 shuffle: bool = False, seed: int = 0, prefetch: int = 2):
+                 indices: Sequence[int] | None = None, shuffle: bool = False,
+                 seed: int = 0, prefetch: int = 2):
         self.dataset = dataset
+        self.indices = (np.asarray(indices) if indices is not None
+                        else np.arange(len(dataset)))
         self.batch_size = batch_size
         self.cutoff = cutoff
         self.max_neighbors = max_neighbors
@@ -68,13 +73,13 @@ class PaddedLoader:
         self.overflow_batches = 0
 
     def __len__(self):
-        return len(self.dataset) // self.batch_size
+        return len(self.indices) // self.batch_size
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
 
     def _index_batches(self):
-        idx = np.arange(len(self.dataset))
+        idx = self.indices.copy()
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
         for b in range(len(self)):

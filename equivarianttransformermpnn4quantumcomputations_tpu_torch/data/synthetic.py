@@ -1,9 +1,10 @@
-"""Synthetic labelled crystals for training without a dataset on disk.
+"""Synthetic labelled molecules and crystals for training without a dataset
+on disk.
 
 The port's own copy of the JAX package's data/synthetic.py
-(``SyntheticCrystals``, ``_lj_energy_forces``): random periodic cells whose
-labels come from a Lennard-Jones surface (central image only), so that
-training has real signal.
+(``SyntheticMolecules``, ``SyntheticCrystals``, ``_lj_energy_forces``):
+random molecules and periodic cells whose labels come from a Lennard-Jones
+surface (central image only), so that training has real signal.
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ import numpy as np
 
 from .graph import GraphSample
 
-__all__ = ["SyntheticCrystals", "labelled_structures", "lj_energy_forces"]
+__all__ = ["SyntheticMolecules", "SyntheticCrystals", "labelled_structures",
+           "lj_energy_forces"]
 
 
 def lj_energy_forces(pos, eps=0.1, sigma=1.8):
@@ -53,6 +55,40 @@ def _zscored(raw, stats=None):
         for z, pos, cell, e, f in raw
     ]
     return samples, (float(mu), float(sd))
+
+
+class SyntheticMolecules:
+    """Random molecules with LJ energies, per-atom-normalized, QM9-style
+    ``y`` (the same value for each of ``targets`` targets).  Atoms sit on
+    jittered sites of a 4 x 2 x 2 lattice of 2 A spacing, collision-free up
+    to 8 atoms (larger molecules can put two atoms on one site)."""
+
+    def __init__(self, n_samples=64, n_atoms=8, seed=0, targets=1):
+        rng = np.random.default_rng(seed)
+        raw = []
+        for _ in range(n_samples):
+            base = rng.permutation(n_atoms * 2)[:n_atoms]
+            grid = np.stack([(base // 4) % 4, (base // 2) % 2, base % 2],
+                            axis=1).astype(np.float32)
+            pos = grid * 2.0 + rng.normal(size=(n_atoms, 3)).astype(np.float32) * 0.25
+            z = rng.integers(1, 9, size=n_atoms).astype(np.int32)
+            e, f = lj_energy_forces(pos)
+            raw.append((z, pos, e, f))
+        es = np.asarray([r[2] / n_atoms for r in raw])
+        mu, sd = es.mean(), max(es.std(), 1e-6)
+        self.samples = [
+            GraphSample(atomic_numbers=z, pos=pos,
+                        y=np.full(targets, (e / n_atoms - mu) / sd, np.float32),
+                        energy=(e / n_atoms - mu) / sd,
+                        forces=(f / sd).astype(np.float32))
+            for z, pos, e, f in raw
+        ]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
 
 
 class SyntheticCrystals:

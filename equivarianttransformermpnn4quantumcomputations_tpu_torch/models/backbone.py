@@ -1,15 +1,19 @@
-"""EquiformerV2 GATA-V2 backbone (port of the JAX package's models/backbone.py).
+"""EquiformerV2 backbone (port of the JAX package's models/backbone.py).
 
-atom embedding -> distance RBF -> edge-degree embedding -> GATA edge stream
--> N transformer blocks -> final norm.  Displacement vectors are re-derived
+atom embedding -> distance RBF -> edge-degree embedding -> [GATA edge
+stream] -> N transformer blocks -> final norm.  Displacement vectors are re-derived
 from positions inside the forward, so forces flow by autograd; the per-edge
 Wigner values are built once per forward in the dense pairs form and shared
 by every rotate (kernel K1 on the GPU).
 
-Only the configuration of the MatPES GATA-V2 model is ported:
-``gata=True``, separable S2 activations, 'rms_norm_sh', unshared atom-edge
-embeddings.  Batches come in the fixed-degree layout
-(``data/graph.py:collate``): k = E / N edge slots per node.
+Two configurations are ported, both with separable S2 activations,
+'rms_norm_sh' and unshared atom-edge embeddings: the MatPES GATA-V2 model
+(``gata=True``) and the baseline EquiformerV2 of QM9 (``gata=False``: no
+``h_proj`` / ``W_erp`` / ``t_ij`` / ``rl_ij``).  ``conv_fused`` sends the
+full SO(2)-conv sites through kernel K3 (the JAX package's
+``KernelFlags.conv_fused``; off by default there and here).  Batches come in
+the fixed-degree layout (``data/graph.py:collate``): k = E / N edge slots
+per node.
 
 ``compute_dtype=torch.bfloat16`` follows the JAX package's casts: the node
 features, the edge scalars, ``t_ij`` and ``rl_ij`` enter the block stack in
@@ -47,9 +51,11 @@ class EquiformerV2Backbone(nn.Module):
                  num_rbf: int, max_num_elements: int, cutoff: float,
                  avg_degree: float, alpha_drop: float = 0.0,
                  drop_path_rate: float = 0.0, proj_drop: float = 0.0,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, gata: bool = True,
+                 conv_fused: bool = False):
         super().__init__()
         self.lmax, self.mmax = lmax, mmax
+        self.gata = gata
         self.compute_dtype = compute_dtype
         self.sphere_channels = sphere_channels
         lay_full, lay_red = get_layout(lmax, lmax), get_layout(lmax, mmax)
@@ -61,15 +67,17 @@ class EquiformerV2Backbone(nn.Module):
             sphere_channels, lay_red, max_num_elements, edge_channels_list,
             avg_degree,
         )
-        self.h_proj = Linear(sphere_channels, edge_channels)
-        self.W_erp = Linear(num_rbf, edge_channels)
+        if gata:
+            self.h_proj = Linear(sphere_channels, edge_channels)
+            self.W_erp = Linear(num_rbf, edge_channels)
+        grid_red = s2grid(lmax, mmax, grid_resolution)
         grid_full = s2grid(lmax, lmax, grid_resolution)
         self.blocks = nn.ModuleList(
-            TransBlock(lay_full, lay_red, grid_full, sphere_channels,
+            TransBlock(lay_full, lay_red, grid_red, grid_full, sphere_channels,
                        attn_hidden_channels, num_heads, attn_alpha_channels,
                        attn_value_channels, ffn_hidden_channels,
                        max_num_elements, edge_channels_list, edge_channels,
-                       alpha_drop, drop_path_rate, proj_drop)
+                       alpha_drop, drop_path_rate, proj_drop, gata, conv_fused)
             for _ in range(num_layers)
         )
         self.norm = EquivariantRMSNormSH(lmax, sphere_channels)
@@ -102,16 +110,18 @@ class EquiformerV2Backbone(nn.Module):
             atomic_numbers, phi_r, edge_src, edge_dst, edge_mask, wigner, k,
         )
 
-        # GATA streams: global-frame edge SH (l >= 1, 'norm', detached) and
-        # t_ij = h_proj(h_i + h_j) * W_erp(phi(r))
-        unit = dvec / dist[:, None]
-        rl_ij = real_sph_harm(self.lmax, unit, normalization="norm")[:, 1:].detach()
-        h = x[:, 0, :]
-        t_ij = self.h_proj(gather_nodes(h, edge_src) + gather_dst(h, k))
-        t_ij = t_ij * self.W_erp(phi_r)
-
         cdt = self.compute_dtype
-        x, t_ij, rl_ij, edge_scalars = x.to(cdt), t_ij.to(cdt), rl_ij.to(cdt), phi_r.to(cdt)
+        t_ij = rl_ij = None
+        if self.gata:
+            # GATA streams: global-frame edge SH (l >= 1, 'norm', detached)
+            # and t_ij = h_proj(h_i + h_j) * W_erp(phi(r))
+            unit = dvec / dist[:, None]
+            rl_ij = real_sph_harm(self.lmax, unit, normalization="norm")[:, 1:].detach()
+            h = x[:, 0, :]
+            t_ij = self.h_proj(gather_nodes(h, edge_src) + gather_dst(h, k))
+            t_ij = (t_ij * self.W_erp(phi_r)).to(cdt)
+            rl_ij = rl_ij.to(cdt)
+        x, edge_scalars = x.to(cdt), phi_r.to(cdt)
         num_graphs = cell.shape[0]
         for block in self.blocks:
             x, t_ij = block(x, atomic_numbers, edge_scalars, edge_src, edge_dst,

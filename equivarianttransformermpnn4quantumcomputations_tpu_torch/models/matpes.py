@@ -41,7 +41,8 @@ class EquiformerV2MatPES(nn.Module):
 
     ``alpha_drop``, ``drop_path_rate`` and ``proj_drop`` act only in
     ``train()`` mode; ``compute_dtype`` is the block stack's type
-    (models/backbone.py).
+    (models/backbone.py).  ``conv_fused`` sends the full SO(2)-conv site
+    (conv 2; conv 1 is m = 0 only) through kernel K3, off by default.
     """
 
     def __init__(self, num_layers: int = 6, sphere_channels: int = 128,
@@ -53,7 +54,8 @@ class EquiformerV2MatPES(nn.Module):
                  cutoff: float = 6.0, avg_degree: float = 12.0,
                  alpha_drop: float = 0.05, drop_path_rate: float = 0.05,
                  proj_drop: float = 0.0,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 conv_fused: bool = False):
         super().__init__()
         self.backbone = EquiformerV2Backbone(
             num_layers=num_layers, sphere_channels=sphere_channels,
@@ -65,7 +67,7 @@ class EquiformerV2MatPES(nn.Module):
             num_rbf=num_rbf, max_num_elements=max_num_elements, cutoff=cutoff,
             avg_degree=avg_degree, alpha_drop=alpha_drop,
             drop_path_rate=drop_path_rate, proj_drop=proj_drop,
-            compute_dtype=compute_dtype,
+            compute_dtype=compute_dtype, conv_fused=conv_fused,
         )
         self.energy_block = FeedForward(
             sphere_channels, ffn_hidden_channels, 1, lmax,
@@ -133,24 +135,31 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
     Matrices ~ normal(0, 1/fan_in), biases 0, norm scales 1, atom-edge
     embeddings ~ uniform(+-0.001), ``alpha_dot`` ~ uniform(+-1/sqrt(A)).
+    Stacked heads (``output_blocks``, a leading target axis) take the rule
+    of one head for each slice.
     """
-    for name, p in model.named_parameters():
+    for name, stacked in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         owner = name.rsplit(".", 2)[-2] if name.count(".") else ""
-        if leaf == "bias" or leaf.startswith("b_m"):
-            p.zero_()
-        elif "norm" in owner or p.dim() == 1:  # norm scales
-            p.fill_(1.0)
-        elif owner == "sphere_embedding":
-            p.normal_(0.0, 1.0, generator=generator)
-        elif owner.endswith("_embedding"):
-            p.uniform_(-1e-3, 1e-3, generator=generator)
-        elif leaf == "alpha_dot":
-            b = 1.0 / math.sqrt(p.shape[1])
-            p.uniform_(-b, b, generator=generator)
-        else:
-            # nn.Linear [out, in] and SO3Linear [L, in, out]: fan-in is dim 1;
-            # SO2Conv w_m* [in, out]: fan-in is dim 0
-            fan_in = p.shape[0] if leaf.startswith("w_m") else p.shape[1]
-            p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+        for p in stacked.unbind(0) if name.startswith("output_blocks.") else (stacked,):
+            _init_one(p, leaf, owner, generator)
     return model
+
+
+def _init_one(p: torch.Tensor, leaf: str, owner: str, generator: torch.Generator):
+    if leaf == "bias" or leaf.startswith("b_m"):
+        p.zero_()
+    elif "norm" in owner or p.dim() == 1:  # norm scales
+        p.fill_(1.0)
+    elif owner == "sphere_embedding":
+        p.normal_(0.0, 1.0, generator=generator)
+    elif owner.endswith("_embedding"):
+        p.uniform_(-1e-3, 1e-3, generator=generator)
+    elif leaf == "alpha_dot":
+        b = 1.0 / math.sqrt(p.shape[1])
+        p.uniform_(-b, b, generator=generator)
+    else:
+        # nn.Linear [out, in] and SO3Linear [L, in, out]: fan-in is dim 1;
+        # SO2Conv w_m* [in, out]: fan-in is dim 0
+        fan_in = p.shape[0] if leaf.startswith("w_m") else p.shape[1]
+        p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)

@@ -1,0 +1,74 @@
+"""EquiformerV2 for QM9: 12 molecular scalar property heads.
+
+Port of the JAX package's models/qm9.py (``EquiformerV2QM9`` with its
+default ``vmap_heads=True``): the baseline EquiformerV2 backbone
+(``gata=False``, separable S2 activations, default S2 grid), then one
+``FeedForward`` head per target with weights stacked on a leading target
+axis (nn/ffn.py:StackedFeedForward), each reading its l = 0, channel 0
+output, masked-summed over each molecule's atoms with no division by the
+atom count (reference equiformerv2_qm9.py:664-697).  Molecules have no
+periodic cell: collate gives them the identity cell and zero shifts.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from ..nn.ffn import StackedFeedForward
+from ..ops.s2grid import s2grid
+from ..ops.segment import segment_sum
+from .backbone import EquiformerV2Backbone
+
+__all__ = ["EquiformerV2QM9"]
+
+
+class EquiformerV2QM9(nn.Module):
+    """Backbone + stacked target heads (the JAX package's defaults, which
+    are ``configs/qm9.py:config``'s widths).
+
+    ``conv_fused`` sends every SO(2)-conv site through kernel K3 (off by
+    default, as the JAX package's ``KernelFlags.conv_fused``).  Dropouts act
+    only in ``train()`` mode; ``compute_dtype`` is the block stack's type.
+    """
+
+    def __init__(self, num_targets: int = 12, num_layers: int = 8,
+                 sphere_channels: int = 128, attn_hidden_channels: int = 128,
+                 num_heads: int = 8, attn_alpha_channels: int = 32,
+                 attn_value_channels: int = 16, ffn_hidden_channels: int = 512,
+                 lmax: int = 4, mmax: int = 2, grid_resolution: int | None = None,
+                 edge_channels: int = 128, num_rbf: int = 600,
+                 max_num_elements: int = 10, cutoff: float = 5.0,
+                 avg_degree: float = 6.0, alpha_drop: float = 0.1,
+                 drop_path_rate: float = 0.05, proj_drop: float = 0.0,
+                 compute_dtype: torch.dtype = torch.float32,
+                 conv_fused: bool = False):
+        super().__init__()
+        self.backbone = EquiformerV2Backbone(
+            num_layers=num_layers, sphere_channels=sphere_channels,
+            attn_hidden_channels=attn_hidden_channels, num_heads=num_heads,
+            attn_alpha_channels=attn_alpha_channels,
+            attn_value_channels=attn_value_channels,
+            ffn_hidden_channels=ffn_hidden_channels, lmax=lmax, mmax=mmax,
+            grid_resolution=grid_resolution, edge_channels=edge_channels,
+            num_rbf=num_rbf, max_num_elements=max_num_elements, cutoff=cutoff,
+            avg_degree=avg_degree, alpha_drop=alpha_drop,
+            drop_path_rate=drop_path_rate, proj_drop=proj_drop,
+            compute_dtype=compute_dtype, gata=False, conv_fused=conv_fused,
+        )
+        self.output_blocks = StackedFeedForward(
+            num_targets, sphere_channels, ffn_hidden_channels, 1, lmax,
+            s2grid(lmax, lmax, grid_resolution),
+        )
+
+    def forward(self, batch: dict, generator: torch.Generator | None = None):
+        """batch: ``data/graph.py:as_tensors`` of a collated batch.
+        Returns the predictions [B, num_targets] (normalized units)."""
+        x = self.backbone(
+            batch["atomic_numbers"], batch["pos"], batch["graph_idx"],
+            batch["edge_src"], batch["edge_dst"], batch["edge_shift"],
+            batch["edge_mask"], batch["cell"], generator,
+        )
+        node_c = self.output_blocks(x)[:, :, 0, 0]       # [T, N]
+        return segment_sum(node_c.t(), batch["graph_idx"], batch["cell"].shape[0],
+                           mask=batch["node_mask"])

@@ -1,18 +1,24 @@
-"""SO(2)-equivariant graph attention, GATA-V2 path.
+"""SO(2)-equivariant graph attention: the GATA-V2 and baseline EquiformerV2
+paths.
 
-Port of the JAX package's nn/attention.py for ``gata=True`` with the
-separable-S2 configuration (the flagship's path):
+Port of the JAX package's nn/attention.py with the separable-S2
+configuration, ``gata=True`` (the MatPES flagship) or ``gata=False`` (the
+baseline EquiformerV2 of QM9):
 
-  gather src/dst features -> concat (2C) -> rotate into the edge frame, m = 0
-  rows only -> SO(2) conv 1 (extra m=0 outputs: alpha + GATA gates) ->
-  alpha (segment softmax) -> GATA value activation -> SO(2) conv 2 ->
-  alpha-weighted values -> rotate back -> segment sum -> per-degree proj.
+  gather src/dst features -> concat (2C) -> rotate into the edge frame ->
+  SO(2) conv 1 (extra m=0 outputs: alpha + gates) -> alpha (segment
+  softmax) -> value activation -> SO(2) conv 2 -> alpha-weighted values ->
+  rotate back -> segment sum -> per-degree proj.
 
-The GATA value path rebuilds its message from the unrotated X_j and reads
-only the m = 0 block of the rotated message, so only that block is rotated
-and convolved (the JAX package's default ``m0_only``; exactly equal to the
-full path).  The other attention variants, and the ablation without the
-attention-output normalization, are not ported yet.
+GATA-V2: the value activation rebuilds its message from the unrotated X_j
+and reads only the m = 0 block of the rotated message, so only that block is
+rotated and convolved (the JAX package's default ``m0_only``; exactly equal
+to the full path).  Baseline: the full message is rotated and convolved, and
+the value activation is the separable S2 activation on the reduced grid
+(kernel K2 at the edge site), gated by the extra m = 0 channels.
+``conv_fused`` sends every full SO(2)-conv site through kernel K3.  The
+other attention variants (gate activation, GATA v1, m-share radial, the
+ablation without the attention-output normalization) are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,8 +29,10 @@ import torch
 import torch.nn as nn
 
 from ..ops.irreps import IrrepsLayout
-from ..ops.rotation import rotate_from_edge, rotate_to_edge_m0
+from ..ops.rotation import rotate_from_edge, rotate_to_edge, rotate_to_edge_m0
+from ..ops.s2grid import S2Grid
 from ..ops.segment import gather_dst, gather_nodes, softmax_over_slots, sum_over_slots
+from .activations import separable_s2_activation
 from .gata import GATAValueActivation
 from .layers import LayerNorm, keep_mask, smooth_leaky_relu
 from .so3_layers import SO2Conv, SO3Linear
@@ -34,15 +42,17 @@ __all__ = ["GraphAttention"]
 
 class GraphAttention(nn.Module):
     def __init__(self, layout_full: IrrepsLayout, layout_red: IrrepsLayout,
-                 sphere_channels: int, hidden_channels: int, num_heads: int,
-                 attn_alpha_channels: int, attn_value_channels: int,
-                 output_channels: int, max_num_elements: int,
-                 edge_channels_list: Sequence[int], edge_channels: int,
-                 alpha_drop: float = 0.0):
+                 grid_red: S2Grid, sphere_channels: int, hidden_channels: int,
+                 num_heads: int, attn_alpha_channels: int,
+                 attn_value_channels: int, output_channels: int,
+                 max_num_elements: int, edge_channels_list: Sequence[int],
+                 edge_channels: int, alpha_drop: float = 0.0, gata: bool = True,
+                 conv_fused: bool = False):
         super().__init__()
         lmax = layout_full.lmax
         self.alpha_drop = alpha_drop
-        self.layout_red = layout_red
+        self.gata = gata
+        self.layout_red, self.grid_red = layout_red, grid_red
         self.num_heads = num_heads
         self.alpha_ch = num_heads * attn_alpha_channels
         self.attn_alpha_channels = attn_alpha_channels
@@ -51,23 +61,36 @@ class GraphAttention(nn.Module):
         self.src_embedding = nn.Embedding(max_num_elements, ec[-1])
         self.dst_embedding = nn.Embedding(max_num_elements, ec[-1])
         ec[0] += 2 * ec[-1]
-        extra_m0 = self.alpha_ch + (1 + 2 * lmax) * hidden_channels
+        # GATA: alpha + one gate per (l, m != 0 sign) stream; baseline:
+        # alpha + the S2 activation's gating scalars
+        extra_m0 = self.alpha_ch + ((1 + 2 * lmax) if gata else 1) * hidden_channels
         self.so2_conv_1 = SO2Conv(layout_red, 2 * sphere_channels, hidden_channels,
                                   extra_m0=extra_m0, rad_channels=tuple(ec),
-                                  m0_only=True)
+                                  m0_only=gata, conv_fused=conv_fused)
         self.alpha_norm = LayerNorm(attn_alpha_channels, eps=1e-5)
         self.alpha_dot = nn.Parameter(torch.empty(num_heads, attn_alpha_channels))
-        self.value_act = GATAValueActivation(
-            sphere_channels, hidden_channels, edge_channels, lmax, layout_red.mmax
-        )
+        if gata:
+            self.value_act = GATAValueActivation(
+                sphere_channels, hidden_channels, edge_channels, lmax, layout_red.mmax
+            )
         self.so2_conv_2 = SO2Conv(layout_red, hidden_channels,
-                                  num_heads * attn_value_channels)
+                                  num_heads * attn_value_channels, conv_fused=conv_fused)
         self.proj = SO3Linear(num_heads * attn_value_channels, output_channels, lmax)
+
+    def _alpha(self, x0_alpha, k: int, edge_mask):
+        """Attention weights [E, heads]: alpha LayerNorm, smooth leaky ReLU,
+        the per-head dot and the softmax over each node's slots."""
+        a = x0_alpha.reshape(-1, self.num_heads, self.attn_alpha_channels)
+        a = smooth_leaky_relu(self.alpha_norm(a))
+        logits = torch.einsum("ehk,hk->eh", a, self.alpha_dot)
+        return softmax_over_slots(logits, k, edge_mask)
 
     def forward(self, x, atomic_numbers, edge_scalars, edge_src, edge_dst,
                 edge_mask, wigner, t_ij, rl_ij, k: int,
                 generator: Optional[torch.Generator] = None):
-        """Fixed-degree layout: k edge slots per node (ops/segment.py)."""
+        """Fixed-degree layout: k edge slots per node (ops/segment.py).
+        ``t_ij`` / ``rl_ij``: the GATA edge streams (None when ``gata`` is
+        off)."""
         x_edge = torch.cat(
             [edge_scalars,
              self.src_embedding(atomic_numbers[edge_src]),
@@ -76,23 +99,24 @@ class GraphAttention(nn.Module):
         )
         x_src = gather_nodes(x, edge_src)
         x_dst = gather_dst(x, k)
-        # unrotated target-node features (reference Gotennet fork
-        # transformer_block.py:255-267 gathers the target embedding)
-        h_j, X_j = x_dst[:, 0, :], x_dst[:, 1:, :]
         msg = torch.cat([x_src, x_dst], dim=2)            # [E, K_full, 2C]
-        msg = rotate_to_edge_m0(wigner, msg, self.layout_red)
-        _, x0_extra = self.so2_conv_1(msg, x_edge)
-
-        # alpha before the value activation (reference fork :315-324)
-        a = x0_extra[:, : self.alpha_ch].reshape(-1, self.num_heads,
-                                                 self.attn_alpha_channels)
-        a = smooth_leaky_relu(self.alpha_norm(a))
-        logits = torch.einsum("ehk,hk->eh", a, self.alpha_dot)
-        alpha = softmax_over_slots(logits, k, edge_mask)
-        # attention-output normalization by the head-mean of alpha
-        attn_output = x0_extra[:, self.alpha_ch :]
-        attn_output = attn_output * alpha.mean(dim=1, keepdim=True).to(attn_output.dtype)
-        msg = self.value_act(attn_output, t_ij, h_j, X_j, rl_ij)
+        if self.gata:
+            # unrotated target-node features (reference Gotennet fork
+            # transformer_block.py:255-267 gathers the target embedding)
+            h_j, X_j = x_dst[:, 0, :], x_dst[:, 1:, :]
+            msg = rotate_to_edge_m0(wigner, msg, self.layout_red)
+            _, x0_extra = self.so2_conv_1(msg, x_edge)
+            # alpha before the value activation (reference fork :315-324)
+            alpha = self._alpha(x0_extra[:, : self.alpha_ch], k, edge_mask)
+            # attention-output normalization by the head-mean of alpha
+            attn_output = x0_extra[:, self.alpha_ch :]
+            attn_output = attn_output * alpha.mean(dim=1, keepdim=True).to(attn_output.dtype)
+            msg = self.value_act(attn_output, t_ij, h_j, X_j, rl_ij)
+        else:
+            msg = rotate_to_edge(wigner, msg, self.layout_red)
+            msg, x0_extra = self.so2_conv_1(msg, x_edge)
+            msg = separable_s2_activation(x0_extra[:, self.alpha_ch :], msg, self.grid_red)
+            alpha = self._alpha(x0_extra[:, : self.alpha_ch], k, edge_mask)
 
         msg, _ = self.so2_conv_2(msg, None)
         if self.alpha_drop > 0.0 and self.training:

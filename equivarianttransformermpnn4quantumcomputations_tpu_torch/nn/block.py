@@ -1,9 +1,9 @@
-"""GATA transformer block (port of the JAX package's nn/block.py
-``TransBlock`` with ``gata=True``, ``GraphDropPath`` and
-``EquivariantDropout``).
+"""Transformer block (port of the JAX package's nn/block.py ``TransBlock``,
+``GraphDropPath`` and ``EquivariantDropout``).
 
-HTR refines the edge stream, then pre-norm attention and pre-norm FFN, each
-with a residual.  Both residual branches pass drop-path (whole graphs) and
+With ``gata=True`` (GATA-V2) HTR first refines the edge stream ``t_ij``;
+then, in both variants, pre-norm attention and pre-norm FFN, each with a
+residual.  Both residual branches pass drop-path (whole graphs) and
 equivariant dropout (whole channels); both are active only in
 ``train()`` mode, with masks drawn from the caller's ``torch.Generator``.
 """
@@ -62,22 +62,24 @@ class EquivariantDropout(nn.Module):
 
 class TransBlock(nn.Module):
     def __init__(self, layout_full: IrrepsLayout, layout_red: IrrepsLayout,
-                 grid_full: S2Grid, sphere_channels: int,
+                 grid_red: S2Grid, grid_full: S2Grid, sphere_channels: int,
                  attn_hidden_channels: int, num_heads: int,
                  attn_alpha_channels: int, attn_value_channels: int,
                  ffn_hidden_channels: int, max_num_elements: int,
                  edge_channels_list: Sequence[int], edge_channels: int,
                  alpha_drop: float = 0.0, drop_path_rate: float = 0.0,
-                 proj_drop: float = 0.0):
+                 proj_drop: float = 0.0, gata: bool = True, conv_fused: bool = False):
         super().__init__()
         lmax = layout_full.lmax
-        self.htr = HTR(sphere_channels, edge_channels, lmax)
+        self.gata = gata
+        if gata:
+            self.htr = HTR(sphere_channels, edge_channels, lmax)
         self.attn_norm = EquivariantRMSNormSH(lmax, sphere_channels)
         self.ga = GraphAttention(
-            layout_full, layout_red, sphere_channels, attn_hidden_channels,
+            layout_full, layout_red, grid_red, sphere_channels, attn_hidden_channels,
             num_heads, attn_alpha_channels, attn_value_channels,
             sphere_channels, max_num_elements, edge_channels_list,
-            edge_channels, alpha_drop,
+            edge_channels, alpha_drop, gata, conv_fused,
         )
         self.drop_path = GraphDropPath(drop_path_rate)
         self.proj_drop = EquivariantDropout(proj_drop)
@@ -88,9 +90,11 @@ class TransBlock(nn.Module):
     def forward(self, x, atomic_numbers, edge_scalars, edge_src, edge_dst,
                 edge_mask, wigner, t_ij, rl_ij, k: int, graph_idx,
                 num_graphs: int, generator: Optional[torch.Generator] = None):
-        X_i = gather_nodes(x, edge_src)[:, 1:, :]
-        X_j = gather_dst(x, k)[:, 1:, :]
-        t_ij = self.htr(t_ij, X_i, X_j, rl_ij)
+        """Returns (x, t_ij); ``t_ij`` and ``rl_ij`` are None without GATA."""
+        if self.gata:
+            X_i = gather_nodes(x, edge_src)[:, 1:, :]
+            X_j = gather_dst(x, k)[:, 1:, :]
+            t_ij = self.htr(t_ij, X_i, X_j, rl_ij)
         h = self.ga(self.attn_norm(x), atomic_numbers, edge_scalars, edge_src,
                     edge_dst, edge_mask, wigner, t_ij, rl_ij, k, generator)
         h = self.drop_path(h, graph_idx, num_graphs, generator)

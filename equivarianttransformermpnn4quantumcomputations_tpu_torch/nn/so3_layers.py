@@ -9,19 +9,39 @@ pair (c_{+m}, c_{-m}) as multiplication of c_{+m} + i c_{-m} by e^{i m theta};
 a complex-linear map in that pair commutes with it, which is what SO2Conv
 applies, as one packed real product per order m:
 ``[yr yi] = [xr xi] @ [[wr, wi], [-wi, wr]]``.
+
+``SO2Conv(conv_fused=True)`` runs every order of a site through kernel K3
+(ops/cuda/so2conv.py), which reads and writes the l-primary rows directly;
+the JAX package's ``KernelFlags.conv_fused`` is its counterpart and, as
+there, it is off by default.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops.cuda.so2conv import so2conv_fused, so2conv_supported
 from ..ops.irreps import IrrepsLayout
 from .layers import RadialMLP
 
 __all__ = ["SO3Linear", "SO2Conv"]
+
+
+@functools.lru_cache(maxsize=None)
+def _rad_chunk_map(lay: IrrepsLayout) -> np.ndarray:
+    """l-primary row -> radial chunk index (the radial MLP emits one
+    Cin-wide chunk per (l, m >= 0) pair, m-primary order; the +m and -m
+    rows share their pair's chunk)."""
+    m_abs = np.abs(np.asarray(lay.m_complex))
+    ls = np.asarray(lay.l_harmonic)
+    base = np.cumsum([0] + [int(lay.m_size[m]) for m in range(lay.mmax)])
+    return np.asarray([base[m_abs[k]] + ls[k] - m_abs[k] for k in range(len(ls))],
+                      dtype=np.int64)
 
 
 class SO3Linear(nn.Module):
@@ -54,16 +74,20 @@ class SO2Conv(nn.Module):
     weights.  ``m0_only``: x is the m = 0 block [E, lmax+1, C_in] and only
     the m = 0 outputs are wanted (the GATA value path); the m > 0 weights
     still exist (the same parameters as the full conv) but are not used, and
-    the message output is None.
+    the message output is None.  ``conv_fused``: a full site whose widths
+    the kernel takes (``so2conv_supported``) runs through K3; ``m0_only``
+    sites never do.
     """
 
     def __init__(self, layout: IrrepsLayout, in_channels: int, out_channels: int,
                  extra_m0: int = 0, rad_channels: Optional[Sequence[int]] = None,
-                 m0_only: bool = False):
+                 m0_only: bool = False, conv_fused: bool = False):
         super().__init__()
         self.layout = layout
         self.cin, self.cout = in_channels, out_channels
         self.extra_m0, self.m0_only = extra_m0, m0_only
+        self.fused = (conv_fused and not m0_only
+                      and so2conv_supported(layout, in_channels, out_channels, extra_m0))
         L0 = int(layout.m_size[0])
         self.rad = None
         if rad_channels is not None:
@@ -79,6 +103,36 @@ class SO2Conv(nn.Module):
                              persistent=False)
         self.register_buffer("from_m", torch.as_tensor(layout.from_m_perm, dtype=torch.long),
                              persistent=False)
+        self.register_buffer("rad_chunk", torch.as_tensor(_rad_chunk_map(layout)),
+                             persistent=False)
+        self.register_buffer("m0_rows", torch.as_tensor(
+            np.flatnonzero(np.asarray(layout.m_complex) == 0), dtype=torch.long),
+            persistent=False)
+
+    def _packed_weights(self, dtype: torch.dtype) -> list[torch.Tensor]:
+        """[w_m0] and the butterfly [[wr, wi], [-wi, wr]] of each m > 0, built
+        per call so that autograd carries dW back to w_m{m}_r / _i."""
+        ws = [self.w_m0.to(dtype)]
+        for m in range(1, self.layout.mmax + 1):
+            wr = getattr(self, f"w_m{m}_r").to(dtype)
+            wi = getattr(self, f"w_m{m}_i").to(dtype)
+            ws.append(torch.cat([torch.cat([wr, wi], 1), torch.cat([-wi, wr], 1)], 0))
+        return ws
+
+    def _forward_fused(self, x: torch.Tensor, rad: torch.Tensor | None):
+        """All orders in one K3 launch; biases added after the kernel."""
+        lay, E = self.layout, x.shape[0]
+        if rad is not None:
+            rr = rad.reshape(E, int(lay.m_size.sum()), self.cin)
+            x = x * rr[:, self.rad_chunk, :].to(x.dtype)
+        y, extra = so2conv_fused(x, self._packed_weights(x.dtype), lay.lmax, lay.mmax,
+                                 self.cout, self.extra_m0)
+        b = self.b_m0.to(y.dtype)
+        if self.extra_m0:
+            extra = extra + b[: self.extra_m0]
+        bias_rows = y.new_zeros(y.shape[1], self.cout).index_copy(
+            0, self.m0_rows, b[self.extra_m0 :].reshape(-1, self.cout))
+        return y + bias_rows, extra
 
     def forward(self, x: torch.Tensor, edge_scalars: torch.Tensor | None = None):
         lay = self.layout
@@ -86,6 +140,8 @@ class SO2Conv(nn.Module):
         Cin, Cout = self.cin, self.cout
         L0 = int(lay.m_size[0])
         rad = self.rad(edge_scalars) if self.rad is not None else None
+        if self.fused:
+            return self._forward_fused(x, rad)
 
         xm = x if self.m0_only else x[:, self.to_m, :]  # m-primary
         x0 = xm[:, :L0, :].reshape(E, L0 * Cin)
@@ -102,6 +158,7 @@ class SO2Conv(nn.Module):
             extra, y0 = y0[:, : self.extra_m0], y0[:, self.extra_m0 :]
         blocks = [y0.reshape(E, L0, Cout)]
         offset, offset_rad = L0, L0 * Cin
+        wbigs = self._packed_weights(x.dtype)
         for m in range(1, lay.mmax + 1):
             Lm = int(lay.m_size[m])
             xr = xm[:, offset : offset + Lm, :].reshape(E, Lm * Cin)
@@ -110,10 +167,7 @@ class SO2Conv(nn.Module):
                 rm = rad[:, offset_rad : offset_rad + Lm * Cin]
                 xr, xi = xr * rm, xi * rm
                 offset_rad += Lm * Cin
-            wr = getattr(self, f"w_m{m}_r").to(x.dtype)
-            wi = getattr(self, f"w_m{m}_i").to(x.dtype)
-            wbig = torch.cat([torch.cat([wr, wi], 1), torch.cat([-wi, wr], 1)], 0)
-            y = torch.cat([xr, xi], dim=1) @ wbig
+            y = torch.cat([xr, xi], dim=1) @ wbigs[m]
             blocks.append(y.reshape(E, 2 * Lm, Cout))
             offset += 2 * Lm
         return torch.cat(blocks, dim=1)[:, self.from_m, :], extra

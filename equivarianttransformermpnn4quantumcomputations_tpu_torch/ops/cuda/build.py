@@ -32,7 +32,7 @@ __all__ = ["SOURCES", "build", "library", "check", "ptxas_report"]
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("rotate_dense", "s2act")
+SOURCES = ("rotate_dense", "s2act", "so2conv")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,6 +49,9 @@ _SIGNATURES = {
     "s2act": {
         "etq_s2act": ([_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
         "etq_s2act_k3": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    },
+    "so2conv": {
+        "etq_so2conv": ([_I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P], _I),
     },
 }
 
@@ -74,7 +77,7 @@ def _parse_ptxas(log: str) -> list[dict]:
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             mangled = m.group(1)
-            base = re.search(r"(pairs_kernel|s2act_k3_kernel|s2act_kernel)I", mangled)
+            base = re.search(r"(pairs_kernel|s2act_k3_kernel|s2act_kernel|so2conv_kernel)I", mangled)
             args = ["bf16" if "bfloat16" in mangled else "f32"]
             args += re.findall(r"L[ib](\d+)E", mangled)
             out.append(dict(name=f"{base.group(1) if base else mangled}<{','.join(args)}>",

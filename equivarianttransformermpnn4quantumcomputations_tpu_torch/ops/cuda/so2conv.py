@@ -1,0 +1,266 @@
+"""K3: fused SO(2) convolution (every m-group of a site in one launch) and
+its adjoint, for Hopper.
+
+Port of the JAX package's ops/pallas/so2conv.py (kernels ``_fwd_kernel`` and
+``_adj_kernel``).  A conv site is one GEMM per m-group g with a packed weight
+``W_g [rows_g * Cin, N_g]`` (m = 0: ``[w_m0]`` with the extra columns first;
+m > 0: the butterfly ``[[wr, wi], [-wi, wr]]``).  The kernels in
+``csrc/so2conv.cu`` read the group's input rows straight from the l-primary
+tensor and write its outputs straight to l-primary rows, so the
+``to_m_perm`` / ``from_m_perm`` copies and the output concatenation of the
+unfused path disappear; the adjoint reads ``W_g`` transposed in place.
+
+Differentiation mirrors the JAX package's custom_vjp pair ``_core`` /
+``_core_adj``: the operator is bilinear in (x, W).  The backward of
+``_SO2Conv`` is ``_SO2ConvAdj`` (the adjoint kernel) for dx plus
+``dW_g = X_g^T [dextra | dY rows]``; the backward of ``_SO2ConvAdj`` is
+``_SO2Conv`` plus the same product.  dW is ``torch.matmul``, as the JAX
+package leaves it to XLA, so grad-of-grad works to any order.
+
+CPU tensors run the plain versions ``fwd_plain`` / ``adj_plain``; CUDA
+tensors launch the kernels; nothing falls back.  ``so2conv_supported`` gives
+the kernel's own shape limits (every row segment a multiple of 8 wide); a
+site outside them takes the unfused path in nn/so3_layers.py, as in the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..irreps import IrrepsLayout
+from ..irreps import layout as get_layout
+
+__all__ = ["so2conv_fused", "so2conv_supported", "fwd_plain", "adj_plain", "launches"]
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_WIDTH = 8                  # csrc/so2conv.cu: BK, the segment-width quantum
+_MAX_GROUPS, _MAX_ROWS = 8, 16
+
+# kernel launches (the launch wrapper adds one per launch)
+launches = {"fwd": 0, "adj": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def _row_maps(lmax: int, mmax: int) -> tuple[np.ndarray, ...]:
+    """Per m-group g (g = 0 is m = 0): the l-primary rows feeding the
+    group's GEMM, in the m-primary order the packed weight expects (real
+    rows, then imaginary rows, for m > 0).  The same rows receive the
+    group's outputs."""
+    lay = get_layout(lmax, mmax)
+    perm = np.asarray(lay.to_m_perm)
+    sizes = [int(lay.m_size[0])] + [2 * int(lay.m_size[m]) for m in range(1, mmax + 1)]
+    bounds = np.cumsum([0] + sizes)
+    return tuple(perm[bounds[g]:bounds[g + 1]].copy() for g in range(len(sizes)))
+
+
+@functools.lru_cache(maxsize=None)
+def _row_index(lmax: int, mmax: int, device: str) -> tuple[torch.Tensor, ...]:
+    return tuple(torch.as_tensor(r, dtype=torch.long, device=device)
+                 for r in _row_maps(lmax, mmax))
+
+
+@functools.lru_cache(maxsize=None)
+def _c_tables(lmax: int, mmax: int):
+    groups = _row_maps(lmax, mmax)
+    rows = (ctypes.c_int * len(groups))(*[len(r) for r in groups])
+    flat = np.concatenate(groups)
+    lrows = (ctypes.c_int * len(flat))(*[int(v) for v in flat])
+    return rows, lrows
+
+
+def so2conv_supported(layout: IrrepsLayout, Cin: int, Cout: int, extra: int) -> bool:
+    """Shapes the kernel takes: Cin, Cout and extra multiples of 8 (one
+    depth stage never crosses a row segment), at most 8 m-groups of at most
+    16 rows."""
+    groups = _row_maps(layout.lmax, layout.mmax)
+    return (Cin % _WIDTH == 0 and Cout % _WIDTH == 0 and extra % _WIDTH == 0
+            and len(groups) <= _MAX_GROUPS and max(map(len, groups)) <= _MAX_ROWS)
+
+
+# ── plain versions ────────────────────────────────────────────────────────
+
+
+def fwd_plain(x: torch.Tensor, ws, lmax: int, mmax: int, Cout: int,
+              extra: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Plain version of K3-fwd: x [E, K, Cin] -> (y [E, K, Cout],
+    extra [E, extra] | None), f32 accumulation."""
+    E, K, _ = x.shape
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y = torch.empty(E, K, Cout, dtype=acc, device=x.device)
+    ex = None
+    for g, rows in enumerate(_row_index(lmax, mmax, str(x.device))):
+        out = x.index_select(1, rows).reshape(E, -1).to(acc) @ ws[g].to(acc)
+        if g == 0 and extra:
+            ex, out = out[:, :extra], out[:, extra:]
+        y[:, rows, :] = out.reshape(E, len(rows), Cout)
+    return y.to(x.dtype), None if ex is None else ex.to(x.dtype)
+
+
+def adj_plain(dy: torch.Tensor, dextra: torch.Tensor | None, ws, lmax: int,
+              mmax: int, Cin: int) -> torch.Tensor:
+    """Plain version of K3-adj: dx [E, K, Cin] from dy [E, K, Cout] and
+    dextra [E, extra] | None, f32 accumulation."""
+    E, K, _ = dy.shape
+    acc = torch.promote_types(dy.dtype, torch.float32)
+    dx = torch.empty(E, K, Cin, dtype=acc, device=dy.device)
+    for g, rows in enumerate(_row_index(lmax, mmax, str(dy.device))):
+        dY = _group_rows(dy, dextra if g == 0 else None, rows).to(acc)
+        dx[:, rows, :] = (dY @ ws[g].to(acc).t()).reshape(E, len(rows), Cin)
+    return dx.to(dy.dtype)
+
+
+def _group_rows(t: torch.Tensor, lead: torch.Tensor | None, rows) -> torch.Tensor:
+    """[lead | t[:, rows[0], :] | t[:, rows[1], :] | ...] as [E, width]."""
+    flat = t.index_select(1, rows).reshape(t.shape[0], -1)
+    return flat if lead is None else torch.cat([lead, flat], dim=1)
+
+
+# ── the kernels ───────────────────────────────────────────────────────────
+
+
+def _launch(adjoint: bool, a: torch.Tensor, a_extra: torch.Tensor | None, ws,
+            lmax: int, mmax: int, c_out: int, extra: int):
+    """Launch ``csrc/so2conv.cu`` on the current stream.  Forward: a = x,
+    returns (y, extra | None); adjoint: a = dy, a_extra = dextra, returns dx."""
+    from . import build
+
+    groups = _row_maps(lmax, mmax)
+    E, K, c_in = a.shape
+    if a.dtype not in _DTYPE_CODE:
+        raise TypeError(f"so2conv kernel takes float32 or bfloat16, not {a.dtype}")
+    if K != sum(map(len, groups)):
+        raise ValueError(f"a has {K} rows; lmax {lmax} mmax {mmax} has {sum(map(len, groups))}")
+    if min(c_in, c_out) % _WIDTH or extra % _WIDTH:
+        raise ValueError(f"so2conv kernel needs channel widths that are multiples of "
+                         f"{_WIDTH} (got {c_in}, {c_out}, extra {extra})")
+    cin_f, cout_f = (c_out, c_in) if adjoint else (c_in, c_out)
+    tensors = [a, *ws] + ([a_extra] if adjoint and extra else [])
+    for g, rows in enumerate(groups):
+        want = (len(rows) * cin_f, (extra if g == 0 else 0) + len(rows) * cout_f)
+        if tuple(ws[g].shape) != want:
+            raise ValueError(f"W_{g} has shape {tuple(ws[g].shape)}, expected {want}")
+    if adjoint and extra and tuple(a_extra.shape) != (E, extra):
+        raise ValueError(f"dextra has shape {tuple(a_extra.shape)}, expected {(E, extra)}")
+    for t in tensors:
+        if not (t.is_cuda and t.device == a.device and t.dtype == a.dtype):
+            raise ValueError("so2conv inputs must share one CUDA device and dtype")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("so2conv inputs must be contiguous and 16-byte aligned")
+    out = torch.empty(E, K, c_out, dtype=a.dtype, device=a.device)
+    out_extra = (torch.empty(E, extra, dtype=a.dtype, device=a.device)
+                 if extra and not adjoint else None)
+    rows_c, lrows_c = _c_tables(lmax, mmax)
+    w_ptrs = (ctypes.c_void_p * len(ws))(*[w.data_ptr() for w in ws])
+    lib = build.library("so2conv")
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    rc = lib.etq_so2conv(
+        _DTYPE_CODE[a.dtype], int(adjoint), E, K, c_in, c_out, len(groups),
+        ctypes.addressof(rows_c), ctypes.addressof(lrows_c), extra, a.data_ptr(),
+        a_extra.data_ptr() if adjoint and extra else 0, ctypes.addressof(w_ptrs),
+        out.data_ptr(), 0 if out_extra is None else out_extra.data_ptr(), stream,
+    )
+    build.check("so2conv", rc, "so2conv.adj" if adjoint else "so2conv.fwd")
+    launches["adj" if adjoint else "fwd"] += 1
+    return out if adjoint else (out, out_extra)
+
+
+def fwd(x: torch.Tensor, ws, lmax: int, mmax: int, Cout: int, extra: int):
+    """K3-fwd on a CUDA tensor, its plain version on a CPU tensor."""
+    if x.is_cuda:
+        return _launch(False, x, None, ws, lmax, mmax, Cout, extra)
+    return fwd_plain(x, ws, lmax, mmax, Cout, extra)
+
+
+def adj(dy: torch.Tensor, dextra: torch.Tensor | None, ws, lmax: int, mmax: int,
+        Cin: int) -> torch.Tensor:
+    """K3-adj on a CUDA tensor, its plain version on a CPU tensor."""
+    if dy.is_cuda:
+        extra = 0 if dextra is None else dextra.shape[1]
+        return _launch(True, dy, dextra, ws, lmax, mmax, Cin, extra)
+    return adj_plain(dy, dextra, ws, lmax, mmax, Cin)
+
+
+# ── differentiable core (the JAX package's mutual custom_vjp pair) ─────────
+
+
+def _dws(xr: torch.Tensor, yr: torch.Tensor, yextra: torch.Tensor | None,
+         ws, lmax: int, mmax: int) -> list[torch.Tensor]:
+    """dW_g = [rows of xr]^T @ [yextra (g = 0) | rows of yr]: the weight
+    gradient of both directions, by torch.matmul (differentiable)."""
+    out = []
+    for g, rows in enumerate(_row_index(lmax, mmax, str(xr.device))):
+        xg = _group_rows(xr, None, rows)
+        yg = _group_rows(yr, yextra if g == 0 else None, rows)
+        acc = torch.promote_types(xg.dtype, torch.float32)
+        out.append((xg.to(acc).t() @ yg.to(acc)).to(ws[g].dtype))
+    return out
+
+
+class _Aux:
+    """Static configuration of one conv site."""
+
+    def __init__(self, lmax: int, mmax: int, Cin: int, Cout: int, extra: int):
+        self.lmax, self.mmax = lmax, mmax
+        self.Cin, self.Cout, self.extra = Cin, Cout, extra
+
+
+class _SO2Conv(torch.autograd.Function):
+    """(y, extra) = conv(x, W); backward is _SO2ConvAdj plus dW."""
+
+    @staticmethod
+    def forward(ctx, x, aux: _Aux, *ws):
+        ctx.save_for_backward(x, *ws)
+        ctx.aux = aux
+        y, ex = fwd(x, ws, aux.lmax, aux.mmax, aux.Cout, aux.extra)
+        return (y, ex) if aux.extra else y
+
+    @staticmethod
+    def backward(ctx, dy, dextra=None):
+        x, *ws = ctx.saved_tensors
+        aux = ctx.aux
+        dy = dy.contiguous()
+        dextra = dextra.contiguous() if aux.extra else None
+        dx = _SO2ConvAdj.apply(dy, dextra, aux, *ws) if ctx.needs_input_grad[0] else None
+        dws = (_dws(x, dy, dextra, ws, aux.lmax, aux.mmax) if any(ctx.needs_input_grad[2:])
+               else [None] * len(ws))
+        return (dx, None, *dws)
+
+
+class _SO2ConvAdj(torch.autograd.Function):
+    """dx = adj(dy, dextra, W), linear in (dy, dextra); backward is
+    _SO2Conv plus dW."""
+
+    @staticmethod
+    def forward(ctx, dy, dextra, aux: _Aux, *ws):
+        ctx.save_for_backward(dy, dextra, *ws)
+        ctx.aux = aux
+        return adj(dy, dextra, ws, aux.lmax, aux.mmax, aux.Cin)
+
+    @staticmethod
+    def backward(ctx, ddx):
+        dy, dextra, *ws = ctx.saved_tensors
+        aux = ctx.aux
+        ddx = ddx.contiguous()
+        ddy = ddextra = None
+        if any(ctx.needs_input_grad[:2]):
+            out = _SO2Conv.apply(ddx, aux, *ws)
+            ddy, ddextra = out if aux.extra else (out, None)
+        dws = (_dws(ddx, dy, dextra, ws, aux.lmax, aux.mmax) if any(ctx.needs_input_grad[3:])
+               else [None] * len(ws))
+        return (ddy, ddextra, None, *dws)
+
+
+def so2conv_fused(x: torch.Tensor, ws, lmax: int, mmax: int, Cout: int,
+                  extra: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Fused SO(2) conv.  x: [E, K_red, Cin] l-primary (radial scaling, if
+    any, already applied); ws: per-group packed weights (m = 0:
+    [L0 Cin, extra + L0 Cout]; m > 0: butterfly [2 Lm Cin, 2 Lm Cout]).
+    Returns (y [E, K_red, Cout], extra [E, extra] | None)."""
+    aux = _Aux(lmax, mmax, x.shape[2], Cout, extra)
+    out = _SO2Conv.apply(x.contiguous(), aux, *[w.contiguous() for w in ws])
+    return out if extra else (out, None)

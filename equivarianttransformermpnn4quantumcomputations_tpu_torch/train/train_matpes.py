@@ -57,6 +57,7 @@ def build_model(cfg: dict, mixed_precision: bool) -> EquiformerV2MatPES:
         avg_degree=cfg["avg_degree"], alpha_drop=cfg["alpha_drop"],
         drop_path_rate=cfg["drop_path_rate"],
         compute_dtype=torch.bfloat16 if mixed_precision else torch.float32,
+        conv_fused=bool(cfg.get("conv_fused", False)),
     )
 
 

@@ -1,7 +1,7 @@
-"""Training harness of the MatPES force-training step: guarded AdamW, EMA,
-mixed precision, loss.
+"""Training harness of the MatPES force-training step and the QM9 step:
+guarded AdamW, EMA, mixed precision, losses.
 
-Port of the JAX package's train/trainer.py (the MatPES parts):
+Port of the JAX package's train/trainer.py (the MatPES and QM9 parts):
 
 * ``GuardedAdamW``: one global-norm reduction over all gradients feeds both
   the clip scale ``min(1, clip / |g|)`` and the skip decision; a non-finite
@@ -23,6 +23,10 @@ Port of the JAX package's train/trainer.py (the MatPES parts):
   so the loss backward is a grad-of-grad through every kernel; the step
   computes in the model's ``compute_dtype`` (bfloat16: through
   ``cast_params``); TF32 is off inside each step (the geometry is float32).
+* ``qm9_loss`` / ``make_qm9_train_step``: L1 (or MSE) on the normalized
+  targets, one first-order backward, the same optimizer, EMA and
+  precision rules (float32 unless the model computes in bfloat16, as in
+  the JAX package, whose ``mixed_precision`` is off by default).
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from ..models.matpes import matpes_energy_forces
 from ..utils.precision import full_f32_products
 
 __all__ = ["decays", "wd_mask", "GuardedAdamW", "TrainState", "create_train_state",
-           "ema_update", "cast_params", "matpes_loss", "make_matpes_train_step"]
+           "ema_update", "cast_params", "matpes_loss", "make_matpes_train_step",
+           "qm9_loss", "make_qm9_train_step"]
 
 
 def decays(name: str, p: torch.Tensor) -> bool:
@@ -202,5 +207,43 @@ def make_matpes_train_step(state: TrainState, w_energy: float = 1.0,
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), {**metrics, "loss": loss.detach(), **info}
+
+    return step
+
+
+def qm9_loss(pred: torch.Tensor, target: torch.Tensor, kind: str = "l1") -> torch.Tensor:
+    """pred / target [B, T]; the mean over molecules and targets."""
+    d = pred.float() - target
+    return d.abs().mean() if kind == "l1" else (d * d).mean()
+
+
+def make_qm9_train_step(state: TrainState, loss_kind: str = "l1", ema_decay: float = 0.999,
+                        generator: torch.Generator | None = None):
+    """``step(batch) -> (loss, metrics)`` for ``models/qm9.py:EquiformerV2QM9``,
+    updating ``state`` in place (the JAX package's ``make_qm9_train_step``).
+
+    The model runs in ``train()`` mode (dropout masks from ``generator``);
+    a model built with ``compute_dtype=torch.bfloat16`` computes with
+    bfloat16 copies of its float32 master weights.  The guard, the EMA and
+    ``state.step`` behave as in ``make_matpes_train_step``.
+    """
+    model = state.model
+    cdt = model.backbone.compute_dtype
+
+    def step(batch: dict):
+        model.train()
+        with full_f32_products():
+            model.zero_grad(set_to_none=True)
+            if cdt == torch.float32:
+                pred = model(batch, generator=generator)
+            else:
+                pred = torch.func.functional_call(model, cast_params(model, cdt), (batch,),
+                                                  dict(generator=generator))
+            loss = qm9_loss(pred, batch["y"], loss_kind)
+            loss.backward()
+            info = state.optimizer.step()
+            ema_update(state.ema, model, ema_decay)
+        state.step += 1
+        return loss.detach(), {"loss": loss.detach(), **info}
 
     return step

@@ -1,9 +1,12 @@
 """Flax params (nested dict of numpy arrays) -> the port's ``state_dict``.
 
-The JAX package's ``EquiformerV2MatPES`` params map one to one onto the
-port's modules:
+The params of the JAX package's ``EquiformerV2MatPES`` (GATA-V2) and
+``EquiformerV2QM9`` (baseline backbone + ``output_blocks``) map one to one
+onto the port's modules:
 
-* ``Dense`` ``kernel`` [in, out] -> ``nn.Linear.weight`` [out, in];
+* ``Dense`` ``kernel`` [in, out] -> ``nn.Linear.weight`` [out, in] (the
+  QM9 heads' stacked ``kernel`` [T, in, out] -> [T, out, in]: the last two
+  axes swap);
   ``Embed`` ``embedding`` -> ``nn.Embedding.weight``; ``LayerNorm``
   ``scale`` -> ``weight``; every other leaf (SO3/SO2 weights, norms,
   ``alpha_dot``) keeps its name and layout;
@@ -63,7 +66,7 @@ def _rename(path: tuple) -> tuple:
 def _leaf(path: tuple, value: np.ndarray | None):
     *mods, leaf = path
     if leaf == "kernel":
-        return mods + ["weight"], None if value is None else value.T
+        return mods + ["weight"], None if value is None else np.swapaxes(value, -1, -2)
     if leaf in ("embedding", "scale"):
         return mods + ["weight"], value
     return mods + [leaf], value
@@ -77,7 +80,8 @@ def port_name(path: tuple) -> str:
 
 def flax_to_state_dict(params) -> dict[str, torch.Tensor]:
     """Convert ``{'params': ...}`` or the bare params tree of the JAX
-    package's ``EquiformerV2MatPES`` into the port's ``state_dict``."""
+    package's ``EquiformerV2MatPES`` or ``EquiformerV2QM9`` into the port's
+    ``state_dict``."""
     tree = params.get("params", params)
     flat = flatten(tree)
     expanded = {}

@@ -2,13 +2,17 @@
 or one training step.
 
     python -m equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling \
-        [--train] [--structures 16] [--atoms 30] [--json PATH]
+        [--train | --qm9] [--structures N] [--atoms N] [--json PATH]
 
 Serving (default): the flagship Predictor (``models/matpes.py:FLAGSHIP``,
 seeded random weights) answers requests of random periodic structures.
 ``--train``: one flagship force-training step in bf16 (f32 master weights,
 guarded AdamW, EMA; dropout off as in bench.py) on labelled structures
-(``data/synthetic.py:labelled_structures``).  Either way it warms up twice,
+(``data/synthetic.py:labelled_structures``).  ``--qm9``: one f32 training
+step of the full-width QM9 model (``configs/qm9.py:config``, seeded random
+weights, its dropouts) on 64 random molecules of 18 atoms
+(``random_molecules``), once with ``conv_fused`` (kernel K3) and once
+without, in that order.  Each profile warms up twice,
 times one call unprofiled, then profiles one with ``torch.profiler`` (CPU and CUDA
 activities) and prints: the call's time with and without the profiler,
 the host time of the graph build and collate, the summed kernel time, the
@@ -28,10 +32,12 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["random_structures", "profile_call", "main"]
+__all__ = ["random_structures", "random_molecules", "qm9_batch", "qm9_train_state",
+           "profile_call", "main"]
 
 _BUCKETS = (
-    ("port kernels (pairs, s2act)", ("pairs_kernel", "s2act_kernel", "s2act_k3_kernel")),
+    ("port kernels (pairs, s2act, so2conv)",
+     ("pairs_kernel", "s2act_kernel", "s2act_k3_kernel", "so2conv_kernel")),
     ("optimizer (multi-tensor)", ("multi_tensor",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "gemv", "splitK")),
     ("gather / scatter / index", ("index", "gather", "scatter")),
@@ -51,6 +57,60 @@ def random_structures(rng: np.random.Generator, n: int, atoms: int) -> list[dict
         z = rng.integers(1, 80, size=atoms).astype(np.int32)
         out.append(dict(atomic_numbers=z, positions=pos, cell=cell))
     return out
+
+
+def random_molecules(rng: np.random.Generator, n: int, atoms: int) -> list:
+    """``n`` molecules of ``atoms`` atoms (QM9's mean size is 18) with 12
+    random normalized targets: elements H, C, N, O, F on jittered sites of
+    a 4 x 3 x 2 lattice of 1.3 A spacing (no two atoms closer than 1.1 A;
+    nearly every pair within QM9's 5 A cutoff)."""
+    from ..data.graph import GraphSample
+
+    sites = np.stack(np.meshgrid(np.arange(4), np.arange(3), np.arange(2), indexing="ij"),
+                     -1).reshape(-1, 3).astype(np.float32) * 1.3
+    if atoms > len(sites):
+        raise ValueError(f"at most {len(sites)} atoms")
+    out = []
+    for _ in range(n):
+        pos = sites[rng.permutation(len(sites))[:atoms]]
+        pos = pos + rng.uniform(-0.1, 0.1, size=pos.shape).astype(np.float32)
+        z = rng.choice(np.array([1, 6, 7, 8, 9], np.int32), size=atoms)
+        out.append(GraphSample(atomic_numbers=z, pos=pos.astype(np.float32),
+                               y=rng.normal(size=12).astype(np.float32)))
+    return out
+
+
+def qm9_batch(rng: np.random.Generator, n: int, atoms: int, cutoff: float = 5.0):
+    """A fixed-degree batch of ``random_molecules``: ``atoms`` node slots per
+    molecule and ``atoms - 1`` edge slots per node (every other atom of the
+    molecule; QM9's cap of 50 neighbours does not bind)."""
+    from ..data.graph import collate
+
+    n_pad = n * atoms
+    pb = collate(random_molecules(rng, n, atoms), cutoff, None, n_pad, n_pad * (atoms - 1))
+    if pb.overflow_atoms or pb.overflow_edges:
+        raise RuntimeError("QM9 batch overflowed its pads")
+    return pb
+
+
+def qm9_train_state(conv_fused: bool):
+    """The full-width QM9 model (``configs/qm9.py:config``, its dropouts)
+    with seeded random weights on the card, its guarded AdamW, EMA and
+    step."""
+    from ..configs.qm9 import config as cfg
+    from ..models.matpes import init_weights
+    from ..train.schedules import warmup_cosine
+    from ..train.train_qm9 import build_model
+    from ..train.trainer import GuardedAdamW, create_train_state, make_qm9_train_step
+
+    model = build_model({**cfg, "conv_fused": conv_fused})
+    init_weights(model, torch.Generator().manual_seed(0)).to("cuda")
+    opt = GuardedAdamW(model.named_parameters(), warmup_cosine(cfg["lr"], 100, 10000),
+                       cfg["weight_decay"], cfg["grad_clip"])
+    state = create_train_state(model, opt)
+    step = make_qm9_train_step(state, cfg["loss"], cfg["ema_decay"],
+                               torch.Generator("cuda").manual_seed(0))
+    return state, step
 
 
 def _bucket(name: str) -> str:
@@ -151,21 +211,22 @@ def _training(args) -> tuple[str, dict]:
                                  **profile_call(lambda: step(batch)))
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--train", action="store_true",
-                    help="profile a flagship bf16 training step, not a serving request")
-    ap.add_argument("--structures", type=int, default=16)
-    ap.add_argument("--atoms", type=int, default=30)
-    ap.add_argument("--json", default=None, help="write the record here too")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profiling needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    what, rec = (_training if args.train else _serving)(args)
+def _qm9(args, conv_fused: bool) -> tuple[str, dict]:
+    from ..data.graph import as_tensors
+
+    state, step = qm9_train_state(conv_fused)
+    t = time.perf_counter()
+    pb = qm9_batch(np.random.default_rng(0), args.structures, args.atoms)
+    host_ms = (time.perf_counter() - t) * 1e3
+    batch = as_tensors(pb, "cuda")
+    for _ in range(2):
+        step(batch)
+    rec = dict(host_graph_build_ms=host_ms, **profile_call(lambda: step(batch)))
+    del state, step
+    return f"QM9 training step (conv_fused {'on' if conv_fused else 'off'})", rec
+
+
+def _report(card: str, what: str, rec: dict, args) -> dict:
     rec = dict(device=card, what=what, structures=args.structures, atoms=args.atoms,
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30, **rec)
     print(f"{what} {rec['ms']:.1f} ms (profiled {rec['ms_profiled']:.1f} ms, "
@@ -174,13 +235,45 @@ def main(argv=None) -> int:
           f"{rec['device_busy_ms']:.1f} ms = {100 * rec['device_busy_share']:.1f} % of "
           f"the profiled call, peak memory {rec['peak_memory_gib']:.2f} GiB  [{card}]")
     for b, ms in rec["buckets_ms"].items():
-        print(f"  {b:30s} {ms:8.2f} ms  [{card}]")
+        print(f"  {b:38s} {ms:8.2f} ms  [{card}]")
     for k in rec["top_kernels"]:
         print(f"  {k['ms']:8.2f} ms x{k['count']:4d}  {k['name'][:110]}")
+    print(json.dumps({k: v for k, v in rec.items() if k != "top_kernels"}))
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="profile a flagship bf16 training step, not a serving request")
+    mode.add_argument("--qm9", action="store_true",
+                      help="profile a QM9 training step, with and without kernel K3")
+    ap.add_argument("--structures", type=int, default=None,
+                    help="structures per call (default 16; --qm9: 64 molecules)")
+    ap.add_argument("--atoms", type=int, default=None,
+                    help="atoms per structure (default 30; --qm9: 18)")
+    ap.add_argument("--json", default=None, help="write the records here too")
+    args = ap.parse_args(argv)
+    args.structures = args.structures or (64 if args.qm9 else 16)
+    args.atoms = args.atoms or (18 if args.qm9 else 30)
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    if args.qm9:
+        calls = [lambda: _qm9(args, True), lambda: _qm9(args, False)]
+    else:
+        calls = [lambda: (_training if args.train else _serving)(args)]
+    recs = []
+    for call in calls:
+        torch.cuda.reset_peak_memory_stats()
+        recs.append(_report(card, *call(), args))
     if args.json:
         with open(args.json, "w") as f:
-            json.dump(rec, f, indent=1)
-    print(json.dumps({k: v for k, v in rec.items() if k != "top_kernels"}))
+            json.dump(recs if len(recs) > 1 else recs[0], f, indent=1)
     return 0
 
 

@@ -28,7 +28,10 @@ from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.nn.activations import (
     s2_activation,
 )
+from equivarianttransformermpnn4quantumcomputations_tpu_torch.nn.so3_layers import SO2Conv
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import s2act
+from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import so2conv as k3
+from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.irreps import layout
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.s2grid import s2grid
 
 pytestmark = pytest.mark.cuda
@@ -155,6 +158,70 @@ def test_narrow_s2_site_on_the_card_launches_the_kernel(dev):
     (gxc,) = torch.autograd.grad(yc.square().sum(), xc)
     _close(y.detach(), yc.to(dev), torch.float32)
     torch.testing.assert_close(gx.cpu(), gxc, rtol=1e-4, atol=1e-4)
+
+
+def _k3_weights(lmax, mmax, cin, cout, extra, g, dev, dtype):
+    return [(torch.randn(len(r) * cin, (extra if i == 0 else 0) + len(r) * cout,
+                         generator=g, device=dev) / (len(r) * cin) ** 0.5).to(dtype)
+            for i, r in enumerate(k3._row_maps(lmax, mmax))]
+
+
+# (lmax, mmax, Cin, Cout, extra): a narrow site, QM9's conv 1 and conv 2
+K3_SITES = [(2, 1, 40, 24, 16), (4, 2, 256, 128, 384), (4, 2, 128, 128, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("site", K3_SITES, ids=str)
+def test_so2conv_kernels_match_plain(dev, site, dtype):
+    """K3-fwd and K3-adj at a ragged edge count (E = 301, not a tile multiple)."""
+    lmax, mmax, cin, cout, extra = site
+    g = torch.Generator(device=dev).manual_seed(6)
+    K = sum(map(len, k3._row_maps(lmax, mmax)))
+    ws = _k3_weights(lmax, mmax, cin, cout, extra, g, dev, dtype)
+    x = torch.randn(301, K, cin, generator=g, device=dev).to(dtype)
+    dy = torch.randn(301, K, cout, generator=g, device=dev).to(dtype)
+    dex = torch.randn(301, extra, generator=g, device=dev).to(dtype) if extra else None
+    before = dict(k3.launches)
+    y, ex = k3.fwd(x, ws, lmax, mmax, cout, extra)
+    dx = k3.adj(dy, dex, ws, lmax, mmax, cin)
+    assert (k3.launches["fwd"], k3.launches["adj"]) == (before["fwd"] + 1, before["adj"] + 1)
+    y_ref, ex_ref = k3.fwd_plain(x, ws, lmax, mmax, cout, extra)
+    _close(y, y_ref, dtype)
+    if extra:
+        _close(ex, ex_ref, dtype)
+    _close(dx, k3.adj_plain(dy, dex, ws, lmax, mmax, cin), dtype)
+
+
+def test_so2conv_grad_of_grad_on_the_card_matches_the_cpu(dev):
+    """SO2Conv(conv_fused=True) with radial weights: the param gradient of
+    |dL/dx|^2 on the card (K3-fwd and K3-adj twice each) against the CPU."""
+    lay = layout(4, 2)
+    torch.manual_seed(7)
+    conv = SO2Conv(lay, 64, 32, extra_m0=32, rad_channels=(16, 16), conv_fused=True)
+    with torch.no_grad():
+        for p in conv.parameters():
+            p.normal_(0.0, 0.2)
+    x = torch.randn(150, 19, 64)
+    s = torch.randn(150, 16)
+
+    def run(device):
+        m = SO2Conv(lay, 64, 32, extra_m0=32, rad_channels=(16, 16), conv_fused=True)
+        m.load_state_dict(conv.state_dict())
+        m.to(device)
+        xx = x.to(device).requires_grad_(True)
+        y, ex = m(xx, s.to(device))
+        (gx,) = torch.autograd.grad(y.square().sum() + ex.square().sum(), xx,
+                                    create_graph=True)
+        gx.square().sum().backward()
+        return {n: p.grad.cpu() for n, p in m.named_parameters()}
+
+    before = dict(k3.launches)
+    got = run(dev)
+    assert (k3.launches["fwd"] - before["fwd"], k3.launches["adj"] - before["adj"]) == (2, 2)
+    want = run("cpu")
+    num = sum(float((got[k] - want[k]).double().square().sum()) for k in want)
+    den = sum(float(want[k].double().square().sum()) for k in want)
+    assert (num / den) ** 0.5 <= 1e-4
 
 
 def test_model_on_the_card_matches_the_cpu(dev):

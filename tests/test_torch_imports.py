@@ -51,7 +51,10 @@ def test_port_has_every_module_of_the_slice():
                 "data/synthetic.py", "data/loader.py", "configs/matpes.py",
                 "train/schedules.py", "train/trainer.py", "train/checkpoint.py",
                 "train/train_matpes.py", "utils/logging.py", "utils/profiling.py",
-                "csrc/rotate_dense.cu", "csrc/s2act.cu"):
+                "csrc/rotate_dense.cu", "csrc/s2act.cu",
+                "ops/cuda/so2conv.py", "csrc/so2conv.cu", "models/qm9.py",
+                "data/qm9.py", "configs/qm9.py", "train/train_qm9.py",
+                "train/test_qm9.py"):
         assert (PORT / rel).is_file(), rel
 
 
