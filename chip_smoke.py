@@ -7,17 +7,26 @@ Phases, each of which raises on failure:
   1. print the card (name and power limit, from nvidia-smi);
   2. build the hand-written kernels from ``csrc/`` (one nvcc per source, in
      parallel) and print the ptxas register / spill report;
-  3. hold every kernel against its plain PyTorch version at the shapes the
-     serving path gives it, in float32 and bfloat16, and time kernel, plain
+  3. hold every kernel against its plain PyTorch version at the shapes its
+     main path gives it, in float32 and bfloat16, and time kernel, plain
      version and (where one exists) a single PyTorch call computing the same
-     function, beside the least time the card could take; K3 (the fused
-     SO(2) convolution and its adjoint) at QM9's conv 1 and conv 2 and the
-     flagship's conv 2, with its grad-of-grad, the three cuBLAS GEMMs of the
-     site (library) and the port's unfused SO2Conv beside it;
+     function, beside the least time the card could take: K1 and K2 at the
+     flagship's serving shapes; K3 (the fused SO(2) convolution and its
+     adjoint) at QM9's conv 1 and conv 2 and the flagship's conv 2, with its
+     grad-of-grad, the three cuBLAS GEMMs of the site (library) and the
+     port's unfused SO2Conv beside it; K4 (the fused factored rotation) at
+     OC20's "to" / "from" (lmax 6 / mmax 2) and the flagship's "to_m0" /
+     "from_m0" / "from" (lmax 4 / mmax 2), with first-order and grad-of-grad
+     through its autograd pair and torch.bmm of the per-edge dense Wigner
+     (library); K2a / K2b / K2c at OC20's K = 49 (P = 210) and K = 29
+     (P = 70);
   4. serve 3 requests of 16 periodic structures of 30 atoms through the
      flagship MatPES GATA-V2 ``Predictor`` (bench.py:327-335 widths, seeded
      random weights) with the launch counts zeroed just before, and fail if a
      kernel of the path was never launched;
+  4b. serve the first request again with the same weights on the factored
+     Wigner representation: energies and forces must agree with the dense
+     run within phase 5's limits, and K4's "to_m0" and "from" must launch;
   5. compare energies and forces of a 4-structure request on the card with
      the CPU plain path;
   6. train: 2 warm-up + 5 timed flagship force-training steps (bf16 compute,
@@ -30,7 +39,22 @@ Phases, each of which raises on failure:
      structures, on the card and on the CPU plain path from the same
      weights: loss and gradients must agree, and so must the parameters and
      EMA that the card's step and the CPU's optimizer make of the card's
-     gradients.
+     gradients;
+  8. QM9: 2 + 5 full-width f32 steps (64 molecules x 18 atoms) with K3, the
+     same without K3 in turns (the composed A/B), then 3 evaluation
+     requests with the EMA weights; fail if a kernel of the path was never
+     launched, a loss is not finite or the guard skipped a step;
+  9. one f32 QM9 step (2 layers, full width) on the card against the CPU;
+  10. OC20 S2EF: 2 + 5 full-width bf16 training steps (configs/oc20.py:
+     12 layers, lmax 6 / mmax 2; f32 masters, dropouts 0) on 4 labelled
+     periodic structures of 72 atoms (cutoff 12, 20 neighbours, N_pad 320,
+     E_pad 6,400), factored (K4) and dense (K1) arms in turns (factored,
+     dense, dense, factored), launch counts zeroed just before the timed
+     factored steps; fail if K4's "to" / "from", K2a or K2b never launched,
+     a loss is not finite or the guard skipped a step; then 3 evaluation
+     requests with the EMA weights;
+  11. one f32 OC20 step (2 layers, full width, 2 structures) on the card
+     against the CPU: loss <= 1e-4 relative, gradients <= 1e-3 relative L2.
 The line before the last is the kernels' JSON record and the card; the last
 line is the device JSON.  Without a CUDA device the script exits non-zero
 and prints no result.
@@ -40,6 +64,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -54,6 +79,7 @@ CUTOFF, MAX_NEIGHBORS = 6.0, 20        # bench.py:338-340
 N_STRUCTURES, N_ATOMS, N_REQUESTS = 16, 30, 3
 N_WARMUP_STEPS, N_TRAIN_STEPS = 2, 5
 QM9_MOLECULES, QM9_ATOMS = 64, 18      # configs/qm9.py batch; QM9's mean size
+OC20_GRAPHS, OC20_ATOMS = 4, 72        # bench.py:435 (N_pad 320, E_pad 6,400)
 # H100 SXM published peaks: HBM3 bandwidth, dense FP32 / BF16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -92,6 +118,23 @@ def bound(bytes_moved: float, flops: float, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def edge_vectors(batch: dict) -> torch.Tensor:
+    """The displacement vectors of a collated batch, as the backbone makes them."""
+    pos = batch["pos"]
+    return pos[batch["edge_dst"]] + torch.einsum(
+        "ek,ekj->ej", batch["edge_shift"].float(),
+        batch["cell"][batch["graph_idx"][batch["edge_dst"]]],
+    ) - pos[batch["edge_src"]]
+
+
+def _max_err(got, want, dt, what: str) -> tuple[float, float]:
+    err = (got.float() - want.float()).abs().max().item()
+    limit = (1e-5 if dt == torch.float32 else 1e-2) * want.float().abs().max().item()
+    if not err <= limit:
+        raise RuntimeError(f"{what} {dt}: max abs err {err:.3e} > {limit:.3e}")
+    return err, limit
+
+
 def check_kernels(batch, tag: str) -> list[dict]:
     """Phase 3: every kernel against its plain version at serving shapes."""
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
@@ -99,19 +142,14 @@ def check_kernels(batch, tag: str) -> list[dict]:
     )
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
         rotate_dense as rd,
-        s2act,
     )
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.s2grid import s2grid
 
     dev = torch.device("cuda")
     lmax, mmax, C = cfg["lmax"], cfg["mmax"], cfg["sphere_channels"]
-    pos = batch["pos"]
-    dvec = pos[batch["edge_dst"]] + torch.einsum(
-        "ek,ekj->ej", batch["edge_shift"].float(),
-        batch["cell"][batch["graph_idx"][batch["edge_dst"]]],
-    ) - pos[batch["edge_src"]]
+    dvec = edge_vectors(batch)
     w = rd.compute_wigner_dense(lmax, mmax, dvec)
-    E, N = dvec.shape[0], pos.shape[0]
+    E, N = dvec.shape[0], batch["pos"].shape[0]
     K, Kr = (lmax + 1) ** 2, rd._pair_info(lmax, mmax)["n_out"]["to"]
     hv = cfg["num_heads"] * cfg["attn_value_channels"]
     grid = s2grid(lmax, lmax, cfg["grid_resolution"])
@@ -162,48 +200,55 @@ def check_kernels(batch, tag: str) -> list[dict]:
               f"bf16 {errs[torch.bfloat16][0]:.2e} (limit {errs[torch.bfloat16][1]:.1e})  "
               f"[{tag}]", flush=True)
 
-    H = cfg["ffn_hidden_channels"]
+    return records + check_s2act(grid, N, cfg["ffn_hidden_channels"], gen, flush, tag)
+
+
+def check_s2act(grid, N: int, C: int, gen, flush, tag: str, suffix: str = "") -> list[dict]:
+    """K2a, K2b and K2c against their plain versions on [N, K, C] inputs of
+    ``grid``, f32 and bf16, and their times in f32 (records named
+    ``s2act.k*`` + ``suffix``)."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import s2act
+
+    dev = torch.device("cuda")
     A, Fm = grid.tables("cuda")
-    P = A.shape[0]
-    # (name, kernel, plain version, inputs, outputs, multiply-adds per P K, TPU line)
+    P, K = A.shape
+    # (kernel, its wrapper, plain version, inputs, outputs, multiply-adds per P K, TPU line)
     s2_specs = [
-        ("s2act.k1", lambda x, do, dd: s2act.k1(x, grid),
+        ("k1", lambda x, do, dd: s2act.k1(x, grid),
          lambda x, do, dd: s2act.k1_plain(x, A, Fm), 1, 1, 2, 122),
-        ("s2act.k2", lambda x, do, dd: s2act.k2(x, do, grid),
+        ("k2", lambda x, do, dd: s2act.k2(x, do, grid),
          lambda x, do, dd: s2act.k2_plain(x, do, A, Fm), 2, 1, 3, 133),
-        ("s2act.k3", lambda x, do, dd: s2act.k3(x, do, dd, grid),
+        ("k3", lambda x, do, dd: s2act.k3(x, do, dd, grid),
          lambda x, do, dd: s2act.k3_plain(x, do, dd, A, Fm), 3, 2, 5, 144),
     ]
-    for name, kern, plain, n_in, n_out, macs, line in s2_specs:
+    records = []
+    for kname, kern, plain, n_in, n_out, macs, line in s2_specs:
+        name = f"s2act.{kname}{suffix}"
         errs = {}
         for dt in (torch.float32, torch.bfloat16):
-            ins = [torch.randn(N, K, H, generator=gen, device=dev).to(dt) for _ in range(3)]
+            ins = [torch.randn(N, K, C, generator=gen, device=dev).to(dt) for _ in range(3)]
             got, want = kern(*ins), plain(*ins)
             torch.cuda.synchronize()
-            err, limit = 0.0, 0.0
-            for g_, w_ in zip(*(((o,) if n_out == 1 else o) for o in (got, want))):
-                e_ = (g_.float() - w_.float()).abs().max().item()
-                l_ = (1e-5 if dt == torch.float32 else 1e-2) * w_.float().abs().max().item()
-                if not e_ <= l_:
-                    raise RuntimeError(f"{name} {dt}: max abs err {e_:.3e} > {l_:.3e}")
-                err, limit = max(err, e_), max(limit, l_)
-            errs[dt] = (err, limit)
-        ins = [torch.randn(N, K, H, generator=gen, device=dev) for _ in range(3)]
+            pairs = zip(*(((o,) if n_out == 1 else o) for o in (got, want)))
+            e = [_max_err(g_, w_, dt, name) for g_, w_ in pairs]
+            errs[dt] = (max(a for a, _ in e), max(b for _, b in e))
+        ins = [torch.randn(N, K, C, generator=gen, device=dev) for _ in range(3)]
         ms = time_ms(lambda: kern(*ins), flush)
         plain_ms = time_ms(lambda: plain(*ins), flush)
-        nbytes = 4 * (n_in + n_out) * N * K * H + 4 * 2 * A.numel()
-        b_ms, b_by = bound(nbytes, 2.0 * macs * P * K * N * H, torch.float32)
+        nbytes = 4 * (n_in + n_out) * N * K * C + 4 * 2 * A.numel()
+        b_ms, b_by = bound(nbytes, 2.0 * macs * P * K * N * C, torch.float32)
         records.append(dict(
-            name=name, route="cuda", source=f"{src}/s2act.cu",
+            name=name, route="cuda", source=f"{PKG}/csrc/s2act.cu",
             replaces=f"{TPU_PKG}/ops/pallas/s2act.py:{line}", launches=0,
             max_abs_err=errs[torch.float32][0], ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=[N, K, C], grid_points=P,
         ))
-        print(f"kernel {name:22s} [{N},{K},{H}] P={P}  ms {ms:.4f}  plain {plain_ms:.4f}  "
+        print(f"kernel {name:22s} [{N},{K},{C}] P={P}  ms {ms:.4f}  plain {plain_ms:.4f}  "
               f"bound {b_ms:.4f} ({b_by})  library none  "
               f"err f32 {errs[torch.float32][0]:.2e} (limit {errs[torch.float32][1]:.1e}) "
               f"bf16 {errs[torch.bfloat16][0]:.2e} (limit {errs[torch.bfloat16][1]:.1e})  "
               f"[{tag}]", flush=True)
+        del ins
     return records
 
 
@@ -647,6 +692,289 @@ def qm9_parity_phase(tag: str) -> None:
         raise RuntimeError("the QM9 training step on the card disagrees with the CPU plain path")
 
 
+def check_k4(flagship_vec: torch.Tensor, oc20_vec: torch.Tensor, tag: str) -> list[dict]:
+    """Phase 3, K4: each kind against rot_plain in f32 and bf16, first order
+    and grad-of-grad through the autograd pair against the plain chain, and
+    times at OC20's and the flagship's shapes (f32)."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops import rotation as rot
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
+        rotate as k4,
+        rotate_dense as rd,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    # (kind, (lmax, mmax), edge vectors, channels, site): OC20's attention
+    # (C = 128: in 2C, back 8 heads x 16) and the flagship's GATA attention
+    specs = [("to", (6, 2), oc20_vec, 256, "OC20 attention in"),
+             ("from", (6, 2), oc20_vec, 128, "OC20 attention back"),
+             ("to_m0", (4, 2), flagship_vec, 256, "flagship attention in, m = 0"),
+             ("from_m0", (4, 2), flagship_vec, 256, "flagship, adjoint of to_m0"),
+             ("from", (4, 2), flagship_vec, 128, "flagship attention back")]
+    rows = {}
+    for kind, (lmax, mmax), vec, C, site in specs:
+        E = vec.shape[0]
+        w = rot.compute_wigner(lmax, vec)
+        ts, ta = k4.tables(w, lmax, mmax, kind)
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(E, ts[0].shape[1], C, generator=gen, device=dev).to(dt)
+            e_fwd = _max_err(k4.rot_kernel(x, ts, lmax, mmax, kind), k4.rot_plain(x, ts), dt,
+                             f"rotate.{kind} at {site}")
+            xg = x.clone().requires_grad_(True)
+            y = k4.rotate(w, xg, lmax, mmax, kind)   # through the autograd pair
+            (gx,) = torch.autograd.grad(0.5 * y.float().square().sum(), xg, create_graph=True)
+            (gg,) = torch.autograd.grad(gx.float().square().sum(), xg)
+            P = k4.rot_plain
+            gx_ref = P(P(x, ts), ta)
+            gg_ref = 2 * P(P(P(P(x, ts), ta), ts), ta)
+            e_g = _max_err(gx.detach(), gx_ref, dt, f"rotate.{kind} gradient at {site}")
+            e_gg = _max_err(gg, gg_ref, dt, f"rotate.{kind} grad-of-grad at {site}")
+            errs[dt] = (e_fwd, e_g, e_gg)
+        torch.cuda.synchronize()
+        x = torch.randn(E, ts[0].shape[1], C, generator=gen, device=dev)
+        # library: torch.bmm with the per-edge dense Wigner of the same rotation
+        wd = rd.compute_wigner_dense(lmax, mmax, vec)
+        v = {"to": wd.v_to, "from": wd.v_from_res, "to_m0": wd.v_to_m0,
+             "from_m0": wd.v_from_m0}[kind]
+        info = rd._pair_info(lmax, mmax)
+        pairs = info["pairs"][kind]
+        n_out = info["n_out"][kind]
+        dense = torch.zeros(E, n_out, x.shape[1], device=dev)
+        dense[:, torch.as_tensor(pairs[:, 0], device=dev),
+              torch.as_tensor(pairs[:, 1], device=dev)] = v
+        torch.testing.assert_close(torch.bmm(dense, x), k4.rot_plain(x, ts), rtol=1e-4,
+                                   atol=1e-4 * x.abs().max().item())
+        ms = time_ms(lambda: k4.rot_kernel(x, ts, lmax, mmax, kind), flush)
+        plain_ms = time_ms(lambda: k4.rot_plain(x, ts), flush)
+        lib_ms = time_ms(lambda: torch.bmm(dense, x), flush)
+        nbytes = 4 * (x.numel() + E * n_out * C + sum(t.numel() for t in ts[:6]))
+        # multiply-adds per (edge, channel) of the algebra's per-degree blocks
+        macs = sum((2 * l + 1) * (2 * iw + 4 * ow)
+                   for l, (_, iw, _, ow) in enumerate(k4.kernel_segments(lmax, mmax, kind)))
+        b_ms, b_by = bound(nbytes, 2.0 * macs * E * C, torch.float32)
+        row = dict(site=site, lmax=lmax, mmax=mmax, shape=[E, x.shape[1], C],
+                   out_shape=[E, n_out, C], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by, err_f32=errs[torch.float32][0][0],
+                   err_bf16=errs[torch.bfloat16][0][0],
+                   grad_err_f32=errs[torch.float32][1][0],
+                   gradgrad_err_f32=errs[torch.float32][2][0],
+                   gradgrad_err_bf16=errs[torch.bfloat16][2][0])
+        rows.setdefault(kind, []).append(row)
+        print(f"kernel rotate.{kind:7s} {site:32s} {list(x.shape)}->{[E, n_out, C]} ms {ms:.4f}  "
+              f"plain {plain_ms:.4f}  bound {b_ms:.4f} ({b_by})  library(bmm) {lib_ms:.4f}  "
+              f"err (limit) fwd / grad / gradgrad: f32 "
+              f"{' / '.join(f'{e:.2e} ({lim:.1e})' for e, lim in errs[torch.float32])}, bf16 "
+              f"{' / '.join(f'{e:.2e} ({lim:.1e})' for e, lim in errs[torch.bfloat16])}  "
+              f"[{tag}]", flush=True)
+        del dense, x, w, wd
+    records = []
+    for kind in k4.KINDS:
+        main = rows[kind][0]   # the first site listed: the main path's shape
+        records.append(dict(
+            name=f"rotate.{kind}", route="cuda", source=f"{PKG}/csrc/rotate.cu",
+            replaces=f"{TPU_PKG}/ops/pallas/rotate.py:66", launches=0,
+            max_abs_err=main["err_f32"], ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"], sites=rows[kind]))
+    return records
+
+
+def check_k2_oc20(tag: str) -> list[dict]:
+    """Phase 3, K2 at OC20's instances: K = 49 (the FFN and the energy head,
+    [320, 49, 512], P = 210) and K = 29 (the attention's value activation,
+    [6400, 29, 128], P = 70); K2a, K2b and K2c in f32 and bf16."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.s2grid import s2grid
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    records = []
+    for (lmax, mmax), (N, C) in (((6, 6), (320, 512)), ((6, 2), (6400, 128))):
+        grid = s2grid(lmax, mmax, None)
+        records += check_s2act(grid, N, C, gen, flush, tag, f"[K={grid.to_grid_np.shape[1]}]")
+    return records
+
+
+def factored_request_phase(pred, state: dict, request, tag: str) -> dict:
+    """Phase 4b: the flagship request on the factored Wigner representation
+    (kernel K4) with the dense run's weights; returns K4's launches."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.inference import Predictor
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        FLAGSHIP,
+        EquiformerV2MatPES,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import rotate as k4
+
+    dense = pred.predict_batch(request)
+    fact = Predictor(EquiformerV2MatPES(**FLAGSHIP, wigner_rep="factored"), state, CUTOFF,
+                     MAX_NEIGHBORS, device="cuda")
+    for k in k4.launches:
+        k4.launches[k] = 0
+    t = time.perf_counter()
+    out = fact.predict_batch(request)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = {f"rotate.{k}": c for k, c in k4.launches.items()}
+    e_rel = float(np.max(np.abs(out["energy"] - dense["energy"]) / np.abs(dense["energy"])))
+    f_abs = float(max(np.abs(a - b).max() for a, b in zip(out["forces"], dense["forces"])))
+    print(f"factored flagship request ({N_STRUCTURES} structures, K4): {dt * 1e3:.1f} ms "
+          f"(first call), against the dense run: energy max rel err {e_rel:.2e} (limit 1e-4), "
+          f"forces max abs err {f_abs:.2e} (limit 1e-3); K4 launches {launches}  [{tag}]",
+          flush=True)
+    if not (e_rel <= 1e-4 and f_abs <= 1e-3):
+        raise RuntimeError("the factored request disagrees with the dense one")
+    idle = [n for n in ("rotate.to_m0", "rotate.from") if launches[n] == 0]
+    if idle:
+        raise RuntimeError(f"K4 kinds never launched on the factored request: {idle}")
+    return launches
+
+
+def oc20_phase(counters: dict, tag: str) -> tuple[dict, dict, dict]:
+    """Phase 10: the OC20 step, factored (K4) and dense (K1) arms in turns,
+    and 3 evaluation requests with the factored arm's EMA weights.  Returns
+    the launches of the timed factored steps, of the timed dense steps and
+    of the requests."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import as_tensors
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.train_oc20 import (
+        predict,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling import (
+        oc20_batch,
+        oc20_train_state,
+    )
+
+    rng = np.random.default_rng(8)
+    pbs = [oc20_batch(rng, OC20_GRAPHS, OC20_ATOMS)
+           for _ in range(N_WARMUP_STEPS + N_TRAIN_STEPS + N_REQUESTS)]
+    batches = [as_tensors(pb, "cuda") for pb in pbs]
+    train, requests = batches[:-N_REQUESTS], batches[-N_REQUESTS:]
+    arms = {rep: oc20_train_state(rep) for rep in ("factored", "dense")}
+    n_params = sum(p.numel() for p in arms["factored"][0].model.parameters())
+    print(f"OC20: full-width EquiformerV2OC20 (12 layers, 128 channels, lmax 6 / mmax 2, "
+          f"8 heads, FFN 512, 600 RBF, cutoff 12, {n_params / 1e6:.2f} M parameters), bf16 "
+          f"compute, f32 masters, dropouts 0, {OC20_GRAPHS} structures x {OC20_ATOMS} atoms, "
+          f"N_pad {pbs[0].pos.shape[0]}, E_pad {pbs[0].edge_src.shape[0]} "
+          f"({int(pbs[0].edge_mask.sum())} real edges), AdamW wd 1e-3, "
+          f"warmup_cosine(4e-4, 100, 10000), EMA 0.999  [{tag}]", flush=True)
+
+    def run(rep: str, i, batch):
+        before = {n: d[k] for n, (d, k) in counters.items()}
+        t = time.perf_counter()
+        loss, m = arms[rep][1](batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        loss = float(loss)
+        if not (np.isfinite(loss) and m["accepted"]):
+            raise RuntimeError(f"OC20 step {i} ({rep}): loss {loss}, accepted {m['accepted']}")
+        per = {n: d[k] - before[n] for n, (d, k) in counters.items() if d[k] != before[n]}
+        print(f"OC20 step {i} {rep:8s}: {dt * 1e3:.1f} ms, {OC20_GRAPHS / dt:.2f} graphs/s, "
+              f"loss {loss:.4f} (E-MSE {float(m['energy_mse']):.4f}, F-L1 "
+              f"{float(m['force_l1']):.4f}), |g| {float(m['grad_norm']):.3f}, "
+              f"launches {per}  [{tag}]", flush=True)
+        return dt
+
+    for rep in arms:
+        for i in range(N_WARMUP_STEPS):
+            run(rep, f"warm-up {i}", train[i])
+    timed = train[N_WARMUP_STEPS:]
+    times = {rep: [] for rep in arms}
+    peak, launches = {}, {}
+    for block, rep in enumerate(("factored", "dense", "dense", "factored")):   # A B B A
+        if block < 2:
+            torch.cuda.reset_peak_memory_stats()
+            for d, k in counters.values():
+                d[k] = 0
+        times[rep] += [run(rep, i, b) for i, b in enumerate(timed)]
+        if block < 2:
+            launches[rep] = {n: d[k] for n, (d, k) in counters.items()}
+            peak[rep] = torch.cuda.max_memory_allocated() / 2**30
+    for rep in arms:
+        med = float(np.median(times[rep]))
+        print(f"OC20 training, wigner {rep:8s}: median step {med * 1e3:.1f} ms "
+              f"({min(times[rep]) * 1e3:.1f}-{max(times[rep]) * 1e3:.1f} over {len(times[rep])} "
+              f"steps in two blocks), {OC20_GRAPHS / med:.2f} graphs/s, peak memory "
+              f"{peak[rep]:.3f} GiB, launches per step "
+              f"{ {n: c / N_TRAIN_STEPS for n, c in launches[rep].items() if c} }  [{tag}]",
+              flush=True)
+    print(f"OC20 composed A/B: step factored (K4) / dense (K1) = "
+          f"{np.median(times['factored']) / np.median(times['dense']):.3f}  [{tag}]", flush=True)
+    need = ("rotate.to", "rotate.from", "s2act.k1", "s2act.k2")
+    idle = [n for n in need if launches["factored"][n] == 0]
+    if idle:
+        raise RuntimeError(f"kernels never launched on the OC20 training path: {idle}")
+
+    state = arms["factored"][0]
+    del arms["dense"]
+    for d, k in counters.values():
+        d[k] = 0
+    for i, batch in enumerate(requests):
+        t = time.perf_counter()
+        out = predict(state.model, batch, state.ema)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        e, f = out["energy"], out["forces"]
+        if (e.shape != (OC20_GRAPHS,) or f.shape != batch["pos"].shape
+                or not (torch.isfinite(e).all() and torch.isfinite(f).all())):
+            raise RuntimeError(f"OC20 request {i}: bad outputs {tuple(e.shape)} {tuple(f.shape)}")
+        print(f"OC20 request {i}: {OC20_GRAPHS} structures, {dt * 1e3:.1f} ms, "
+              f"{OC20_GRAPHS / dt:.2f} structures/s  [{tag}]", flush=True)
+    eval_launches = {n: d[k] for n, (d, k) in counters.items()}
+    print(f"launches over {N_REQUESTS} OC20 requests: "
+          f"{ {n: c for n, c in eval_launches.items() if c} }  [{tag}]", flush=True)
+    return launches["factored"], launches["dense"], eval_launches
+
+
+def oc20_parity_phase(tag: str) -> None:
+    """Phase 11: one f32 OC20 step (dropouts 0, factored), 2 layers at full
+    width, 2 structures of 72 atoms, on the card and on the CPU plain path
+    from the same weights: loss <= 1e-4 relative, gradients (after each
+    device's own clip) <= 1e-3 relative L2."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.configs.oc20 import config
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import as_tensors
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        init_weights,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.train_oc20 import (
+        build_oc20_model,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        GuardedAdamW,
+        create_train_state,
+        make_oc20_train_step,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling import (
+        oc20_batch,
+    )
+
+    cfg = dict(config, num_layers=2, alpha_drop=0.0, drop_path_rate=0.0)
+    weights = init_weights(build_oc20_model(cfg), torch.Generator().manual_seed(9)).state_dict()
+    pb = oc20_batch(np.random.default_rng(10), 2, OC20_ATOMS)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = build_oc20_model(cfg)
+        model.load_state_dict(weights)
+        model.to(dev)
+        state = create_train_state(model, GuardedAdamW(model.named_parameters(),
+                                                       lambda step: 4e-4, 1e-3, 1.0))
+        loss, m = make_oc20_train_step(state)(as_tensors(pb, dev))
+        res[dev] = dict(loss=float(loss), gnorm=float(m["grad_norm"]),
+                        grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    g, c = res["cuda"], res["cpu"]
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    num = sum(float(((g["grads"][k].double() - c["grads"][k].double()) ** 2).sum())
+              for k in c["grads"])
+    den = sum(float((c["grads"][k].double() ** 2).sum()) for k in c["grads"])
+    grad_rel = (num / den) ** 0.5
+    print(f"OC20 gpu vs cpu plain path, one f32 training step (2 layers, full width, 2 x "
+          f"{OC20_ATOMS} atoms, factored): loss {g['loss']:.6f} vs {c['loss']:.6f}, rel err "
+          f"{loss_rel:.2e} (limit 1e-4); |g| {g['gnorm']:.4f} vs {c['gnorm']:.4f}, gradient "
+          f"rel L2 err {grad_rel:.2e} (limit 1e-3)  [{tag}]", flush=True)
+    if not (loss_rel <= 1e-4 and grad_rel <= 1e-3):
+        raise RuntimeError("the OC20 training step on the card disagrees with the CPU plain path")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -657,13 +985,16 @@ def main() -> int:
         EquiformerV2MatPES,
         init_weights,
     )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import as_tensors
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
         build,
+        rotate,
         rotate_dense,
         s2act,
         so2conv,
     )
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling import (
+        oc20_batch,
         random_structures,
     )
 
@@ -690,7 +1021,10 @@ def main() -> int:
                                      "s2act_kernel<f32,25,", "s2act_kernel<bf16,25,",
                                      "s2act_kernel<f32,19,", "s2act_kernel<bf16,19,",
                                      "s2act_k3_kernel<f32,25>", "s2act_k3_kernel<bf16,25>",
-                                     "so2conv_kernel<")):
+                                     "so2conv_kernel<", "rot_kernel<f32,6,2,",
+                                     "rot_kernel<bf16,6,2,", "rot_kernel<f32,4,2,",
+                                     "rot_kernel<bf16,4,2,")) or re.search(
+                                         r"s2act(_k3)?_kernel<\w+,(49|29|14)[,>]", r["name"]):
                 print(f"    {r['name']}: {r['registers']} registers, "
                       f"{r['spill_bytes']} B spill stores")
 
@@ -713,6 +1047,15 @@ def main() -> int:
     records = check_kernels(batch, tag)
     records += check_k3(int(pb.edge_src.shape[0]),
                         QM9_MOLECULES * QM9_ATOMS * (QM9_ATOMS - 1), tag)
+    oc20_vec = edge_vectors(as_tensors(oc20_batch(np.random.default_rng(7), OC20_GRAPHS,
+                                                  OC20_ATOMS), "cuda"))
+    records += check_k4(edge_vectors(batch), oc20_vec, tag)
+    k2_oc20 = check_k2_oc20(tag)
+    # K2c is not on the OC20 path (a first-order step): its OC20 instances
+    # stay beside the flagship's K2c record
+    next(r for r in records if r["name"] == "s2act.k3")["oc20_instances"] = [
+        r for r in k2_oc20 if r["name"].startswith("s2act.k3")]
+    records += [r for r in k2_oc20 if not r["name"].startswith("s2act.k3")]
 
     # phase 4: serve, counting launches from zero
     counters = {**{f"rotate_pairs.{k}": (rotate_dense.launches, k)
@@ -746,6 +1089,11 @@ def main() -> int:
         raise RuntimeError(f"kernels never launched on the serving path: {idle}")
     for r in records:
         r["launches_serving"] = launches.get(r["name"], 0)
+
+    # phase 4b: the same request on the factored Wigner representation (K4)
+    k4_request = factored_request_phase(pred, state, requests[0], tag)
+    for r in records:
+        r["launches_matpes_factored_request"] = k4_request.get(r["name"], 0)
 
     # phase 5: the card against the CPU plain path
     small = random_structures(np.random.default_rng(1), 4, N_ATOMS)
@@ -785,6 +1133,26 @@ def main() -> int:
 
     # phase 9: one f32 QM9 step, the card against the CPU plain path
     qm9_parity_phase(tag)
+
+    # phase 10: OC20 with K4 (and the dense arm with K1), K2a / K2b at
+    # K = 49 and 29, counting from zero
+    oc20_counters = {**{f"rotate.{k}": (rotate.launches, k) for k in rotate.launches},
+                     **{f"rotate_pairs.{k}": (rotate_dense.launches, k) for k in ("to", "from")},
+                     **{f"s2act.{k}": (s2act.launches, k) for k in s2act.launches},
+                     **{f"s2act.{k}[K={K}]": (s2act.launches_by_k, (k, K))
+                        for k in ("k1", "k2") for K in (49, 29)}}
+    oc20_train, oc20_dense, oc20_eval = oc20_phase(oc20_counters, tag)
+    for r in records:
+        r["launches_oc20_train"] = oc20_train.get(r["name"], 0)
+        r["launches_oc20_train_dense"] = oc20_dense.get(r["name"], 0)
+        r["launches_oc20_eval"] = oc20_eval.get(r["name"], 0)
+        if r["name"] in ("rotate.to", "rotate.from") or "[K=" in r["name"]:
+            r["launches"] = r["launches_oc20_train"]
+        elif r["name"] in ("rotate.to_m0", "rotate.from_m0"):
+            r["launches"] = r["launches_matpes_factored_request"]
+
+    # phase 11: one f32 OC20 step, the card against the CPU plain path
+    oc20_parity_phase(tag)
 
     print(json.dumps({"kernels": records}))
     print(tag)

@@ -41,6 +41,7 @@ config = {
     "normalize_attn_output": True,
     "use_phi_every_layer": False,
     "conv_fused": False,             # kernel K3 at the full SO(2)-conv site (conv 2)
+    "wigner_rep": "dense",           # kernel K1; "factored": kernel K4
     # loss weights (reference train_MatPES_GATAWandB.py:79-81)
     "w_energy": 1.0,
     "w_force": 1.0,

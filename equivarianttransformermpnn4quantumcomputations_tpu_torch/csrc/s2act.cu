@@ -29,6 +29,10 @@
 // or F-row factor there.  K2c keeps 3 K inputs and 2 K accumulators live
 // (140 floats at K = 25); its grid-point loop is not unrolled, so the
 // register file holds them (up to 255 registers a thread at THREADS = 256).
+// Instances: K = 4, 7, 9, 16, 19, 25 (lmax <= 4) and 14, 29, 49 (the edge
+// sites of lmax 3 and 6 at mmax 2, the node sites of lmax 6).  At K = 49
+// the 3 K (K2a / K2b) or 5 K (K2c) live floats exceed the register file and
+// spill; chip_smoke.py prints ptxas's report of each instance.
 // The kernels allocate nothing and launch on the caller's stream.
 
 #include <cuda_bf16.h>
@@ -216,6 +220,9 @@ int dispatch(int backward, int K, const void* x, const void* dout, const float* 
     case 16: return launch<T, 16>(backward, x, dout, A, F, out, N, C, Pp, stream);
     case 19: return launch<T, 19>(backward, x, dout, A, F, out, N, C, Pp, stream);
     case 25: return launch<T, 25>(backward, x, dout, A, F, out, N, C, Pp, stream);
+    case 14: return launch<T, 14>(backward, x, dout, A, F, out, N, C, Pp, stream);
+    case 29: return launch<T, 29>(backward, x, dout, A, F, out, N, C, Pp, stream);
+    case 49: return launch<T, 49>(backward, x, dout, A, F, out, N, C, Pp, stream);
     default: return -2;
   }
 }
@@ -244,6 +251,9 @@ int dispatch_k3(int K, const void* x, const void* dout, const void* ddx, const f
     case 16: return launch_k3<T, 16>(x, dout, ddx, A, F, ddout, dx2, N, C, Pp, stream);
     case 19: return launch_k3<T, 19>(x, dout, ddx, A, F, ddout, dx2, N, C, Pp, stream);
     case 25: return launch_k3<T, 25>(x, dout, ddx, A, F, ddout, dx2, N, C, Pp, stream);
+    case 14: return launch_k3<T, 14>(x, dout, ddx, A, F, ddout, dx2, N, C, Pp, stream);
+    case 29: return launch_k3<T, 29>(x, dout, ddx, A, F, ddout, dx2, N, C, Pp, stream);
+    case 49: return launch_k3<T, 49>(x, dout, ddx, A, F, ddout, dx2, N, C, Pp, stream);
     default: return -2;
   }
 }

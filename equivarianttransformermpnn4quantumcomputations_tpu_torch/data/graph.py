@@ -39,6 +39,7 @@ class GraphSample:
     energy: float | None = None           # total or per-atom energy
     forces: np.ndarray | None = None      # [n, 3]
     stress: np.ndarray | None = None      # [6] Voigt
+    fixed: np.ndarray | None = None       # [n] bool fixed-atom mask (OC20 tags)
 
 
 def radius_graph(pos: np.ndarray, cutoff: float, max_neighbors: int | None):
@@ -155,6 +156,8 @@ class PaddedBatch:
     energy: np.ndarray | None = None     # [B]
     forces: np.ndarray | None = None     # [N_pad, 3]
     stress: np.ndarray | None = None     # [B, 6]
+    fixed: np.ndarray | None = None      # [N_pad] bool (OC20 fixed atoms;
+                                         # host only: no loss reads it yet)
     # atoms/edges dropped because the static pads were too small (host-side
     # ints, never shipped to the device); non-zero means wrong physics
     overflow_atoms: int = 0
@@ -239,6 +242,7 @@ def collate(
     energy = np.zeros(B, np.float32) if y0.energy is not None else None
     forces = np.zeros((n_pad, 3), np.float32) if y0.forces is not None else None
     stress = np.zeros((B, 6), np.float32) if y0.stress is not None else None
+    fixed = np.zeros(n_pad, bool) if y0.fixed is not None else None
 
     overflow_atoms = 0
     overflow_edges = 0
@@ -266,6 +270,8 @@ def collate(
             forces[sl] = s.forces[:n]
         if stress is not None:
             stress[b] = s.stress
+        if fixed is not None:
+            fixed[sl] = s.fixed[:n]
         if s.pbc and s.cell is not None:
             src, dst, shift = radius_graph_pbc(
                 s.pos[:n].astype(np.float64), s.cell, cutoff, max_neighbors
@@ -317,6 +323,7 @@ def collate(
         energy=energy,
         forces=forces,
         stress=stress,
+        fixed=fixed,
         overflow_atoms=overflow_atoms,
         overflow_edges=overflow_edges,
     )

@@ -3,8 +3,11 @@
 atom embedding -> distance RBF -> edge-degree embedding -> [GATA edge
 stream] -> N transformer blocks -> final norm.  Displacement vectors are re-derived
 from positions inside the forward, so forces flow by autograd; the per-edge
-Wigner values are built once per forward in the dense pairs form and shared
-by every rotate (kernel K1 on the GPU).
+Wigner rotation is built once per forward and shared by every rotate, in
+one of two representations chosen at construction (``wigner_rep``, the JAX
+package's model field): ``"dense"`` (the default; the pairs form of kernel
+K1) or ``"factored"`` (the cos / sin tables of kernel K4).  Both give the
+same numbers.
 
 Two configurations are ported, both with separable S2 activations,
 'rms_norm_sh' and unshared atom-edge embeddings: the MatPES GATA-V2 model
@@ -24,7 +27,8 @@ final norm's output is float32.
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Union
 
 import torch
 import torch.nn as nn
@@ -33,13 +37,29 @@ from ..nn.block import TransBlock
 from ..nn.embedding import EdgeDegreeEmbedding
 from ..nn.layers import GaussianSmearing, Linear
 from ..nn.norms import EquivariantRMSNormSH
-from ..ops.cuda.rotate_dense import compute_wigner_dense
+from ..ops.cuda.rotate_dense import WignerDense, compute_wigner_dense
 from ..ops.irreps import layout as get_layout
+from ..ops.rotation import WignerFactors, compute_wigner
 from ..ops.s2grid import s2grid
 from ..ops.segment import gather_dst, gather_nodes
 from ..ops.sph import real_sph_harm
 
-__all__ = ["EquiformerV2Backbone"]
+__all__ = ["EquiformerV2Backbone", "BackboneOutput", "WIGNER_REPS"]
+
+WIGNER_REPS = ("dense", "factored")
+
+
+@dataclass
+class BackboneOutput:
+    """What the heads read (the JAX package's ``BackboneOutput``): node
+    features after the final norm [N, (lmax+1)^2, C] (float32), the edge
+    scalars (distance RBF, float32), the forward's Wigner rotation and the
+    edge slots per node of the fixed-degree layout."""
+
+    x: torch.Tensor
+    edge_scalars: torch.Tensor
+    wigner: Union[WignerDense, WignerFactors]
+    k: int
 
 
 class EquiformerV2Backbone(nn.Module):
@@ -52,8 +72,13 @@ class EquiformerV2Backbone(nn.Module):
                  avg_degree: float, alpha_drop: float = 0.0,
                  drop_path_rate: float = 0.0, proj_drop: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32, gata: bool = True,
-                 conv_fused: bool = False):
+                 conv_fused: bool = False, wigner_rep: str = "dense"):
         super().__init__()
+        if wigner_rep not in WIGNER_REPS:
+            raise ValueError(
+                f"wigner_rep={wigner_rep!r}: the port builds {WIGNER_REPS}; the per-degree "
+                "'blocks' representation is not ported yet (ROADMAP.md, Queue 1)")
+        self.wigner_rep = wigner_rep
         self.lmax, self.mmax = lmax, mmax
         self.gata = gata
         self.compute_dtype = compute_dtype
@@ -84,9 +109,9 @@ class EquiformerV2Backbone(nn.Module):
 
     def forward(self, atomic_numbers, pos, graph_idx, edge_src, edge_dst,
                 edge_shift, edge_mask, cell,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Node features [N, (lmax+1)^2, sphere_channels] after the final norm
-        (float32).  ``generator`` draws the dropout masks in ``train()``."""
+                generator: Optional[torch.Generator] = None) -> BackboneOutput:
+        """The heads' inputs (``BackboneOutput``); ``generator`` draws the
+        dropout masks in ``train()``."""
         N, E = atomic_numbers.shape[0], edge_src.shape[0]
         if E % N:
             raise ValueError("the batch must be in the fixed-degree layout "
@@ -100,7 +125,10 @@ class EquiformerV2Backbone(nn.Module):
         dvec = gather_dst(pos, k) + shift_cart - gather_nodes(pos, edge_src)
         dist = torch.sqrt(torch.clamp((dvec * dvec).sum(-1), min=1e-12))
 
-        wigner = compute_wigner_dense(self.lmax, self.mmax, dvec)
+        if self.wigner_rep == "factored":
+            wigner = compute_wigner(self.lmax, dvec)
+        else:
+            wigner = compute_wigner_dense(self.lmax, self.mmax, dvec)
         phi_r = self.smear(dist)
 
         x = pos.new_zeros(N, self.K_full, self.sphere_channels)
@@ -127,4 +155,4 @@ class EquiformerV2Backbone(nn.Module):
             x, t_ij = block(x, atomic_numbers, edge_scalars, edge_src, edge_dst,
                             edge_mask, wigner, t_ij, rl_ij, k, graph_idx,
                             num_graphs, generator)
-        return self.norm(x).float()
+        return BackboneOutput(self.norm(x).float(), phi_r, wigner, k)

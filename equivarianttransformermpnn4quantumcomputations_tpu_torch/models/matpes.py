@@ -43,6 +43,9 @@ class EquiformerV2MatPES(nn.Module):
     ``train()`` mode; ``compute_dtype`` is the block stack's type
     (models/backbone.py).  ``conv_fused`` sends the full SO(2)-conv site
     (conv 2; conv 1 is m = 0 only) through kernel K3, off by default.
+    ``gata=False`` builds the baseline EquiformerV2 attention instead of
+    GATA-V2; ``wigner_rep`` is the backbone's Wigner representation
+    (``"dense"``: kernel K1, ``"factored"``: kernel K4).
     """
 
     def __init__(self, num_layers: int = 6, sphere_channels: int = 128,
@@ -55,7 +58,8 @@ class EquiformerV2MatPES(nn.Module):
                  alpha_drop: float = 0.05, drop_path_rate: float = 0.05,
                  proj_drop: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32,
-                 conv_fused: bool = False):
+                 conv_fused: bool = False, gata: bool = True,
+                 wigner_rep: str = "dense"):
         super().__init__()
         self.backbone = EquiformerV2Backbone(
             num_layers=num_layers, sphere_channels=sphere_channels,
@@ -67,7 +71,8 @@ class EquiformerV2MatPES(nn.Module):
             num_rbf=num_rbf, max_num_elements=max_num_elements, cutoff=cutoff,
             avg_degree=avg_degree, alpha_drop=alpha_drop,
             drop_path_rate=drop_path_rate, proj_drop=proj_drop,
-            compute_dtype=compute_dtype, conv_fused=conv_fused,
+            compute_dtype=compute_dtype, gata=gata, conv_fused=conv_fused,
+            wigner_rep=wigner_rep,
         )
         self.energy_block = FeedForward(
             sphere_channels, ffn_hidden_channels, 1, lmax,
@@ -85,7 +90,7 @@ class EquiformerV2MatPES(nn.Module):
             batch["atomic_numbers"], pos, batch["graph_idx"], batch["edge_src"],
             batch["edge_dst"], batch["edge_shift"], batch["edge_mask"],
             batch["cell"], generator,
-        )
+        ).x
         node_energy = self.energy_block(x)[:, 0, 0]
         num_graphs = batch["cell"].shape[0]
         energy_total = segment_sum(node_energy, batch["graph_idx"], num_graphs,

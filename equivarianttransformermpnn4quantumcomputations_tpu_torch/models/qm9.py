@@ -68,7 +68,7 @@ class EquiformerV2QM9(nn.Module):
             batch["atomic_numbers"], batch["pos"], batch["graph_idx"],
             batch["edge_src"], batch["edge_dst"], batch["edge_shift"],
             batch["edge_mask"], batch["cell"], generator,
-        )
+        ).x
         node_c = self.output_blocks(x)[:, :, 0, 0]       # [T, N]
         return segment_sum(node_c.t(), batch["graph_idx"], batch["cell"].shape[0],
                            mask=batch["node_mask"])

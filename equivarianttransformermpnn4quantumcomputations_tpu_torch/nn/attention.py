@@ -82,7 +82,8 @@ class GraphAttention(nn.Module):
         the per-head dot and the softmax over each node's slots."""
         a = x0_alpha.reshape(-1, self.num_heads, self.attn_alpha_channels)
         a = smooth_leaky_relu(self.alpha_norm(a))
-        logits = torch.einsum("ehk,hk->eh", a, self.alpha_dot)
+        dt = torch.promote_types(a.dtype, self.alpha_dot.dtype)
+        logits = torch.einsum("ehk,hk->eh", a.to(dt), self.alpha_dot.to(dt))
         return softmax_over_slots(logits, k, edge_mask)
 
     def forward(self, x, atomic_numbers, edge_scalars, edge_src, edge_dst,

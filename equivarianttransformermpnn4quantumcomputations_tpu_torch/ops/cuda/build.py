@@ -32,7 +32,7 @@ __all__ = ["SOURCES", "build", "library", "check", "ptxas_report"]
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("rotate_dense", "s2act", "so2conv")
+SOURCES = ("rotate_dense", "s2act", "so2conv", "rotate")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -52,6 +52,12 @@ _SIGNATURES = {
     },
     "so2conv": {
         "etq_so2conv": ([_I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P], _I),
+    },
+    "rotate": {
+        "etq_rotate": ([_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P], _I),
+        "etq_rotate_const_floats": ([], _I),
+        "etq_rotate_const_offset": ([_I, _I, _I], _I),
+        "etq_rotate_set_consts": ([_P, _I], _I),
     },
 }
 
@@ -77,7 +83,7 @@ def _parse_ptxas(log: str) -> list[dict]:
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             mangled = m.group(1)
-            base = re.search(r"(pairs_kernel|s2act_k3_kernel|s2act_kernel|so2conv_kernel)I", mangled)
+            base = re.search(r"(pairs_kernel|s2act_k3_kernel|s2act_kernel|so2conv_kernel|rot_kernel)I", mangled)
             args = ["bf16" if "bfloat16" in mangled else "f32"]
             args += re.findall(r"L[ib](\d+)E", mangled)
             out.append(dict(name=f"{base.group(1) if base else mangled}<{','.join(args)}>",
@@ -153,5 +159,6 @@ def check(name: str, rc: int, what: str) -> None:
         msg = library(name).etq_error_string(rc).decode()
     else:
         msg = {-1: "unknown kind", -2: "no kernel instance for these sizes",
-               -3: "unsupported dtype"}.get(rc, "unknown error")
+               -3: "unsupported dtype", -4: "sizes the kernel does not take"}.get(
+                   rc, "unknown error")
     raise RuntimeError(f"{what}: launch failed ({rc}: {msg})")

@@ -23,6 +23,7 @@ CPU tensors run the plain PyTorch versions (``k1_plain``, ``k2_plain``,
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import torch
@@ -31,13 +32,15 @@ import torch.nn.functional as Fn
 from ..s2grid import S2Grid
 
 __all__ = ["s2act_fused", "s2act_reference", "k1_plain", "k2_plain", "k3_plain",
-           "launches"]
+           "launches", "launches_by_k"]
 
 _CHUNK = 32  # grid points per shared-memory stage (csrc/s2act.cu: CHUNK)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches (the launch wrapper adds one per launch)
+# kernel launches (the launch wrapper adds one per launch), in all and per
+# (kernel, K) instance
 launches = {"k1": 0, "k2": 0, "k3": 0}
+launches_by_k: dict[tuple[str, int], int] = collections.defaultdict(int)
 
 
 def k1_plain(x: torch.Tensor, A: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
@@ -114,6 +117,7 @@ def _launch(backward: bool, x, dout, grid: S2Grid) -> torch.Tensor:
     )
     build.check("s2act", rc, "s2act.k2" if backward else "s2act.k1")
     launches["k2" if backward else "k1"] += 1
+    launches_by_k[("k2" if backward else "k1", K)] += 1
     return out
 
 
@@ -133,6 +137,7 @@ def _launch_k3(x, dout, ddx, grid: S2Grid) -> tuple[torch.Tensor, torch.Tensor]:
     )
     build.check("s2act", rc, "s2act.k3")
     launches["k3"] += 1
+    launches_by_k[("k3", K)] += 1
     return ddout, dx2
 
 

@@ -1,24 +1,29 @@
-"""Per-edge rotations: frame, Euler angles, Wigner-D blocks, rotate dispatch.
+"""Per-edge rotations: frame, Euler angles, Wigner-D, rotate dispatch.
 
-Port of the JAX package's ops/rotation.py for the dense-Wigner path:
+Port of the JAX package's ops/rotation.py:
 
 * each edge is aligned with the **z axis** by a deterministic cardinal-axis
   frame;
-* Wigner-D is built per degree as ``Xz(a) @ J @ Xz(b) @ J @ Xz(g)`` from the
-  J matrices of ops/wigner_np.py (``WignerBlocks``), then packed into the
-  pairs form the hand-written kernel consumes (``WignerDense``,
-  ops/cuda/rotate_dense.py), which every ``rotate_*`` takes;
+* Wigner-D is ``Xz(a) @ J @ Xz(b) @ J @ Xz(g)`` with the J matrices of
+  ops/wigner_np.py.  Two representations reach the rotates:
+  - dense (``WignerDense``, ops/cuda/rotate_dense.py): the per-degree
+    blocks (``WignerBlocks``) multiplied out and packed into the pairs form
+    of kernel K1;
+  - factored (``WignerFactors``): only the per-edge cos / sin tables of the
+    three z-rotations; each rotate applies the five factors in one pass of
+    kernel K4 (ops/cuda/rotate.py);
 * all geometry is detached, as the reference detaches frames and Wigner
   matrices: gradients flow through distances, never through the frame.
 
-Geometry runs in float32 with TF32 off (``inference.Predictor`` turns it off
-for each forward), since reduced-precision products cost ~1e-3 in every
-Wigner matrix.
-The factored representation (the JAX package's ``WignerFactors``) is not part
-of this port yet.
+``rotate_*`` dispatch on the Wigner type.  Geometry runs in float32 with TF32
+off (the serving and training entry points turn it off for each forward,
+``utils/precision.py``), since reduced-precision products cost ~1e-3 in
+every Wigner matrix.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -30,6 +35,8 @@ __all__ = [
     "edge_frame",
     "frame_to_zyz_angles",
     "WignerBlocks",
+    "WignerFactors",
+    "compute_wigner",
     "compute_wigner_blocks",
     "rotate_to_edge",
     "rotate_to_edge_m0",
@@ -132,27 +139,130 @@ def _m_keep_rows(l: int, mmax: int) -> np.ndarray:
     return np.arange(l - mm, l + mm + 1)
 
 
+# ── the factored representation ────────────────────────────────────────────
+
+
+@functools.lru_cache(maxsize=None)
+def _flip_index(lmax: int) -> np.ndarray:
+    """Index of the (l, -m) coefficient for each (l, m), l-primary layout."""
+    idx = np.zeros((lmax + 1) ** 2, dtype=np.int32)
+    for l in range(lmax + 1):
+        for m in range(-l, l + 1):
+            idx[l * l + l + m] = l * l + l - m
+    return idx
+
+
+@functools.lru_cache(maxsize=None)
+def _flip_index_reduced(lmax: int, mmax: int) -> np.ndarray:
+    """Position of (l, -m) within the reduced (|m| <= mmax) layout."""
+    from .irreps import layout as get_layout
+
+    lay = get_layout(lmax, mmax)
+    pos_of = {(int(l), int(m)): i for i, (l, m) in enumerate(zip(lay.l_harmonic,
+                                                                 lay.m_complex))}
+    return np.asarray([pos_of[(int(l), -int(m))]
+                       for l, m in zip(lay.l_harmonic, lay.m_complex)], dtype=np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _abs_m_index(lmax: int) -> np.ndarray:
+    return np.concatenate([np.abs(np.arange(-l, l + 1))
+                           for l in range(lmax + 1)]).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _sign_m(lmax: int) -> np.ndarray:
+    return np.concatenate([np.sign(np.arange(-l, l + 1))
+                           for l in range(lmax + 1)]).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _J_dense(lmax: int) -> np.ndarray:
+    """Block-diagonal J over the full (lmax+1)^2 coefficient axis."""
+    K = (lmax + 1) ** 2
+    J = np.zeros((K, K), dtype=np.float32)
+    for l, Jl in enumerate(J_matrices(lmax)):
+        J[l * l : l * l + 2 * l + 1, l * l : l * l + 2 * l + 1] = Jl
+    return J
+
+
+class WignerFactors:
+    """Per-edge cos / sin(m t) tables of the three z-rotations, [E, lmax+1]
+    each (per |m|, float32, detached).  The per-coefficient tables of kernel
+    K4 are built from them once per forward and kept here
+    (``tables``), so every rotate of a forward shares them."""
+
+    def __init__(self, lmax, ca, sa, cb, sb, cg, sg):
+        self.lmax = int(lmax)
+        self.ca, self.sa = ca, sa
+        self.cb, self.sb = cb, sb
+        self.cg, self.sg = cg, sg
+        self._tables = {}
+
+    def tables(self, key, build):
+        """The tables named ``key``, built by ``build(self)`` on first use."""
+        if key not in self._tables:
+            self._tables[key] = build(self)
+        return self._tables[key]
+
+
+def compute_wigner(lmax: int, edge_vec: torch.Tensor) -> WignerFactors:
+    """Factored per-edge Wigner rotation (float32, detached geometry)."""
+    rot = edge_frame(edge_vec.to(torch.float32))
+    alpha, beta, gamma = frame_to_zyz_angles(rot)
+    m = torch.arange(0, lmax + 1, dtype=torch.float32, device=alpha.device)
+
+    def cs(angle):
+        t = m * angle[:, None]
+        return torch.cos(t), torch.sin(t)
+
+    return WignerFactors(lmax, *cs(alpha), *cs(beta), *cs(gamma))
+
+
+# ── dispatch ───────────────────────────────────────────────────────────────
+
+
+def _check(wigner, layout: IrrepsLayout) -> None:
+    if isinstance(wigner, WignerFactors):
+        assert layout.lmax == wigner.lmax
+    else:
+        assert (layout.lmax, layout.mmax) == (wigner.lmax, wigner.mmax)
+
+
 def rotate_to_edge(wigner, x: torch.Tensor, layout: IrrepsLayout) -> torch.Tensor:
     """Rotate [E, (lmax+1)**2, C] global-frame features into each edge frame,
-    truncated to |m| <= mmax: -> [E, K_red, C] (l-primary reduced layout)."""
+    truncated to |m| <= mmax: -> [E, K_red, C] (l-primary reduced layout).
+    ``WignerFactors`` go to kernel K4, ``WignerDense`` to kernel K1."""
+    _check(wigner, layout)
+    if isinstance(wigner, WignerFactors):
+        from .cuda.rotate import rotate_to_edge_fused
+
+        return rotate_to_edge_fused(wigner, x, layout)
     from .cuda.rotate_dense import rotate_to_edge_dense
 
-    assert layout.mmax == wigner.mmax
     return rotate_to_edge_dense(wigner, x)
 
 
 def rotate_to_edge_m0(wigner, x: torch.Tensor, layout: IrrepsLayout) -> torch.Tensor:
     """rotate_to_edge returning only the m = 0 rows: [E, lmax+1, C]."""
+    _check(wigner, layout)
+    if isinstance(wigner, WignerFactors):
+        from .cuda.rotate import rotate_to_edge_m0_fused
+
+        return rotate_to_edge_m0_fused(wigner, x, layout)
     from .cuda.rotate_dense import rotate_to_edge_m0_dense
 
-    assert layout.mmax == wigner.mmax
     return rotate_to_edge_m0_dense(wigner, x)
 
 
 def rotate_from_edge(wigner, x: torch.Tensor, layout: IrrepsLayout) -> torch.Tensor:
     """Inverse rotation [E, K_red, C] -> [E, (lmax+1)**2, C], zero-filling the
     truncated orders and applying the sqrt((2l+1)/(2 mmax+1)) rescale."""
+    _check(wigner, layout)
+    if isinstance(wigner, WignerFactors):
+        from .cuda.rotate import rotate_from_edge_fused
+
+        return rotate_from_edge_fused(wigner, x, layout)
     from .cuda.rotate_dense import rotate_from_edge_dense
 
-    assert layout.mmax == wigner.mmax
     return rotate_from_edge_dense(wigner, x)

@@ -44,7 +44,23 @@ CONFIGS = {"default": mp_cfg.config, "debug": mp_cfg.config_debug,
            "synthetic": mp_cfg.synthetic}
 
 
+# model keys of the config whose other values the port cannot build yet
+_NOT_PORTED = {"normalize_attn_output": (False, "the attention without its output "
+                                         "normalization"),
+               "use_phi_every_layer": (True, "the distance RBF in every layer's value path"),
+               "regress_stress": (True, "stress regression")}
+
+
 def build_model(cfg: dict, mixed_precision: bool) -> EquiformerV2MatPES:
+    """The model of every model key of ``cfg`` (a missing key raises
+    ``KeyError``); a value the port cannot build yet raises ``ValueError``
+    naming its key, rather than training another model."""
+    for key, (value, what) in _NOT_PORTED.items():
+        if cfg[key] == value:
+            raise ValueError(f"{key}={value!r} ({what}) is not ported yet (ROADMAP.md)")
+    if cfg["w_stress"] > 0.0:
+        raise ValueError(f"w_stress={cfg['w_stress']} (stress regression) is not ported yet "
+                         "(ROADMAP.md)")
     return EquiformerV2MatPES(
         num_layers=cfg["num_layers"], sphere_channels=cfg["sphere_channels"],
         attn_hidden_channels=cfg["attn_hidden_channels"], num_heads=cfg["num_heads"],
@@ -57,7 +73,8 @@ def build_model(cfg: dict, mixed_precision: bool) -> EquiformerV2MatPES:
         avg_degree=cfg["avg_degree"], alpha_drop=cfg["alpha_drop"],
         drop_path_rate=cfg["drop_path_rate"],
         compute_dtype=torch.bfloat16 if mixed_precision else torch.float32,
-        conv_fused=bool(cfg.get("conv_fused", False)),
+        conv_fused=bool(cfg["conv_fused"]), gata=bool(cfg["gata"]),
+        wigner_rep=cfg["wigner_rep"],
     )
 
 

@@ -27,6 +27,9 @@ Port of the JAX package's train/trainer.py (the MatPES and QM9 parts):
   targets, one first-order backward, the same optimizer, EMA and
   precision rules (float32 unless the model computes in bfloat16, as in
   the JAX package, whose ``mixed_precision`` is off by default).
+* ``oc20_loss`` / ``make_oc20_train_step``: E-MSE x 2 + F-L1 x 100 on the
+  energy head and the explicit force head (no derivative of the energy),
+  one first-order backward, the same optimizer, EMA and precision rules.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from ..utils.precision import full_f32_products
 
 __all__ = ["decays", "wd_mask", "GuardedAdamW", "TrainState", "create_train_state",
            "ema_update", "cast_params", "matpes_loss", "make_matpes_train_step",
-           "qm9_loss", "make_qm9_train_step"]
+           "qm9_loss", "make_qm9_train_step", "oc20_loss", "make_oc20_train_step"]
 
 
 def decays(name: str, p: torch.Tensor) -> bool:
@@ -152,11 +155,13 @@ def ema_update(ema: dict[str, torch.Tensor], model: nn.Module, decay: float = 0.
     torch._foreach_add_(e, [params[n].detach() for n in names], alpha=1.0 - decay)
 
 
-def cast_params(model: nn.Module, dtype: torch.dtype) -> dict[str, torch.Tensor]:
+def cast_params(model: nn.Module, dtype: torch.dtype,
+                params: dict[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
     """Compute copies of the float parameters (mixed precision: f32
-    masters, bf16 compute); gradients flow back through the casts."""
-    return {n: p.to(dtype) if p.is_floating_point() else p
-            for n, p in model.named_parameters()}
+    masters, bf16 compute) of the model, or of ``params`` (e.g. the EMA
+    weights) when given; gradients flow back through the casts."""
+    named = model.named_parameters() if params is None else params.items()
+    return {n: p.to(dtype) if p.is_floating_point() else p for n, p in named}
 
 
 def matpes_loss(outs: dict, batch: dict, w_energy: float = 1.0, w_force: float = 1.0,
@@ -245,5 +250,51 @@ def make_qm9_train_step(state: TrainState, loss_kind: str = "l1", ema_decay: flo
             ema_update(state.ema, model, ema_decay)
         state.step += 1
         return loss.detach(), {"loss": loss.detach(), **info}
+
+    return step
+
+
+def oc20_loss(energy_pred: torch.Tensor, energy_tgt: torch.Tensor, force_pred: torch.Tensor,
+              force_tgt: torch.Tensor, node_mask: torch.Tensor, w_energy: float = 2.0,
+              w_force: float = 100.0):
+    """E-MSE x w_energy + F-L1 x w_force, the force L1 a mean over real
+    atoms' components (reference train_oc20v2)."""
+    e = torch.mean((energy_pred.float() - energy_tgt) ** 2)
+    m = node_mask[:, None].to(torch.float32)
+    f = torch.sum(torch.abs(force_pred.float() - force_tgt) * m) / torch.clamp(
+        3.0 * node_mask.sum(), min=1.0)
+    return w_energy * e + w_force * f, {"energy_mse": e, "force_l1": f}
+
+
+def make_oc20_train_step(state: TrainState, w_energy: float = 2.0, w_force: float = 100.0,
+                         ema_decay: float = 0.999, generator: torch.Generator | None = None):
+    """``step(batch) -> (loss, metrics)`` for ``models/oc20.py:EquiformerV2OC20``,
+    updating ``state`` in place (the JAX package's ``make_oc20_train_step``).
+
+    The model runs in ``train()`` mode (dropout masks from ``generator``);
+    a model built with ``compute_dtype=torch.bfloat16`` computes with
+    bfloat16 copies of its float32 master weights.  The guard, the EMA and
+    ``state.step`` behave as in ``make_matpes_train_step``.
+    """
+    model = state.model
+    cdt = model.backbone.compute_dtype
+
+    def step(batch: dict):
+        model.train()
+        with full_f32_products():
+            model.zero_grad(set_to_none=True)
+            if cdt == torch.float32:
+                outs = model(batch, generator=generator)
+            else:
+                outs = torch.func.functional_call(model, cast_params(model, cdt), (batch,),
+                                                  dict(generator=generator))
+            loss, metrics = oc20_loss(outs["energy"], batch["energy"], outs["forces"],
+                                      batch["forces"], batch["node_mask"], w_energy, w_force)
+            loss.backward()
+            info = state.optimizer.step()
+            ema_update(state.ema, model, ema_decay)
+        state.step += 1
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return loss.detach(), {**metrics, "loss": loss.detach(), **info}
 
     return step

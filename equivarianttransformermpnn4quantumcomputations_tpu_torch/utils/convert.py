@@ -1,7 +1,9 @@
 """Flax params (nested dict of numpy arrays) -> the port's ``state_dict``.
 
-The params of the JAX package's ``EquiformerV2MatPES`` (GATA-V2) and
-``EquiformerV2QM9`` (baseline backbone + ``output_blocks``) map one to one
+The params of the JAX package's ``EquiformerV2MatPES`` (GATA-V2),
+``EquiformerV2QM9`` (baseline backbone + ``output_blocks``) and
+``EquiformerV2OC20`` (baseline backbone + ``energy_block`` + ``force_block``,
+a ``FeedForward`` and a ``GraphAttention`` at the top level) map one to one
 onto the port's modules:
 
 * ``Dense`` ``kernel`` [in, out] -> ``nn.Linear.weight`` [out, in] (the
@@ -80,8 +82,8 @@ def port_name(path: tuple) -> str:
 
 def flax_to_state_dict(params) -> dict[str, torch.Tensor]:
     """Convert ``{'params': ...}`` or the bare params tree of the JAX
-    package's ``EquiformerV2MatPES`` or ``EquiformerV2QM9`` into the port's
-    ``state_dict``."""
+    package's ``EquiformerV2MatPES``, ``EquiformerV2QM9`` or
+    ``EquiformerV2OC20`` into the port's ``state_dict``."""
     tree = params.get("params", params)
     flat = flatten(tree)
     expanded = {}

@@ -2,7 +2,7 @@
 or one training step.
 
     python -m equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling \
-        [--train | --qm9] [--structures N] [--atoms N] [--json PATH]
+        [--train | --qm9 | --oc20] [--structures N] [--atoms N] [--json PATH]
 
 Serving (default): the flagship Predictor (``models/matpes.py:FLAGSHIP``,
 seeded random weights) answers requests of random periodic structures.
@@ -12,7 +12,13 @@ guarded AdamW, EMA; dropout off as in bench.py) on labelled structures
 step of the full-width QM9 model (``configs/qm9.py:config``, seeded random
 weights, its dropouts) on 64 random molecules of 18 atoms
 (``random_molecules``), once with ``conv_fused`` (kernel K3) and once
-without, in that order.  Each profile warms up twice,
+without, in that order.  ``--oc20``: one bf16 training step (f32 master
+weights, dropout off as in bench.py) of the full OC20 model
+(``configs/oc20.py:config``: 12 layers, lmax 6 / mmax 2) on 4 labelled
+periodic structures of 72 atoms (``oc20_batch``: cutoff 12, 20
+neighbours, N_pad 320, E_pad 6,400), once with the factored Wigner
+rotation (kernel K4) and once with the dense one (kernel K1), in that
+order.  Each profile warms up twice,
 times one call unprofiled, then profiles one with ``torch.profiler`` (CPU and CUDA
 activities) and prints: the call's time with and without the profiler,
 the host time of the graph build and collate, the summed kernel time, the
@@ -33,11 +39,11 @@ import numpy as np
 import torch
 
 __all__ = ["random_structures", "random_molecules", "qm9_batch", "qm9_train_state",
-           "profile_call", "main"]
+           "oc20_batch", "oc20_train_state", "profile_call", "main"]
 
 _BUCKETS = (
-    ("port kernels (pairs, s2act, so2conv)",
-     ("pairs_kernel", "s2act_kernel", "s2act_k3_kernel", "so2conv_kernel")),
+    ("port kernels (pairs, s2act, so2conv, rot)",
+     ("pairs_kernel", "s2act_kernel", "s2act_k3_kernel", "so2conv_kernel", "rot_kernel")),
     ("optimizer (multi-tensor)", ("multi_tensor",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "gemv", "splitK")),
     ("gather / scatter / index", ("index", "gather", "scatter")),
@@ -110,6 +116,44 @@ def qm9_train_state(conv_fused: bool):
     state = create_train_state(model, opt)
     step = make_qm9_train_step(state, cfg["loss"], cfg["ema_decay"],
                                torch.Generator("cuda").manual_seed(0))
+    return state, step
+
+
+def oc20_batch(rng: np.random.Generator, n: int = 4, atoms: int = 72):
+    """A fixed-degree batch of ``n`` labelled periodic structures of
+    ``atoms`` atoms (``data/synthetic.py:labelled_structures``) at OC20's
+    cutoff 12 and 20 neighbours, with 80 node slots per structure (the
+    JAX package's OC20 benchmark layout, bench.py:435-446: N_pad 320,
+    E_pad 6,400 at 4 x 72)."""
+    from ..data.graph import collate
+    from ..data.synthetic import labelled_structures
+
+    n_pad = n * 80
+    pb = collate(labelled_structures(rng, n, atoms), 12.0, 20, n_pad, n_pad * 20)
+    if pb.overflow_atoms or pb.overflow_edges:
+        raise RuntimeError("OC20 batch overflowed its pads")
+    return pb
+
+
+def oc20_train_state(wigner_rep: str):
+    """The full OC20 model (``configs/oc20.py:config``, bf16 compute with
+    f32 masters, dropouts 0 as in bench.py:437) with seeded random weights
+    on the card, its guarded AdamW (bench.py:449: warmup_cosine(4e-4, 100,
+    10000), weight decay 1e-3), EMA and step."""
+    from ..configs.oc20 import config
+    from ..models.matpes import init_weights
+    from ..train.schedules import warmup_cosine
+    from ..train.train_oc20 import build_oc20_model
+    from ..train.trainer import GuardedAdamW, create_train_state, make_oc20_train_step
+
+    cfg = {**config, "alpha_drop": 0.0, "drop_path_rate": 0.0, "wigner_rep": wigner_rep}
+    model = build_oc20_model(cfg, torch.bfloat16)
+    init_weights(model, torch.Generator().manual_seed(0)).to("cuda")
+    opt = GuardedAdamW(model.named_parameters(), warmup_cosine(cfg["lr"], 100, 10000),
+                       cfg["weight_decay"], cfg["grad_clip"])
+    state = create_train_state(model, opt)
+    step = make_oc20_train_step(state, cfg["w_energy"], cfg["w_force"], cfg["ema_decay"],
+                                torch.Generator("cuda").manual_seed(0))
     return state, step
 
 
@@ -226,6 +270,21 @@ def _qm9(args, conv_fused: bool) -> tuple[str, dict]:
     return f"QM9 training step (conv_fused {'on' if conv_fused else 'off'})", rec
 
 
+def _oc20(args, wigner_rep: str) -> tuple[str, dict]:
+    from ..data.graph import as_tensors
+
+    state, step = oc20_train_state(wigner_rep)
+    t = time.perf_counter()
+    pb = oc20_batch(np.random.default_rng(0), args.structures, args.atoms)
+    host_ms = (time.perf_counter() - t) * 1e3
+    batch = as_tensors(pb, "cuda")
+    for _ in range(2):
+        step(batch)
+    rec = dict(host_graph_build_ms=host_ms, **profile_call(lambda: step(batch)))
+    del state, step
+    return f"OC20 training step (bf16, wigner {wigner_rep})", rec
+
+
 def _report(card: str, what: str, rec: dict, args) -> dict:
     rec = dict(device=card, what=what, structures=args.structures, atoms=args.atoms,
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30, **rec)
@@ -249,14 +308,16 @@ def main(argv=None) -> int:
                       help="profile a flagship bf16 training step, not a serving request")
     mode.add_argument("--qm9", action="store_true",
                       help="profile a QM9 training step, with and without kernel K3")
+    mode.add_argument("--oc20", action="store_true",
+                      help="profile an OC20 training step, factored (K4) and dense (K1)")
     ap.add_argument("--structures", type=int, default=None,
-                    help="structures per call (default 16; --qm9: 64 molecules)")
+                    help="structures per call (default 16; --qm9: 64 molecules; --oc20: 4)")
     ap.add_argument("--atoms", type=int, default=None,
-                    help="atoms per structure (default 30; --qm9: 18)")
+                    help="atoms per structure (default 30; --qm9: 18; --oc20: 72)")
     ap.add_argument("--json", default=None, help="write the records here too")
     args = ap.parse_args(argv)
-    args.structures = args.structures or (64 if args.qm9 else 16)
-    args.atoms = args.atoms or (18 if args.qm9 else 30)
+    args.structures = args.structures or (64 if args.qm9 else 4 if args.oc20 else 16)
+    args.atoms = args.atoms or (18 if args.qm9 else 72 if args.oc20 else 30)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
     card = subprocess.run(
@@ -265,6 +326,8 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     if args.qm9:
         calls = [lambda: _qm9(args, True), lambda: _qm9(args, False)]
+    elif args.oc20:
+        calls = [lambda: _oc20(args, "factored"), lambda: _oc20(args, "dense")]
     else:
         calls = [lambda: (_training if args.train else _serving)(args)]
     recs = []

@@ -22,6 +22,8 @@ from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes impo
     EquiformerV2MatPES,
     init_weights,
 )
+from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops import rotation as rot
+from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import rotate as k4
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
     rotate_dense as rd,
 )
@@ -92,8 +94,52 @@ def test_rotate_autograd_runs_the_adjoint_kernels(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", k4.KINDS)
+@pytest.mark.parametrize("lm", k4.INSTANCES, ids=str)
+def test_factored_rotate_kernel_matches_plain(dev, lm, kind, dtype):
+    """K4 against rot_plain on a ragged edge tile (E = 301, 40 channels)."""
+    lmax, mmax = lm
+    g = torch.Generator(device=dev).manual_seed(6)
+    E, C = 301, 40
+    w = rot.compute_wigner(lmax, torch.randn(E, 3, generator=g, device=dev))
+    tabs = k4.tables(w, lmax, mmax, kind)[0]
+    x = torch.randn(E, tabs[0].shape[1], C, generator=g, device=dev).to(dtype)
+    before = k4.launches[kind]
+    got = k4.rot(x, tabs, lmax, mmax, kind)
+    assert k4.launches[kind] == before + 1
+    _close(got, k4.rot_plain(x, tabs), dtype)
+
+
+def test_factored_rotate_grad_of_grad_on_the_card_matches_the_cpu(dev):
+    """to / to_m0 / from and, in the backward passes, their adjoints:
+    every kind of K4 launches, and the second derivative agrees with the
+    CPU's plain path."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    E, C = 333, 64
+    vec = torch.randn(E, 3, generator=g, device=dev)
+    x = torch.randn(E, 49, C, generator=g, device=dev)
+    lay = layout(6, 2)
+
+    def gradgrad(x, vec):
+        w = rot.compute_wigner(6, vec)
+        x = x.clone().requires_grad_(True)
+        h = torch.nn.functional.silu(rot.rotate_to_edge(w, x, lay))
+        e = (rot.rotate_from_edge(w, h, lay) ** 2).sum() + \
+            (rot.rotate_to_edge_m0(w, x, lay) ** 3).sum()
+        (gx,) = torch.autograd.grad(e, x, create_graph=True)
+        return torch.autograd.grad((gx ** 2).sum(), x)[0]
+
+    n = dict(k4.launches)
+    got = gradgrad(x, vec)
+    assert all(k4.launches[k] > n[k] for k in k4.KINDS), k4.launches
+    want = gradgrad(x.cpu(), vec.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("backward", [False, True], ids=["k1", "k2"])
-@pytest.mark.parametrize("key", [(2, 2, None), (4, 4, 18), (4, 2, 18)], ids=str)
+@pytest.mark.parametrize("key", [(2, 2, None), (4, 4, 18), (4, 2, 18), (3, 2, None),
+                                 (6, 2, None), (6, 6, None)], ids=str)
 def test_s2act_kernel_matches_plain(dev, key, backward, dtype):
     grid = s2grid(*key)
     K = grid.to_grid_np.shape[1]
@@ -109,7 +155,8 @@ def test_s2act_kernel_matches_plain(dev, key, backward, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("key", [(2, 2, None), (4, 4, 18), (4, 2, 18)], ids=str)
+@pytest.mark.parametrize("key", [(2, 2, None), (4, 4, 18), (4, 2, 18), (3, 2, None),
+                                 (6, 2, None), (6, 6, None)], ids=str)
 def test_s2act_grad_of_grad_kernel_matches_plain(dev, key, dtype):
     """K2c: both outputs against k3_plain."""
     grid = s2grid(*key)

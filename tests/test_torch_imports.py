@@ -54,7 +54,9 @@ def test_port_has_every_module_of_the_slice():
                 "csrc/rotate_dense.cu", "csrc/s2act.cu",
                 "ops/cuda/so2conv.py", "csrc/so2conv.cu", "models/qm9.py",
                 "data/qm9.py", "configs/qm9.py", "train/train_qm9.py",
-                "train/test_qm9.py"):
+                "train/test_qm9.py", "ops/cuda/rotate.py", "csrc/rotate.cu",
+                "models/oc20.py", "configs/oc20.py", "data/periodic.py", "data/extxyz.py",
+                "data/oc20.py", "train/train_oc20.py", "train/test_oc20.py"):
         assert (PORT / rel).is_file(), rel
 
 
