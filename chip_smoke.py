@@ -13,11 +13,14 @@ Phases, each of which raises on failure:
      function, beside the least time the card could take: K1 and K2 at the
      flagship's serving shapes; K3 (the fused SO(2) convolution and its
      adjoint) at QM9's conv 1 and conv 2 and the flagship's conv 2, with its
-     grad-of-grad, the three cuBLAS GEMMs of the site (library) and the
-     port's unfused SO2Conv beside it; K4 (the fused factored rotation) at
-     OC20's "to" / "from" (lmax 6 / mmax 2) and the flagship's "to_m0" /
-     "from_m0" / "from" (lmax 4 / mmax 2), with first-order and grad-of-grad
-     through its autograd pair and torch.bmm of the per-edge dense Wigner
+     grad-of-grad, the three cuBLAS GEMMs of the site (library, f32 with
+     TF32 off, and bf16) and the port's unfused SO2Conv beside it, its bound
+     on the tensor cores (3xTF32 in f32, bf16) and the FFMA bound, its f32
+     error against float64, and its B operands (the weight transposed and
+     split into TF32 parts); K4 (the fused factored rotation) at OC20's
+     "to" / "from" (lmax 6 / mmax 2) and the flagship's "to_m0" / "from_m0"
+     / "from" (lmax 4 / mmax 2), with first-order and grad-of-grad through
+     its autograd pair and torch.bmm of the per-edge dense Wigner
      (library); K2a / K2b / K2c at OC20's K = 49 (P = 210) and K = 29
      (P = 70);
   4. serve 3 requests of 16 periodic structures of 30 atoms through the
@@ -80,9 +83,10 @@ N_STRUCTURES, N_ATOMS, N_REQUESTS = 16, 30, 3
 N_WARMUP_STEPS, N_TRAIN_STEPS = 2, 5
 QM9_MOLECULES, QM9_ATOMS = 64, 18      # configs/qm9.py batch; QM9's mean size
 OC20_GRAPHS, OC20_ATOMS = 4, 72        # bench.py:435 (N_pad 320, E_pad 6,400)
-# H100 SXM published peaks: HBM3 bandwidth, dense FP32 / BF16 tensor-core rate
+# H100 SXM published peaks: HBM3 bandwidth; FP32 on FFMA, dense TF32 and
+# BF16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {"ffma": 67e12, "tf32": 495e12, "bf16": 989e12}
 PKG = "equivarianttransformermpnn4quantumcomputations_tpu_torch"
 TPU_PKG = "equivarianttransformermpnn4quantumcomputations_tpu"
 
@@ -112,9 +116,10 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 15) -> float:
     return float(np.median(ts))
 
 
-def bound(bytes_moved: float, flops: float, dtype) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float, route: str = "ffma") -> tuple[float, str]:
+    """The least time (ms) for the work on ``route``'s units, and what bounds it."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / PEAK_FLOPS[route] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -187,7 +192,7 @@ def check_kernels(batch, tag: str) -> list[dict]:
         plain_ms = time_ms(lambda: rd.pairs_apply_plain(x, v, lmax, mmax, kind), flush)
         lib_ms = time_ms(lambda: torch.bmm(dense, x), flush)
         nbytes = 4 * (x.numel() + v.numel() + E * n_out * shape[2])
-        b_ms, b_by = bound(nbytes, 2.0 * len(pairs) * shape[2] * E, torch.float32)
+        b_ms, b_by = bound(nbytes, 2.0 * len(pairs) * shape[2] * E)
         records.append(dict(
             name=name, route="cuda", source=f"{src}/rotate_dense.cu",
             replaces=f"{TPU_PKG}/ops/pallas/rotate_dense.py:183", launches=0,
@@ -236,7 +241,7 @@ def check_s2act(grid, N: int, C: int, gen, flush, tag: str, suffix: str = "") ->
         ms = time_ms(lambda: kern(*ins), flush)
         plain_ms = time_ms(lambda: plain(*ins), flush)
         nbytes = 4 * (n_in + n_out) * N * K * C + 4 * 2 * A.numel()
-        b_ms, b_by = bound(nbytes, 2.0 * macs * P * K * N * C, torch.float32)
+        b_ms, b_by = bound(nbytes, 2.0 * macs * P * K * N * C)
         records.append(dict(
             name=name, route="cuda", source=f"{PKG}/csrc/s2act.cu",
             replaces=f"{TPU_PKG}/ops/pallas/s2act.py:{line}", launches=0,
@@ -271,9 +276,39 @@ def _k3_gradgrad(x, ws, cout, extra, plain: bool):
     return torch.autograd.grad(gx.float().square().sum(), [x, *ws])
 
 
+def check_k3_b_operands(ws, flush, tag: str) -> dict:
+    """K3's B operands (the forward's W_g^T split into TF32 big and small
+    parts, one launch per group) against the plain version, bit for bit,
+    and their times, at the weights ``ws`` (float32)."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
+        so2conv as k3,
+    )
+
+    got, want = k3.b_operands(ws, False), k3.b_operands_plain(ws, False)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(got[0] + got[1], want[0] + want[1]))
+    if err != 0.0:
+        raise RuntimeError(f"so2conv.b_operands: max abs err {err:.3e} (must be 0)")
+    ms = time_ms(lambda: k3.b_operands(ws, False), flush)
+    plain_ms = time_ms(lambda: k3.b_operands_plain(ws, False), flush)
+    b_ms, b_by = bound(3 * 4 * sum(w.numel() for w in ws), 0.0)   # read W, write big, small
+    print(f"kernel so2conv.b_operands QM9 conv 1 weights {[list(w.shape) for w in ws]} f32: "
+          f"ms {ms:.4f} ({len(ws)} launches)  plain {plain_ms:.4f}  bound {b_ms:.4f} ({b_by})  "
+          f"library none  err {err:.1e} (bit for bit)  [{tag}]", flush=True)
+    return dict(name="so2conv.b_operands", route="cuda", source=f"{PKG}/csrc/so2conv.cu",
+                replaces=f"{TPU_PKG}/ops/pallas/so2conv.py:323", launches=0, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def check_k3(e_flagship: int, e_qm9: int, tag: str) -> list[dict]:
     """Phase 3, K3: forward, adjoint and grad-of-grad against the plain
-    versions at three sites, f32 and bf16; times at each site in f32."""
+    versions at three sites, f32 and bf16; times at each site in both.
+
+    The kernel runs f32 as 3xTF32 on the tensor cores, so its bound is the
+    larger of bytes / 3.35 TB/s and 3 flops / 495 TFLOP/s; bf16 runs bf16
+    products, flops / 989 TFLOP/s.  The FFMA bound (flops / 67 TFLOP/s) of
+    the earlier FFMA kernel is printed beside it.  The library is the three
+    cuBLAS GEMMs of the site on inputs already permuted, f32 with TF32 off."""
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.nn.so3_layers import SO2Conv
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
         so2conv as k3,
@@ -281,6 +316,7 @@ def check_k3(e_flagship: int, e_qm9: int, tag: str) -> list[dict]:
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.irreps import layout
 
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(7)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     groups = k3._row_maps(4, 2)
@@ -290,16 +326,18 @@ def check_k3(e_flagship: int, e_qm9: int, tag: str) -> list[dict]:
              ("flagship conv 2", e_flagship, 128, 128, 0)]
     rows = {"fwd": [], "adj": []}
     for site, E, cin, cout, extra in sites:
-        def weights(dt):
-            return [(torch.randn(len(r) * cin, (extra if g == 0 else 0) + len(r) * cout,
-                                 generator=gen, device=dev) / (len(r) * cin) ** 0.5).to(dt)
-                    for g, r in enumerate(groups)]
-        errs = {"fwd": {}, "adj": {}, "gradgrad": {}}
-        for dt in (torch.float32, torch.bfloat16):
-            ws = weights(dt)
+        def operands(dt):
+            ws = [(torch.randn(len(r) * cin, (extra if g == 0 else 0) + len(r) * cout,
+                               generator=gen, device=dev) / (len(r) * cin) ** 0.5).to(dt)
+                  for g, r in enumerate(groups)]
             x = torch.randn(E, K, cin, generator=gen, device=dev).to(dt)
             dy = torch.randn(E, K, cout, generator=gen, device=dev).to(dt)
             dex = torch.randn(E, extra, generator=gen, device=dev).to(dt) if extra else None
+            return ws, x, dy, dex
+
+        errs = {"fwd": {}, "adj": {}, "gradgrad": {}}
+        for dt in (torch.float32, torch.bfloat16):
+            ws, x, dy, dex = operands(dt)
             got = k3.fwd(x, ws, 4, 2, cout, extra)
             want = k3.fwd_plain(x, ws, 4, 2, cout, extra)
             pairs = {"fwd": list(zip(got, want))[: 2 if extra else 1],
@@ -309,74 +347,98 @@ def check_k3(e_flagship: int, e_qm9: int, tag: str) -> list[dict]:
                                           _k3_gradgrad(x, ws, cout, extra, True)))}
             torch.cuda.synchronize()
             for what, ps in pairs.items():
-                err = lim = 0.0
-                for g_, w_ in ps:
-                    e_ = (g_.float() - w_.float()).abs().max().item()
-                    l_ = (1e-5 if dt == torch.float32 else 1e-2) * w_.float().abs().max().item()
-                    if not e_ <= l_:
-                        raise RuntimeError(f"so2conv {what} at {site} {dt}: max abs err "
-                                           f"{e_:.3e} > {l_:.3e}")
-                    err, lim = max(err, e_), max(lim, l_)
-                errs[what][dt] = (err, lim)
-        ws = weights(torch.float32)
-        x = torch.randn(E, K, cin, generator=gen, device=dev)
-        dy = torch.randn(E, K, cout, generator=gen, device=dev)
-        dex = torch.randn(E, extra, generator=gen, device=dev) if extra else None
-        # cuBLAS on inputs already in the GEMM layout (the library yardstick)
-        xg = [x.index_select(1, r).reshape(E, -1).contiguous() for r in idx]
-        dyg = [k3._group_rows(dy, dex if g == 0 else None, r).contiguous()
-               for g, r in enumerate(idx)]
-        # the port's unfused SO2Conv of the same site (no radial weights)
-        conv = SO2Conv(layout(4, 2), cin, cout, extra_m0=extra).to(dev).requires_grad_(False)
-        with torch.no_grad():
-            conv.w_m0.copy_(ws[0])
-            for m in (1, 2):
-                n_in = ws[m].shape[0] // 2
-                n_out = ws[m].shape[1] // 2
-                getattr(conv, f"w_m{m}_r").copy_(ws[m][:n_in, :n_out])
-                getattr(conv, f"w_m{m}_i").copy_(ws[m][:n_in, n_out:])
-        xr = x.clone().requires_grad_(True)
-        y_un, ex_un = conv(xr)
-        outs_un = [y_un] + ([ex_un] if extra else [])
-        cots_un = [dy] + ([dex] if extra else [])
+                e = [_max_err(g_, w_, dt, f"so2conv {what} at {site}") for g_, w_ in ps]
+                errs[what][dt] = (max(a for a, _ in e), max(b for _, b in e))
+            if dt == torch.float32:   # kernel and plain (cuBLAS f32) against float64
+                wsd = [w.double() for w in ws]
+                ref = {"fwd": k3.fwd_plain(x.double(), wsd, 4, 2, cout, extra)[: 2 if extra else 1],
+                       "adj": [k3.adj_plain(dy.double(), None if dex is None else dex.double(),
+                                            wsd, 4, 2, cin)]}
+                for what, r in ref.items():
+                    kernel_out, plain_out = zip(*pairs[what])
+                    errs[what]["f64"] = tuple(
+                        max(((o.double() - r_).abs().max() / r_.abs().max()).item()
+                            for o, r_ in zip(outs, r))
+                        for outs in (kernel_out, plain_out))
+                del wsd, ref
         flops = 2.0 * E * sum(w.numel() for w in ws)
-        wbytes = 4 * sum(w.numel() for w in ws)
-        timed = {
-            "fwd": dict(
-                ms=time_ms(lambda: k3.fwd(x, ws, 4, 2, cout, extra), flush),
-                plain_ms=time_ms(lambda: k3.fwd_plain(x, ws, 4, 2, cout, extra), flush),
-                library_ms=time_ms(lambda: [a @ w for a, w in zip(xg, ws)], flush),
-                unfused_ms=time_ms(lambda: conv(x), flush),
-                bytes=4 * (x.numel() + E * K * cout + E * extra) + wbytes),
-            "adj": dict(
-                ms=time_ms(lambda: k3.adj(dy, dex, ws, 4, 2, cin), flush),
-                plain_ms=time_ms(lambda: k3.adj_plain(dy, dex, ws, 4, 2, cin), flush),
-                library_ms=time_ms(lambda: [a @ w.t() for a, w in zip(dyg, ws)], flush),
-                unfused_ms=time_ms(lambda: torch.autograd.grad(
-                    outs_un, xr, cots_un, retain_graph=True), flush),
-                bytes=4 * (dy.numel() + E * extra + x.numel()) + wbytes),
-        }
+        timed = {"fwd": {}, "adj": {}}
+        for dt in (torch.float32, torch.bfloat16):
+            ws, x, dy, dex = operands(dt)
+            # cuBLAS on inputs already in the GEMM layout (the library yardstick)
+            xg = [x.index_select(1, r).reshape(E, -1).contiguous() for r in idx]
+            dyg = [k3._group_rows(dy, dex if g == 0 else None, r).contiguous()
+                   for g, r in enumerate(idx)]
+            n = dt.itemsize
+            wbytes = n * sum(w.numel() for w in ws)
+            runs = {
+                "fwd": (lambda: k3.fwd(x, ws, 4, 2, cout, extra),
+                        lambda: [a @ w for a, w in zip(xg, ws)],
+                        n * (x.numel() + E * K * cout + E * extra) + wbytes),
+                "adj": (lambda: k3.adj(dy, dex, ws, 4, 2, cin),
+                        lambda: [a @ w.t() for a, w in zip(dyg, ws)],
+                        n * (dy.numel() + E * extra + E * K * cin) + wbytes),
+            }
+            for kind, (kern, lib, nbytes) in runs.items():
+                if dt == torch.float32:
+                    b_ms, b_by = bound(nbytes, 3 * flops, "tf32")
+                    timed[kind].update(ms=time_ms(kern, flush), library_ms=time_ms(lib, flush),
+                                       bound_ms=b_ms, bound_by=b_by,
+                                       ffma_bound_ms=bound(nbytes, flops)[0])
+                else:
+                    b_ms, b_by = bound(nbytes, flops, "bf16")
+                    timed[kind].update(bf16_ms=time_ms(kern, flush),
+                                       bf16_library_ms=time_ms(lib, flush),
+                                       bf16_bound_ms=b_ms, bf16_bound_by=b_by)
+            if dt == torch.float32 and site == sites[0][0]:
+                b_record = check_k3_b_operands(ws, flush, tag)
+            if dt == torch.float32:
+                timed["fwd"]["plain_ms"] = time_ms(
+                    lambda: k3.fwd_plain(x, ws, 4, 2, cout, extra), flush)
+                timed["adj"]["plain_ms"] = time_ms(
+                    lambda: k3.adj_plain(dy, dex, ws, 4, 2, cin), flush)
+                # the port's unfused SO2Conv of the same site (no radial weights)
+                conv = SO2Conv(layout(4, 2), cin, cout, extra_m0=extra).to(dev)
+                conv.requires_grad_(False)
+                with torch.no_grad():
+                    conv.w_m0.copy_(ws[0])
+                    for m in (1, 2):
+                        n_in, n_out = ws[m].shape[0] // 2, ws[m].shape[1] // 2
+                        getattr(conv, f"w_m{m}_r").copy_(ws[m][:n_in, :n_out])
+                        getattr(conv, f"w_m{m}_i").copy_(ws[m][:n_in, n_out:])
+                xr = x.clone().requires_grad_(True)
+                y_un, ex_un = conv(xr)
+                outs_un = [y_un] + ([ex_un] if extra else [])
+                cots_un = [dy] + ([dex] if extra else [])
+                timed["fwd"]["unfused_ms"] = time_ms(lambda: conv(x), flush)
+                timed["adj"]["unfused_ms"] = time_ms(lambda: torch.autograd.grad(
+                    outs_un, xr, cots_un, retain_graph=True), flush)
+                del conv, y_un, ex_un, outs_un, xr
+            del xg, dyg
         for kind, t in timed.items():
-            b_ms, b_by = bound(t.pop("bytes"), flops, torch.float32)
             rows[kind].append(dict(
-                site=site, shape=[E, K, cin if kind == "fwd" else cout],
-                **t, bound_ms=b_ms, bound_by=b_by,
+                site=site, shape=[E, K, cin if kind == "fwd" else cout], **t,
                 err_f32=errs[kind][torch.float32][0], err_bf16=errs[kind][torch.bfloat16][0],
+                rel_err_f64=errs[kind]["f64"][0], plain_rel_err_f64=errs[kind]["f64"][1],
                 gradgrad_err_f32=errs["gradgrad"][torch.float32][0],
                 gradgrad_err_bf16=errs["gradgrad"][torch.bfloat16][0]))
             print(f"kernel so2conv.{kind:4s} {site:16s} E {E} Cin {cin} Cout {cout} extra "
-                  f"{extra}: ms {t['ms']:.4f}  plain {t['plain_ms']:.4f}  bound {b_ms:.4f} "
-                  f"({b_by})  library(3 cuBLAS GEMMs) {t['library_ms']:.4f}  unfused SO2Conv "
-                  f"{t['unfused_ms']:.4f}  err f32 {errs[kind][torch.float32][0]:.2e} "
-                  f"(limit {errs[kind][torch.float32][1]:.1e}) bf16 "
-                  f"{errs[kind][torch.bfloat16][0]:.2e} (limit "
-                  f"{errs[kind][torch.bfloat16][1]:.1e})  [{tag}]", flush=True)
+                  f"{extra}: f32 ms {t['ms']:.4f}  plain {t['plain_ms']:.4f}  bound "
+                  f"{t['bound_ms']:.4f} ({t['bound_by']}; 3xTF32 at 495 TFLOP/s)  FFMA bound "
+                  f"{t['ffma_bound_ms']:.4f}  library(3 cuBLAS GEMMs, allow_tf32=False) "
+                  f"{t['library_ms']:.4f}  unfused SO2Conv {t['unfused_ms']:.4f}  |  bf16 ms "
+                  f"{t['bf16_ms']:.4f}  bound {t['bf16_bound_ms']:.4f} ({t['bf16_bound_by']})  "
+                  f"library(3 cuBLAS bf16 GEMMs) {t['bf16_library_ms']:.4f}  |  err f32 "
+                  f"{errs[kind][torch.float32][0]:.2e} (limit {errs[kind][torch.float32][1]:.1e}) "
+                  f"bf16 {errs[kind][torch.bfloat16][0]:.2e} (limit "
+                  f"{errs[kind][torch.bfloat16][1]:.1e}); f32 against float64, relative to "
+                  f"max|float64|: kernel {errs[kind]['f64'][0]:.2e}, plain (cuBLAS f32) "
+                  f"{errs[kind]['f64'][1]:.2e}  [{tag}]", flush=True)
         print(f"kernel so2conv grad-of-grad {site}: err f32 "
               f"{errs['gradgrad'][torch.float32][0]:.2e} (limit "
               f"{errs['gradgrad'][torch.float32][1]:.1e}) bf16 "
               f"{errs['gradgrad'][torch.bfloat16][0]:.2e} (limit "
               f"{errs['gradgrad'][torch.bfloat16][1]:.1e})  [{tag}]", flush=True)
-        del conv, y_un, ex_un, outs_un, xr, xg, dyg
     records = []
     for kind, line in (("fwd", 111), ("adj", 140)):
         main = rows[kind][0]   # QM9 conv 1, the largest site of the main path
@@ -385,9 +447,11 @@ def check_k3(e_flagship: int, e_qm9: int, tag: str) -> list[dict]:
             replaces=f"{TPU_PKG}/ops/pallas/so2conv.py:{line}", launches=0,
             max_abs_err=main["err_f32"], ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=main["library_ms"], unfused_ms=main["unfused_ms"],
+            library_ms=main["library_ms"], ffma_bound_ms=main["ffma_bound_ms"],
+            bf16_ms=main["bf16_ms"], bf16_bound_ms=main["bf16_bound_ms"],
+            bf16_library_ms=main["bf16_library_ms"], unfused_ms=main["unfused_ms"],
             sites=rows[kind]))
-    return records
+    return records + [b_record]
 
 
 def train_phase(counters: dict, tag: str) -> dict:
@@ -753,7 +817,7 @@ def check_k4(flagship_vec: torch.Tensor, oc20_vec: torch.Tensor, tag: str) -> li
         # multiply-adds per (edge, channel) of the algebra's per-degree blocks
         macs = sum((2 * l + 1) * (2 * iw + 4 * ow)
                    for l, (_, iw, _, ow) in enumerate(k4.kernel_segments(lmax, mmax, kind)))
-        b_ms, b_by = bound(nbytes, 2.0 * macs * E * C, torch.float32)
+        b_ms, b_by = bound(nbytes, 2.0 * macs * E * C)
         row = dict(site=site, lmax=lmax, mmax=mmax, shape=[E, x.shape[1], C],
                    out_shape=[E, n_out, C], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=b_ms, bound_by=b_by, err_f32=errs[torch.float32][0][0],
@@ -1021,7 +1085,7 @@ def main() -> int:
                                      "s2act_kernel<f32,25,", "s2act_kernel<bf16,25,",
                                      "s2act_kernel<f32,19,", "s2act_kernel<bf16,19,",
                                      "s2act_k3_kernel<f32,25>", "s2act_k3_kernel<bf16,25>",
-                                     "so2conv_kernel<", "rot_kernel<f32,6,2,",
+                                     "so2conv_kernel<", "b_operand_kernel<", "rot_kernel<f32,6,2,",
                                      "rot_kernel<bf16,6,2,", "rot_kernel<f32,4,2,",
                                      "rot_kernel<bf16,4,2,")) or re.search(
                                          r"s2act(_k3)?_kernel<\w+,(49|29|14)[,>]", r["name"]):
@@ -1094,6 +1158,12 @@ def main() -> int:
     k4_request = factored_request_phase(pred, state, requests[0], tag)
     for r in records:
         r["launches_matpes_factored_request"] = k4_request.get(r["name"], 0)
+        if r["name"].startswith("rotate."):   # K4's flagship sites run on this request
+            for s in r["sites"]:
+                if s["site"].startswith("flagship"):
+                    s["launches_per_factored_request"] = k4_request[r["name"]]
+    print(f"K4 launches per factored flagship request, by kind: {k4_request}  [{tag}]",
+          flush=True)
 
     # phase 5: the card against the CPU plain path
     small = random_structures(np.random.default_rng(1), 4, N_ATOMS)

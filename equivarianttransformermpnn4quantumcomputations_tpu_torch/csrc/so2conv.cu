@@ -18,23 +18,51 @@
 // with lrow_g the l-primary rows of group g in the m-primary order of the
 // packed weight (ops/cuda/so2conv.py:_row_maps).  Rows are gathered from and
 // scattered to the l-primary tensors inside the kernel: there is no
-// to_m / from_m permutation copy, no concatenation of outputs and no
-// transposed copy of W (the adjoint reads W_g transposed from its forward
-// layout).  One launch covers every group of a site: the grid is the
-// concatenation of each group's (edge tile, column tile) blocks.
+// to_m / from_m permutation copy and no concatenation of outputs.  One
+// launch covers every group of a site: the grid is the concatenation of
+// each group's (edge tile, column tile) blocks.
 //
 // Bound: arithmetic.  QM9's conv 1 (Cin 256 -> Cout 128 + 384 extra, 19
-// rows) does 4.59 M multiply-adds per edge on 19 x 256 inputs: ~230 flops
-// per byte moved, far above the card's 20 f32 flops per byte.  Design: a
-// plain register-blocked f32 FFMA GEMM (no tensor cores yet): 128 x 128
-// output tile per block of 256 threads, 8 x 8 outputs per thread, K-depth 8
-// staged through double-buffered shared memory with the next tile's global
-// loads held in registers while the current one is consumed.  Every
-// segment of a gathered row (a Cin- or Cout-wide l-primary row, or the
-// extra block) is a multiple of 8 wide, so one K-step of 8 never crosses a
-// segment and the gather costs one row lookup per K-step.  bf16 inputs are
-// widened to f32 on load; accumulation is f32 and the output is rounded
-// once.  The ragged edge tail is masked (no padding of E).  The kernel
+// rows) does 4.59 M multiply-adds per edge on 19 x 256 inputs, ~290 flops
+// per byte moved.  On FFMA (67 TFLOP/s) that site needs 2.68 ms; the card's
+// tensor cores are faster, so the kernel runs there, on Hopper's warpgroup
+// products (wgmma):
+//   - float32: 3xTF32.  Each operand is split into a TF32 "big" part,
+//     cvt.rna.tf32.f32(a), and a TF32 "small" part, cvt.rna.tf32.f32(a -
+//     big); a b = big big + big small + small big (small small, ~2^-22
+//     relative, is dropped): three TF32 products per f32 product, so the
+//     bound is 3 flops / 495 TFLOP/s (1.09 ms at conv 1).  A single TF32
+//     pass keeps ~11 bits and misses the f32 limit, so it is never taken.
+//     The gathered A operand is split in registers (wgmma reads A from
+//     registers); the B operand (the weight) is split once per call by
+//     b_operand_kernel below, two tiles read from shared memory.
+//     The tensor core's accumulation truncates; to keep that error from
+//     growing with the depth, each 32-deep stage accumulates from zero and
+//     is added to the running sum with an ordinary rounded f32 add.
+//   - bfloat16: bf16 products with f32 accumulation, both operands read
+//     from shared memory, one rounding on store; bound flops / 989 TFLOP/s.
+// Design: 128 x 128 output tile per block, three warpgroups.  A producer
+// warpgroup copies each stage (128-byte rows: K-depth 32 in f32, 64 in
+// bf16) into a ring in dynamic shared memory (4 stages in f32, 192 KB; 6
+// in bf16, 192 KB) with cp.async and signals a "full" mbarrier when they
+// land; two consumer warpgroups (64 output rows each) issue the products
+// and release the slot through an "empty" mbarrier, so no block-wide
+// barrier stalls either side.  In f32 the consumers take turns to issue
+// (named barriers): one warpgroup's products run while the other waits
+// for its own, adds its stage's sum and splits its next A fragments, which
+// keeps the tensor cores fed across the per-stage rounded add.  In bf16 a
+// stage's products stay in flight while the next stage's are issued.  The
+// tiles are stored in the 128-byte swizzle wgmma reads (16-byte piece q
+// of row r at q ^ (r mod 8)), which also keeps ldmatrix and cp.async free
+// of bank conflicts.  wgmma takes TF32 operands K-major only, so B is the
+// weight with the GEMM depth contiguous: the adjoint's W_g as it lies, the
+// forward's W_g^T (b_operand_kernel's copy, made with the split once per
+// call).  Every segment of a gathered row (a Cin- or Cout-wide l-primary
+// row, or the extra block) is a multiple of 8 wide, so each 16-byte piece
+// of a stage lies in one 8-wide chunk with its own row lookup; pieces past
+// the group's depth and rows past E are zero-filled by cp.async, never
+// read.  The output is written straight from the accumulators, two
+// adjacent columns per store, ragged rows and columns masked.  The kernel
 // allocates nothing and launches on the caller's stream.
 
 #include <cuda_bf16.h>
@@ -43,12 +71,16 @@
 
 namespace {
 
-constexpr int BM = 128;     // edges per block tile
-constexpr int BN = 128;     // output columns per block tile
-constexpr int BK = 8;       // GEMM depth per shared-memory stage
-constexpr int THREADS = 256;
-constexpr int MAXG = 8;     // m-groups (mmax <= 7)
-constexpr int MAXR = 16;    // rows of one group (2 (lmax - m + 1) <= 16)
+constexpr int BM = 128;          // edges per block tile
+constexpr int BN = 128;          // output columns per block tile
+constexpr int ROW = 128;         // bytes of one tile row: the swizzle atom's width
+constexpr int TILE = BM * ROW;   // bytes of one [128][ROW] tile (BM == BN)
+constexpr int CHUNK = 8;         // segment-width quantum: one row lookup per chunk
+constexpr int CONSUMERS = 256;   // two warpgroups: the products, 64 output rows each
+constexpr int PRODUCERS = 128;   // one warpgroup: the copies
+constexpr int THREADS = CONSUMERS + PRODUCERS;
+constexpr int MAXG = 8;          // m-groups (mmax <= 7)
+constexpr int MAXR = 16;         // rows of one group (2 (lmax - m + 1) <= 16)
 
 struct Group {
   int rows;              // l-primary rows of the group
@@ -58,7 +90,8 @@ struct Group {
   int kdim, ndim;        // GEMM depth and width
   int tiles_n;           // column tiles
   int tile0;             // first block of the group in the grid
-  const void* w;         // packed weight [rows * Cin, N_g] (forward orientation)
+  const void* b;         // B operand [ndim, kdim] (f32: its TF32 big part)
+  const void* b_lo;      // f32: B's TF32 small part; bf16: unused
 };
 
 struct Params {
@@ -71,35 +104,161 @@ struct Params {
   Group g[MAXG];
 };
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&lo);
-  u.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
+template <typename T>
+struct Cfg {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int EP = 16 / (int)sizeof(T);            // elements per 16-byte piece
+  static constexpr int BK = ROW / (int)sizeof(T);           // depth per stage: 32 f32, 64 bf16
+  static constexpr int STAGES = F32 ? 4 : 6;                // ring depth
+  static constexpr int STAGE_BYTES = (F32 ? 3 : 2) * TILE;  // A, B (, B small)
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;  // + alignment slack
+  static_assert(CHUNK % EP == 0, "a 16-byte piece within one chunk");
+};
+
+#define ETQ_ACC64_REGS \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+  "}"
+#define ETQ_ACC64_OPS(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// ADJ = false: the forward (B[k][n] = W[k][n]); true: the adjoint
-// (B[k][n] = W[n][k], W read transposed in place).
-template <typename T, bool ADJ>
-__global__ void __launch_bounds__(THREADS, 2)
+// 16-byte global -> shared copy; zero-filled (nothing read) when !ok
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+// make this thread's generic-proxy shared-memory writes visible to wgmma
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// shared-memory barriers of the ring
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+// arrive on bar once this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+// wait for the phase of the given parity to complete; a deadlock traps
+// after 10 s (a launch error) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint64_t t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = global_ns();
+    else if (global_ns() - t0 > 10000000000ull) __trap();
+  }
+}
+// named barriers over the two consumer warpgroups (id 0 is __syncthreads)
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(CONSUMERS) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "n"(CONSUMERS) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// shared-memory matrix descriptor of a K-major operand in the 128-byte
+// swizzle: 8-row groups 1024 bytes apart (the leading offset is unused)
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// pin registers an asynchronous wgmma reads or writes at this point
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// d (+)= A B on a 64 x 128 x 8 TF32 product: A from registers (mma's
+// m16n8k8 A fragment per warp), B K-major in shared memory; d is
+// overwritten when scale_d == 0
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      ETQ_ACC64_REGS ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : ETQ_ACC64_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+// d += A B on a 64 x 128 x 16 bf16 product, both K-major in shared memory
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      ETQ_ACC64_REGS ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ETQ_ACC64_OPS(d)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
 so2conv_kernel(const Params p) {
-  __shared__ __align__(16) float As[2][BK][BM];
-  __shared__ __align__(16) float Bs[2][BK][BN];
+  using C = Cfg<T>;
+  extern __shared__ unsigned char smem_raw[];
   __shared__ int s_lrow[MAXR];
+  __shared__ __align__(8) uint64_t s_bar[2 * C::STAGES];  // full[s], empty[s]
 
   int g = 0;
 #pragma unroll
@@ -108,116 +267,212 @@ so2conv_kernel(const Params p) {
   const int in_extra = p.g[g].in_extra, out_extra = p.g[g].out_extra;
   const int kdim = p.g[g].kdim, ndim = p.g[g].ndim, tiles_n = p.g[g].tiles_n;
   const int local = (int)blockIdx.x - p.g[g].tile0;
-  const T* __restrict__ w = static_cast<const T*>(p.g[g].w);
-  if (threadIdx.x < MAXR) s_lrow[threadIdx.x] = p.g[g].lrow[threadIdx.x];
-
   const int mt = local / tiles_n;
   const int m0 = mt * BM, n0 = (local - mt * tiles_n) * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const T* __restrict__ a = static_cast<const T*>(p.a);
-  const T* __restrict__ a_extra = static_cast<const T*>(p.a_extra);
-
-  // loader roles: A tile [BM edges][BK], one float4 of a row per thread
-  const int a_m = tid >> 1, a_k = (tid & 1) * 4;
-  const int a_e = m0 + a_m;
-  // B tile [BK][BN]: forward reads 4 columns of one W row; adjoint reads 4
-  // depths of one W row (column n of the transposed view)
-  const int b_k = ADJ ? (tid & 1) * 4 : tid >> 5;
-  const int b_n = ADJ ? tid >> 1 : (tid & 31) * 4;
-  const bool b_ok = n0 + b_n < ndim;
-
-  auto load_a = [&](int k0) -> float4 {
-    if (a_e >= p.E) return make_float4(0.f, 0.f, 0.f, 0.f);
-    const int k = k0 + a_k;
-    if (k < in_extra) return load4(a_extra + (size_t)a_e * in_extra + k);
-    const int kk = k - in_extra;
-    const int j = kk / p.c_in;
-    return load4(a + ((size_t)a_e * p.K + s_lrow[j]) * p.c_in + (kk - j * p.c_in));
-  };
-  auto load_b = [&](int k0) -> float4 {
-    if (!b_ok) return make_float4(0.f, 0.f, 0.f, 0.f);
-    if (ADJ) return load4(w + (size_t)(n0 + b_n) * kdim + k0 + b_k);
-    return load4(w + (size_t)(k0 + b_k) * ndim + n0 + b_n);
-  };
-  auto store_tiles = [&](int buf, float4 va, float4 vb) {
-    As[buf][a_k + 0][a_m] = va.x;
-    As[buf][a_k + 1][a_m] = va.y;
-    As[buf][a_k + 2][a_m] = va.z;
-    As[buf][a_k + 3][a_m] = va.w;
-    if (ADJ) {
-      Bs[buf][b_k + 0][b_n] = vb.x;
-      Bs[buf][b_k + 1][b_n] = vb.y;
-      Bs[buf][b_k + 2][b_n] = vb.z;
-      Bs[buf][b_k + 3][b_n] = vb.w;
-    } else {
-      *reinterpret_cast<float4*>(&Bs[buf][b_k][b_n]) = vb;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t s_base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full0 = smem_u32(&s_bar[0]), empty0 = smem_u32(&s_bar[C::STAGES]);
+  const int nk = (kdim + C::BK - 1) / C::BK;
+  if (tid < MAXR) s_lrow[tid] = p.g[g].lrow[tid];
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, PRODUCERS);           // the producer's threads
+      mbar_init(empty0 + 8 * s, CONSUMERS / 32);     // one per consumer warp
     }
-  };
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // s_lrow, barriers
 
-  __syncthreads();  // s_lrow
-  float acc[8][8];
+  if (warp >= CONSUMERS / 32) {
+    // The producer warpgroup: stage kt's copies into slot kt % STAGES once
+    // the consumers are done with the slot's previous stage.  Rows lr + 16 i
+    // of each [128][ROW] tile, 16-byte piece q, in the 128-byte swizzle.
+    const T* __restrict__ a = static_cast<const T*>(p.a);
+    const T* __restrict__ a_extra = static_cast<const T*>(p.a_extra);
+    const T* __restrict__ b_hi = static_cast<const T*>(p.g[g].b);
+    const T* __restrict__ b_lo = static_cast<const T*>(p.g[g].b_lo);
+    const int lr = (tid - CONSUMERS) >> 3, q = tid & 7;
+    const uint32_t s_piece = (uint32_t)(lr * ROW + ((q ^ (lr & 7)) << 4));  // + 16 i ROW
+    for (int kt = 0; kt < nk; ++kt) {
+      const int slot = kt % C::STAGES;
+      if (kt >= C::STAGES) mbar_wait(empty0 + 8 * slot, ((kt / C::STAGES) + 1) & 1);
+      const uint32_t sa = s_base + slot * C::STAGE_BYTES;
+      const int k = kt * C::BK + q * C::EP;
+      const bool k_ok = k < kdim;
+      // A: the gathered row segment of this piece's chunk
+      const T* base = a;
+      size_t stride = (size_t)p.K * p.c_in;
+      int col = 0;
+      if (k < in_extra) {
+        base = a_extra;
+        stride = (size_t)in_extra;
+        col = k;
+      } else if (k_ok) {
+        const int kk = k - in_extra;
+        const int j = kk / p.c_in;
+        col = s_lrow[j] * p.c_in + (kk - j * p.c_in);
+      }
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < BM / 16; ++i) {
+        const int e = m0 + lr + 16 * i;
+        const bool ok = k_ok && e < p.E;
+        cp_async16(sa + s_piece + i * 16 * ROW, ok ? base + (size_t)e * stride + col : a, ok);
+      }
+      // B: rows n of the K-major operand (and its small part in f32)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  float4 ra = load_a(0), rb = load_b(0);
-  store_tiles(0, ra, rb);
-  __syncthreads();
-  const int nk = kdim / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {
-      ra = load_a((kt + 1) * BK);
-      rb = load_b((kt + 1) * BK);
+      for (int i = 0; i < BN / 16; ++i) {
+        const int n = n0 + lr + 16 * i;
+        const bool ok = k_ok && n < ndim;
+        const size_t off = (size_t)n * kdim + k;
+        const uint32_t dst = sa + TILE + s_piece + i * 16 * ROW;
+        cp_async16(dst, ok ? b_hi + off : b_hi, ok);
+        if constexpr (C::F32) cp_async16(dst + TILE, ok ? b_lo + off : b_lo, ok);
+      }
+      mbar_arrive_cp_async(full0 + 8 * slot);
     }
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][k][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (kt + 1 < nk) store_tiles(cur ^ 1, ra, rb);
-    __syncthreads();
+    asm volatile("cp.async.wait_all;\n" ::: "memory");  // no copy outlives its thread
+    return;
   }
 
+  // The consumers: warpgroup wg computes rows 64 wg .. of the tile.
+  const int wg = warp >> 2;
+  const int am = wg * 64 + (warp & 3) * 16 + (lane & 15);  // this lane's ldmatrix row
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  float part[64];  // f32: one stage's sum
+  if constexpr (C::F32) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) part[i] = 0.0f;
+  }
+  if constexpr (C::F32) {
+    // The two warpgroups take turns to issue their products (named
+    // barriers 1 and 2), so one's products run while the other waits for
+    // its own, adds its stage's sum and reads its next A fragments.
+    uint32_t h[4][4], l[4][4];  // the stage's A fragments, split (big, small)
+    if (wg == 1) bar_arrive(1);  // warpgroup 0 goes first
+    for (int kt = 0; kt < nk; ++kt) {
+      const int slot = kt % C::STAGES;
+      const uint32_t sa = s_base + slot * C::STAGE_BYTES;
+      mbar_wait(full0 + 8 * slot, (kt / C::STAGES) & 1);
+      fence_proxy_async();  // the landed copies, to the tensor cores' reads
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        ldsm_x4(h[ks], sa + am * ROW + (((2 * ks + (lane >> 4)) ^ (am & 7)) << 4));
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float f = __uint_as_float(h[ks][c]);
+          h[ks][c] = to_tf32(f);
+          l[ks][c] = to_tf32(f - __uint_as_float(h[ks][c]));
+        }
+      }
+      bar_sync(1 + wg);  // this warpgroup's turn
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const uint64_t dh = desc_sw128(sa + TILE + ks * 32);
+        const uint64_t dl = desc_sw128(sa + 2 * TILE + ks * 32);
+        wgmma_tf32(part, l[ks], dh, ks > 0);
+        wgmma_tf32(part, h[ks], dl, 1);
+        wgmma_tf32(part, h[ks], dh, 1);
+      }
+      wgmma_commit();
+      if (!(wg == 1 && kt == nk - 1)) bar_arrive(2 - wg);  // the other's turn
+      wgmma_wait<0>();
+      fence_regs(part);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        fence_regs(h[ks]);
+        fence_regs(l[ks]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * slot);  // this warp is done with the slot
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];  // the stage's sum, rounded
+    }
+  } else {
+    // bf16: stage kt's products stay in flight while stage kt + 1's are
+    // issued; the slot of stage kt - 1 is released once they are done
+    for (int kt = 0; kt < nk; ++kt) {
+      const int slot = kt % C::STAGES;
+      const uint32_t sa = s_base + slot * C::STAGE_BYTES;
+      mbar_wait(full0 + 8 * slot, (kt / C::STAGES) & 1);
+      fence_proxy_async();
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_bf16(acc, desc_sw128(sa + wg * 64 * ROW + ks * 32),
+                   desc_sw128(sa + TILE + ks * 32));
+      wgmma_commit();
+      wgmma_wait<1>();
+      __syncwarp();
+      if (kt > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((kt - 1) % C::STAGES));
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+  // epilogue: n8 block j holds (row g, columns 8j + 2t, + 1) in acc[4j],
+  // acc[4j + 1] and row g + 8 in acc[4j + 2], acc[4j + 3]
   T* __restrict__ out = static_cast<T*>(p.out);
   T* __restrict__ out_x = static_cast<T*>(p.out_extra);
+  const int e0 = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int e = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (e >= p.E) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + h * 64 + tx * 4;
-      if (n >= ndim) continue;
-      const float4 v = make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
-                                   acc[i][4 * h + 3]);
-      if (n < out_extra) {
-        store4(out_x + (size_t)e * out_extra + n, v);
-      } else {
-        const int nn = n - out_extra;
-        const int j = nn / p.c_out;
-        store4(out + ((size_t)e * p.K + s_lrow[j]) * p.c_out + (nn - j * p.c_out), v);
-      }
+  for (int j = 0; j < 16; ++j) {
+    const int n = n0 + j * 8 + 2 * (lane & 3);
+    if (n >= ndim) continue;
+    T* dst = out_x;
+    size_t stride = (size_t)out_extra;
+    int col = n;
+    if (n >= out_extra) {
+      const int nn = n - out_extra;
+      const int jr = nn / p.c_out;
+      dst = out;
+      stride = (size_t)p.K * p.c_out;
+      col = s_lrow[jr] * p.c_out + (nn - jr * p.c_out);
+    }
+    if (e0 < p.E) store2(dst + (size_t)e0 * stride + col, acc[4 * j], acc[4 * j + 1]);
+    if (e0 + 8 < p.E)
+      store2(dst + (size_t)(e0 + 8) * stride + col, acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// The B operand of one group for so2conv_kernel, from its packed weight
+// w [R, N]: transpose = 1 (the forward) hi [N, R] = w^T, 0 (the adjoint)
+// hi [R, N] = w; float32 is split into hi = tf32(w), lo = tf32(w - hi),
+// bfloat16 copied (lo unused).  32 x 32 tiles through shared memory.
+template <typename T>
+__global__ void __launch_bounds__(256)
+b_operand_kernel(const T* __restrict__ w, T* __restrict__ hi, T* __restrict__ lo, int R,
+                 int N, int transpose) {
+  __shared__ T tile[32][33];
+  const int r0 = blockIdx.y * 32, c0 = blockIdx.x * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int j = ty; j < 32; j += 8)
+    if (r0 + j < R && c0 + tx < N) tile[j][tx] = w[(size_t)(r0 + j) * N + c0 + tx];
+  __syncthreads();
+  for (int j = ty; j < 32; j += 8) {
+    const int r = transpose ? r0 + tx : r0 + j, c = transpose ? c0 + j : c0 + tx;
+    if (r >= R || c >= N) continue;
+    const T v = transpose ? tile[tx][j] : tile[j][tx];
+    const size_t o = transpose ? (size_t)c * R + r : (size_t)r * N + c;
+    if constexpr (sizeof(T) == 4) {
+      const uint32_t h = to_tf32(v);
+      hi[o] = __uint_as_float(h);
+      lo[o] = __uint_as_float(to_tf32(v - __uint_as_float(h)));
+    } else {
+      hi[o] = v;
     }
   }
 }
 
 template <typename T>
-int launch(bool adjoint, const Params& prm, int blocks, cudaStream_t stream) {
-  if (adjoint)
-    so2conv_kernel<T, true><<<blocks, THREADS, 0, stream>>>(prm);
-  else
-    so2conv_kernel<T, false><<<blocks, THREADS, 0, stream>>>(prm);
+int launch(const Params& prm, int blocks, cudaStream_t stream) {
+  constexpr int smem = Cfg<T>::SMEM;
+  const cudaError_t e = cudaFuncSetAttribute(
+      so2conv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  so2conv_kernel<T><<<blocks, THREADS, smem, stream>>>(prm);
   return (int)cudaGetLastError();
 }
 
@@ -227,7 +482,11 @@ int launch(bool adjoint, const Params& prm, int blocks, cudaStream_t stream) {
 //   dtype 0 = float32, 1 = bfloat16 (inputs, weights and outputs alike).
 //   a:  forward x [E, K, c_in];  adjoint dy [E, K, c_in] (c_in = the forward's Cout)
 //   a_extra: adjoint dextra [E, extra] (unused by the forward)
-//   w:  host array of n_groups device pointers, W_g [rows_g * Cin, N_g]
+//   b:  host array of n_groups device pointers, the K-major B operand of
+//       each group's GEMM, [ndim_g, kdim_g]: forward W_g^T [N_g, rows_g Cin],
+//       adjoint W_g [rows_g Cin, N_g]; float32: its TF32 big part
+//   b_lo: float32: host array of the TF32 small parts (b + b_lo ~ the
+//       weight); bfloat16: unused (may be null)
 //   out: forward y [E, K, c_out];  adjoint dx [E, K, c_out] (c_out = the forward's Cin)
 //   out_extra: forward extra [E, extra] (unused by the adjoint)
 //   group_rows / lrows: host arrays, rows per group and their l-primary
@@ -237,10 +496,11 @@ int launch(bool adjoint, const Params& prm, int blocks, cudaStream_t stream) {
 extern "C" int etq_so2conv(int dtype, int adjoint, int E, int K, int c_in, int c_out,
                            int n_groups, const int* group_rows, const int* lrows,
                            int extra, const void* a, const void* a_extra,
-                           const void* const* w, void* out, void* out_extra,
-                           void* stream) {
+                           const void* const* b, const void* const* b_lo, void* out,
+                           void* out_extra, void* stream) {
   if (dtype != 0 && dtype != 1) return -3;
-  if (n_groups < 1 || n_groups > MAXG || c_in % BK || c_out % BK || extra % BK) return -2;
+  if (n_groups < 1 || n_groups > MAXG || c_in % CHUNK || c_out % CHUNK || extra % CHUNK)
+    return -2;
   if (E == 0) return 0;
   Params prm = {};
   prm.n_groups = n_groups;
@@ -271,13 +531,35 @@ extern "C" int etq_so2conv(int dtype, int adjoint, int E, int K, int c_in, int c
     G.ndim = G.out_extra + G.rows * c_out;
     G.tiles_n = (G.ndim + BN - 1) / BN;
     G.tile0 = (int)blocks;
-    G.w = w[g];
+    G.b = b[g];
+    G.b_lo = dtype == 0 ? b_lo[g] : nullptr;
     blocks += (long long)tiles_m * G.tiles_n;
   }
   if (blocks > 0x7fffffff) return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(adjoint != 0, prm, (int)blocks, s);
-  return launch<__nv_bfloat16>(adjoint != 0, prm, (int)blocks, s);
+  if (dtype == 0) return launch<float>(prm, (int)blocks, s);
+  return launch<__nv_bfloat16>(prm, (int)blocks, s);
+}
+
+// The B operand of one group (see b_operand_kernel): dtype 0 = float32
+// (hi and lo written), 1 = bfloat16 (hi written).  Returns 0, a cudaError_t
+// (> 0), -2 for sizes it does not take, -3 for a dtype.
+extern "C" int etq_so2conv_b(int dtype, int transpose, int R, int N, const void* w, void* hi,
+                             void* lo, void* stream) {
+  if (dtype != 0 && dtype != 1) return -3;
+  if (R <= 0 || N <= 0) return R == 0 || N == 0 ? 0 : -2;
+  const dim3 grid((N + 31) / 32, (R + 31) / 32);
+  if (grid.y > 65535) return -2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    b_operand_kernel<float><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(w), static_cast<float*>(hi), static_cast<float*>(lo), R, N,
+        transpose);
+  else
+    b_operand_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(hi), nullptr, R, N,
+        transpose);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* etq_error_string(int code) {

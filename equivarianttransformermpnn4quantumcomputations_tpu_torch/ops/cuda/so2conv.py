@@ -8,7 +8,13 @@ m > 0: the butterfly ``[[wr, wi], [-wi, wr]]``).  The kernels in
 ``csrc/so2conv.cu`` read the group's input rows straight from the l-primary
 tensor and write its outputs straight to l-primary rows, so the
 ``to_m_perm`` / ``from_m_perm`` copies and the output concatenation of the
-unfused path disappear; the adjoint reads ``W_g`` transposed in place.
+unfused path disappear.  The kernels run on the tensor cores: float32 as
+3xTF32 (three TF32 products per f32 product, within the f32 limit),
+bfloat16 as bf16 products with f32 accumulation.  Their B operand is the
+weight with the GEMM depth contiguous (``b_operands``: the forward's
+``W_g^T``, the adjoint's ``W_g`` as it lies), split into TF32 big and small
+parts in float32, made once per call by ``b_operand_kernel`` (plain
+version ``b_operands_plain``, rounding as ``tf32_round``).
 
 Differentiation mirrors the JAX package's custom_vjp pair ``_core`` /
 ``_core_adj``: the operator is bilinear in (x, W).  The backward of
@@ -35,14 +41,15 @@ import torch
 from ..irreps import IrrepsLayout
 from ..irreps import layout as get_layout
 
-__all__ = ["so2conv_fused", "so2conv_supported", "fwd_plain", "adj_plain", "launches"]
+__all__ = ["so2conv_fused", "so2conv_supported", "fwd_plain", "adj_plain", "launches",
+           "tf32_round", "b_operands", "b_operands_plain"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_WIDTH = 8                  # csrc/so2conv.cu: BK, the segment-width quantum
+_WIDTH = 8                  # csrc/so2conv.cu: CHUNK, the segment-width quantum
 _MAX_GROUPS, _MAX_ROWS = 8, 16
 
-# kernel launches (the launch wrapper adds one per launch)
-launches = {"fwd": 0, "adj": 0}
+# kernel launches (the launch wrappers add one per launch)
+launches = {"fwd": 0, "adj": 0, "b_operands": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,8 +82,8 @@ def _c_tables(lmax: int, mmax: int):
 
 def so2conv_supported(layout: IrrepsLayout, Cin: int, Cout: int, extra: int) -> bool:
     """Shapes the kernel takes: Cin, Cout and extra multiples of 8 (one
-    depth stage never crosses a row segment), at most 8 m-groups of at most
-    16 rows."""
+    8-wide chunk of a stage never crosses a row segment), at most 8 m-groups
+    of at most 16 rows."""
     groups = _row_maps(layout.lmax, layout.mmax)
     return (Cin % _WIDTH == 0 and Cout % _WIDTH == 0 and extra % _WIDTH == 0
             and len(groups) <= _MAX_GROUPS and max(map(len, groups)) <= _MAX_ROWS)
@@ -123,6 +130,59 @@ def _group_rows(t: torch.Tensor, lead: torch.Tensor | None, rows) -> torch.Tenso
 # ── the kernels ───────────────────────────────────────────────────────────
 
 
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to nearest on
+    the 13 low mantissa bits, ties away from zero; the low bits come out 0.
+    Non-finite values pass through."""
+    bits = t.contiguous().view(torch.int32)
+    r = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(t), r, t)
+
+
+def b_operands_plain(ws, adjoint: bool) -> tuple[list[torch.Tensor], list[torch.Tensor] | None]:
+    """The kernel's B operand of each group, ``[ndim, kdim]`` with the GEMM
+    depth contiguous (the tensor cores take TF32 operands that way only):
+    the forward's ``W_g^T``, the adjoint's ``W_g`` as it lies.  float32:
+    (TF32 big parts, TF32 small parts), big + small = W to ~2^-22 relative;
+    bfloat16: (the operands, None)."""
+    bs = [w if adjoint else w.t().contiguous() for w in ws]
+    if bs[0].dtype != torch.float32:
+        return bs, None
+    hi = [tf32_round(b) for b in bs]
+    return hi, [tf32_round(b - h) for b, h in zip(bs, hi)]
+
+
+def b_operands(ws, adjoint: bool) -> tuple[list[torch.Tensor], list[torch.Tensor] | None]:
+    """``b_operands_plain`` on CPU tensors; on CUDA tensors one launch of
+    ``csrc/so2conv.cu:b_operand_kernel`` per group (the bfloat16 adjoint
+    takes W as it lies and launches nothing)."""
+    from . import build
+
+    if not ws[0].is_cuda:
+        return b_operands_plain(ws, adjoint)
+    if ws[0].dtype not in _DTYPE_CODE or not all(
+            w.is_contiguous() and w.dim() == 2 and w.dtype == ws[0].dtype
+            and w.device == ws[0].device for w in ws):
+        raise ValueError("so2conv B operands: contiguous 2-D float32 or bfloat16 weights "
+                         "on one device")
+    f32 = ws[0].dtype == torch.float32
+    if adjoint and not f32:
+        return list(ws), None
+    lib = build.library("so2conv")
+    stream = torch.cuda.current_stream(ws[0].device).cuda_stream
+    hi, lo = [], []
+    for w in ws:
+        R, N = w.shape
+        shape = (R, N) if adjoint else (N, R)
+        hi.append(torch.empty(shape, dtype=w.dtype, device=w.device))
+        lo.append(torch.empty(shape, dtype=w.dtype, device=w.device) if f32 else None)
+        rc = lib.etq_so2conv_b(_DTYPE_CODE[w.dtype], int(not adjoint), R, N, w.data_ptr(),
+                               hi[-1].data_ptr(), lo[-1].data_ptr() if f32 else None, stream)
+        build.check("so2conv", rc, "so2conv.b_operands")
+        launches["b_operands"] += 1
+    return hi, lo if f32 else None
+
+
 def _launch(adjoint: bool, a: torch.Tensor, a_extra: torch.Tensor | None, ws,
             lmax: int, mmax: int, c_out: int, extra: int):
     """Launch ``csrc/so2conv.cu`` on the current stream.  Forward: a = x,
@@ -155,13 +215,16 @@ def _launch(adjoint: bool, a: torch.Tensor, a_extra: torch.Tensor | None, ws,
     out_extra = (torch.empty(E, extra, dtype=a.dtype, device=a.device)
                  if extra and not adjoint else None)
     rows_c, lrows_c = _c_tables(lmax, mmax)
-    w_ptrs = (ctypes.c_void_p * len(ws))(*[w.data_ptr() for w in ws])
+    hi, lo = b_operands(ws, adjoint)
+    hi_ptrs = (ctypes.c_void_p * len(hi))(*[b.data_ptr() for b in hi])
+    lo_ptrs = None if lo is None else (ctypes.c_void_p * len(lo))(*[b.data_ptr() for b in lo])
     lib = build.library("so2conv")
     stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = lib.etq_so2conv(
         _DTYPE_CODE[a.dtype], int(adjoint), E, K, c_in, c_out, len(groups),
         ctypes.addressof(rows_c), ctypes.addressof(lrows_c), extra, a.data_ptr(),
-        a_extra.data_ptr() if adjoint and extra else 0, ctypes.addressof(w_ptrs),
+        a_extra.data_ptr() if adjoint and extra else 0, ctypes.addressof(hi_ptrs),
+        None if lo_ptrs is None else ctypes.addressof(lo_ptrs),
         out.data_ptr(), 0 if out_extra is None else out_extra.data_ptr(), stream,
     )
     build.check("so2conv", rc, "so2conv.adj" if adjoint else "so2conv.fwd")

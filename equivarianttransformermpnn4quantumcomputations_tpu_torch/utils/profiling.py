@@ -43,7 +43,8 @@ __all__ = ["random_structures", "random_molecules", "qm9_batch", "qm9_train_stat
 
 _BUCKETS = (
     ("port kernels (pairs, s2act, so2conv, rot)",
-     ("pairs_kernel", "s2act_kernel", "s2act_k3_kernel", "so2conv_kernel", "rot_kernel")),
+     ("pairs_kernel", "s2act_kernel", "s2act_k3_kernel", "so2conv_kernel", "b_operand_kernel",
+      "rot_kernel")),
     ("optimizer (multi-tensor)", ("multi_tensor",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "gemv", "splitK")),
     ("gather / scatter / index", ("index", "gather", "scatter")),

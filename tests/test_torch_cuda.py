@@ -213,21 +213,28 @@ def _k3_weights(lmax, mmax, cin, cout, extra, g, dev, dtype):
             for i, r in enumerate(k3._row_maps(lmax, mmax))]
 
 
-# (lmax, mmax, Cin, Cout, extra): a narrow site, QM9's conv 1 and conv 2
-K3_SITES = [(2, 1, 40, 24, 16), (4, 2, 256, 128, 384), (4, 2, 128, 128, 0)]
+# (lmax, mmax, Cin, Cout, extra): a narrow site (group depths not multiples
+# of a 32-deep stage), QM9's conv 1 and conv 2, OC20's width (lmax 6 / mmax
+# 2: 7 / 12 / 10 rows per group)
+K3_SITES = [(2, 1, 40, 24, 16), (4, 2, 256, 128, 384), (4, 2, 128, 128, 0),
+            (6, 2, 128, 128, 0)]
+# ragged edge counts: 301 (not a multiple of the 128-edge tile), 129 (a
+# single edge in the last tile)
+K3_EDGES = [301, 129]
 
 
+@pytest.mark.parametrize("n_edges", K3_EDGES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("site", K3_SITES, ids=str)
-def test_so2conv_kernels_match_plain(dev, site, dtype):
-    """K3-fwd and K3-adj at a ragged edge count (E = 301, not a tile multiple)."""
+def test_so2conv_kernels_match_plain(dev, site, dtype, n_edges):
+    """K3-fwd and K3-adj at a ragged edge count."""
     lmax, mmax, cin, cout, extra = site
     g = torch.Generator(device=dev).manual_seed(6)
     K = sum(map(len, k3._row_maps(lmax, mmax)))
     ws = _k3_weights(lmax, mmax, cin, cout, extra, g, dev, dtype)
-    x = torch.randn(301, K, cin, generator=g, device=dev).to(dtype)
-    dy = torch.randn(301, K, cout, generator=g, device=dev).to(dtype)
-    dex = torch.randn(301, extra, generator=g, device=dev).to(dtype) if extra else None
+    x = torch.randn(n_edges, K, cin, generator=g, device=dev).to(dtype)
+    dy = torch.randn(n_edges, K, cout, generator=g, device=dev).to(dtype)
+    dex = torch.randn(n_edges, extra, generator=g, device=dev).to(dtype) if extra else None
     before = dict(k3.launches)
     y, ex = k3.fwd(x, ws, lmax, mmax, cout, extra)
     dx = k3.adj(dy, dex, ws, lmax, mmax, cin)
@@ -237,6 +244,24 @@ def test_so2conv_kernels_match_plain(dev, site, dtype):
     if extra:
         _close(ex, ex_ref, dtype)
     _close(dx, k3.adj_plain(dy, dex, ws, lmax, mmax, cin), dtype)
+
+
+@pytest.mark.parametrize("adjoint", [False, True], ids=["fwd", "adj"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_so2conv_b_operands_kernel_matches_plain(dev, dtype, adjoint):
+    """K3's B operands (the weight transposed for the forward, split into
+    TF32 parts in f32) from the card's kernel, bit for bit as the plain
+    version makes them."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    ws = _k3_weights(2, 1, 40, 24, 16, g, dev, dtype)
+    before = k3.launches["b_operands"]
+    hi, lo = k3.b_operands(ws, adjoint)
+    hi_ref, lo_ref = k3.b_operands_plain(ws, adjoint)
+    launched = k3.launches["b_operands"] - before
+    assert launched == (0 if adjoint and dtype == torch.bfloat16 else len(ws))
+    torch.cuda.synchronize()
+    for got, want in zip(hi + (lo or []), hi_ref + (lo_ref or [])):
+        assert got.shape == want.shape and torch.equal(got, want)
 
 
 def test_so2conv_grad_of_grad_on_the_card_matches_the_cpu(dev):
