@@ -2,6 +2,12 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py        (from any directory; needs one CUDA GPU and nvcc)
+    python3 chip_smoke.py --rotation-only
+
+``--rotation-only`` runs phases 1 and 2 and phase 3's K1 / K4 rows, and
+stops.  Those rows call only the kernels' wrappers, whose interface is the
+same since K4 was ported, so this script copied into the root of an older
+checkout times that checkout's K1 / K4 with the same timer and shapes.
 
 Phases, each of which raises on failure:
   1. print the card (name and power limit, from nvidia-smi);
@@ -9,20 +15,22 @@ Phases, each of which raises on failure:
      parallel) and print the ptxas register / spill report;
   3. hold every kernel against its plain PyTorch version at the shapes its
      main path gives it, in float32 and bfloat16, and time kernel, plain
-     version and (where one exists) a single PyTorch call computing the same
-     function, beside the least time the card could take: K1 and K2 at the
-     flagship's serving shapes; K3 (the fused SO(2) convolution and its
-     adjoint) at QM9's conv 1 and conv 2 and the flagship's conv 2, with its
-     grad-of-grad, the three cuBLAS GEMMs of the site (library, f32 with
-     TF32 off, and bf16) and the port's unfused SO2Conv beside it, its bound
-     on the tensor cores (3xTF32 in f32, bf16) and the FFMA bound, its f32
-     error against float64, and its B operands (the weight transposed and
-     split into TF32 parts); K4 (the fused factored rotation) at OC20's
-     "to" / "from" (lmax 6 / mmax 2) and the flagship's "to_m0" / "from_m0"
-     / "from" (lmax 4 / mmax 2), with first-order and grad-of-grad through
-     its autograd pair and torch.bmm of the per-edge dense Wigner
-     (library); K2a / K2b / K2c at OC20's K = 49 (P = 210) and K = 29
-     (P = 70);
+     version and (where one exists) a single PyTorch call computing the
+     same function, beside the least time the card could take: K1 at the
+     flagship's serving shapes and QM9's, f32 and bf16, with a same-bytes
+     copy probe, and first order and grad-of-grad through its autograd
+     pair; K2 at the flagship's serving shapes; K3 (the fused SO(2)
+     convolution and its adjoint) at QM9's conv 1 and conv 2 and the
+     flagship's conv 2, with its grad-of-grad, the three cuBLAS GEMMs of
+     the site (library, f32 with TF32 off, and bf16) and the port's unfused
+     SO2Conv beside it, its bound on the tensor cores (3xTF32 in f32, bf16)
+     and the FFMA bound, its f32 error against float64, and its B operands
+     (the weight transposed and split into TF32 parts); K4 (the fused
+     factored rotation) at OC20's "to" / "from" (lmax 6 / mmax 2) and the
+     flagship's "to_m0" / "from_m0" / "from" (lmax 4 / mmax 2), f32 and
+     bf16 (as K1), with first-order and grad-of-grad through its autograd
+     pair and torch.bmm of the per-edge dense Wigner (library); K2a / K2b /
+     K2c at OC20's K = 49 (P = 210) and K = 29 (P = 70);
   4. serve 3 requests of 16 periodic structures of 30 atoms through the
      flagship MatPES GATA-V2 ``Predictor`` (bench.py:327-335 widths, seeded
      random weights) with the launch counts zeroed just before, and fail if a
@@ -59,8 +67,8 @@ Phases, each of which raises on failure:
   11. one f32 OC20 step (2 layers, full width, 2 structures) on the card
      against the CPU: loss <= 1e-4 relative, gradients <= 1e-3 relative L2.
 The line before the last is the kernels' JSON record and the card; the last
-line is the device JSON.  Without a CUDA device the script exits non-zero
-and prints no result.
+line is the device JSON (not with ``--rotation-only``).  Without a CUDA
+device the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -140,8 +148,82 @@ def _max_err(got, want, dt, what: str) -> tuple[float, float]:
     return err, limit
 
 
-def check_kernels(batch, tag: str) -> list[dict]:
-    """Phase 3: every kernel against its plain version at serving shapes."""
+def copy_probe_ms(nbytes: int, flush: torch.Tensor) -> float:
+    """``dst.copy_(src)`` over two buffers whose read + write bytes are
+    ``nbytes``: the card's sustained streaming rate at a kernel's size,
+    printed beside it for reading (it is no bound and no yardstick)."""
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    return time_ms(lambda: dst.copy_(src), flush)
+
+
+def time_rotation(kernel, x32, dense32, n_out: int, value_bytes: int, flops: float,
+                  flush) -> dict:
+    """One K1 / K4 site in f32 and bf16: the kernel, ``torch.bmm`` with the
+    per-edge dense Wigner (library), the bound and the copy probe."""
+    out = {}
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x, dense = x32.to(dt), dense32.to(dt)
+        E, _, C = x.shape
+        nbytes = x.element_size() * (x.numel() + E * n_out * C) + value_bytes
+        b_ms, b_by = bound(nbytes, flops)
+        row = dict(ms=time_ms(lambda: kernel(x), flush),
+                   library_ms=time_ms(lambda: torch.bmm(dense, x), flush),
+                   bound_ms=b_ms, bound_by=b_by, copy_probe_ms=copy_probe_ms(nbytes, flush))
+        row["bound_share"] = b_ms / row["ms"]
+        out[tag] = row
+        del x, dense
+    return out
+
+
+def _rotation_line(name: str, site: str, shape, out_shape, t: dict, plain_ms: float,
+                   plan, errs: str, tag: str) -> None:
+    parts = []
+    for dt in ("f32", "bf16"):
+        r = t[dt]
+        parts.append(f"{dt}: ms {r['ms']:.4f}, bound {r['bound_ms']:.4f} "
+                     f"({r['bound_by']}, {100 * r['bound_share']:.0f} %), bmm "
+                     f"{r['library_ms']:.4f}, copy probe {r['copy_probe_ms']:.4f}")
+    tile = (f"; tile {plan.te} edges x {plan.ct} ch, {plan.stages} stages, {plan.smem} B smem "
+            f"(f32)" if plan is not None else "")
+    print(f"kernel {name:22s} {site:30s} {list(shape)}->{list(out_shape)} "
+          f"{'; '.join(parts)}; plain f32 {plain_ms:.4f}{tile}; err (limit) {errs}  [{tag}]",
+          flush=True)
+
+
+def _plan(which: str, lmax: int, mmax: int, kind: str, C: int):
+    """The f32 tile plan of a K1 (``pairs_plan``) or K4 (``rot_plan``) call."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import edge_rotate
+
+    return getattr(edge_rotate, which)(4, lmax, mmax, kind, C)
+
+
+def _dense_wigner(E: int, n_out: int, n_in: int, pairs, v) -> torch.Tensor:
+    """The per-edge dense Wigner [E, n_out, n_in] of a pair list's values."""
+    dense = torch.zeros(E, n_out, n_in, device=v.device)
+    dense[:, torch.as_tensor(pairs[:, 0], device=v.device),
+          torch.as_tensor(pairs[:, 1], device=v.device)] = v
+    return dense
+
+
+def _chain_errors(fn, plain, x, dt, what: str) -> tuple:
+    """First order and grad-of-grad through an autograd pair (``fn``)
+    against the plain chain: ``plain(x, 0)`` is the operator A,
+    ``plain(x, 1)`` its adjoint."""
+    xg = x.clone().requires_grad_(True)
+    y = fn(xg)
+    (gx,) = torch.autograd.grad(0.5 * y.float().square().sum(), xg, create_graph=True)
+    (gg,) = torch.autograd.grad(gx.float().square().sum(), xg)
+    ata = plain(plain(x, 0), 1)
+    return (_max_err(gx.detach(), ata, dt, f"{what} gradient"),
+            _max_err(gg, 2 * plain(plain(ata, 0), 1), dt, f"{what} grad-of-grad"))
+
+
+def check_kernels(batch, e_qm9: int, tag: str, rotation_only: bool = False) -> list[dict]:
+    """Phase 3: K1 at the flagship's serving and QM9's training shapes (f32
+    and bf16; forward, gradient and grad-of-grad through its autograd pair),
+    and K2 at the flagship's (not with ``rotation_only``, which also leaves
+    out the tile plans)."""
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
         FLAGSHIP as cfg,
     )
@@ -153,7 +235,6 @@ def check_kernels(batch, tag: str) -> list[dict]:
     dev = torch.device("cuda")
     lmax, mmax, C = cfg["lmax"], cfg["mmax"], cfg["sphere_channels"]
     dvec = edge_vectors(batch)
-    w = rd.compute_wigner_dense(lmax, mmax, dvec)
     E, N = dvec.shape[0], batch["pos"].shape[0]
     K, Kr = (lmax + 1) ** 2, rd._pair_info(lmax, mmax)["n_out"]["to"]
     hv = cfg["num_heads"] * cfg["attn_value_channels"]
@@ -161,50 +242,69 @@ def check_kernels(batch, tag: str) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     src = f"{PKG}/csrc"
-    # (name, kind, input shape, values, width of the main path's call)
-    rot_specs = [
-        ("rotate_pairs.to_m0", "to_m0", (E, K, 2 * C), w.v_to_m0),       # attention, in
-        ("rotate_pairs.from", "from", (E, Kr, hv), w.v_from_res),        # attention, back
-        ("rotate_pairs.to", "to", (E, K, hv), w.v_to_res),               # adjoint of from
-        ("rotate_pairs.from_m0", "from_m0", (E, lmax + 1, 2 * C), w.v_from_m0),  # adjoint
+    w = rd.compute_wigner_dense(lmax, mmax, dvec)
+    wq = rd.compute_wigner_dense(lmax, mmax, torch.randn(e_qm9, 3, generator=gen, device=dev))
+    adj = {"to": "from", "from": "to", "to_m0": "from_m0", "from_m0": "to_m0"}
+    # (kind, input shape, values and its adjoint's, site): the flagship's
+    # attention and QM9's (baseline attention, 2C in, C back)
+    specs = [
+        ("to_m0", (E, K, 2 * C), (w.v_to_m0, w.v_from_m0), "flagship attention in, m=0"),
+        ("from", (E, Kr, hv), (w.v_from_res, w.v_to_res), "flagship attention back"),
+        ("to", (E, K, hv), (w.v_to_res, w.v_from_res), "flagship, adjoint of from"),
+        ("from_m0", (E, lmax + 1, 2 * C), (w.v_from_m0, w.v_to_m0),
+         "flagship, adjoint of to_m0"),
+        ("to", (e_qm9, K, 2 * C), (wq.v_to, wq.v_from), "QM9 attention in"),
+        ("from", (e_qm9, Kr, C), (wq.v_from_res, wq.v_to_res), "QM9 attention back"),
+        ("from", (e_qm9, Kr, 2 * C), (wq.v_from_res, wq.v_to_res), "QM9, 2C wide"),
     ]
-    records = []
-    for name, kind, shape, v in rot_specs:
+    info = rd._pair_info(lmax, mmax)
+    rows = {}
+    for kind, shape, (v, va), site in specs:
+        name = f"rotate_pairs.{kind}"
+        pairs, n_out = info["pairs"][kind], info["n_out"][kind]
         errs = {}
         for dt in (torch.float32, torch.bfloat16):
             x = torch.randn(shape, generator=gen, device=dev).to(dt)
-            got = rd.pairs_apply_kernel(x, v, lmax, mmax, kind)
-            want = rd.pairs_apply_plain(x, v, lmax, mmax, kind)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            limit = (1e-5 if dt == torch.float32 else 1e-2) * want.float().abs().max().item()
-            if not err <= limit:
-                raise RuntimeError(f"{name} {dt}: max abs err {err:.3e} > {limit:.3e}")
-            errs[dt] = (err, limit)
+            e = [_max_err(rd.pairs_apply_kernel(x, v, lmax, mmax, kind),
+                          rd.pairs_apply_plain(x, v, lmax, mmax, kind), dt, f"{name} at {site}")]
+            if site.startswith("flagship"):   # through _ToEdge / _FromEdge
+                Fn = rd._ToEdge if kind.startswith("to") else rd._FromEdge
+                e += _chain_errors(
+                    lambda a: Fn.apply(a, v, va, lmax, mmax, kind.endswith("m0")),
+                    lambda a, t: rd.pairs_apply_plain(a, (v, va)[t], lmax, mmax,
+                                                      (kind, adj[kind])[t]),
+                    x, dt, f"{name} at {site}")
+            errs[dt] = e
+        torch.cuda.synchronize()
         x = torch.randn(shape, generator=gen, device=dev)
-        info = rd._pair_info(lmax, mmax)
-        pairs = info["pairs"][kind]
-        n_out = info["n_out"][kind]
-        dense = torch.zeros(E, n_out, shape[1], device=dev)
-        dense[:, torch.as_tensor(pairs[:, 0], device=dev),
-              torch.as_tensor(pairs[:, 1], device=dev)] = v
-        ms = time_ms(lambda: rd.pairs_apply_kernel(x, v, lmax, mmax, kind), flush)
+        dense = _dense_wigner(shape[0], n_out, shape[1], pairs, v)
+        t = time_rotation(lambda a: rd.pairs_apply_kernel(a, v, lmax, mmax, kind), x, dense,
+                          n_out, 4 * v.numel(), 2.0 * len(pairs) * shape[2] * shape[0], flush)
         plain_ms = time_ms(lambda: rd.pairs_apply_plain(x, v, lmax, mmax, kind), flush)
-        lib_ms = time_ms(lambda: torch.bmm(dense, x), flush)
-        nbytes = 4 * (x.numel() + v.numel() + E * n_out * shape[2])
-        b_ms, b_by = bound(nbytes, 2.0 * len(pairs) * shape[2] * E)
+        plan = None if rotation_only else _plan("pairs_plan", lmax, mmax, kind, shape[2])
+        err_txt = ", ".join(f"{'f32' if dt == torch.float32 else 'bf16'} "
+                            + " / ".join(f"{a:.2e} ({b:.1e})" for a, b in e)
+                            for dt, e in errs.items())
+        _rotation_line(name, site, shape, (shape[0], n_out, shape[2]), t, plain_ms, plan,
+                       err_txt, tag)
+        rows.setdefault(kind, []).append(dict(
+            site=site, shape=list(shape), out_shape=[shape[0], n_out, shape[2]],
+            plain_ms=plain_ms, err_f32=errs[torch.float32][0][0],
+            err_bf16=errs[torch.bfloat16][0][0], plan=plan and plan._asdict(), **{
+                f"{k}_{dt}": val for dt, r in t.items() for k, val in r.items()}))
+        del x, dense
+    records = []
+    for kind in ("to_m0", "from", "to", "from_m0"):
+        main = rows[kind][0]   # the flagship's site: the main path's shape
         records.append(dict(
-            name=name, route="cuda", source=f"{src}/rotate_dense.cu",
+            name=f"rotate_pairs.{kind}", route="cuda", source=f"{src}/rotate_dense.cu",
             replaces=f"{TPU_PKG}/ops/pallas/rotate_dense.py:183", launches=0,
-            max_abs_err=errs[torch.float32][0], ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        ))
-        print(f"kernel {name:22s} {list(shape)}->{[E, n_out, shape[2]]} ms {ms:.4f}  "
-              f"plain {plain_ms:.4f}  bound {b_ms:.4f} ({b_by})  library(bmm) {lib_ms:.4f}  "
-              f"err f32 {errs[torch.float32][0]:.2e} (limit {errs[torch.float32][1]:.1e}) "
-              f"bf16 {errs[torch.bfloat16][0]:.2e} (limit {errs[torch.bfloat16][1]:.1e})  "
-              f"[{tag}]", flush=True)
-
+            max_abs_err=main["err_f32"], ms=main["ms_f32"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms_f32"], bound_by=main["bound_by_f32"],
+            library_ms=main["library_ms_f32"], sites=rows[kind]))
+    del w, wq
+    if rotation_only:
+        return records
     return records + check_s2act(grid, N, cfg["ffn_hidden_channels"], gen, flush, tag)
 
 
@@ -756,10 +856,25 @@ def qm9_parity_phase(tag: str) -> None:
         raise RuntimeError("the QM9 training step on the card disagrees with the CPU plain path")
 
 
-def check_k4(flagship_vec: torch.Tensor, oc20_vec: torch.Tensor, tag: str) -> list[dict]:
+def k4_macs(segments, C: int) -> int:
+    """Multiply-adds per edge of K4 as csrc/rotate.cu does them: the block
+    build (per degree l, d = 2l + 1: H's d x in_w entries at 2 each; per
+    pair of flipped output rows, both rows of G at 2 per entry, both rows
+    of G H and both of M at 2 per entry) and the apply (in_w x out_w per
+    channel)."""
+    macs = 0
+    for l, (_, iw, _, ow) in enumerate(segments):
+        d = 2 * l + 1
+        macs += 2 * d * iw + (ow + 1) // 2 * (4 * d + 2 * d * iw + 4 * iw) + iw * ow * C
+    return macs
+
+
+def check_k4(flagship_vec: torch.Tensor, oc20_vec: torch.Tensor, tag: str,
+             rotation_only: bool = False) -> list[dict]:
     """Phase 3, K4: each kind against rot_plain in f32 and bf16, first order
     and grad-of-grad through the autograd pair against the plain chain, and
-    times at OC20's and the flagship's shapes (f32)."""
+    times at OC20's and the flagship's shapes (f32 and bf16; the tile plans
+    not with ``rotation_only``)."""
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops import rotation as rot
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
         rotate as k4,
@@ -805,33 +920,28 @@ def check_k4(flagship_vec: torch.Tensor, oc20_vec: torch.Tensor, tag: str) -> li
         info = rd._pair_info(lmax, mmax)
         pairs = info["pairs"][kind]
         n_out = info["n_out"][kind]
-        dense = torch.zeros(E, n_out, x.shape[1], device=dev)
-        dense[:, torch.as_tensor(pairs[:, 0], device=dev),
-              torch.as_tensor(pairs[:, 1], device=dev)] = v
+        dense = _dense_wigner(E, n_out, x.shape[1], pairs, v)
         torch.testing.assert_close(torch.bmm(dense, x), k4.rot_plain(x, ts), rtol=1e-4,
                                    atol=1e-4 * x.abs().max().item())
-        ms = time_ms(lambda: k4.rot_kernel(x, ts, lmax, mmax, kind), flush)
+        t = time_rotation(lambda a: k4.rot_kernel(a, ts, lmax, mmax, kind), x, dense, n_out,
+                          4 * sum(a.numel() for a in ts[:6]),
+                          2.0 * k4_macs(k4.kernel_segments(lmax, mmax, kind), C) * E, flush)
         plain_ms = time_ms(lambda: k4.rot_plain(x, ts), flush)
-        lib_ms = time_ms(lambda: torch.bmm(dense, x), flush)
-        nbytes = 4 * (x.numel() + E * n_out * C + sum(t.numel() for t in ts[:6]))
-        # multiply-adds per (edge, channel) of the algebra's per-degree blocks
-        macs = sum((2 * l + 1) * (2 * iw + 4 * ow)
-                   for l, (_, iw, _, ow) in enumerate(k4.kernel_segments(lmax, mmax, kind)))
-        b_ms, b_by = bound(nbytes, 2.0 * macs * E * C)
+        plan = None if rotation_only else _plan("rot_plan", lmax, mmax, kind, C)
+        err_txt = ", ".join(
+            f"{'f32' if dt == torch.float32 else 'bf16'} "
+            + " / ".join(f"{e:.2e} ({lim:.1e})" for e, lim in errs[dt])
+            for dt in errs) + " (fwd / grad / gradgrad)"
+        _rotation_line(f"rotate.{kind}", site, list(x.shape), [E, n_out, C], t, plain_ms, plan,
+                       err_txt, tag)
         row = dict(site=site, lmax=lmax, mmax=mmax, shape=[E, x.shape[1], C],
-                   out_shape=[E, n_out, C], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=b_ms, bound_by=b_by, err_f32=errs[torch.float32][0][0],
+                   out_shape=[E, n_out, C], plain_ms=plain_ms, err_f32=errs[torch.float32][0][0],
                    err_bf16=errs[torch.bfloat16][0][0],
                    grad_err_f32=errs[torch.float32][1][0],
                    gradgrad_err_f32=errs[torch.float32][2][0],
-                   gradgrad_err_bf16=errs[torch.bfloat16][2][0])
+                   gradgrad_err_bf16=errs[torch.bfloat16][2][0], plan=plan and plan._asdict(),
+                   **{f"{k}_{dt}": val for dt, r in t.items() for k, val in r.items()})
         rows.setdefault(kind, []).append(row)
-        print(f"kernel rotate.{kind:7s} {site:32s} {list(x.shape)}->{[E, n_out, C]} ms {ms:.4f}  "
-              f"plain {plain_ms:.4f}  bound {b_ms:.4f} ({b_by})  library(bmm) {lib_ms:.4f}  "
-              f"err (limit) fwd / grad / gradgrad: f32 "
-              f"{' / '.join(f'{e:.2e} ({lim:.1e})' for e, lim in errs[torch.float32])}, bf16 "
-              f"{' / '.join(f'{e:.2e} ({lim:.1e})' for e, lim in errs[torch.bfloat16])}  "
-              f"[{tag}]", flush=True)
         del dense, x, w, wd
     records = []
     for kind in k4.KINDS:
@@ -839,9 +949,9 @@ def check_k4(flagship_vec: torch.Tensor, oc20_vec: torch.Tensor, tag: str) -> li
         records.append(dict(
             name=f"rotate.{kind}", route="cuda", source=f"{PKG}/csrc/rotate.cu",
             replaces=f"{TPU_PKG}/ops/pallas/rotate.py:66", launches=0,
-            max_abs_err=main["err_f32"], ms=main["ms"], plain_ms=main["plain_ms"],
-            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=main["library_ms"], sites=rows[kind]))
+            max_abs_err=main["err_f32"], ms=main["ms_f32"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms_f32"], bound_by=main["bound_by_f32"],
+            library_ms=main["library_ms_f32"], sites=rows[kind]))
     return records
 
 
@@ -1039,7 +1149,11 @@ def oc20_parity_phase(tag: str) -> None:
         raise RuntimeError("the OC20 training step on the card disagrees with the CPU plain path")
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    rotation_only = argv == ["--rotation-only"]
+    if argv and not rotation_only:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -1108,11 +1222,16 @@ def main() -> int:
           f"({int(pb.edge_mask.sum())} real edges)", flush=True)
 
     # phase 3: kernels against their plain versions
-    records = check_kernels(batch, tag)
-    records += check_k3(int(pb.edge_src.shape[0]),
-                        QM9_MOLECULES * QM9_ATOMS * (QM9_ATOMS - 1), tag)
+    e_qm9 = QM9_MOLECULES * QM9_ATOMS * (QM9_ATOMS - 1)
     oc20_vec = edge_vectors(as_tensors(oc20_batch(np.random.default_rng(7), OC20_GRAPHS,
                                                   OC20_ATOMS), "cuda"))
+    if rotation_only:
+        check_kernels(batch, e_qm9, tag, rotation_only=True)
+        check_k4(edge_vectors(batch), oc20_vec, tag, rotation_only=True)
+        print(f"rotation kernels checked and timed  [{tag}]")
+        return 0
+    records = check_kernels(batch, e_qm9, tag)
+    records += check_k3(int(pb.edge_src.shape[0]), e_qm9, tag)
     records += check_k4(edge_vectors(batch), oc20_vec, tag)
     k2_oc20 = check_k2_oc20(tag)
     # K2c is not on the OC20 path (a first-order step): its OC20 instances
@@ -1233,4 +1352,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

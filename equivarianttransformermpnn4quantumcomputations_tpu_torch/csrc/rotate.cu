@@ -3,114 +3,66 @@
 // Replaces the Pallas TPU kernel `_rot_kernel` / `_call_rot` of
 // equivarianttransformermpnn4quantumcomputations_tpu/ops/pallas/rotate.py.
 //
-// Per edge e and channel c, D = Xz(a) J Xz(b) J Xz(g) applied as
+// Per edge e, D = Xz(a) J Xz(b) J Xz(g) is applied through six per-edge
+// tables and two constant matrices (the JAX package's flip-folded algebra;
+// ops/cuda/rotate.py:rot_plain is the same function with the dense W1 / W2):
 //   h[i]  = sum_k (W1[i, k] t1a[e, k] + W1[i, Ki + k] t1b[e, k]) x[e, k, c]
 //   uv[r] = sum_j (W2[r, j] t2a[e, j] + W2[r, Km + j] t2b[e, j]) h[j]
 //   y[e, o, c] = t3a[e, o] uv[o] + t3b[e, o] uv[Ko + o]
-// (the JAX package's flip-folded algebra; ops/cuda/rotate.py:rot_plain is
-// the same function with the dense W1 / W2).  Four kinds, as in K1:
-//   kind 0 "to"      full (lmax+1)^2 rows -> reduced rows (|m| <= mmax)
-//   kind 1 "from"    reduced rows -> full rows
-//   kind 2 "to_m0"   full rows -> the lmax+1 m = 0 rows
-//   kind 3 "from_m0" the lmax+1 m = 0 rows -> full rows
-// Every factor maps degree l onto degree l, so only the degree-l blocks of
-// W1 (two halves, [2l+1, in_w]) and W2 (two quarters, [out_w, 2l+1]) are
+// in four kinds, as in K1 ("to", "from", "to_m0", "from_m0").  Every
+// factor maps degree l onto degree l, so only the degree-l blocks of W1
+// (two halves, [2l+1, in_w]) and W2 (two quarters, [out_w, 2l+1]) are
 // nonzero, and W2's second half of rows is its first half flipped within
-// each degree (m -> -m): uv[Ko + o] = uv[o'], o' the flip of o, so the kernel
-// forms the first half only and pairs each output row with its flip.
+// each degree (m -> -m): uv[Ko + o] = uv[f], f = out_w - 1 - o.
 // ops/cuda/rotate.py:kernel_pack packs the blocks, degree by degree, for
-// every (lmax, mmax, kind) instance; they live in __constant__ memory
-// (uploaded once per device by etq_rotate_set_consts), and since every loop
-// below has constant trip counts and is fully unrolled, each constant is
-// read at a compile-time address straight into its FFMA.
+// every (lmax, mmax, kind) instance into __constant__ memory (uploaded once
+// per device by etq_rotate_set_consts).
 //
-// Bound: memory.  Per edge the kernel reads x[e] once and writes y[e] once
-// (at OC20's "to" [6400, 49, 256] -> [6400, 29, 256] in f32: 511 MB, 0.153 ms
-// at 3.35 TB/s), while the algebra's per-degree blocks cost 910 + 940
-// multiply-adds per (edge, channel) at lmax 6 / mmax 2, ~0.09 ms at the f32
-// rate (the dense [49, 98] pair matrices would cost 0.51 ms).
-// Design: one thread owns 4 channels of one edge (neighbouring threads, neighbouring channels: every
-// load and store of x and y is coalesced); a block of 256 threads takes a
-// tile of TE edges (TE = 256 / (C / 4), at most 32) and first stages the
-// tile's six per-edge tables in shared memory, where the threads of one
-// edge read each entry at the same address (broadcast).  Per degree, stage 1
-// streams the input rows (the effective coefficient W1a t1a + W1b t1b is
-// formed once per (i, k) and used for 4 channels) into the 2l+1 middle rows
-// held in registers; stage 2 forms each pair (o, o') of flipped output rows
-// from them (coefficient W2a t2a + W2b t2b once per (o, j)) and stores
-// y[o] = t3a uv[o] + t3b uv[o'] and y[o'] = t3a uv[o'] + t3b uv[o].
-// Math is f32 for both input types; the last tile is masked, nothing is
-// padded.  The kernel allocates nothing and launches on the caller's stream.
+// Bound: memory.  Per edge the kernel reads x[e] and the tables once and
+// writes y[e] once (at OC20's "to" [6400, 49, 256] -> [6400, 29, 256] in
+// f32: 511 MB, 0.153 ms at 3.35 TB/s).  Design: the chain is linear in x,
+// so per tile the block first forms each edge's block-diagonal matrix
+//   H = W1a diag(t1a) + W1b diag(t1b),  G = W2a diag(t2a) + W2b diag(t2b)
+//   M[o, k] = t3a[o] (G H)[o, k] + t3b[o] (G H)[f, k]       (per degree)
+// in shared memory, laid out in K1's pair order (~2.3 k multiply-adds per
+// edge at lmax 6 / mmax 2 "from", shared by all its channels), and then
+// applies M with K1's inner loop: 235 multiply-adds per (edge, channel)
+// there, where the chain costs ~690.  The memory engine is K1's
+// (csrc/edge_rotate.cuh): persistent grid, each tile's x in one bulk copy
+// through a ring of stages with the six tables beside it, 16 bytes of
+// channels per thread, streaming stores.  The block's constants are copied
+// from __constant__ to shared memory once per block (the build reads them
+// at data-dependent addresses).  Math is f32 for both input types; the
+// last tile is masked, nothing is padded.  The kernel allocates nothing
+// and launches on the caller's stream.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "edge_rotate.cuh"
 
 namespace {
 
-constexpr int V = 4;  // channels per thread
-constexpr int THREADS = 256;
-constexpr int MAX_TILE = 32;  // edges per block
+using etq::Args;
+using etq::in_w;
+using etq::n_in;
+using etq::n_out;
+using etq::out_w;
 
-template <typename T>
-struct Pack4;
-
-template <>
-struct Pack4<float> {
-  __device__ __forceinline__ static void load(const float* p, float (&v)[4]) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  }
-  __device__ __forceinline__ static void store(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <>
-struct Pack4<__nv_bfloat16> {
-  union U {
-    uint2 u;
-    __nv_bfloat162 h[2];
-  };
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float (&v)[4]) {
-    U q;
-    q.u = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(q.h[0]);
-    const float2 b = __bfloat1622float2(q.h[1]);
-    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-  }
-  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float (&v)[4]) {
-    U q;
-    q.h[0] = __floats2bfloat162_rn(v[0], v[1]);
-    q.h[1] = __floats2bfloat162_rn(v[2], v[3]);
-    *reinterpret_cast<uint2*>(p) = q.u;
-  }
-};
-
-__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
-
-// rows of degree l on the input and output side of each kind
-__host__ __device__ constexpr int in_w(int l, int mmax, int kind) {
-  return kind == 0 || kind == 2 ? 2 * l + 1 : kind == 1 ? 2 * imin(l, mmax) + 1 : 1;
-}
-__host__ __device__ constexpr int out_w(int l, int mmax, int kind) {
-  return kind == 0 ? 2 * imin(l, mmax) + 1 : kind == 2 ? 1 : 2 * l + 1;
-}
-__host__ __device__ constexpr int n_in(int lmax, int mmax, int kind) {
-  int n = 0;
-  for (int l = 0; l <= lmax; ++l) n += in_w(l, mmax, kind);
-  return n;
-}
-__host__ __device__ constexpr int n_out(int lmax, int mmax, int kind) {
-  int n = 0;
-  for (int l = 0; l <= lmax; ++l) n += out_w(l, mmax, kind);
-  return n;
-}
 // constants of one (lmax, mmax, kind): per degree 2 (2l+1) (in_w + out_w)
 __host__ __device__ constexpr int pack_size(int lmax, int mmax, int kind) {
   int n = 0;
   for (int l = 0; l <= lmax; ++l)
     n += 2 * (2 * l + 1) * (in_w(l, mmax, kind) + out_w(l, mmax, kind));
+  return n;
+}
+// per-edge scratch of the block build: every degree's H [d][in_w]
+__host__ __device__ constexpr int h_size(int lmax, int mmax, int kind) {
+  int n = 0;
+  for (int l = 0; l <= lmax; ++l) n += (2 * l + 1) * in_w(l, mmax, kind);
+  return n;
+}
+// pairs of flipped output rows (o, out_w - 1 - o) over all degrees
+__host__ __device__ constexpr int row_pairs(int lmax, int mmax, int kind) {
+  int n = 0;
+  for (int l = 0; l <= lmax; ++l) n += (out_w(l, mmax, kind) + 1) / 2;
   return n;
 }
 __host__ __device__ constexpr int inst_size(int lmax, int mmax) {
@@ -145,176 +97,142 @@ static_assert(CONST_FLOATS * 4 <= 65536, "the constants exceed 64 KB of __consta
 
 __constant__ float c_W[CONST_FLOATS];
 
-template <typename T, int LMAX, int MMAX, int KIND, int WOFF>
-__global__ void __launch_bounds__(THREADS)
-rot_kernel(const T* __restrict__ x, const float* __restrict__ t1a,
-           const float* __restrict__ t1b, const float* __restrict__ t2a,
-           const float* __restrict__ t2b, const float* __restrict__ t3a,
-           const float* __restrict__ t3b, T* __restrict__ y, int E, int C, int TE) {
-  using PK = Pack4<T>;
-  constexpr int KI = n_in(LMAX, MMAX, KIND);
-  constexpr int KM = (LMAX + 1) * (LMAX + 1);
-  constexpr int KO = n_out(LMAX, MMAX, KIND);
-  constexpr int D = 2 * LMAX + 1;  // widest degree block
+// K4's values: the six tables of a tile ([te][Ki] x 2, [te][Km] x 2,
+// [te][Ko] x 2 in the stage), turned into the tile's [te][P] block in
+// shared memory by all consumer threads.  Phase A forms every degree's
+// H [d][iw], one entry per thread in turn.  Phase B gives each thread one
+// (edge, degree, pair of flipped output rows o / f): it forms G's rows o
+// and f in registers, then (G H)[o, :] and (G H)[f, :], and writes both
+// rows of M in K1's pair order (per degree [ow][iw] row-major:
+// ops/cuda/rotate.py:block_from_factors_plain is the same build in
+// PyTorch).
+template <int LMAX, int MMAX, int KIND, int WOFF>
+struct FactoredBlock {
+  static constexpr int KI = n_in(LMAX, MMAX, KIND);
+  static constexpr int KM = (LMAX + 1) * (LMAX + 1);
+  static constexpr int KO = n_out(LMAX, MMAX, KIND);
+  static constexpr int P = etq::n_pairs(LMAX, MMAX, KIND);
+  static constexpr int NH = h_size(LMAX, MMAX, KIND);  // sum_l d in_w
+  static constexpr int ROWS = row_pairs(LMAX, MMAX, KIND);
+  static constexpr int D = 2 * LMAX + 1;
+  static constexpr int SEGS = 6;
+  __host__ __device__ static constexpr int seg(int i) { return i < 2 ? KI : i < 4 ? KM : KO; }
+  static constexpr int VALUES = 2 * (KI + KM + KO);
+  static constexpr int SCRATCH = NH + P;
+  static constexpr int FIXED = pack_size(LMAX, MMAX, KIND);
 
-  extern __shared__ float smem[];
-  float* s1a = smem;
-  float* s1b = s1a + TE * KI;
-  float* s2a = s1b + TE * KI;
-  float* s2b = s2a + TE * KM;
-  float* s3a = s2b + TE * KM;
-  float* s3b = s3a + TE * KO;
-
-  const long long e0 = (long long)blockIdx.x * TE;
-  const int ne = (int)(E - e0 < TE ? E - e0 : TE);  // the last tile is ragged
-  for (int i = threadIdx.x; i < ne * KI; i += THREADS) {
-    s1a[i] = t1a[e0 * KI + i];
-    s1b[i] = t1b[e0 * KI + i];
+  __device__ static void prologue(float* w, int tid) {
+    for (int i = tid; i < FIXED; i += etq::CONSUMERS) w[i] = c_W[WOFF + i];
   }
-  for (int i = threadIdx.x; i < ne * KM; i += THREADS) {
-    s2a[i] = t2a[e0 * KM + i];
-    s2b[i] = t2b[e0 * KM + i];
-  }
-  for (int i = threadIdx.x; i < ne * KO; i += THREADS) {
-    s3a[i] = t3a[e0 * KO + i];
-    s3b[i] = t3b[e0 * KO + i];
-  }
-  __syncthreads();
 
-  const int groups = C / V;
-  for (int g = threadIdx.x; g < ne * groups; g += THREADS) {
-    const int el = g / groups;
-    const int c0 = (g - el * groups) * V;
-    const long long e = e0 + el;
-    const T* xe = x + e * KI * C + c0;
-    T* ye = y + e * KO * C + c0;
-    const float* a1 = s1a + el * KI;
-    const float* b1 = s1b + el * KI;
-    const float* a2 = s2a + el * KM;
-    const float* b2 = s2b + el * KM;
-    const float* a3 = s3a + el * KO;
-    const float* b3 = s3b + el * KO;
-
-    int wp = WOFF;  // constant offset of degree l's pack: compile-time once unrolled
-    int io = 0;     // first input row of degree l
-    int oo = 0;     // first output row of degree l
+  __device__ static const float* block(const float* vals, const float* w, float* scratch,
+                                       int te, int ne, int tid) {
+    const float* t1a = vals;
+    const float* t1b = t1a + te * KI;
+    const float* t2a = t1b + te * KI;
+    const float* t2b = t2a + te * KM;
+    const float* t3a = t2b + te * KM;
+    const float* t3b = t3a + te * KO;
+    float* hs = scratch;           // [te][NH]
+    float* m = scratch + te * NH;  // [te][P]
+    {
+      int hoff = 0, wp = 0, io = 0;
 #pragma unroll
-    for (int l = 0; l <= LMAX; ++l) {
-      const int d = 2 * l + 1;
-      const int iw = in_w(l, MMAX, KIND);
-      const int ow = out_w(l, MMAX, KIND);
-      const int w1a = wp, w1b = wp + d * iw;
-      const int w2a = wp + 2 * d * iw, w2b = w2a + ow * d;
-
-      // stage 1: the 2l+1 middle rows of degree l
-      float h[D][V];
-#pragma unroll
-      for (int i = 0; i < D; ++i)
-#pragma unroll
-        for (int j = 0; j < V; ++j) h[i][j] = 0.0f;
-#pragma unroll
-      for (int k = 0; k < D; ++k) {
-        if (k < iw) {
-          float xk[V];
-          PK::load(xe + (long long)(io + k) * C, xk);
-          const float pa = a1[io + k], pb = b1[io + k];
-#pragma unroll
-          for (int i = 0; i < D; ++i) {
-            if (i < d) {
-              const float coef = fmaf(c_W[w1a + i * iw + k], pa, c_W[w1b + i * iw + k] * pb);
-#pragma unroll
-              for (int j = 0; j < V; ++j) h[i][j] = fmaf(coef, xk[j], h[i][j]);
-            }
-          }
+      for (int l = 0; l <= LMAX; ++l) {
+        const int d = 2 * l + 1, iw = in_w(l, MMAX, KIND), ow = out_w(l, MMAX, KIND);
+        const int n = d * iw;
+        for (int q = tid; q < ne * n; q += etq::CONSUMERS) {
+          const int el = q / n, idx = q - el * n, k = el * KI + io + idx % iw;
+          hs[el * NH + hoff + idx] = fmaf(w[wp + idx], t1a[k], w[wp + n + idx] * t1b[k]);
         }
+        hoff += n;
+        wp += 2 * d * (iw + ow);
+        io += iw;
       }
-
-      // stage 2: each pair (o, f) of flipped output rows of degree l
-      float qa[D], qb[D];
+    }
+    etq::consumers_sync(1);
+    for (int q = tid; q < ne * ROWS; q += etq::CONSUMERS) {
+      const int el = q / ROWS, r = q - el * ROWS;
+      int base = 0, hoff = 0, wp = 0, poff = 0, oo = 0;
 #pragma unroll
-      for (int j = 0; j < D; ++j) {
-        if (j < d) {
-          qa[j] = a2[l * l + j];
-          qb[j] = b2[l * l + j];
-        }
-      }
-#pragma unroll
-      for (int o = 0; o < D; ++o) {
-        const int f = ow - 1 - o;  // the flip of o within the degree
-        if (o < ow && o <= f) {
-          float uo[V] = {}, uf[V] = {};
+      for (int l = 0; l <= LMAX; ++l) {
+        const int d = 2 * l + 1, iw = in_w(l, MMAX, KIND), ow = out_w(l, MMAX, KIND);
+        const int np = (ow + 1) / 2;
+        if (r >= base && r < base + np) {
+          const int o = r - base, f = ow - 1 - o;
+          const int w2a = wp + 2 * d * iw, w2b = w2a + ow * d;
+          float go[D], gf[D];
 #pragma unroll
           for (int j = 0; j < D; ++j) {
             if (j < d) {
-              const float go = fmaf(c_W[w2a + o * d + j], qa[j], c_W[w2b + o * d + j] * qb[j]);
+              const float a = t2a[el * KM + l * l + j], b = t2b[el * KM + l * l + j];
+              go[j] = fmaf(w[w2a + o * d + j], a, w[w2b + o * d + j] * b);
+              gf[j] = fmaf(w[w2a + f * d + j], a, w[w2b + f * d + j] * b);
+            }
+          }
+          const float ao = t3a[el * KO + oo + o], bo = t3b[el * KO + oo + o];
+          const float af = t3a[el * KO + oo + f], bf = t3b[el * KO + oo + f];
+          const float* h = hs + el * NH + hoff;
+          float* mo = m + el * P + poff + o * iw;
+          float* mf = m + el * P + poff + f * iw;
 #pragma unroll
-              for (int v = 0; v < V; ++v) uo[v] = fmaf(go, h[j][v], uo[v]);
-              if (f != o) {
-                const float gf = fmaf(c_W[w2a + f * d + j], qa[j], c_W[w2b + f * d + j] * qb[j]);
+          for (int k = 0; k < D; ++k) {
+            if (k < iw) {
+              float so = 0.0f, sf = 0.0f;
 #pragma unroll
-                for (int v = 0; v < V; ++v) uf[v] = fmaf(gf, h[j][v], uf[v]);
+              for (int j = 0; j < D; ++j) {
+                if (j < d) {
+                  const float hj = h[j * iw + k];
+                  so = fmaf(go[j], hj, so);
+                  sf = fmaf(gf[j], hj, sf);
+                }
               }
+              mo[k] = fmaf(ao, so, bo * sf);  // f == o writes the same value twice
+              mf[k] = fmaf(af, sf, bf * so);
             }
           }
-          const float ra = a3[oo + o], rb = b3[oo + o];
-          float yo[V];
-          if (f == o) {
-#pragma unroll
-            for (int v = 0; v < V; ++v) yo[v] = (ra + rb) * uo[v];
-          } else {
-            const float sa = a3[oo + f], sb = b3[oo + f];
-            float yf[V];
-#pragma unroll
-            for (int v = 0; v < V; ++v) {
-              yo[v] = fmaf(ra, uo[v], rb * uf[v]);
-              yf[v] = fmaf(sa, uf[v], sb * uo[v]);
-            }
-            PK::store(ye + (long long)(oo + f) * C, yf);
-          }
-          PK::store(ye + (long long)(oo + o) * C, yo);
         }
+        base += np;
+        hoff += d * iw;
+        wp += 2 * d * (iw + ow);
+        poff += ow * iw;
+        oo += ow;
       }
-      wp += 2 * d * (iw + ow);
-      io += iw;
-      oo += ow;
     }
+    etq::consumers_sync(1);
+    return m;
   }
-}
+};
+
+template <int LMAX, int MMAX, int KIND>
+using Block = FactoredBlock<LMAX, MMAX, KIND, const_offset(LMAX, MMAX, KIND)>;
 
 template <typename T, int LMAX, int MMAX, int KIND>
-int launch_kind(const void* x, const float* const (&t)[6], void* y, int E, int C,
-                cudaStream_t stream) {
-  constexpr int KI = n_in(LMAX, MMAX, KIND);
-  constexpr int KM = (LMAX + 1) * (LMAX + 1);
-  constexpr int KO = n_out(LMAX, MMAX, KIND);
-  constexpr int WOFF = const_offset(LMAX, MMAX, KIND);
-  static_assert(WOFF >= 0, "no constants for this instance");
-  const int groups = C / V;
-  int te = THREADS / groups;
-  te = te < 1 ? 1 : (te > MAX_TILE ? MAX_TILE : te);
-  const size_t smem = (size_t)te * 2 * (KI + KM + KO) * sizeof(float);
-  const unsigned blocks = (unsigned)((E + te - 1) / te);
-  rot_kernel<T, LMAX, MMAX, KIND, WOFF><<<blocks, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), t[0], t[1], t[2], t[3], t[4], t[5], static_cast<T*>(y), E, C,
-      te);
-  return (int)cudaGetLastError();
+__global__ void ETQ_LAUNCH_BOUNDS rot_kernel(const Args a) {
+  static_assert(const_offset(LMAX, MMAX, KIND) >= 0, "no constants for this instance");
+  etq::run<T, LMAX, MMAX, KIND, Block<LMAX, MMAX, KIND>>(a);
 }
 
 template <typename T, int LMAX, int MMAX>
-int launch(int kind, const void* x, const float* const (&t)[6], void* y, int E, int C,
+int launch(int kind, const void* x, const float* const* t, void* y, int E, int C,
            cudaStream_t stream) {
+#define ETQ_KIND(K)                                                                \
+  case K:                                                                          \
+    return etq::launch<T, LMAX, MMAX, K, Block<LMAX, MMAX, K>>(rot_kernel<T, LMAX, MMAX, K>, \
+                                                               x, t, y, E, C, stream);
   switch (kind) {
-    case 0: return launch_kind<T, LMAX, MMAX, 0>(x, t, y, E, C, stream);
-    case 1: return launch_kind<T, LMAX, MMAX, 1>(x, t, y, E, C, stream);
-    case 2: return launch_kind<T, LMAX, MMAX, 2>(x, t, y, E, C, stream);
-    case 3: return launch_kind<T, LMAX, MMAX, 3>(x, t, y, E, C, stream);
+    ETQ_KIND(0)
+    ETQ_KIND(1)
+    ETQ_KIND(2)
+    ETQ_KIND(3)
     default: return -1;
   }
+#undef ETQ_KIND
 }
 
 template <typename T>
-int dispatch(int kind, int lmax, int mmax, const void* x, const float* const (&t)[6],
-             void* y, int E, int C, cudaStream_t stream) {
+int dispatch(int kind, int lmax, int mmax, const void* x, const float* const* t, void* y,
+             int E, int C, cudaStream_t stream) {
 #define ETQ_CASE(L, M) \
   if (lmax == L && mmax == M) return launch<T, L, M>(kind, x, t, y, E, C, stream);
   ETQ_ROT_INSTANCES(ETQ_CASE)
@@ -326,23 +244,42 @@ int dispatch(int kind, int lmax, int mmax, const void* x, const float* const (&t
 
 // dtype 0 = float32, 1 = bfloat16.  x [E, Ki, C] and y [E, Ko, C] of that
 // dtype; the six tables float32, [E, Ki] x2, [E, (lmax+1)^2] x2, [E, Ko] x2;
-// C a multiple of 4.  Returns 0, a cudaError_t (> 0) from the launch, -1 for
-// an unknown kind, -2 for an (lmax, mmax) with no instance, -3 for a dtype,
-// -4 for a channel count that is not a multiple of 4.
+// C a multiple of 16 bytes (4 f32, 8 bf16).  Returns 0, a cudaError_t (> 0)
+// from the launch, -1 for an unknown kind, -2 for an (lmax, mmax) with no
+// instance, -3 for a dtype, -4 for a channel count that is not a multiple
+// of 16 bytes.
 extern "C" int etq_rotate(int dtype, int kind, int lmax, int mmax, const void* x,
                           const void* t1a, const void* t1b, const void* t2a, const void* t2b,
                           const void* t3a, const void* t3b, void* y, int E, int C,
                           void* stream) {
-  if (C % V) return -4;
-  if (E == 0 || C == 0) return 0;
+  if (dtype != 0 && dtype != 1) return -3;
+  if (C % (dtype == 0 ? 4 : 8)) return -4;
   const float* const t[6] = {
       static_cast<const float*>(t1a), static_cast<const float*>(t1b),
       static_cast<const float*>(t2a), static_cast<const float*>(t2b),
       static_cast<const float*>(t3a), static_cast<const float*>(t3b)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(kind, lmax, mmax, x, t, y, E, C, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(kind, lmax, mmax, x, t, y, E, C, s);
-  return -3;
+  return dispatch<__nv_bfloat16>(kind, lmax, mmax, x, t, y, E, C, s);
+}
+
+// The tile plan of one launch, for ops/cuda/edge_rotate.py to check its
+// mirror: out = {edges per tile, channels per tile, stages, shared-memory
+// bytes}.  Returns 0, or -1 / -2 / -3 as above.
+extern "C" int etq_rotate_plan(int dtype, int kind, int lmax, int mmax, int C, int* out) {
+  if (dtype != 0 && dtype != 1) return -3;
+  if (kind < 0 || kind > 3) return -1;
+  if (inst_base(lmax, mmax) < 0) return -2;
+  const int ki = n_in(lmax, mmax, kind), km = (lmax + 1) * (lmax + 1);
+  const int ko = n_out(lmax, mmax, kind);
+  const int scratch = h_size(lmax, mmax, kind) + etq::n_pairs(lmax, mmax, kind);
+  const etq::Layout L = etq::plan(dtype == 0 ? 4 : 2, C, ki, 2 * (ki + km + ko), scratch,
+                                  pack_size(lmax, mmax, kind));
+  out[0] = L.te;
+  out[1] = L.ct;
+  out[2] = L.stages;
+  out[3] = L.total;
+  return 0;
 }
 
 // The constants' layout, for ops/cuda/rotate.py to check its packing.

@@ -6,234 +6,77 @@
 //   y[e, ko, c] = sum_{p : ko_p = ko} v[e, p] * x[e, ki_p, c]
 //
 // over the static pair list of the block-diagonal, m-truncated Wigner-D of
-// each edge (P = 115 pairs at lmax 4 / mmax 2).  Four pair lists exist:
-//   kind 0 "to"      full (lmax+1)^2 rows -> reduced rows (|m| <= mmax)
-//   kind 1 "from"    reduced rows -> full rows (adjoint of "to")
-//   kind 2 "to_m0"   full rows -> the lmax+1 m = 0 rows
-//   kind 3 "from_m0" the lmax+1 m = 0 rows -> full rows (adjoint of "to_m0")
-// Each list is ordered exactly as ops/cuda/rotate_dense.py:_pair_info builds
-// it; `kernel_pair_order` there mirrors the loops below and a CPU test holds
+// each edge (P = 115 pairs at lmax 4 / mmax 2), in four kinds ("to",
+// "from", "to_m0", "from_m0").  Each list is ordered exactly as
+// ops/cuda/rotate_dense.py:_pair_info builds it; `kernel_pair_order` there
+// mirrors the loops of csrc/edge_rotate.cuh:apply_item and a CPU test holds
 // the two equal.
 //
 // Bound: memory.  Per edge the kernel reads x[e] and v[e] once and writes
 // y[e] once; the arithmetic (2 P C flops per edge) is ~1 % of what the card
-// could do in that time.  Design: the pair list is specialised at compile
-// time for each (lmax, mmax) — every loop below has constant trip counts and
-// is fully unrolled, so the degree-l input rows of one thread stay in
-// registers and each v[e, p] index is a constant.  One thread owns 16 bytes
-// of channels of one edge (4 f32 or 8 bf16), so neighbouring threads read
-// neighbouring addresses; the threads of one edge read v[e, :] at the same
-// address (one broadcast load per warp).  Accumulation is always in f32.
-// The kernel allocates nothing and launches on the caller's stream.
+// could do in that time.  Design: the memory engine of
+// csrc/edge_rotate.cuh (persistent grid, each tile's x in one bulk copy
+// through a ring of stages, v beside it in the same stage and read as
+// shared-memory broadcasts, 16 bytes of channels per thread, streaming
+// stores); the pair list is specialised at compile time for each (lmax,
+// mmax), so every loop has constant trip counts and each v index is a
+// constant.  Accumulation is always in f32.  The kernel allocates nothing
+// and launches on the caller's stream.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "edge_rotate.cuh"
 
 namespace {
 
-template <typename T>
-struct Pack;
+using etq::Args;
 
-template <>
-struct Pack<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float (&v)[4]) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  }
-  __device__ __forceinline__ static void store(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <>
-struct Pack<__nv_bfloat16> {
-  static constexpr int N = 8;
-  union U {
-    uint4 u;
-    __nv_bfloat162 h[4];
-  };
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float (&v)[8]) {
-    U q;
-    q.u = *reinterpret_cast<const uint4*>(p);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(q.h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float (&v)[8]) {
-    U q;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) q.h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = q.u;
+// K1's values: v[e, :] as it lies in memory, one table of P floats per edge
+template <int P>
+struct DenseValues {
+  static constexpr int SEGS = 1;
+  __host__ __device__ static constexpr int seg(int) { return P; }
+  static constexpr int VALUES = P, SCRATCH = 0, FIXED = 0;
+  __device__ static void prologue(float*, int) {}
+  __device__ static const float* block(const float* vals, const float*, float*, int, int,
+                                       int) {
+    return vals;
   }
 };
 
-__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+template <int LMAX, int MMAX, int KIND>
+using Values = DenseValues<etq::n_pairs(LMAX, MMAX, KIND)>;
 
-// rows of the reduced layout (|m| <= mmax kept in every degree)
-__host__ __device__ constexpr int k_red(int lmax, int mmax) {
-  int k = 0;
-  for (int l = 0; l <= lmax; ++l) k += 2 * imin(l, mmax) + 1;
-  return k;
-}
-
-__host__ __device__ constexpr int n_pairs(int lmax, int mmax, int kind) {
-  int p = 0;
-  for (int l = 0; l <= lmax; ++l)
-    p += (kind < 2) ? (2 * imin(l, mmax) + 1) * (2 * l + 1) : (2 * l + 1);
-  return p;
-}
-
-__host__ __device__ constexpr int n_in(int lmax, int mmax, int kind) {
-  return kind == 0 || kind == 2 ? (lmax + 1) * (lmax + 1)
-         : kind == 1           ? k_red(lmax, mmax)
-                               : lmax + 1;
-}
-
-__host__ __device__ constexpr int n_out(int lmax, int mmax, int kind) {
-  return kind == 0 ? k_red(lmax, mmax)
-         : kind == 2 ? lmax + 1
-                     : (lmax + 1) * (lmax + 1);
+template <typename T, int LMAX, int MMAX, int KIND>
+__global__ void ETQ_LAUNCH_BOUNDS pairs_kernel(const Args a) {
+  etq::run<T, LMAX, MMAX, KIND, Values<LMAX, MMAX, KIND>>(a);
 }
 
 template <typename T, int LMAX, int MMAX, int KIND>
-__global__ void __launch_bounds__(256)
-pairs_kernel(const T* __restrict__ x, const float* __restrict__ v,
-             T* __restrict__ y, int E, int C) {
-  using PK = Pack<T>;
-  constexpr int V = PK::N;
-  constexpr int P = n_pairs(LMAX, MMAX, KIND);
-  constexpr int KI = n_in(LMAX, MMAX, KIND);
-  constexpr int KO = n_out(LMAX, MMAX, KIND);
-  constexpr int D = 2 * LMAX + 1;
-
-  const int groups = C / V;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)E * groups) return;
-  const long long e = t / groups;
-  const int c0 = (int)(t - e * groups) * V;
-  const T* xe = x + e * KI * C + c0;
-  T* ye = y + e * KO * C + c0;
-  const float* ve = v + e * P;
-
-  int p = 0;   // pair index: a compile-time constant once unrolled
-  int ro = 0;  // first reduced row of degree l
-#pragma unroll
-  for (int l = 0; l <= LMAX; ++l) {
-    const int d = 2 * l + 1;             // full rows of degree l
-    const int w = 2 * imin(l, MMAX) + 1; // kept rows of degree l
-    if constexpr (KIND == 0) {
-      float xl[D][V];
-#pragma unroll
-      for (int c = 0; c < D; ++c)
-        if (c < d) PK::load(xe + (l * l + c) * C, xl[c]);
-#pragma unroll
-      for (int r = 0; r < D; ++r) {
-        if (r < w) {
-          float acc[V] = {};
-#pragma unroll
-          for (int c = 0; c < D; ++c) {
-            if (c < d) {
-              const float s = __ldg(ve + p);
-              ++p;
-#pragma unroll
-              for (int j = 0; j < V; ++j) acc[j] = fmaf(s, xl[c][j], acc[j]);
-            }
-          }
-          PK::store(ye + (ro + r) * C, acc);
-        }
-      }
-    } else if constexpr (KIND == 1) {
-      float xl[2 * MMAX + 1][V];
-#pragma unroll
-      for (int j = 0; j < 2 * MMAX + 1; ++j)
-        if (j < w) PK::load(xe + (ro + j) * C, xl[j]);
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        if (i < d) {
-          float acc[V] = {};
-#pragma unroll
-          for (int j = 0; j < 2 * MMAX + 1; ++j) {
-            if (j < w) {
-              const float s = __ldg(ve + p);
-              ++p;
-#pragma unroll
-              for (int k = 0; k < V; ++k) acc[k] = fmaf(s, xl[j][k], acc[k]);
-            }
-          }
-          PK::store(ye + (l * l + i) * C, acc);
-        }
-      }
-    } else if constexpr (KIND == 2) {
-      float acc[V] = {};
-#pragma unroll
-      for (int c = 0; c < D; ++c) {
-        if (c < d) {
-          float xc[V];
-          PK::load(xe + (l * l + c) * C, xc);
-          const float s = __ldg(ve + p);
-          ++p;
-#pragma unroll
-          for (int j = 0; j < V; ++j) acc[j] = fmaf(s, xc[j], acc[j]);
-        }
-      }
-      PK::store(ye + l * C, acc);
-    } else {
-      float xl[V];
-      PK::load(xe + l * C, xl);
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        if (i < d) {
-          const float s = __ldg(ve + p);
-          ++p;
-          float o[V];
-#pragma unroll
-          for (int j = 0; j < V; ++j) o[j] = s * xl[j];
-          PK::store(ye + (l * l + i) * C, o);
-        }
-      }
-    }
-    ro += w;
-  }
+int launch_kind(const void* x, const float* v, void* y, int E, int C, cudaStream_t stream) {
+  return etq::launch<T, LMAX, MMAX, KIND, Values<LMAX, MMAX, KIND>>(
+      pairs_kernel<T, LMAX, MMAX, KIND>, x, &v, y, E, C, stream);
 }
 
 template <typename T, int LMAX, int MMAX>
 int launch(int kind, const void* x, const float* v, void* y, int E, int C,
            cudaStream_t stream) {
-  const long long total = (long long)E * (C / Pack<T>::N);
-  if (total == 0) return 0;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
   switch (kind) {
-    case 0: pairs_kernel<T, LMAX, MMAX, 0><<<blocks, threads, 0, stream>>>(xt, v, yt, E, C); break;
-    case 1: pairs_kernel<T, LMAX, MMAX, 1><<<blocks, threads, 0, stream>>>(xt, v, yt, E, C); break;
-    case 2: pairs_kernel<T, LMAX, MMAX, 2><<<blocks, threads, 0, stream>>>(xt, v, yt, E, C); break;
-    case 3: pairs_kernel<T, LMAX, MMAX, 3><<<blocks, threads, 0, stream>>>(xt, v, yt, E, C); break;
+    case 0: return launch_kind<T, LMAX, MMAX, 0>(x, v, y, E, C, stream);
+    case 1: return launch_kind<T, LMAX, MMAX, 1>(x, v, y, E, C, stream);
+    case 2: return launch_kind<T, LMAX, MMAX, 2>(x, v, y, E, C, stream);
+    case 3: return launch_kind<T, LMAX, MMAX, 3>(x, v, y, E, C, stream);
     default: return -1;
   }
-  return (int)cudaGetLastError();
 }
 
+#define ETQ_PAIRS_INSTANCES(X) \
+  X(1, 1) X(2, 1) X(2, 2) X(3, 1) X(3, 2) X(3, 3) X(4, 2) X(4, 4) X(6, 2)
+
 template <typename T>
-int dispatch(int kind, int lmax, int mmax, const void* x, const float* v,
-             void* y, int E, int C, cudaStream_t stream) {
+int dispatch(int kind, int lmax, int mmax, const void* x, const float* v, void* y, int E,
+             int C, cudaStream_t stream) {
 #define ETQ_CASE(L, M) \
   if (lmax == L && mmax == M) return launch<T, L, M>(kind, x, v, y, E, C, stream);
-  ETQ_CASE(1, 1)
-  ETQ_CASE(2, 1)
-  ETQ_CASE(2, 2)
-  ETQ_CASE(3, 1)
-  ETQ_CASE(3, 2)
-  ETQ_CASE(3, 3)
-  ETQ_CASE(4, 2)
-  ETQ_CASE(4, 4)
-  ETQ_CASE(6, 2)
+  ETQ_PAIRS_INSTANCES(ETQ_CASE)
 #undef ETQ_CASE
   return -2;
 }
@@ -250,6 +93,27 @@ extern "C" int etq_rotate_pairs(int dtype, int kind, int lmax, int mmax,
   if (dtype == 0) return dispatch<float>(kind, lmax, mmax, x, vf, y, E, C, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(kind, lmax, mmax, x, vf, y, E, C, s);
   return -3;
+}
+
+// The tile plan of one launch, for ops/cuda/edge_rotate.py to check its
+// mirror: out = {edges per tile, channels per tile, stages, shared-memory
+// bytes}.  Returns 0, or -1 / -2 / -3 as above.
+extern "C" int etq_rotate_pairs_plan(int dtype, int kind, int lmax, int mmax, int C,
+                                     int* out) {
+  if (dtype != 0 && dtype != 1) return -3;
+  if (kind < 0 || kind > 3) return -1;
+  bool known = false;
+#define ETQ_KNOWN(L, M) known = known || (lmax == L && mmax == M);
+  ETQ_PAIRS_INSTANCES(ETQ_KNOWN)
+#undef ETQ_KNOWN
+  if (!known) return -2;
+  const int P = etq::n_pairs(lmax, mmax, kind);
+  const etq::Layout L = etq::plan(dtype == 0 ? 4 : 2, C, etq::n_in(lmax, mmax, kind), P, 0, 0);
+  out[0] = L.te;
+  out[1] = L.ct;
+  out[2] = L.stages;
+  out[3] = L.total;
+  return 0;
 }
 
 extern "C" const char* etq_error_string(int code) {

@@ -3,10 +3,12 @@
 Each source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, into ``_build/`` beside the
 package (listed in ``.gitignore``).  The libraries are named by a hash of
-their source and flags, so a second call in the same checkout reuses them.
-``build()`` starts one ``nvcc`` for every source that is not built yet, all
-at once, and keeps each compiler's ``ptxas`` report (registers and spills
-of every kernel instance).
+their source, every local header it includes (``#include "..."``, beside
+it in ``csrc/``) and the flags, so a second call in the same checkout
+reuses them and an edited header rebuilds them.  ``build()`` starts one
+``nvcc`` for every source that is not built yet, all at once, and keeps
+each compiler's ``ptxas`` report (registers and spills of every kernel
+instance).
 
 Every C launcher returns ``cudaGetLastError()`` right after its launch (the
 ctypes counterpart of ``C10_CUDA_KERNEL_LAUNCH_CHECK()``), and ``check``
@@ -45,6 +47,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "rotate_dense": {
         "etq_rotate_pairs": ([_I, _I, _I, _I, _P, _P, _P, _I, _I, _P], _I),
+        "etq_rotate_pairs_plan": ([_I, _I, _I, _I, _I, _P], _I),
     },
     "s2act": {
         "etq_s2act": ([_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
@@ -57,6 +60,7 @@ _SIGNATURES = {
     },
     "rotate": {
         "etq_rotate": ([_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P], _I),
+        "etq_rotate_plan": ([_I, _I, _I, _I, _I, _P], _I),
         "etq_rotate_const_floats": ([], _I),
         "etq_rotate_const_offset": ([_I, _I, _I], _I),
         "etq_rotate_set_consts": ([_P, _I], _I),
@@ -98,9 +102,20 @@ def _parse_ptxas(log: str) -> list[dict]:
     return out
 
 
+def _includes(path: Path) -> list[Path]:
+    """The local headers ``path`` includes, and theirs, in order."""
+    out: list[Path] = []
+    for inc in re.findall(r'^\s*#\s*include\s*"([^"]+)"', path.read_text(), re.M):
+        for h in (path.parent / inc, *_includes(path.parent / inc)):
+            if h not in out:
+                out.append(h)
+    return out
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src = CSRC_DIR / f"{name}.cu"
+    blob = b"".join(p.read_bytes() for p in (src, *_includes(src)))
+    key = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 

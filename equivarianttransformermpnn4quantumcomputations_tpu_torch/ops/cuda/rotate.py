@@ -12,12 +12,16 @@ in its tables (the JAX package's flip-folded algebra):
 
 ``rot_plain`` is that algebra in PyTorch with the dense W1 / W2.  The
 hand-written kernel ``csrc/rotate.cu`` (replaces the Pallas ``_rot_kernel``
-/ ``_call_rot``) applies it per degree: every factor maps degree l onto
-degree l, so only the per-degree blocks of W1 and W2 are multiplied, and
-those constants sit in the kernel's ``__constant__`` memory, packed per
-(lmax, mmax, kind) by ``kernel_pack`` (uploaded once per device).  ``rot``
-launches the kernel for CUDA tensors and runs the plain version for CPU
-tensors; nothing falls back.
+/ ``_call_rot``) uses that every factor maps degree l onto degree l: only
+the per-degree blocks of W1 and W2 are nonzero, and those constants sit in
+the kernel's ``__constant__`` memory, packed per (lmax, mmax, kind) by
+``kernel_pack`` (uploaded once per device).  The chain is linear in x, so
+the kernel first forms each edge's block-diagonal matrix from the tables
+(``block_from_factors_plain`` is that build in PyTorch: the dense Wigner's
+values in K1's pair order) and then applies it with K1's loop, on the
+memory engine it shares with K1 (``csrc/edge_rotate.cuh``).
+``rot`` launches the kernel for CUDA tensors and runs the plain version for
+CPU tensors; nothing falls back.
 
 Four kinds, as in K1: "to" (full -> reduced rows), "from" (reduced -> full),
 "to_m0" (full -> the m = 0 rows) and "from_m0" (its adjoint).  The operator
@@ -45,6 +49,7 @@ __all__ = [
     "rot",
     "rot_plain",
     "rot_kernel",
+    "block_from_factors_plain",
     "kernel_pack",
     "kernel_segments",
     "rotate",
@@ -267,6 +272,32 @@ def rot_plain(x: torch.Tensor, tabs) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def block_from_factors_plain(tabs, lmax: int, mmax: int, kind: str) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's block build: the [E, P] values
+    of each edge's block-diagonal matrix in K1's pair order (per degree the
+    [out_w, in_w] block, row-major), from the six tables of ``tabs`` and the
+    packed constants.  Per degree l, with d = 2l + 1:
+    H = W1a diag(t1a) + W1b diag(t1b) [d, in_w], G = W2a diag(t2a) + W2b
+    diag(t2b) [out_w, d], and M[o, k] = t3a[o] (G H)[o, k] + t3b[o] (G H)[f,
+    k] with f = out_w - 1 - o, W2's flipped second half of rows.  It equals
+    ``rotate_dense.compute_wigner_dense``'s values for the same edges."""
+    t1a, t1b, t2a, t2b, t3a, t3b = tabs[:6]
+    W = torch.as_tensor(kernel_pack(lmax, mmax, kind), dtype=t1a.dtype, device=t1a.device)
+    cols, wp = [], 0
+    for l, (io, iw, oo, ow) in enumerate(kernel_segments(lmax, mmax, kind)):
+        d, mid, cin, cout = 2 * l + 1, slice(l * l, (l + 1) ** 2), slice(io, io + iw), \
+            slice(oo, oo + ow)
+        W1a, W1b = W[wp : wp + 2 * d * iw].reshape(2, d, iw)
+        W2a, W2b = W[wp + 2 * d * iw : wp + 2 * d * (iw + ow)].reshape(2, ow, d)
+        H = W1a * t1a[:, None, cin] + W1b * t1b[:, None, cin]
+        G = W2a * t2a[:, None, mid] + W2b * t2b[:, None, mid]
+        GH = G @ H
+        M = t3a[:, cout, None] * GH + t3b[:, cout, None] * GH.flip(1)
+        cols.append(M.reshape(M.shape[0], -1))
+        wp += 2 * d * (iw + ow)
+    return torch.cat(cols, dim=1)
+
+
 def rot_kernel(x: torch.Tensor, tabs, lmax: int, mmax: int, kind: str) -> torch.Tensor:
     """Launch ``csrc/rotate.cu`` on the current stream (the W pair of
     ``tabs`` is the kernel's constant memory; only its shape is checked)."""
@@ -292,8 +323,9 @@ def rot_kernel(x: torch.Tensor, tabs, lmax: int, mmax: int, kind: str) -> torch.
             or tuple(tabs[6].shape) != (Km, 2 * Ki) or tuple(tabs[7].shape) != (2 * Ko, 2 * Km)):
         raise ValueError(f"{kind}: x {tuple(x.shape)} / tables "
                          f"{[tuple(a.shape) for a in tabs]} do not fit lmax {lmax} mmax {mmax}")
-    if C % 4 or x.data_ptr() % (4 * x.element_size()):
-        raise ValueError(f"channels ({C}) must be a multiple of 4 and x aligned to 4 of them")
+    vec = 16 // x.element_size()
+    if C % vec or x.data_ptr() % 16:
+        raise ValueError(f"channels ({C}) must be a multiple of {vec}, 16-byte aligned")
     y = torch.empty((E, Ko, C), dtype=x.dtype, device=x.device)
     lib = build.library("rotate")
     _upload_consts(lib, x.device)

@@ -8,8 +8,9 @@ entries (115 at lmax 4 / mmax 2).  It is built once per forward
     y[e, ko, :] = sum_p v[e, p] * x[e, ki_p, :]      (pairs p with out-row ko)
 
 The hand-written kernel is ``csrc/rotate_dense.cu`` (replaces the Pallas
-``_pairs_kernel`` / ``_call_pairs``); ``pairs_apply_plain`` is the plain
-PyTorch version of the same function.  ``pairs_apply`` launches the kernel for
+``_pairs_kernel`` / ``_call_pairs``; its memory engine, shared with K4, is
+``csrc/edge_rotate.cuh``); ``pairs_apply_plain`` is the plain PyTorch
+version of the same function.  ``pairs_apply`` launches the kernel for
 CUDA tensors and runs the plain version for CPU tensors; nothing falls back.
 
 Differentiation: the operator is linear, and the adjoint of "to" is "from"
@@ -29,6 +30,7 @@ from ..irreps import layout as get_layout
 from ..rotation import _m_keep_rows, compute_wigner_blocks
 
 __all__ = [
+    "INSTANCES",
     "WignerDense",
     "compute_wigner_dense",
     "pairs_apply",
@@ -40,6 +42,8 @@ __all__ = [
 ]
 
 KINDS = ("to", "from", "to_m0", "from_m0")
+# the (lmax, mmax) pairs of csrc/rotate_dense.cu's ETQ_PAIRS_INSTANCES
+INSTANCES = ((1, 1), (2, 1), (2, 2), (3, 1), (3, 2), (3, 3), (4, 2), (4, 4), (6, 2))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches per kind (the launch wrapper adds one per launch)
@@ -99,10 +103,13 @@ def _pair_info(lmax: int, mmax: int) -> dict:
 
 
 def kernel_pair_order(lmax: int, mmax: int, kind: str) -> np.ndarray:
-    """The (ko, ki) order in which ``csrc/rotate_dense.cu`` consumes v[e, :].
+    """The (ko, ki) order in which ``csrc/rotate_dense.cu`` consumes v[e, :]
+    (and K4 its per-edge block).
 
-    Mirrors the kernel's unrolled loops, so a CPU test can hold the kernel's
-    contract (values in ``_pair_info`` order) without a GPU.
+    Mirrors the unrolled loops of ``csrc/edge_rotate.cuh:apply_item``
+    (per degree, each output row a sum over the degree's input rows), so a
+    CPU test can hold the kernel's contract (values in ``_pair_info``
+    order) without a GPU.
     """
     out = []
     ro = 0

@@ -23,9 +23,10 @@ times one call unprofiled, then profiles one with ``torch.profiler`` (CPU and CU
 activities) and prints: the call's time with and without the profiler,
 the host time of the graph build and collate, the summed kernel time, the
 device busy share (union of kernel intervals over the profiled call's wall
-time), the number of kernel launches, the kernel time by bucket and the top
-kernels.  Every line carries the card's name and power limit.  Without a
-CUDA device it raises.
+time), the number of kernel launches, the kernel time by bucket, the
+device time and launches of the edge-rotation kernels (K1 ``pairs_kernel``
+and K4 ``rot_kernel``) and the top kernels.  Every line carries the card's
+name and power limit.  Without a CUDA device it raises.
 """
 
 from __future__ import annotations
@@ -202,6 +203,7 @@ def profile_call(fn) -> dict:
         ms, n = per_kernel.get(e.name, (0.0, 0))
         per_kernel[e.name] = (ms + us / 1e3, n + 1)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
+    rotation = [v for k, v in per_kernel.items() if "pairs_kernel" in k or "rot_kernel" in k]
     return dict(
         ms=wall * 1e3,
         ms_profiled=wall_prof * 1e3,
@@ -210,6 +212,8 @@ def profile_call(fn) -> dict:
         device_busy_share=busy / 1e3 / (wall_prof * 1e3),
         kernel_launches=len(kernels),
         buckets_ms=dict(sorted(buckets.items(), key=lambda kv: -kv[1])),
+        rotation_kernel_ms=sum(ms for ms, _ in rotation),
+        rotation_kernel_launches=sum(n for _, n in rotation),
         top_kernels=[dict(name=k[:160], ms=v[0], count=v[1]) for k, v in top],
     )
 
@@ -296,6 +300,8 @@ def _report(card: str, what: str, rec: dict, args) -> dict:
           f"the profiled call, peak memory {rec['peak_memory_gib']:.2f} GiB  [{card}]")
     for b, ms in rec["buckets_ms"].items():
         print(f"  {b:38s} {ms:8.2f} ms  [{card}]")
+    print(f"  {'edge-rotation kernels (K1, K4)':38s} {rec['rotation_kernel_ms']:8.2f} ms in "
+          f"{rec['rotation_kernel_launches']} launches  [{card}]")
     for k in rec["top_kernels"]:
         print(f"  {k['ms']:8.2f} ms x{k['count']:4d}  {k['name'][:110]}")
     print(json.dumps({k: v for k, v in rec.items() if k != "top_kernels"}))

@@ -13,6 +13,8 @@ is 2^-8 relative).  The training step on the card against the CPU: loss
 step, from the card's gradients on both sides, 1e-2 lr absolute.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,8 @@ from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes impo
     init_weights,
 )
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops import rotation as rot
+from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import build
+from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import edge_rotate
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import rotate as k4
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
     rotate_dense as rd,
@@ -134,6 +138,79 @@ def test_factored_rotate_grad_of_grad_on_the_card_matches_the_cpu(dev):
     assert all(k4.launches[k] > n[k] for k in k4.KINDS), k4.launches
     want = gradgrad(x.cpu(), vec.cpu())
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+NARROW = [(torch.bfloat16, 16), (torch.float32, 8)]   # the narrowest 16-byte widths
+
+
+def _ragged_edges(te: int) -> list[int]:
+    """Edge counts around the kernels' tile: one edge, a tile less one,
+    a tile plus one (a ragged last tile) and many tiles."""
+    return sorted({1, max(te - 1, 1), te + 1, 1001})
+
+
+@pytest.mark.parametrize("dtype,C", NARROW, ids=["bf16_C16", "f32_C8"])
+@pytest.mark.parametrize("kind", rd.KINDS)
+@pytest.mark.parametrize("lm", rd.INSTANCES, ids=str)
+def test_rotate_kernel_ragged_and_narrow(dev, lm, kind, dtype, C):
+    """K1 on every instance at the narrowest widths, with edge counts
+    around its tile (``edge_rotate.pairs_plan``)."""
+    lmax, mmax = lm
+    g = torch.Generator(device=dev).manual_seed(8)
+    te = edge_rotate.pairs_plan(torch.finfo(dtype).bits // 8, lmax, mmax, kind, C).te
+    for E in _ragged_edges(te):
+        w = rd.compute_wigner_dense(lmax, mmax, torch.randn(E, 3, generator=g, device=dev))
+        v = {"to": w.v_to, "from": w.v_from_res, "to_m0": w.v_to_m0,
+             "from_m0": w.v_from_m0}[kind]
+        n_in = rd._pair_info(lmax, mmax)["n_in"][kind]
+        x = torch.randn(E, n_in, C, generator=g, device=dev).to(dtype)
+        _close(rd.pairs_apply(x, v, lmax, mmax, kind), rd.pairs_apply_plain(x, v, lmax, mmax, kind),
+               dtype)
+
+
+@pytest.mark.parametrize("dtype,C", NARROW, ids=["bf16_C16", "f32_C8"])
+@pytest.mark.parametrize("kind", k4.KINDS)
+@pytest.mark.parametrize("lm", k4.INSTANCES, ids=str)
+def test_factored_rotate_kernel_ragged_and_narrow(dev, lm, kind, dtype, C):
+    """K4 on every instance at the narrowest widths, with edge counts
+    around its tile (``edge_rotate.rot_plan``)."""
+    lmax, mmax = lm
+    g = torch.Generator(device=dev).manual_seed(9)
+    te = edge_rotate.rot_plan(torch.finfo(dtype).bits // 8, lmax, mmax, kind, C).te
+    for E in _ragged_edges(te):
+        w = rot.compute_wigner(lmax, torch.randn(E, 3, generator=g, device=dev))
+        tabs = k4.tables(w, lmax, mmax, kind)[0]
+        x = torch.randn(E, tabs[0].shape[1], C, generator=g, device=dev).to(dtype)
+        _close(k4.rot(x, tabs, lmax, mmax, kind), k4.rot_plain(x, tabs), dtype)
+
+
+@pytest.mark.parametrize("name", ["rotate_dense", "rotate"])
+def test_tile_plan_matches_the_library(dev, name):
+    """ops/cuda/edge_rotate.py's mirror of the plan equals the library's
+    (csrc/edge_rotate.cuh:plan), for every instance, kind and dtype over
+    narrow, main-path and wide channel counts (the widest cut into chunks)."""
+    lib = build.library(name)
+    query = lib.etq_rotate_pairs_plan if name == "rotate_dense" else lib.etq_rotate_plan
+    mirror = edge_rotate.pairs_plan if name == "rotate_dense" else edge_rotate.rot_plan
+    out = (ctypes.c_int * 4)()
+    for lmax, mmax in (rd.INSTANCES if name == "rotate_dense" else k4.INSTANCES):
+        for k, kind in enumerate(rd.KINDS):
+            for dt, elt in ((0, 4), (1, 2)):
+                for C in (8, 16, 40, 128, 256, 512, 2048, 8192):
+                    if C % (16 // elt):
+                        continue
+                    assert query(dt, k, lmax, mmax, C, ctypes.byref(out)) == 0
+                    p = mirror(elt, lmax, mmax, kind, C)
+                    assert tuple(out) == (p.te, p.ct, p.stages, p.smem), (lmax, mmax, kind, elt, C)
+
+
+def test_narrow_bf16_factored_rotate_raises(dev):
+    """K4 moves 16 bytes per access: a bf16 width that is not a multiple of
+    8 channels is refused by the wrapper, not run."""
+    w = rot.compute_wigner(4, torch.randn(5, 3, device=dev))
+    tabs = k4.tables(w, 4, 2, "to")[0]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k4.rot(torch.zeros(5, 25, 12, device=dev, dtype=torch.bfloat16), tabs, 4, 2, "to")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -10,7 +10,9 @@ kernel's plain version on CPU tensors.  Forward within 1e-5 absolute,
 first-order gradients and grad-of-grad within 1e-4, at lmax 4 / mmax 2
 and lmax 6 / mmax 2, with E = 40 (not a multiple of any tile).  The
 kernel's per-degree packing of the constants is held against the plain
-version by a numpy mirror of ``csrc/rotate.cu``'s loops.
+version by a numpy mirror of ``csrc/rotate.cu``'s route (form each edge's
+block, then apply it in K1's pair order), and the block build's plain
+version against the dense Wigner pairs of the port and the JAX package.
 """
 
 import jax
@@ -22,6 +24,9 @@ import torch
 from equivarianttransformermpnn4quantumcomputations_tpu.ops import rotation as jrot
 from equivarianttransformermpnn4quantumcomputations_tpu.ops.irreps import (
     layout as jax_layout,
+)
+from equivarianttransformermpnn4quantumcomputations_tpu.ops.pallas import (
+    rotate_dense as jrd,
 )
 from equivarianttransformermpnn4quantumcomputations_tpu.utils import flags as jflags
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops import rotation as trot
@@ -157,26 +162,42 @@ def test_factored_matches_dense(wig):
 
 
 def _emulate_kernel(x, tabs, lmax, mmax, kind):
-    """numpy mirror of csrc/rotate.cu's loops over the packed constants."""
+    """numpy mirror of csrc/rotate.cu: per edge, the block-diagonal matrix
+    M from the packed constants (phase A: every degree's H; phase B: for
+    each pair of flipped output rows o / f, G's two rows and
+    M[o, k] = t3a[o] (G H)[o, k] + t3b[o] (G H)[f, k], laid out per degree
+    [out_w][in_w] row-major), then K1's apply over kernel_pair_order."""
     t1a, t1b, t2a, t2b, t3a, t3b = (np.asarray(t, np.float64) for t in tabs[:6])
     W = k4.kernel_pack(lmax, mmax, kind).astype(np.float64)
     x = np.asarray(x, np.float64)
-    Ko = t3a.shape[1]
-    y = np.zeros((x.shape[0], Ko, x.shape[2]))
-    wp = 0
+    E = x.shape[0]
+    M = np.zeros((E, len(trd.kernel_pair_order(lmax, mmax, kind))))
+    wp = poff = 0
     for l, (io, iw, oo, ow) in enumerate(k4.kernel_segments(lmax, mmax, kind)):
         d = 2 * l + 1
-        W1a, W1b = W[wp : wp + 2 * d * iw].reshape(2, d, iw)
-        W2a, W2b = W[wp + 2 * d * iw : wp + 2 * d * (iw + ow)].reshape(2, ow, d)
-        sl_in, mid, sl_out = slice(io, io + iw), slice(l * l, l * l + d), slice(oo, oo + ow)
-        coef1 = W1a[None] * t1a[:, None, sl_in] + W1b[None] * t1b[:, None, sl_in]
-        h = np.einsum("eik,ekc->eic", coef1, x[:, sl_in])
-        coef2 = W2a[None] * t2a[:, None, mid] + W2b[None] * t2b[:, None, mid]
-        uv = np.einsum("eoj,ejc->eoc", coef2, h)
-        # output row o pairs with its flip ow - 1 - o
-        y[:, sl_out] = t3a[:, sl_out, None] * uv + t3b[:, sl_out, None] * uv[:, ::-1]
+        w1a, w1b = W[wp : wp + d * iw], W[wp + d * iw : wp + 2 * d * iw]
+        w2a = W[wp + 2 * d * iw : wp + 2 * d * iw + ow * d]
+        w2b = W[wp + 2 * d * iw + ow * d : wp + 2 * d * (iw + ow)]
+        H = np.zeros((E, d, iw))
+        for idx in range(d * iw):
+            k = io + idx % iw
+            H[:, idx // iw, idx % iw] = w1a[idx] * t1a[:, k] + w1b[idx] * t1b[:, k]
+        for o in range((ow + 1) // 2):
+            f = ow - 1 - o
+            j = l * l + np.arange(d)
+            go = w2a[o * d : (o + 1) * d] * t2a[:, j] + w2b[o * d : (o + 1) * d] * t2b[:, j]
+            gf = w2a[f * d : (f + 1) * d] * t2a[:, j] + w2b[f * d : (f + 1) * d] * t2b[:, j]
+            so, sf = np.einsum("ej,ejk->ek", go, H), np.einsum("ej,ejk->ek", gf, H)
+            M[:, poff + o * iw : poff + (o + 1) * iw] = (t3a[:, oo + o, None] * so
+                                                         + t3b[:, oo + o, None] * sf)
+            M[:, poff + f * iw : poff + (f + 1) * iw] = (t3a[:, oo + f, None] * sf
+                                                         + t3b[:, oo + f, None] * so)
         wp += 2 * d * (iw + ow)
-    assert wp == W.size
+        poff += ow * iw
+    assert wp == W.size and poff == M.shape[1]
+    y = np.zeros((E, t3a.shape[1], x.shape[2]))
+    for p, (ko, ki) in enumerate(trd.kernel_pair_order(lmax, mmax, kind)):
+        y[:, ko] += M[:, p, None] * x[:, ki]
     return y
 
 
@@ -194,6 +215,44 @@ def test_kernel_pack_reproduces_the_plain_version(lm, which):
     want = k4.rot_plain(torch.as_tensor(x), tabs).numpy()
     np.testing.assert_allclose(_emulate_kernel(x, tabs, lmax, mmax, kind), want,
                                rtol=0, atol=1e-5)
+
+
+@pytest.fixture(scope="module", params=k4.INSTANCES, ids=str)
+def dense_values(request):
+    """The port's factored Wigner of some edges, and the dense Wigner pairs
+    of the same edges from the port and from the JAX package, by kind."""
+    lmax, mmax = request.param
+    vec = _vectors(6)
+    wt = trd.compute_wigner_dense(lmax, mmax, torch.as_tensor(vec))
+    wj = jrd.compute_wigner_dense(lmax, mmax, jnp.asarray(vec))
+    info = jrd._pair_info(lmax, mmax)
+    m0, m0_from = info["m0_cols"], info["m0_cols"][info["sigma_m0"]]
+    jax_v = {"to": wj.v_to, "from": wj.v_from, "from_res": wj.v_from_res,
+             "to_res": wj.v_to_res, "to_m0": np.asarray(wj.v_to)[:, m0],
+             "from_m0": np.asarray(wj.v_to)[:, m0_from]}
+    port_v = {"to": wt.v_to, "from": wt.v_from, "from_res": wt.v_from_res,
+              "to_res": wt.v_to_res, "to_m0": wt.v_to_m0, "from_m0": wt.v_from_m0}
+    return lmax, mmax, trot.compute_wigner(lmax, torch.as_tensor(vec)), port_v, jax_v
+
+
+# the dense values each table set of ``tables(w, kind)`` forms: (its own, its adjoint's)
+_BLOCK_OF = {"to": ("to", "from"), "from": ("from_res", "to_res"),
+             "to_m0": ("to_m0", "from_m0"), "from_m0": ("from_m0", "to_m0")}
+
+
+@pytest.mark.parametrize("adjoint", [False, True], ids=["own", "adjoint"])
+@pytest.mark.parametrize("kind", k4.KINDS)
+def test_block_from_factors_matches_dense_wigner(dense_values, kind, adjoint):
+    """The kernel's block build (block_from_factors_plain, in K1's pair
+    order) gives the dense Wigner pairs of the same edges, as the port's
+    compute_wigner_dense and the JAX package's build them, to 1e-6."""
+    lmax, mmax, w, port_v, jax_v = dense_values
+    tabs = k4.tables(w, lmax, mmax, kind)[int(adjoint)]
+    block_kind = k4.ADJOINT[kind] if adjoint else kind
+    got = k4.block_from_factors_plain(tabs, lmax, mmax, block_kind).numpy()
+    want = _BLOCK_OF[kind][int(adjoint)]
+    np.testing.assert_allclose(got, port_v[want].numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got, np.asarray(jax_v[want]), rtol=0, atol=1e-6)
 
 
 def test_constant_blob_layout():
