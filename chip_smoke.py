@@ -3,11 +3,19 @@
 
     python3 chip_smoke.py        (from any directory; needs one CUDA GPU and nvcc)
     python3 chip_smoke.py --rotation-only
+    python3 chip_smoke.py --s2act-only
 
 ``--rotation-only`` runs phases 1 and 2 and phase 3's K1 / K4 rows, and
-stops.  Those rows call only the kernels' wrappers, whose interface is the
-same since K4 was ported, so this script copied into the root of an older
-checkout times that checkout's K1 / K4 with the same timer and shapes.
+stops; ``--s2act-only`` the same with phase 3's K2 rows.  Those rows call
+only the kernels' wrappers, whose interface is the same since K4 (K2) was
+ported, so this script copied into the root of an older checkout times
+that checkout's kernels with the same timers and shapes.
+
+Phase 3 times each kernel two ways, at the same shapes: CUDA events around
+one call (median of 15, L2 flushed before each), which also hold the part
+of the wrapper's host time that outlasts the flush, and the device-only
+timer (``device_ms``: the summed durations of the kernels the call
+launches, from torch.profiler's CUDA activity, median of 15, L2 flushed).
 
 Phases, each of which raises on failure:
   1. print the card (name and power limit, from nvidia-smi);
@@ -19,7 +27,7 @@ Phases, each of which raises on failure:
      same function, beside the least time the card could take: K1 at the
      flagship's serving shapes and QM9's, f32 and bf16, with a same-bytes
      copy probe, and first order and grad-of-grad through its autograd
-     pair; K2 at the flagship's serving shapes; K3 (the fused SO(2)
+     pair; K3 (the fused SO(2)
      convolution and its adjoint) at QM9's conv 1 and conv 2 and the
      flagship's conv 2, with its grad-of-grad, the three cuBLAS GEMMs of
      the site (library, f32 with TF32 off, and bf16) and the port's unfused
@@ -29,8 +37,12 @@ Phases, each of which raises on failure:
      factored rotation) at OC20's "to" / "from" (lmax 6 / mmax 2) and the
      flagship's "to_m0" / "from_m0" / "from" (lmax 4 / mmax 2), f32 and
      bf16 (as K1), with first-order and grad-of-grad through its autograd
-     pair and torch.bmm of the per-edge dense Wigner (library); K2a / K2b /
-     K2c at OC20's K = 49 (P = 210) and K = 29 (P = 70);
+     pair and torch.bmm of the per-edge dense Wigner (library); K2a and K2b
+     at every site of the main paths (``K2_SITES``: the flagship's FFN,
+     QM9's FFN, edge and head, OC20's node (K = 49) and edge (K = 29)), and
+     K2c at the flagship's and OC20's, each in f32 and bf16, with the
+     tensor-core bound (K2c: FFMA), the FFMA bound, the SFU floor and the
+     tables' L2 bytes;
   4. serve 3 requests of 16 periodic structures of 30 atoms through the
      flagship MatPES GATA-V2 ``Predictor`` (bench.py:327-335 widths, seeded
      random weights) with the launch counts zeroed just before, and fail if a
@@ -124,6 +136,51 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 15) -> float:
     return float(np.median(ts))
 
 
+def device_ms(fn, flush: torch.Tensor, reps: int = 15) -> float:
+    """Median device time of one call: the summed durations of the kernels
+    it launches, read from torch.profiler's CUDA activity, with the L2
+    flushed before each call.  The host's share of the call, which CUDA
+    events around it also hold, is left out.  The flush's fill kernel (the
+    only one whose name holds "fill") opens each call.  The profiler can
+    drop records, so only calls with the usual number of kernels count: a
+    call whose fill went missing (two calls in one) or that lost a kernel
+    does not.  The profiler runs a warm-up cycle of the same calls first,
+    and a profiled run that keeps fewer than two thirds of its calls is
+    repeated, up to three times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        kernels = sorted((e.time_range.start, e.time_range.end - e.time_range.start, e.name)
+                         for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not e.is_user_annotation)
+        calls: list[list[float]] = []
+        for _, us, name in kernels:
+            if "fill" in name.lower() or "memset" in name.lower():
+                calls.append([])
+            elif calls:
+                calls[-1].append(us / 1e3)
+        sizes = [len(c) for c in calls if c]
+        usual = max(set(sizes), key=sizes.count) if sizes else 0
+        kept = [sum(c) for c in calls if c and len(c) == usual]
+        if len(kept) * 3 >= 2 * reps:
+            return float(np.median(kept))
+        seen.append(f"{len(kept)} of {len(calls)}")
+    raise RuntimeError(f"device timer: calls kept in three profiled runs {seen}, of {reps} each")
+
+
 def bound(bytes_moved: float, flops: float, route: str = "ffma") -> tuple[float, str]:
     """The least time (ms) for the work on ``route``'s units, and what bounds it."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -168,9 +225,11 @@ def time_rotation(kernel, x32, dense32, n_out: int, value_bytes: int, flops: flo
         nbytes = x.element_size() * (x.numel() + E * n_out * C) + value_bytes
         b_ms, b_by = bound(nbytes, flops)
         row = dict(ms=time_ms(lambda: kernel(x), flush),
+                   device_ms=device_ms(lambda: kernel(x), flush),
                    library_ms=time_ms(lambda: torch.bmm(dense, x), flush),
                    bound_ms=b_ms, bound_by=b_by, copy_probe_ms=copy_probe_ms(nbytes, flush))
         row["bound_share"] = b_ms / row["ms"]
+        row["device_bound_share"] = b_ms / row["device_ms"]
         out[tag] = row
         del x, dense
     return out
@@ -181,8 +240,9 @@ def _rotation_line(name: str, site: str, shape, out_shape, t: dict, plain_ms: fl
     parts = []
     for dt in ("f32", "bf16"):
         r = t[dt]
-        parts.append(f"{dt}: ms {r['ms']:.4f}, bound {r['bound_ms']:.4f} "
-                     f"({r['bound_by']}, {100 * r['bound_share']:.0f} %), bmm "
+        parts.append(f"{dt}: ms {r['ms']:.4f}, device ms {r['device_ms']:.4f}, bound "
+                     f"{r['bound_ms']:.4f} ({r['bound_by']}, {100 * r['bound_share']:.0f} % / "
+                     f"device {100 * r['device_bound_share']:.0f} %), bmm "
                      f"{r['library_ms']:.4f}, copy probe {r['copy_probe_ms']:.4f}")
     tile = (f"; tile {plan.te} edges x {plan.ct} ch, {plan.stages} stages, {plan.smem} B smem "
             f"(f32)" if plan is not None else "")
@@ -221,24 +281,21 @@ def _chain_errors(fn, plain, x, dt, what: str) -> tuple:
 
 def check_kernels(batch, e_qm9: int, tag: str, rotation_only: bool = False) -> list[dict]:
     """Phase 3: K1 at the flagship's serving and QM9's training shapes (f32
-    and bf16; forward, gradient and grad-of-grad through its autograd pair),
-    and K2 at the flagship's (not with ``rotation_only``, which also leaves
-    out the tile plans)."""
+    and bf16; forward, gradient and grad-of-grad through its autograd pair);
+    ``rotation_only`` leaves out the tile plans."""
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
         FLAGSHIP as cfg,
     )
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
         rotate_dense as rd,
     )
-    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.s2grid import s2grid
 
     dev = torch.device("cuda")
     lmax, mmax, C = cfg["lmax"], cfg["mmax"], cfg["sphere_channels"]
     dvec = edge_vectors(batch)
-    E, N = dvec.shape[0], batch["pos"].shape[0]
+    E = dvec.shape[0]
     K, Kr = (lmax + 1) ** 2, rd._pair_info(lmax, mmax)["n_out"]["to"]
     hv = cfg["num_heads"] * cfg["attn_value_channels"]
-    grid = s2grid(lmax, lmax, cfg["grid_resolution"])
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     src = f"{PKG}/csrc"
@@ -299,62 +356,130 @@ def check_kernels(batch, e_qm9: int, tag: str, rotation_only: bool = False) -> l
         records.append(dict(
             name=f"rotate_pairs.{kind}", route="cuda", source=f"{src}/rotate_dense.cu",
             replaces=f"{TPU_PKG}/ops/pallas/rotate_dense.py:183", launches=0,
-            max_abs_err=main["err_f32"], ms=main["ms_f32"], plain_ms=main["plain_ms"],
+            max_abs_err=main["err_f32"], ms=main["ms_f32"], device_ms=main["device_ms_f32"],
+            plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms_f32"], bound_by=main["bound_by_f32"],
             library_ms=main["library_ms_f32"], sites=rows[kind]))
     del w, wq
-    if rotation_only:
-        return records
-    return records + check_s2act(grid, N, cfg["ffn_hidden_channels"], gen, flush, tag)
+    return records
 
 
-def check_s2act(grid, N: int, C: int, gen, flush, tag: str, suffix: str = "") -> list[dict]:
-    """K2a, K2b and K2c against their plain versions on [N, K, C] inputs of
-    ``grid``, f32 and bf16, and their times in f32 (records named
-    ``s2act.k*`` + ``suffix``)."""
+# K2's sites on the main paths: (site, grid (lmax, mmax, resolution), N, C,
+# record name suffix, K2c timed).  The flagship's rows make the s2act.k*
+# records (N: the serving request's padded nodes); QM9's join them as
+# sites; OC20's make records of their own, named by K.
+K2_SITES = [
+    ("flagship FFN", (4, 4, 18), None, 512, "", True),
+    ("QM9 FFN", (4, 4, None), 1152, 512, None, False),
+    ("QM9 edge", (4, 2, None), 19584, 128, None, False),
+    ("QM9 head", (4, 4, None), 13824, 512, None, False),
+    ("OC20 node", (6, 6, None), 320, 512, "[K=49]", True),
+    ("OC20 edge", (6, 2, None), 6400, 128, "[K=29]", True),
+]
+# the SFU's transcendental rate: 16 per SM per clock (CUDA C++ Programming
+# Guide, arithmetic throughput, compute capability 9.0) at the H100 SXM's
+# 1.98 GHz boost clock
+SFU_PER_SM_CLOCK, BOOST_HZ = 16, 1.98e9
+
+
+def _k2_table_l2_bytes(s2act, kname: str, P: int, K: int, N: int, C: int,
+                       dt: torch.dtype) -> float:
+    """Bytes of tables one call reads from L2: each block reads them all.
+    K2a / K2b on the tensor cores (``s2act.tc_layout``): a persistent grid
+    of at most one block per SM; the FFMA kernels (K2c, and K2a / K2b on a
+    tree without ``tc_layout``): one block of 256 columns each, f32 tables
+    [P to 32, K to 4], A and F."""
+    if kname != "k3" and hasattr(s2act, "tc_layout"):
+        L = s2act.tc_layout(K, P, dt, kname == "k2")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        blocks = min(sms, -(-N * (-(-C // (16 * L.mt))) // L.warps))
+        return 4.0 * L.words * blocks
+    return -(-N * C // 256) * 2 * 4.0 * (-(-P // 32) * 32) * (-(-K // 4) * 4)
+
+
+def check_k2(n_flagship: int, tag: str) -> list[dict]:
+    """Phase 3, K2: K2a, K2b (and K2c where ``K2_SITES`` says) against their
+    plain versions at each site, f32 and bf16, and their times in both:
+    CUDA events and the device-only timer.  K2a / K2b's bound is the
+    tensor-core route's (f32: 3 flops per flop at 495 TFLOP/s, 3xTF32; bf16
+    at 989), K2c's the FFMA bound; beside them the FFMA bound, the SFU
+    floor (one transcendental per grid point per column) and the tables'
+    L2 bytes.  Calls only the wrappers and the plain versions, whose
+    interface is the same since K2 was ported, so this runs on an older
+    checkout too (``--s2act-only``)."""
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import s2act
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.s2grid import s2grid
 
     dev = torch.device("cuda")
-    A, Fm = grid.tables("cuda")
-    P, K = A.shape
-    # (kernel, its wrapper, plain version, inputs, outputs, multiply-adds per P K, TPU line)
-    s2_specs = [
-        ("k1", lambda x, do, dd: s2act.k1(x, grid),
-         lambda x, do, dd: s2act.k1_plain(x, A, Fm), 1, 1, 2, 122),
-        ("k2", lambda x, do, dd: s2act.k2(x, do, grid),
-         lambda x, do, dd: s2act.k2_plain(x, do, A, Fm), 2, 1, 3, 133),
-        ("k3", lambda x, do, dd: s2act.k3(x, do, dd, grid),
-         lambda x, do, dd: s2act.k3_plain(x, do, dd, A, Fm), 3, 2, 5, 144),
-    ]
-    records = []
-    for kname, kern, plain, n_in, n_out, macs, line in s2_specs:
-        name = f"s2act.{kname}{suffix}"
-        errs = {}
-        for dt in (torch.float32, torch.bfloat16):
-            ins = [torch.randn(N, K, C, generator=gen, device=dev).to(dt) for _ in range(3)]
-            got, want = kern(*ins), plain(*ins)
-            torch.cuda.synchronize()
-            pairs = zip(*(((o,) if n_out == 1 else o) for o in (got, want)))
-            e = [_max_err(g_, w_, dt, name) for g_, w_ in pairs]
-            errs[dt] = (max(a for a, _ in e), max(b for _, b in e))
-        ins = [torch.randn(N, K, C, generator=gen, device=dev) for _ in range(3)]
-        ms = time_ms(lambda: kern(*ins), flush)
-        plain_ms = time_ms(lambda: plain(*ins), flush)
-        nbytes = 4 * (n_in + n_out) * N * K * C + 4 * 2 * A.numel()
-        b_ms, b_by = bound(nbytes, 2.0 * macs * P * K * N * C)
-        records.append(dict(
-            name=name, route="cuda", source=f"{PKG}/csrc/s2act.cu",
-            replaces=f"{TPU_PKG}/ops/pallas/s2act.py:{line}", launches=0,
-            max_abs_err=errs[torch.float32][0], ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=[N, K, C], grid_points=P,
-        ))
-        print(f"kernel {name:22s} [{N},{K},{C}] P={P}  ms {ms:.4f}  plain {plain_ms:.4f}  "
-              f"bound {b_ms:.4f} ({b_by})  library none  "
-              f"err f32 {errs[torch.float32][0]:.2e} (limit {errs[torch.float32][1]:.1e}) "
-              f"bf16 {errs[torch.bfloat16][0]:.2e} (limit {errs[torch.bfloat16][1]:.1e})  "
-              f"[{tag}]", flush=True)
-        del ins
-    return records
+    gen = torch.Generator(device=dev).manual_seed(12)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    records: dict[str, dict] = {}
+    for site, key, N, C, suffix, with_k3 in K2_SITES:
+        N = N or n_flagship
+        grid = s2grid(*key)
+        A, Fm = grid.tables("cuda")
+        P, K = A.shape
+        # (kernel, its wrapper, plain version, inputs, outputs, products, TPU line)
+        specs = [
+            ("k1", lambda x, do, dd: s2act.k1(x, grid),
+             lambda x, do, dd: s2act.k1_plain(x, A, Fm), 1, 1, 2, 122),
+            ("k2", lambda x, do, dd: s2act.k2(x, do, grid),
+             lambda x, do, dd: s2act.k2_plain(x, do, A, Fm), 2, 1, 3, 133),
+        ]
+        if with_k3:
+            specs.append(("k3", lambda x, do, dd: s2act.k3(x, do, dd, grid),
+                          lambda x, do, dd: s2act.k3_plain(x, do, dd, A, Fm), 3, 2, 5, 144))
+        for kname, kern, plain, n_in, n_out, products, line in specs:
+            row = dict(site=site, shape=[N, K, C], grid_points=P)
+            sfu_ms = P * N * C / (SFU_PER_SM_CLOCK * sms * BOOST_HZ) * 1e3
+            parts = []
+            for dt, t in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                ins = [torch.randn(N, K, C, generator=gen, device=dev).to(dt)
+                       for _ in range(n_in)] + [None] * (3 - n_in)
+                got, want = kern(*ins), plain(*ins)
+                torch.cuda.synchronize()
+                pairs = zip(*(((o,) if n_out == 1 else o) for o in (got, want)))
+                e = [_max_err(g_, w_, dt, f"s2act.{kname} at {site}") for g_, w_ in pairs]
+                del got, want
+                flops = 2.0 * products * P * K * N * C
+                nbytes = dt.itemsize * (n_in + n_out) * N * K * C + 4 * 2 * A.numel()
+                if kname == "k3":
+                    b_ms, b_by = bound(nbytes, flops)
+                else:
+                    b_ms, b_by = (bound(nbytes, 3 * flops, "tf32") if dt == torch.float32
+                                  else bound(nbytes, flops, "bf16"))
+                r = dict(err=max(a for a, _ in e), limit=max(b for _, b in e),
+                         ms=time_ms(lambda: kern(*ins), flush),
+                         device_ms=device_ms(lambda: kern(*ins), flush),
+                         bound_ms=b_ms, bound_by=b_by, ffma_bound_ms=bound(nbytes, flops)[0],
+                         sfu_floor_ms=sfu_ms,
+                         table_l2_bytes=_k2_table_l2_bytes(s2act, kname, P, K, N, C, dt))
+                r["device_bound_share"] = b_ms / r["device_ms"]
+                if dt == torch.float32:
+                    row["plain_ms"] = time_ms(lambda: plain(*ins), flush)
+                row.update({f"{k}_{t}": v for k, v in r.items()})
+                parts.append(
+                    f"{t}: ms {r['ms']:.4f}, device ms {r['device_ms']:.4f}, bound "
+                    f"{b_ms:.4f} ({b_by}, device {100 * r['device_bound_share']:.0f} %), FFMA "
+                    f"bound {r['ffma_bound_ms']:.4f}, tables {r['table_l2_bytes'] / 1e6:.1f} MB "
+                    f"from L2, err {r['err']:.2e} (limit {r['limit']:.1e})")
+                del ins
+            print(f"kernel s2act.{kname} {site:13s} [{N},{K},{C}] P={P}  " + "; ".join(parts)
+                  + f"; plain f32 {row['plain_ms']:.4f}; SFU floor {sfu_ms:.4f}; library none  "
+                  f"[{tag}]", flush=True)
+            name = f"s2act.{kname}{suffix or ''}"
+            if suffix is None:   # QM9: a site of the flagship's record
+                records[f"s2act.{kname}"]["sites"].append(row)
+                continue
+            records[name] = dict(
+                name=name, route="cuda", source=f"{PKG}/csrc/s2act.cu",
+                replaces=f"{TPU_PKG}/ops/pallas/s2act.py:{line}", launches=0,
+                max_abs_err=row["err_f32"], ms=row["ms_f32"], device_ms=row["device_ms_f32"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms_f32"],
+                bound_by=row["bound_by_f32"], library_ms=None, shape=[N, K, C], grid_points=P,
+                sites=[row])
+    return list(records.values())
 
 
 def _k3_gradgrad(x, ws, cout, extra, plain: bool):
@@ -390,14 +515,17 @@ def check_k3_b_operands(ws, flush, tag: str) -> dict:
     if err != 0.0:
         raise RuntimeError(f"so2conv.b_operands: max abs err {err:.3e} (must be 0)")
     ms = time_ms(lambda: k3.b_operands(ws, False), flush)
+    dev_ms = device_ms(lambda: k3.b_operands(ws, False), flush)
     plain_ms = time_ms(lambda: k3.b_operands_plain(ws, False), flush)
     b_ms, b_by = bound(3 * 4 * sum(w.numel() for w in ws), 0.0)   # read W, write big, small
     print(f"kernel so2conv.b_operands QM9 conv 1 weights {[list(w.shape) for w in ws]} f32: "
-          f"ms {ms:.4f} ({len(ws)} launches)  plain {plain_ms:.4f}  bound {b_ms:.4f} ({b_by})  "
+          f"ms {ms:.4f}, device ms {dev_ms:.4f} ({len(ws)} launches)  plain {plain_ms:.4f}  "
+          f"bound {b_ms:.4f} ({b_by})  "
           f"library none  err {err:.1e} (bit for bit)  [{tag}]", flush=True)
     return dict(name="so2conv.b_operands", route="cuda", source=f"{PKG}/csrc/so2conv.cu",
                 replaces=f"{TPU_PKG}/ops/pallas/so2conv.py:323", launches=0, max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
 
 
 def check_k3(e_flagship: int, e_qm9: int, tag: str) -> list[dict]:
@@ -482,12 +610,14 @@ def check_k3(e_flagship: int, e_qm9: int, tag: str) -> list[dict]:
             for kind, (kern, lib, nbytes) in runs.items():
                 if dt == torch.float32:
                     b_ms, b_by = bound(nbytes, 3 * flops, "tf32")
-                    timed[kind].update(ms=time_ms(kern, flush), library_ms=time_ms(lib, flush),
+                    timed[kind].update(ms=time_ms(kern, flush), device_ms=device_ms(kern, flush),
+                                       library_ms=time_ms(lib, flush),
                                        bound_ms=b_ms, bound_by=b_by,
                                        ffma_bound_ms=bound(nbytes, flops)[0])
                 else:
                     b_ms, b_by = bound(nbytes, flops, "bf16")
                     timed[kind].update(bf16_ms=time_ms(kern, flush),
+                                       bf16_device_ms=device_ms(kern, flush),
                                        bf16_library_ms=time_ms(lib, flush),
                                        bf16_bound_ms=b_ms, bf16_bound_by=b_by)
             if dt == torch.float32 and site == sites[0][0]:
@@ -523,11 +653,13 @@ def check_k3(e_flagship: int, e_qm9: int, tag: str) -> list[dict]:
                 gradgrad_err_f32=errs["gradgrad"][torch.float32][0],
                 gradgrad_err_bf16=errs["gradgrad"][torch.bfloat16][0]))
             print(f"kernel so2conv.{kind:4s} {site:16s} E {E} Cin {cin} Cout {cout} extra "
-                  f"{extra}: f32 ms {t['ms']:.4f}  plain {t['plain_ms']:.4f}  bound "
+                  f"{extra}: f32 ms {t['ms']:.4f}  device ms {t['device_ms']:.4f}  plain "
+                  f"{t['plain_ms']:.4f}  bound "
                   f"{t['bound_ms']:.4f} ({t['bound_by']}; 3xTF32 at 495 TFLOP/s)  FFMA bound "
                   f"{t['ffma_bound_ms']:.4f}  library(3 cuBLAS GEMMs, allow_tf32=False) "
                   f"{t['library_ms']:.4f}  unfused SO2Conv {t['unfused_ms']:.4f}  |  bf16 ms "
-                  f"{t['bf16_ms']:.4f}  bound {t['bf16_bound_ms']:.4f} ({t['bf16_bound_by']})  "
+                  f"{t['bf16_ms']:.4f}  device ms {t['bf16_device_ms']:.4f}  bound "
+                  f"{t['bf16_bound_ms']:.4f} ({t['bf16_bound_by']})  "
                   f"library(3 cuBLAS bf16 GEMMs) {t['bf16_library_ms']:.4f}  |  err f32 "
                   f"{errs[kind][torch.float32][0]:.2e} (limit {errs[kind][torch.float32][1]:.1e}) "
                   f"bf16 {errs[kind][torch.bfloat16][0]:.2e} (limit "
@@ -545,10 +677,11 @@ def check_k3(e_flagship: int, e_qm9: int, tag: str) -> list[dict]:
         records.append(dict(
             name=f"so2conv.{kind}", route="cuda", source=f"{PKG}/csrc/so2conv.cu",
             replaces=f"{TPU_PKG}/ops/pallas/so2conv.py:{line}", launches=0,
-            max_abs_err=main["err_f32"], ms=main["ms"], plain_ms=main["plain_ms"],
-            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            max_abs_err=main["err_f32"], ms=main["ms"], device_ms=main["device_ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"], ffma_bound_ms=main["ffma_bound_ms"],
-            bf16_ms=main["bf16_ms"], bf16_bound_ms=main["bf16_bound_ms"],
+            bf16_ms=main["bf16_ms"], bf16_device_ms=main["bf16_device_ms"],
+            bf16_bound_ms=main["bf16_bound_ms"],
             bf16_library_ms=main["bf16_library_ms"], unfused_ms=main["unfused_ms"],
             sites=rows[kind]))
     return records + [b_record]
@@ -949,25 +1082,10 @@ def check_k4(flagship_vec: torch.Tensor, oc20_vec: torch.Tensor, tag: str,
         records.append(dict(
             name=f"rotate.{kind}", route="cuda", source=f"{PKG}/csrc/rotate.cu",
             replaces=f"{TPU_PKG}/ops/pallas/rotate.py:66", launches=0,
-            max_abs_err=main["err_f32"], ms=main["ms_f32"], plain_ms=main["plain_ms"],
+            max_abs_err=main["err_f32"], ms=main["ms_f32"], device_ms=main["device_ms_f32"],
+            plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms_f32"], bound_by=main["bound_by_f32"],
             library_ms=main["library_ms_f32"], sites=rows[kind]))
-    return records
-
-
-def check_k2_oc20(tag: str) -> list[dict]:
-    """Phase 3, K2 at OC20's instances: K = 49 (the FFN and the energy head,
-    [320, 49, 512], P = 210) and K = 29 (the attention's value activation,
-    [6400, 29, 128], P = 70); K2a, K2b and K2c in f32 and bf16."""
-    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.s2grid import s2grid
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(12)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    records = []
-    for (lmax, mmax), (N, C) in (((6, 6), (320, 512)), ((6, 2), (6400, 128))):
-        grid = s2grid(lmax, mmax, None)
-        records += check_s2act(grid, N, C, gen, flush, tag, f"[K={grid.to_grid_np.shape[1]}]")
     return records
 
 
@@ -1151,7 +1269,8 @@ def oc20_parity_phase(tag: str) -> None:
 
 def main(argv: list[str]) -> int:
     rotation_only = argv == ["--rotation-only"]
-    if argv and not rotation_only:
+    s2act_only = argv == ["--s2act-only"]
+    if argv and not (rotation_only or s2act_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1196,13 +1315,13 @@ def main(argv: list[str]) -> int:
               f"registers, spill stores: {', '.join(spills) or 'none'}")
         for r in rep:  # the instances the serving and training paths run
             if r["name"].startswith(("pairs_kernel<f32,4,2,", "pairs_kernel<bf16,4,2,",
-                                     "s2act_kernel<f32,25,", "s2act_kernel<bf16,25,",
-                                     "s2act_kernel<f32,19,", "s2act_kernel<bf16,19,",
+                                     "s2act_tc_kernel<f32,25,", "s2act_tc_kernel<bf16,25,",
+                                     "s2act_tc_kernel<f32,19,", "s2act_tc_kernel<bf16,19,",
                                      "s2act_k3_kernel<f32,25>", "s2act_k3_kernel<bf16,25>",
                                      "so2conv_kernel<", "b_operand_kernel<", "rot_kernel<f32,6,2,",
                                      "rot_kernel<bf16,6,2,", "rot_kernel<f32,4,2,",
                                      "rot_kernel<bf16,4,2,")) or re.search(
-                                         r"s2act(_k3)?_kernel<\w+,(49|29|14)[,>]", r["name"]):
+                                         r"s2act(_k3|_tc)?_kernel<\w+,(49|29|14)[,>]", r["name"]):
                 print(f"    {r['name']}: {r['registers']} registers, "
                       f"{r['spill_bytes']} B spill stores")
 
@@ -1230,15 +1349,19 @@ def main(argv: list[str]) -> int:
         check_k4(edge_vectors(batch), oc20_vec, tag, rotation_only=True)
         print(f"rotation kernels checked and timed  [{tag}]")
         return 0
+    if s2act_only:
+        check_k2(int(pb.pos.shape[0]), tag)
+        print(f"S2 activation kernels checked and timed  [{tag}]")
+        return 0
     records = check_kernels(batch, e_qm9, tag)
     records += check_k3(int(pb.edge_src.shape[0]), e_qm9, tag)
     records += check_k4(edge_vectors(batch), oc20_vec, tag)
-    k2_oc20 = check_k2_oc20(tag)
+    k2 = check_k2(int(pb.pos.shape[0]), tag)
     # K2c is not on the OC20 path (a first-order step): its OC20 instances
     # stay beside the flagship's K2c record
-    next(r for r in records if r["name"] == "s2act.k3")["oc20_instances"] = [
-        r for r in k2_oc20 if r["name"].startswith("s2act.k3")]
-    records += [r for r in k2_oc20 if not r["name"].startswith("s2act.k3")]
+    next(r for r in k2 if r["name"] == "s2act.k3")["oc20_instances"] = [
+        r for r in k2 if r["name"].startswith("s2act.k3[")]
+    records += [r for r in k2 if not r["name"].startswith("s2act.k3[")]
 
     # phase 4: serve, counting launches from zero
     counters = {**{f"rotate_pairs.{k}": (rotate_dense.launches, k)

@@ -43,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 // The kernels' launch bounds promise ptxas one block per SM: with the
 // default of none it capped a few instances at 64 registers and spilled.
 #define ETQ_LAUNCH_BOUNDS __launch_bounds__(etq::THREADS, 1)
@@ -141,54 +143,7 @@ inline Layout plan(int elt, int C, int ki, int values, int scratch, int fixed) {
 
 // ── PTX helpers ────────────────────────────────────────────────────────────
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-// arrive and expect `bytes` more of bulk-copy transactions this phase
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-// arrive on bar once this thread's earlier cp.async copies have landed
-__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
-}
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-// wait for the phase of the given parity to complete; a deadlock traps
-// after 10 s (a launch error) instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint64_t t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (t0 == 0) t0 = global_ns();
-    else if (global_ns() - t0 > 10000000000ull) __trap();
-  }
-}
-// global -> shared bulk copy of `bytes` (a multiple of 16), completing on bar
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(dst), "l"(src) : "memory");
-}
+// smem_u32, the mbarrier, bulk-copy and cp.async helpers: hopper.cuh
 // named barrier over the consumer warps (id 0 is __syncthreads)
 __device__ __forceinline__ void consumers_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(CONSUMERS) : "memory");
@@ -356,7 +311,7 @@ __device__ __forceinline__ void run(const Args& a) {
       }
       mbar_arrive_cp_async(full);
     }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");  // no copy outlives its thread
+    cp_async_wait_all();  // no copy outlives its thread
     return;
   }
 

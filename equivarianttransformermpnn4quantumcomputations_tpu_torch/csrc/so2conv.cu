@@ -69,7 +69,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace etq;  // the shared PTX helpers (csrc/hopper.cuh)
 
 constexpr int BM = 128;          // edges per block tile
 constexpr int BN = 128;          // output columns per block tile
@@ -115,134 +119,12 @@ struct Cfg {
   static_assert(CHUNK % EP == 0, "a 16-byte piece within one chunk");
 };
 
-#define ETQ_ACC64_REGS \
-  "{" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
-  "}"
-#define ETQ_ACC64_OPS(d) \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
-  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
-  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
-  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
-  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
-  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
-  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; zero-filled (nothing read) when !ok
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-// make this thread's generic-proxy shared-memory writes visible to wgmma
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// shared-memory barriers of the ring
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-// arrive on bar once this thread's earlier cp.async copies have landed
-__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
-}
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-// wait for the phase of the given parity to complete; a deadlock traps
-// after 10 s (a launch error) instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint64_t t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (t0 == 0) t0 = global_ns();
-    else if (global_ns() - t0 > 10000000000ull) __trap();
-  }
-}
 // named barriers over the two consumer warpgroups (id 0 is __syncthreads)
 __device__ __forceinline__ void bar_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(CONSUMERS) : "memory");
 }
 __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "n"(CONSUMERS) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// shared-memory matrix descriptor of a K-major operand in the 128-byte
-// swizzle: 8-row groups 1024 bytes apart (the leading offset is unused)
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// pin registers an asynchronous wgmma reads or writes at this point
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-// d (+)= A B on a 64 x 128 x 8 TF32 product: A from registers (mma's
-// m16n8k8 A fragment per warp), B K-major in shared memory; d is
-// overwritten when scale_d == 0
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4],
-                                           uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      ETQ_ACC64_REGS ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : ETQ_ACC64_OPS(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
-// d += A B on a 64 x 128 x 16 bf16 product, both K-major in shared memory
-__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      ETQ_ACC64_REGS ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : ETQ_ACC64_OPS(d)
-      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 __device__ __forceinline__ void store2(float* p, float x, float y) {
@@ -330,7 +212,7 @@ so2conv_kernel(const Params p) {
       }
       mbar_arrive_cp_async(full0 + 8 * slot);
     }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");  // no copy outlives its thread
+    cp_async_wait_all();  // no copy outlives its thread
     return;
   }
 

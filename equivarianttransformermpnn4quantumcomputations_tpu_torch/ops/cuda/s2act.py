@@ -13,6 +13,12 @@ grid tensor is ~P/K = 13x the coefficient tensor.  The kernels in
   (the JAX package's ``_k3``), which force training runs in the loss
   backward.
 
+K2a and K2b run on the tensor cores (``mma.sync``; 3xTF32 in float32,
+bf16 products in bfloat16); their tables are prepared here, once per
+grid, device, dtype and kernel, in the shared-memory layout the kernel
+reads (``tc_layout``, ``tc_tables``).  K2c runs on FFMA with the plain
+zero-padded tables (``_k3_tables``).
+
 ``s2act_fused`` sits in ``_S2Act`` (backward = ``_S2ActBackward``, i.e.
 K2b), whose backward is ``_S2ActGradOfGrad`` (K2c).  K2c's own backward
 raises: third order is not supported, as in the JAX package, whose chain
@@ -25,16 +31,19 @@ from __future__ import annotations
 
 import collections
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as Fn
 
 from ..s2grid import S2Grid
+from .edge_rotate import SMEM_LIMIT
+from .so2conv import tf32_round
 
 __all__ = ["s2act_fused", "s2act_reference", "k1_plain", "k2_plain", "k3_plain",
-           "launches", "launches_by_k"]
+           "tc_layout", "tc_tables", "tc_tables_plain", "launches", "launches_by_k"]
 
-_CHUNK = 32  # grid points per shared-memory stage (csrc/s2act.cu: CHUNK)
+_CHUNK = 32  # K2c: grid points per shared-memory stage (csrc/s2act.cu: CHUNK)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches (the launch wrapper adds one per launch), in all and per
@@ -77,9 +86,85 @@ def k3_plain(x: torch.Tensor, dout: torch.Tensor, ddx: torch.Tensor,
     return ddout.to(x.dtype), dx2.to(x.dtype)
 
 
+class TcLayout(NamedTuple):
+    """K2a / K2b's shapes (csrc/s2act.cu: ``Tc``): the first products' depth
+    ``kp`` (K padded to 8 in f32, 16 in bf16), the second product's width
+    ``kn`` (K padded to 8), the grid points ``pp`` (P padded to 16), the
+    32-bit words per row of a [pp, .] table (``spk``) and of a bf16 [kn, .]
+    table (``skp``), both 4 mod 8, the 16-channel tiles per warp (``mt``),
+    the warps per block, and the table words (the block's dynamic shared
+    memory / 4)."""
+    kp: int
+    kn: int
+    pp: int
+    spk: int
+    skp: int
+    mt: int
+    warps: int
+    words: int
+
+
+def tc_layout(K: int, P: int, dtype: torch.dtype, backward: bool) -> TcLayout:
+    """The layout of K2a (``backward`` False) or K2b on a [P, K] grid."""
+    f32 = dtype == torch.float32
+    kp = -(-K // (8 if f32 else 16)) * (8 if f32 else 16)
+    kn = -(-K // 8) * 8
+    pp = -(-P // 16) * 16
+    spk = kp + 4 if f32 else kp // 2 + 4
+    skp = pp // 2 + 4
+    mt = 2 if not f32 and kp <= 32 else 1
+    if mt == 2:
+        warps = 12
+    elif not f32:
+        warps = 16
+    elif backward:
+        warps = 12 if kp <= 32 else 8
+    else:
+        warps = 16 if kp <= 32 else 12
+    words = 4 * pp * spk if f32 else (2 if backward else 1) * pp * spk + kn * skp
+    return TcLayout(kp, kn, pp, spk, skp, mt, warps, words)
+
+
+def _pad(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    out = t.new_zeros(rows, cols)
+    out[: t.shape[0], : t.shape[1]] = t
+    return out
+
+
+def tc_tables_plain(A: torch.Tensor, F: torch.Tensor, dtype: torch.dtype,
+                    backward: bool) -> torch.Tensor:
+    """K2a / K2b's tables from float32 A, F [P, K], one flat tensor in the
+    kernel's shared-memory layout (``tc_layout``):
+
+    * float32: A big, A small, F big, F small, each [pp, spk] (TF32 parts,
+      big + small = the table to ~2^-22 relative);
+    * bfloat16, K2a: A [pp, 2 spk] (pairs along k), F^T [kn, 2 skp] (pairs
+      along p); K2b: A, F [pp, 2 spk] and A^T [kn, 2 skp].
+
+    Zero-padded everywhere outside the [P, K] (or [K, P]) block."""
+    P, K = A.shape
+    L = tc_layout(K, P, dtype, backward)
+    if dtype == torch.float32:
+        parts = []
+        for t in (A, F):
+            full = _pad(t, L.pp, L.spk)
+            big = tf32_round(full)
+            parts += [big, tf32_round(full - big)]
+    else:
+        pk = [_pad(t.to(dtype), L.pp, 2 * L.spk) for t in ((A, F) if backward else (A,))]
+        parts = pk + [_pad((A if backward else F).t().to(dtype), L.kn, 2 * L.skp)]
+    return torch.cat([p.reshape(-1) for p in parts])
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_tables(grid: S2Grid, device: str):
-    """A and F zero-padded to [Pp, KP]: Pp a multiple of the chunk, KP of 4."""
+def tc_tables(grid: S2Grid, device: str, dtype: torch.dtype, backward: bool) -> torch.Tensor:
+    """``tc_tables_plain`` of ``grid``, cached per grid, device, dtype and kernel."""
+    return tc_tables_plain(*grid.tables(device), dtype, backward).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _k3_tables(grid: S2Grid, device: str):
+    """K2c's A and F zero-padded to [Pp, KP]: Pp a multiple of the chunk, KP of 4."""
     A, F = grid.tables(device)
     P, K = A.shape
     Pp = -(-P // _CHUNK) * _CHUNK
@@ -106,14 +191,18 @@ def _launch(backward: bool, x, dout, grid: S2Grid) -> torch.Tensor:
 
     N, K, C = x.shape
     _check(x, *(() if dout is None else (dout,)), grid=grid)
-    A, F = _kernel_tables(grid, str(x.device))
+    L = tc_layout(K, grid.to_grid_np.shape[0], x.dtype, backward)
+    if 4 * L.words > SMEM_LIMIT:
+        raise ValueError(f"s2act: the tables of a {grid.to_grid_np.shape} grid take "
+                         f"{4 * L.words} B of shared memory, more than a block's {SMEM_LIMIT}")
+    tables = tc_tables(grid, str(x.device), x.dtype, backward)
     out = torch.empty_like(x)
     lib = build.library("s2act")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.etq_s2act(
         _DTYPE_CODE[x.dtype], int(backward), K, x.data_ptr(),
-        0 if dout is None else dout.data_ptr(), A.data_ptr(), F.data_ptr(),
-        out.data_ptr(), N, C, A.shape[0], stream,
+        0 if dout is None else dout.data_ptr(), tables.data_ptr(), L.words,
+        out.data_ptr(), N, C, L.pp, stream,
     )
     build.check("s2act", rc, "s2act.k2" if backward else "s2act.k1")
     launches["k2" if backward else "k1"] += 1
@@ -126,7 +215,7 @@ def _launch_k3(x, dout, ddx, grid: S2Grid) -> tuple[torch.Tensor, torch.Tensor]:
 
     N, K, C = x.shape
     _check(x, dout, ddx, grid=grid)
-    A, F = _kernel_tables(grid, str(x.device))
+    A, F = _k3_tables(grid, str(x.device))
     ddout, dx2 = torch.empty_like(x), torch.empty_like(x)
     lib = build.library("s2act")
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -25,7 +25,8 @@ the host time of the graph build and collate, the summed kernel time, the
 device busy share (union of kernel intervals over the profiled call's wall
 time), the number of kernel launches, the kernel time by bucket, the
 device time and launches of the edge-rotation kernels (K1 ``pairs_kernel``
-and K4 ``rot_kernel``) and the top kernels.  Every line carries the card's
+and K4 ``rot_kernel``) and of the S2 activation kernels (K2a, K2b, K2c:
+every kernel named ``s2act_*``), and the top kernels.  Every line carries the card's
 name and power limit.  Without a CUDA device it raises.
 """
 
@@ -44,8 +45,8 @@ __all__ = ["random_structures", "random_molecules", "qm9_batch", "qm9_train_stat
 
 _BUCKETS = (
     ("port kernels (pairs, s2act, so2conv, rot)",
-     ("pairs_kernel", "s2act_kernel", "s2act_k3_kernel", "so2conv_kernel", "b_operand_kernel",
-      "rot_kernel")),
+     ("pairs_kernel", "s2act_kernel", "s2act_tc_kernel", "s2act_k3_kernel", "so2conv_kernel",
+      "b_operand_kernel", "rot_kernel")),
     ("optimizer (multi-tensor)", ("multi_tensor",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "gemv", "splitK")),
     ("gather / scatter / index", ("index", "gather", "scatter")),
@@ -204,6 +205,7 @@ def profile_call(fn) -> dict:
         per_kernel[e.name] = (ms + us / 1e3, n + 1)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     rotation = [v for k, v in per_kernel.items() if "pairs_kernel" in k or "rot_kernel" in k]
+    s2 = [v for k, v in per_kernel.items() if "s2act_" in k]
     return dict(
         ms=wall * 1e3,
         ms_profiled=wall_prof * 1e3,
@@ -214,6 +216,8 @@ def profile_call(fn) -> dict:
         buckets_ms=dict(sorted(buckets.items(), key=lambda kv: -kv[1])),
         rotation_kernel_ms=sum(ms for ms, _ in rotation),
         rotation_kernel_launches=sum(n for _, n in rotation),
+        s2act_kernel_ms=sum(ms for ms, _ in s2),
+        s2act_kernel_launches=sum(n for _, n in s2),
         top_kernels=[dict(name=k[:160], ms=v[0], count=v[1]) for k, v in top],
     )
 
@@ -302,6 +306,8 @@ def _report(card: str, what: str, rec: dict, args) -> dict:
         print(f"  {b:38s} {ms:8.2f} ms  [{card}]")
     print(f"  {'edge-rotation kernels (K1, K4)':38s} {rec['rotation_kernel_ms']:8.2f} ms in "
           f"{rec['rotation_kernel_launches']} launches  [{card}]")
+    print(f"  {'S2 activation kernels (K2a, K2b, K2c)':38s} {rec['s2act_kernel_ms']:8.2f} ms in "
+          f"{rec['s2act_kernel_launches']} launches  [{card}]")
     for k in rec["top_kernels"]:
         print(f"  {k['ms']:8.2f} ms x{k['count']:4d}  {k['name'][:110]}")
     print(json.dumps({k: v for k, v in rec.items() if k != "top_kernels"}))

@@ -213,22 +213,36 @@ def test_narrow_bf16_factored_rotate_raises(dev):
         k4.rot(torch.zeros(5, 25, 12, device=dev, dtype=torch.bfloat16), tabs, 4, 2, "to")
 
 
+# every K with an instance in csrc/s2act.cu: K = 4, 7, 9, 14, 16, 19, 25, 29, 49
+# (K = 19 also on the flagship's resolution-18 grid, P = 324)
+S2_INSTANCES = [(1, 1, None), (2, 1, None), (2, 2, None), (3, 2, None), (3, 3, None),
+                (4, 2, None), (4, 2, 18), (4, 4, 18), (6, 2, None), (6, 6, None)]
+# ragged tiles: one node, narrow widths, N C not a multiple of the 16- or
+# 32-channel column tile, and the widest main-path width
+S2_RAGGED = [(1, 8), (1, 24), (37, 24), (37, 136), (3, 128), (2, 512)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("backward", [False, True], ids=["k1", "k2"])
-@pytest.mark.parametrize("key", [(2, 2, None), (4, 4, 18), (4, 2, 18), (3, 2, None),
-                                 (6, 2, None), (6, 6, None)], ids=str)
+@pytest.mark.parametrize("key", S2_INSTANCES, ids=str)
 def test_s2act_kernel_matches_plain(dev, key, backward, dtype):
+    """K2a / K2b on the tensor cores against the plain version at every K
+    instance and ragged tile, each launch counted under its (kernel, K)."""
     grid = s2grid(*key)
-    K = grid.to_grid_np.shape[1]
-    g = torch.Generator(device=dev).manual_seed(2)
-    x = torch.randn(37, K, 136, generator=g, device=dev).to(dtype)
-    do = torch.randn(37, K, 136, generator=g, device=dev).to(dtype)
     A, F = grid.tables("cuda")
-    if backward:
-        got, want = s2act.k2(x, do, grid), s2act.k2_plain(x, do, A, F)
-    else:
-        got, want = s2act.k1(x, grid), s2act.k1_plain(x, A, F)
-    _close(got, want, dtype)
+    K = A.shape[1]
+    g = torch.Generator(device=dev).manual_seed(2)
+    name = "k2" if backward else "k1"
+    for N, C in S2_RAGGED:
+        x = torch.randn(N, K, C, generator=g, device=dev).to(dtype)
+        do = torch.randn(N, K, C, generator=g, device=dev).to(dtype)
+        before = s2act.launches_by_k[(name, K)]
+        if backward:
+            got, want = s2act.k2(x, do, grid), s2act.k2_plain(x, do, A, F)
+        else:
+            got, want = s2act.k1(x, grid), s2act.k1_plain(x, A, F)
+        assert s2act.launches_by_k[(name, K)] == before + 1
+        _close(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -265,6 +279,49 @@ def test_s2act_double_backward_on_the_card_runs_k3(dev):
     got = gradgrad(x)
     assert s2act.launches["k3"] == before + 1
     torch.testing.assert_close(got.cpu(), gradgrad(x.cpu()), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("key", [(4, 4, 18), (6, 6, None)], ids=str)
+def test_s2act_chain_on_the_card_matches_the_cpu(dev, key, dtype):
+    """First order (K2a, then K2b) and grad-of-grad (K2b's backward, K2c)
+    through the autograd chain on the card against the CPU's plain chain
+    from the same inputs.  f32: 1e-4 max|CPU| (three kernels in a row, each
+    held to 1e-5); bf16: first order 2e-2, second 3e-2 of max|CPU| (each
+    bf16 stage rounds its output, and a one-ulp difference in the forward
+    carries into the backward)."""
+    grid = s2grid(*key)
+    K = grid.to_grid_np.shape[1]
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(19, K, 40, generator=g, device=dev).to(dtype)
+
+    def chain(x):
+        x = x.clone().requires_grad_(True)
+        y = s2act.s2act_fused(x, grid)
+        (gx,) = torch.autograd.grad(0.5 * y.float().square().sum(), x, create_graph=True)
+        (gg,) = torch.autograd.grad(gx.float().square().sum(), x)
+        return gx.detach(), gg
+
+    before = dict(s2act.launches)
+    got = chain(x)
+    # K2a; K2b for gx; K2c, and K2b again for the part through dout = y(x)
+    assert {k: s2act.launches[k] - before[k] for k in before} == {"k1": 1, "k2": 2, "k3": 1}
+    want = chain(x.cpu())
+    limits = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 3e-2)
+    for a, b, lim in zip(got, want, limits):
+        err = (a.float().cpu() - b.float()).abs().max().item()
+        assert err <= lim * b.float().abs().max().item(), err
+
+
+def test_s2act_wrapper_refuses_tables_over_a_block(dev):
+    """A grid whose float32 tables exceed a block's 227 KB (resolution 24
+    at lmax 4) raises before any launch; nothing falls back."""
+    grid = s2grid(4, 4, 24)
+    x = torch.zeros(2, 25, 16, device=dev)
+    before = dict(s2act.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        s2act.k2(x, x, grid)
+    assert s2act.launches == before
 
 
 def test_narrow_s2_site_on_the_card_launches_the_kernel(dev):
