@@ -40,9 +40,9 @@ Phases, each of which raises on failure:
      pair and torch.bmm of the per-edge dense Wigner (library); K2a and K2b
      at every site of the main paths (``K2_SITES``: the flagship's FFN,
      QM9's FFN, edge and head, OC20's node (K = 49) and edge (K = 29)), and
-     K2c at the flagship's and OC20's, each in f32 and bf16, with the
-     tensor-core bound (K2c: FFMA), the FFMA bound, the SFU floor and the
-     tables' L2 bytes;
+     K2c at the flagship's and OC20's, each in f32 and bf16, all three on
+     the tensor cores, with the tensor-core bound, the FFMA bound, the SFU
+     floor and the tables' L2 bytes;
   4. serve 3 requests of 16 periodic structures of 30 atoms through the
      flagship MatPES GATA-V2 ``Predictor`` (bench.py:327-335 widths, seeded
      random weights) with the launch counts zeroed just before, and fail if a
@@ -385,12 +385,14 @@ SFU_PER_SM_CLOCK, BOOST_HZ = 16, 1.98e9
 def _k2_table_l2_bytes(s2act, kname: str, P: int, K: int, N: int, C: int,
                        dt: torch.dtype) -> float:
     """Bytes of tables one call reads from L2: each block reads them all.
-    K2a / K2b on the tensor cores (``s2act.tc_layout``): a persistent grid
-    of at most one block per SM; the FFMA kernels (K2c, and K2a / K2b on a
-    tree without ``tc_layout``): one block of 256 columns each, f32 tables
-    [P to 32, K to 4], A and F."""
-    if kname != "k3" and hasattr(s2act, "tc_layout"):
-        L = s2act.tc_layout(K, P, dt, kname == "k2")
+    The kernels on the tensor cores (``s2act.tc_layout``; all three here,
+    K2a / K2b only in a tree without ``TC_KERNELS``): a persistent grid of at
+    most one block per SM; the FFMA kernels (K2c in such a tree, and K2a /
+    K2b in a tree without ``tc_layout``): one block of 256 columns each, f32
+    tables [P to 32, K to 4], A and F."""
+    tc = getattr(s2act, "TC_KERNELS", ("k1", "k2") if hasattr(s2act, "tc_layout") else ())
+    if kname in tc:
+        L = s2act.tc_layout(K, P, dt, tc.index(kname))
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         blocks = min(sms, -(-N * (-(-C // (16 * L.mt))) // L.warps))
         return 4.0 * L.words * blocks
@@ -400,13 +402,12 @@ def _k2_table_l2_bytes(s2act, kname: str, P: int, K: int, N: int, C: int,
 def check_k2(n_flagship: int, tag: str) -> list[dict]:
     """Phase 3, K2: K2a, K2b (and K2c where ``K2_SITES`` says) against their
     plain versions at each site, f32 and bf16, and their times in both:
-    CUDA events and the device-only timer.  K2a / K2b's bound is the
-    tensor-core route's (f32: 3 flops per flop at 495 TFLOP/s, 3xTF32; bf16
-    at 989), K2c's the FFMA bound; beside them the FFMA bound, the SFU
-    floor (one transcendental per grid point per column) and the tables'
-    L2 bytes.  Calls only the wrappers and the plain versions, whose
-    interface is the same since K2 was ported, so this runs on an older
-    checkout too (``--s2act-only``)."""
+    CUDA events and the device-only timer.  The bound is the tensor-core
+    route's (f32: 3 flops per flop at 495 TFLOP/s, 3xTF32; bf16 at 989);
+    beside it the FFMA bound, the SFU floor (one transcendental per grid
+    point per column) and the tables' L2 bytes.  Calls only the wrappers
+    and the plain versions, whose interface is the same since K2 was
+    ported, so this runs on an older checkout too (``--s2act-only``)."""
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import s2act
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.s2grid import s2grid
 
@@ -444,11 +445,8 @@ def check_k2(n_flagship: int, tag: str) -> list[dict]:
                 del got, want
                 flops = 2.0 * products * P * K * N * C
                 nbytes = dt.itemsize * (n_in + n_out) * N * K * C + 4 * 2 * A.numel()
-                if kname == "k3":
-                    b_ms, b_by = bound(nbytes, flops)
-                else:
-                    b_ms, b_by = (bound(nbytes, 3 * flops, "tf32") if dt == torch.float32
-                                  else bound(nbytes, flops, "bf16"))
+                b_ms, b_by = (bound(nbytes, 3 * flops, "tf32") if dt == torch.float32
+                              else bound(nbytes, flops, "bf16"))
                 r = dict(err=max(a for a, _ in e), limit=max(b for _, b in e),
                          ms=time_ms(lambda: kern(*ins), flush),
                          device_ms=device_ms(lambda: kern(*ins), flush),
@@ -1317,11 +1315,10 @@ def main(argv: list[str]) -> int:
             if r["name"].startswith(("pairs_kernel<f32,4,2,", "pairs_kernel<bf16,4,2,",
                                      "s2act_tc_kernel<f32,25,", "s2act_tc_kernel<bf16,25,",
                                      "s2act_tc_kernel<f32,19,", "s2act_tc_kernel<bf16,19,",
-                                     "s2act_k3_kernel<f32,25>", "s2act_k3_kernel<bf16,25>",
                                      "so2conv_kernel<", "b_operand_kernel<", "rot_kernel<f32,6,2,",
                                      "rot_kernel<bf16,6,2,", "rot_kernel<f32,4,2,",
                                      "rot_kernel<bf16,4,2,")) or re.search(
-                                         r"s2act(_k3|_tc)?_kernel<\w+,(49|29|14)[,>]", r["name"]):
+                                         r"s2act_tc_kernel<\w+,(49|29|14),", r["name"]):
                 print(f"    {r['name']}: {r['registers']} registers, "
                       f"{r['spill_bytes']} B spill stores")
 

@@ -50,8 +50,7 @@ _SIGNATURES = {
         "etq_rotate_pairs_plan": ([_I, _I, _I, _I, _I, _P], _I),
     },
     "s2act": {
-        "etq_s2act": ([_I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P], _I),
-        "etq_s2act_k3": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "etq_s2act": ([_I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P], _I),
     },
     "so2conv": {
         "etq_so2conv": ([_I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
@@ -89,7 +88,7 @@ def _parse_ptxas(log: str) -> list[dict]:
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             mangled = m.group(1)
-            base = re.search(r"(pairs_kernel|s2act_k3_kernel|s2act_tc_kernel|so2conv_kernel|"
+            base = re.search(r"(pairs_kernel|s2act_tc_kernel|so2conv_kernel|"
                              r"b_operand_kernel|rot_kernel)I", mangled)
             args = ["bf16" if "bfloat16" in mangled else "f32"]
             args += re.findall(r"L[ib](\d+)E", mangled)

@@ -13,11 +13,11 @@ grid tensor is ~P/K = 13x the coefficient tensor.  The kernels in
   (the JAX package's ``_k3``), which force training runs in the loss
   backward.
 
-K2a and K2b run on the tensor cores (``mma.sync``; 3xTF32 in float32,
-bf16 products in bfloat16); their tables are prepared here, once per
-grid, device, dtype and kernel, in the shared-memory layout the kernel
-reads (``tc_layout``, ``tc_tables``).  K2c runs on FFMA with the plain
-zero-padded tables (``_k3_tables``).
+All three run on the tensor cores (``mma.sync``; 3xTF32 in float32, bf16
+products in bfloat16); their tables are prepared here, once per grid,
+device, dtype and kernel, in the shared-memory layout the kernel reads
+(``tc_layout``, ``tc_tables``).  In float32 the three kernels read one
+table set.
 
 ``s2act_fused`` sits in ``_S2Act`` (backward = ``_S2ActBackward``, i.e.
 K2b), whose backward is ``_S2ActGradOfGrad`` (K2c).  K2c's own backward
@@ -41,11 +41,14 @@ from .edge_rotate import SMEM_LIMIT
 from .so2conv import tf32_round
 
 __all__ = ["s2act_fused", "s2act_reference", "k1_plain", "k2_plain", "k3_plain",
-           "tc_layout", "tc_tables", "tc_tables_plain", "launches", "launches_by_k"]
+           "TC_KERNELS", "tc_layout", "tc_tables", "tc_tables_plain", "launches",
+           "launches_by_k"]
 
-_CHUNK = 32  # K2c: grid points per shared-memory stage (csrc/s2act.cu: CHUNK)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# the kernels on the tensor cores, by their number in ``tc_layout`` and in
+# csrc/s2act.cu (KIND): K2a, K2b, K2c
+TC_KERNELS = ("k1", "k2", "k3")
 # kernel launches (the launch wrapper adds one per launch), in all and per
 # (kernel, K) instance
 launches = {"k1": 0, "k2": 0, "k3": 0}
@@ -87,13 +90,13 @@ def k3_plain(x: torch.Tensor, dout: torch.Tensor, ddx: torch.Tensor,
 
 
 class TcLayout(NamedTuple):
-    """K2a / K2b's shapes (csrc/s2act.cu: ``Tc``): the first products' depth
-    ``kp`` (K padded to 8 in f32, 16 in bf16), the second product's width
-    ``kn`` (K padded to 8), the grid points ``pp`` (P padded to 16), the
-    32-bit words per row of a [pp, .] table (``spk``) and of a bf16 [kn, .]
-    table (``skp``), both 4 mod 8, the 16-channel tiles per warp (``mt``),
-    the warps per block, and the table words (the block's dynamic shared
-    memory / 4)."""
+    """The tensor-core kernel's shapes (csrc/s2act.cu: ``Tc``): the first
+    products' depth ``kp`` (K padded to 8 in f32, 16 in bf16), the second
+    products' width ``kn`` (K padded to 8), the grid points ``pp`` (P padded
+    to 16), the 32-bit words per row of a [pp, .] table (``spk``) and of a
+    bf16 [kn, .] table (``skp``), both 4 mod 8, the 16-channel tiles per
+    warp (``mt``), the warps per block, and the table words (the block's
+    dynamic shared memory / 4)."""
     kp: int
     kn: int
     pp: int
@@ -104,8 +107,9 @@ class TcLayout(NamedTuple):
     words: int
 
 
-def tc_layout(K: int, P: int, dtype: torch.dtype, backward: bool) -> TcLayout:
-    """The layout of K2a (``backward`` False) or K2b on a [P, K] grid."""
+def tc_layout(K: int, P: int, dtype: torch.dtype, kernel: int) -> TcLayout:
+    """The layout of K2a (``kernel`` 0 or False), K2b (1 or True) or K2c
+    (2) on a [P, K] grid."""
     f32 = dtype == torch.float32
     kp = -(-K // (8 if f32 else 16)) * (8 if f32 else 16)
     kn = -(-K // 8) * 8
@@ -113,15 +117,19 @@ def tc_layout(K: int, P: int, dtype: torch.dtype, backward: bool) -> TcLayout:
     spk = kp + 4 if f32 else kp // 2 + 4
     skp = pp // 2 + 4
     mt = 2 if not f32 and kp <= 32 else 1
-    if mt == 2:
+    if kernel == 2:
+        warps = 8 if f32 or mt == 2 else 12
+    elif mt == 2:
         warps = 12
     elif not f32:
         warps = 16
-    elif backward:
+    elif kernel:
         warps = 12 if kp <= 32 else 8
     else:
         warps = 16 if kp <= 32 else 12
-    words = 4 * pp * spk if f32 else (2 if backward else 1) * pp * spk + kn * skp
+    # bf16: [pp, spk] tables A (and F), then [kn, skp] tables F^T / A^T
+    by_k, by_p = ((1, 1), (2, 1), (2, 2))[kernel]
+    words = 4 * pp * spk if f32 else by_k * pp * spk + by_p * kn * skp
     return TcLayout(kp, kn, pp, spk, skp, mt, warps, words)
 
 
@@ -132,18 +140,20 @@ def _pad(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def tc_tables_plain(A: torch.Tensor, F: torch.Tensor, dtype: torch.dtype,
-                    backward: bool) -> torch.Tensor:
-    """K2a / K2b's tables from float32 A, F [P, K], one flat tensor in the
-    kernel's shared-memory layout (``tc_layout``):
+                    kernel: int) -> torch.Tensor:
+    """The tables of K2a, K2b or K2c (``kernel`` as in ``tc_layout``) from
+    float32 A, F [P, K], one flat tensor in the kernel's shared-memory
+    layout:
 
-    * float32: A big, A small, F big, F small, each [pp, spk] (TF32 parts,
-      big + small = the table to ~2^-22 relative);
+    * float32 (every kernel): A big, A small, F big, F small, each
+      [pp, spk] (TF32 parts, big + small = the table to ~2^-22 relative);
     * bfloat16, K2a: A [pp, 2 spk] (pairs along k), F^T [kn, 2 skp] (pairs
-      along p); K2b: A, F [pp, 2 spk] and A^T [kn, 2 skp].
+      along p); K2b: A, F [pp, 2 spk] and A^T [kn, 2 skp]; K2c: A, F
+      [pp, 2 spk], F^T and A^T [kn, 2 skp].
 
     Zero-padded everywhere outside the [P, K] (or [K, P]) block."""
     P, K = A.shape
-    L = tc_layout(K, P, dtype, backward)
+    L = tc_layout(K, P, dtype, kernel)
     if dtype == torch.float32:
         parts = []
         for t in (A, F):
@@ -151,26 +161,22 @@ def tc_tables_plain(A: torch.Tensor, F: torch.Tensor, dtype: torch.dtype,
             big = tf32_round(full)
             parts += [big, tf32_round(full - big)]
     else:
-        pk = [_pad(t.to(dtype), L.pp, 2 * L.spk) for t in ((A, F) if backward else (A,))]
-        parts = pk + [_pad((A if backward else F).t().to(dtype), L.kn, 2 * L.skp)]
+        by_k = ((A,), (A, F), (A, F))[kernel]
+        by_p = ((F,), (A,), (F, A))[kernel]
+        parts = ([_pad(t.to(dtype), L.pp, 2 * L.spk) for t in by_k]
+                 + [_pad(t.t().to(dtype), L.kn, 2 * L.skp) for t in by_p])
     return torch.cat([p.reshape(-1) for p in parts])
 
 
-@functools.lru_cache(maxsize=None)
-def tc_tables(grid: S2Grid, device: str, dtype: torch.dtype, backward: bool) -> torch.Tensor:
-    """``tc_tables_plain`` of ``grid``, cached per grid, device, dtype and kernel."""
-    return tc_tables_plain(*grid.tables(device), dtype, backward).contiguous()
+def tc_tables(grid: S2Grid, device: str, dtype: torch.dtype, kernel: int) -> torch.Tensor:
+    """``tc_tables_plain`` of ``grid``, cached per grid, device, dtype and
+    kernel; in float32 the three kernels share one set."""
+    return _tc_tables(grid, device, dtype, 1 if dtype == torch.float32 else int(kernel))
 
 
 @functools.lru_cache(maxsize=None)
-def _k3_tables(grid: S2Grid, device: str):
-    """K2c's A and F zero-padded to [Pp, KP]: Pp a multiple of the chunk, KP of 4."""
-    A, F = grid.tables(device)
-    P, K = A.shape
-    Pp = -(-P // _CHUNK) * _CHUNK
-    KP = -(-K // 4) * 4
-    pad = (0, KP - K, 0, Pp - P)
-    return Fn.pad(A, pad).contiguous(), Fn.pad(F, pad).contiguous()
+def _tc_tables(grid: S2Grid, device: str, dtype: torch.dtype, kernel: int) -> torch.Tensor:
+    return tc_tables_plain(*grid.tables(device), dtype, kernel).contiguous()
 
 
 def _check(x: torch.Tensor, *others: torch.Tensor, grid: S2Grid) -> None:
@@ -186,54 +192,37 @@ def _check(x: torch.Tensor, *others: torch.Tensor, grid: S2Grid) -> None:
         raise ValueError(f"x has {K} coefficients, the grid has {grid.to_grid_np.shape[1]}")
 
 
-def _launch(backward: bool, x, dout, grid: S2Grid) -> torch.Tensor:
+def _launch(kernel: int, grid: S2Grid, *ins: torch.Tensor) -> list[torch.Tensor]:
+    """Launch K2a, K2b or K2c (``kernel`` 0, 1, 2) on ins = (x, dout, ddx)
+    or its first one or two."""
     from . import build
 
+    x = ins[0]
     N, K, C = x.shape
-    _check(x, *(() if dout is None else (dout,)), grid=grid)
-    L = tc_layout(K, grid.to_grid_np.shape[0], x.dtype, backward)
+    _check(*ins, grid=grid)
+    L = tc_layout(K, grid.to_grid_np.shape[0], x.dtype, kernel)
     if 4 * L.words > SMEM_LIMIT:
         raise ValueError(f"s2act: the tables of a {grid.to_grid_np.shape} grid take "
                          f"{4 * L.words} B of shared memory, more than a block's {SMEM_LIMIT}")
-    tables = tc_tables(grid, str(x.device), x.dtype, backward)
-    out = torch.empty_like(x)
+    tables = tc_tables(grid, str(x.device), x.dtype, kernel)
+    outs = [torch.empty_like(x) for _ in range(2 if kernel == 2 else 1)]
+    ptr = [t.data_ptr() for t in ins] + [0] * (3 - len(ins))
     lib = build.library("s2act")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.etq_s2act(
-        _DTYPE_CODE[x.dtype], int(backward), K, x.data_ptr(),
-        0 if dout is None else dout.data_ptr(), tables.data_ptr(), L.words,
-        out.data_ptr(), N, C, L.pp, stream,
-    )
-    build.check("s2act", rc, "s2act.k2" if backward else "s2act.k1")
-    launches["k2" if backward else "k1"] += 1
-    launches_by_k[("k2" if backward else "k1", K)] += 1
-    return out
-
-
-def _launch_k3(x, dout, ddx, grid: S2Grid) -> tuple[torch.Tensor, torch.Tensor]:
-    from . import build
-
-    N, K, C = x.shape
-    _check(x, dout, ddx, grid=grid)
-    A, F = _k3_tables(grid, str(x.device))
-    ddout, dx2 = torch.empty_like(x), torch.empty_like(x)
-    lib = build.library("s2act")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.etq_s2act_k3(
-        _DTYPE_CODE[x.dtype], K, x.data_ptr(), dout.data_ptr(), ddx.data_ptr(),
-        A.data_ptr(), F.data_ptr(), ddout.data_ptr(), dx2.data_ptr(),
-        N, C, A.shape[0], stream,
-    )
-    build.check("s2act", rc, "s2act.k3")
-    launches["k3"] += 1
-    launches_by_k[("k3", K)] += 1
-    return ddout, dx2
+    rc = lib.etq_s2act(_DTYPE_CODE[x.dtype], kernel, K, *ptr, tables.data_ptr(), L.words,
+                       outs[0].data_ptr(), outs[-1].data_ptr() if kernel == 2 else 0,
+                       N, C, L.pp, stream)
+    name = TC_KERNELS[kernel]
+    build.check("s2act", rc, f"s2act.{name}")
+    launches[name] += 1
+    launches_by_k[(name, K)] += 1
+    return outs
 
 
 def k1(x: torch.Tensor, grid: S2Grid) -> torch.Tensor:
     """K2a on a CUDA tensor, its plain version on a CPU tensor."""
     if x.is_cuda:
-        return _launch(False, x, None, grid)
+        return _launch(0, grid, x)[0]
     A, F = grid.tables(str(x.device))
     return k1_plain(x, A, F)
 
@@ -241,7 +230,7 @@ def k1(x: torch.Tensor, grid: S2Grid) -> torch.Tensor:
 def k2(x: torch.Tensor, dout: torch.Tensor, grid: S2Grid) -> torch.Tensor:
     """K2b on a CUDA tensor, its plain version on a CPU tensor."""
     if x.is_cuda:
-        return _launch(True, x, dout, grid)
+        return _launch(1, grid, x, dout)[0]
     A, F = grid.tables(str(x.device))
     return k2_plain(x, dout, A, F)
 
@@ -250,7 +239,7 @@ def k3(x: torch.Tensor, dout: torch.Tensor, ddx: torch.Tensor,
        grid: S2Grid) -> tuple[torch.Tensor, torch.Tensor]:
     """K2c on CUDA tensors, its plain version on CPU tensors: (ddout, dx2)."""
     if x.is_cuda:
-        return _launch_k3(x, dout, ddx, grid)
+        return tuple(_launch(2, grid, x, dout, ddx))
     A, F = grid.tables(str(x.device))
     return k3_plain(x, dout, ddx, A, F)
 

@@ -26,7 +26,7 @@ device busy share (union of kernel intervals over the profiled call's wall
 time), the number of kernel launches, the kernel time by bucket, the
 device time and launches of the edge-rotation kernels (K1 ``pairs_kernel``
 and K4 ``rot_kernel``) and of the S2 activation kernels (K2a, K2b, K2c:
-every kernel named ``s2act_*``), and the top kernels.  Every line carries the card's
+every kernel named ``s2act_*``; K2c apart), and the top kernels.  Every line carries the card's
 name and power limit.  Without a CUDA device it raises.
 """
 
@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import time
 
@@ -44,9 +45,11 @@ __all__ = ["random_structures", "random_molecules", "qm9_batch", "qm9_train_stat
            "oc20_batch", "oc20_train_state", "profile_call", "main"]
 
 _BUCKETS = (
+    # s2act_tc_kernel: K2a, K2b and K2c; s2act_kernel and s2act_k3_kernel:
+    # their FFMA kernels in older trees (this file copied there for an A/B)
     ("port kernels (pairs, s2act, so2conv, rot)",
-     ("pairs_kernel", "s2act_kernel", "s2act_tc_kernel", "s2act_k3_kernel", "so2conv_kernel",
-      "b_operand_kernel", "rot_kernel")),
+     ("pairs_kernel", "s2act_tc_kernel", "so2conv_kernel", "b_operand_kernel", "rot_kernel",
+      "s2act_kernel", "s2act_k3_kernel")),
     ("optimizer (multi-tensor)", ("multi_tensor",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "gemv", "splitK")),
     ("gather / scatter / index", ("index", "gather", "scatter")),
@@ -206,6 +209,9 @@ def profile_call(fn) -> dict:
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     rotation = [v for k, v in per_kernel.items() if "pairs_kernel" in k or "rot_kernel" in k]
     s2 = [v for k, v in per_kernel.items() if "s2act_" in k]
+    # K2c: the tensor-core kernel's third instance, or its FFMA kernel in older trees
+    k2c = [v for k, v in per_kernel.items()
+           if "s2act_k3_kernel" in k or re.search(r"s2act_tc_kernel<[^>]*, 2>", k)]
     return dict(
         ms=wall * 1e3,
         ms_profiled=wall_prof * 1e3,
@@ -218,6 +224,8 @@ def profile_call(fn) -> dict:
         rotation_kernel_launches=sum(n for _, n in rotation),
         s2act_kernel_ms=sum(ms for ms, _ in s2),
         s2act_kernel_launches=sum(n for _, n in s2),
+        k2c_kernel_ms=sum(ms for ms, _ in k2c),
+        k2c_kernel_launches=sum(n for _, n in k2c),
         top_kernels=[dict(name=k[:160], ms=v[0], count=v[1]) for k, v in top],
     )
 
@@ -308,6 +316,8 @@ def _report(card: str, what: str, rec: dict, args) -> dict:
           f"{rec['rotation_kernel_launches']} launches  [{card}]")
     print(f"  {'S2 activation kernels (K2a, K2b, K2c)':38s} {rec['s2act_kernel_ms']:8.2f} ms in "
           f"{rec['s2act_kernel_launches']} launches  [{card}]")
+    print(f"  {'  of which K2c (grad-of-grad)':38s} {rec['k2c_kernel_ms']:8.2f} ms in "
+          f"{rec['k2c_kernel_launches']} launches  [{card}]")
     for k in rec["top_kernels"]:
         print(f"  {k['ms']:8.2f} ms x{k['count']:4d}  {k['name'][:110]}")
     print(json.dumps({k: v for k, v in rec.items() if k != "top_kernels"}))

@@ -246,20 +246,21 @@ def test_s2act_kernel_matches_plain(dev, key, backward, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("key", [(2, 2, None), (4, 4, 18), (4, 2, 18), (3, 2, None),
-                                 (6, 2, None), (6, 6, None)], ids=str)
+@pytest.mark.parametrize("key", S2_INSTANCES, ids=str)
 def test_s2act_grad_of_grad_kernel_matches_plain(dev, key, dtype):
-    """K2c: both outputs against k3_plain."""
+    """K2c on the tensor cores: both outputs against k3_plain at every K
+    instance and ragged tile, each launch counted under its K."""
     grid = s2grid(*key)
-    K = grid.to_grid_np.shape[1]
-    g = torch.Generator(device=dev).manual_seed(4)
-    x, do, ddx = (torch.randn(37, K, 136, generator=g, device=dev).to(dtype) for _ in range(3))
     A, F = grid.tables("cuda")
-    before = s2act.launches["k3"]
-    got = s2act.k3(x, do, ddx, grid)
-    assert s2act.launches["k3"] == before + 1
-    for a, b in zip(got, s2act.k3_plain(x, do, ddx, A, F)):
-        _close(a, b, dtype)
+    K = A.shape[1]
+    g = torch.Generator(device=dev).manual_seed(4)
+    for N, C in S2_RAGGED:
+        x, do, ddx = (torch.randn(N, K, C, generator=g, device=dev).to(dtype) for _ in range(3))
+        before = s2act.launches_by_k[("k3", K)]
+        got = s2act.k3(x, do, ddx, grid)
+        assert s2act.launches_by_k[("k3", K)] == before + 1
+        for a, b in zip(got, s2act.k3_plain(x, do, ddx, A, F)):
+            _close(a, b, dtype)
 
 
 def test_s2act_double_backward_on_the_card_runs_k3(dev):
@@ -315,12 +316,14 @@ def test_s2act_chain_on_the_card_matches_the_cpu(dev, key, dtype):
 
 def test_s2act_wrapper_refuses_tables_over_a_block(dev):
     """A grid whose float32 tables exceed a block's 227 KB (resolution 24
-    at lmax 4) raises before any launch; nothing falls back."""
+    at lmax 4) raises before any launch of K2b or K2c; nothing falls back."""
     grid = s2grid(4, 4, 24)
     x = torch.zeros(2, 25, 16, device=dev)
     before = dict(s2act.launches)
     with pytest.raises(ValueError, match="shared memory"):
         s2act.k2(x, x, grid)
+    with pytest.raises(ValueError, match="shared memory"):
+        s2act.k3(x, x, x, grid)
     assert s2act.launches == before
 
 
