@@ -14,8 +14,9 @@ that checkout's kernels with the same timers and shapes.
 Phase 3 times each kernel two ways, at the same shapes: CUDA events around
 one call (median of 15, L2 flushed before each), which also hold the part
 of the wrapper's host time that outlasts the flush, and the device-only
-timer (``device_ms``: the summed durations of the kernels the call
-launches, from torch.profiler's CUDA activity, median of 15, L2 flushed).
+timer (``device_ms``: CUDA events around each call, all 15 calls queued
+behind a sleep on the card so that it runs them back to back without the
+host's share, median of 15, L2 flushed).
 
 Phases, each of which raises on failure:
   1. print the card (name and power limit, from nvidia-smi);
@@ -39,10 +40,12 @@ Phases, each of which raises on failure:
      bf16 (as K1), with first-order and grad-of-grad through its autograd
      pair and torch.bmm of the per-edge dense Wigner (library); K2a and K2b
      at every site of the main paths (``K2_SITES``: the flagship's FFN,
-     QM9's FFN, edge and head, OC20's node (K = 49) and edge (K = 29)), and
-     K2c at the flagship's and OC20's, each in f32 and bf16, all three on
-     the tensor cores, with the tensor-core bound, the FFMA bound, the SFU
-     floor and the tables' L2 bytes;
+     QM9's FFN, edge and head, OC20's node (K = 49) and edge (K = 29), the
+     MatPES baseline's edge (K = 19 on the flagship's grid, [9920, 19,
+     128])), and K2c at the flagship's, OC20's and the MatPES baseline's,
+     each in f32 and bf16, all three on the tensor cores, with the
+     tensor-core bound, the FFMA bound, the SFU floor and the tables' L2
+     bytes;
   4. serve 3 requests of 16 periodic structures of 30 atoms through the
      flagship MatPES GATA-V2 ``Predictor`` (bench.py:327-335 widths, seeded
      random weights) with the launch counts zeroed just before, and fail if a
@@ -77,7 +80,20 @@ Phases, each of which raises on failure:
      a loss is not finite or the guard skipped a step; then 3 evaluation
      requests with the EMA weights;
   11. one f32 OC20 step (2 layers, full width, 2 structures) on the card
-     against the CPU: loss <= 1e-4 relative, gradients <= 1e-3 relative L2.
+     against the CPU: loss <= 1e-4 relative, gradients <= 1e-3 relative L2;
+  12. MatPES beyond the synthetic config: (a) 2 + 5 bf16 steps of the
+     ``baseline`` config (no GATA, per-graph stress at w_stress 0.1) at its
+     full width on phase 6's batches, launch counts zeroed before the timed
+     steps; fail if K1 "to" / "from" or K2a / K2b / K2c at K = 19 never
+     launched, a loss or stress term is not finite or the guard skipped a
+     step; (b) one f32 2-layer baseline step with stress on the card
+     against the CPU (loss 1e-4, gradients, forces and stress 1e-3
+     relative L2); (c) one full-width bf16 flagship step with
+     ``normalize_attn_output=False`` and one with
+     ``use_phi_every_layer=True``, finite and accepted; (d) the ``fixture``
+     config trained 2 epochs on the card, its checkpoint evaluated by
+     train/test_matpes.py on the card and on the CPU and served by
+     ``Predictor.from_checkpoint``: the MAEs within phase 5's limits.
 The line before the last is the kernels' JSON record and the card; the last
 line is the device JSON (not with ``--rotation-only``).  Without a CUDA
 device the script exits non-zero and prints no result.
@@ -137,48 +153,42 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 15) -> float:
 
 
 def device_ms(fn, flush: torch.Tensor, reps: int = 15) -> float:
-    """Median device time of one call: the summed durations of the kernels
-    it launches, read from torch.profiler's CUDA activity, with the L2
-    flushed before each call.  The host's share of the call, which CUDA
-    events around it also hold, is left out.  The flush's fill kernel (the
-    only one whose name holds "fill") opens each call.  The profiler can
-    drop records, so only calls with the usual number of kernels count: a
-    call whose fill went missing (two calls in one) or that lost a kernel
-    does not.  The profiler runs a warm-up cycle of the same calls first,
-    and a profiled run that keeps fewer than two thirds of its calls is
-    repeated, up to three times."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
+    """Median device time of one call, with the L2 flushed before each call:
+    CUDA events around each call, with all the calls queued behind a sleep
+    on the card, so that the card runs them back to back and the host's
+    share of a call, which ``time_ms`` also holds, is left out.  The flush
+    lies outside each call's events.  Should the card have finished the
+    sleep before the host queued the last call, the sleep is doubled and
+    the run repeated, up to four times."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    seen = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(2):
-                for _ in range(reps):
-                    flush.zero_()
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        kernels = sorted((e.time_range.start, e.time_range.end - e.time_range.start, e.name)
-                         for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA
-                         and not e.is_user_annotation)
-        calls: list[list[float]] = []
-        for _, us, name in kernels:
-            if "fill" in name.lower() or "memset" in name.lower():
-                calls.append([])
-            elif calls:
-                calls[-1].append(us / 1e3)
-        sizes = [len(c) for c in calls if c]
-        usual = max(set(sizes), key=sizes.count) if sizes else 0
-        kept = [sum(c) for c in calls if c and len(c) == usual]
-        if len(kept) * 3 >= 2 * reps:
-            return float(np.median(kept))
-        seen.append(f"{len(kept)} of {len(calls)}")
-    raise RuntimeError(f"device timer: calls kept in three profiled runs {seen}, of {reps} each")
+    t = time.perf_counter()
+    for _ in range(reps):
+        flush.zero_()
+        fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    cycles = int(2e9 * max(0.02, 4 * host_s))  # >= 4x the host's queueing time at <= 2 GHz
+    for _ in range(4):
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(reps)]
+        slept = torch.cuda.Event()
+        torch.cuda._sleep(cycles)
+        slept.record()
+        for a, b in events:
+            flush.zero_()
+            a.record()
+            fn()
+            b.record()
+        ahead = not slept.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return float(np.median([a.elapsed_time(b) for a, b in events]))
+        cycles *= 2
+    raise RuntimeError(f"device timer: the card caught up with the host in four runs "
+                       f"(last sleep {cycles // 2} cycles, host {host_s * 1e3:.1f} ms per "
+                       f"{reps} calls)")
 
 
 def bound(bytes_moved: float, flops: float, route: str = "ffma") -> tuple[float, str]:
@@ -367,7 +377,8 @@ def check_kernels(batch, e_qm9: int, tag: str, rotation_only: bool = False) -> l
 # K2's sites on the main paths: (site, grid (lmax, mmax, resolution), N, C,
 # record name suffix, K2c timed).  The flagship's rows make the s2act.k*
 # records (N: the serving request's padded nodes); QM9's join them as
-# sites; OC20's make records of their own, named by K.
+# sites; OC20's make records of their own, named by K, and so does the
+# MatPES baseline's edge site (K = 19 on the flagship's grid, E_pad 9920).
 K2_SITES = [
     ("flagship FFN", (4, 4, 18), None, 512, "", True),
     ("QM9 FFN", (4, 4, None), 1152, 512, None, False),
@@ -375,6 +386,7 @@ K2_SITES = [
     ("QM9 head", (4, 4, None), 13824, 512, None, False),
     ("OC20 node", (6, 6, None), 320, 512, "[K=49]", True),
     ("OC20 edge", (6, 2, None), 6400, 128, "[K=29]", True),
+    ("MatPES baseline edge", (4, 2, 18), 9920, 128, "[base]", True),
 ]
 # the SFU's transcendental rate: 16 per SM per clock (CUDA C++ Programming
 # Guide, arithmetic throughput, compute capability 9.0) at the H100 SXM's
@@ -685,8 +697,9 @@ def check_k3(e_flagship: int, e_qm9: int, tag: str) -> list[dict]:
     return records + [b_record]
 
 
-def train_phase(counters: dict, tag: str) -> dict:
-    """Phase 6: the flagship bf16 force-training step (bench.py:308-359)."""
+def _flagship_batches(n: int, seed: int = 2) -> list[dict]:
+    """``n`` labelled batches of ``N_STRUCTURES`` x ``N_ATOMS`` on the card
+    (the flagship's layout: N_pad 496, E_pad 9920)."""
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import (
         as_tensors,
         collate,
@@ -695,11 +708,22 @@ def train_phase(counters: dict, tag: str) -> dict:
         labelled_structures,
     )
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.inference import pad_sizes
-    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
-        FLAGSHIP,
-        EquiformerV2MatPES,
-        init_weights,
-    )
+
+    rng = np.random.default_rng(seed)
+    n_pad, e_pad = pad_sizes([N_ATOMS] * N_STRUCTURES, MAX_NEIGHBORS, MAX_NEIGHBORS)
+    batches = []
+    for _ in range(n):
+        pb = collate(labelled_structures(rng, N_STRUCTURES, N_ATOMS), CUTOFF,
+                     MAX_NEIGHBORS, n_pad, e_pad)
+        if pb.overflow_atoms or pb.overflow_edges:
+            raise RuntimeError("training batch overflowed its pads")
+        batches.append(as_tensors(pb, "cuda"))
+    return batches
+
+
+def _train_state(model, w_stress: float = 0.0):
+    """The flagship step's optimizer and EMA (bench.py:308-359) around a
+    model on the card; returns the state and its step."""
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.schedules import (
         warmup_cosine,
     )
@@ -709,24 +733,21 @@ def train_phase(counters: dict, tag: str) -> dict:
         make_matpes_train_step,
     )
 
-    model = EquiformerV2MatPES(**FLAGSHIP, alpha_drop=0.0, drop_path_rate=0.0,
-                               compute_dtype=torch.bfloat16)
-    init_weights(model, torch.Generator().manual_seed(0)).to("cuda")
     opt = GuardedAdamW(model.named_parameters(), warmup_cosine(2e-4, 100, 10000), 1e-3, 1.0)
     state = create_train_state(model, opt)
-    step = make_matpes_train_step(state, generator=torch.Generator("cuda").manual_seed(0))
-    rng = np.random.default_rng(2)
-    n_pad, e_pad = pad_sizes([N_ATOMS] * N_STRUCTURES, MAX_NEIGHBORS, MAX_NEIGHBORS)
-    batches = []
-    for _ in range(N_WARMUP_STEPS + N_TRAIN_STEPS):
-        pb = collate(labelled_structures(rng, N_STRUCTURES, N_ATOMS), CUTOFF,
-                     MAX_NEIGHBORS, n_pad, e_pad)
-        if pb.overflow_atoms or pb.overflow_edges:
-            raise RuntimeError("training batch overflowed its pads")
-        batches.append(as_tensors(pb, "cuda"))
-    print(f"training: flagship bf16 step, {N_STRUCTURES} structures x {N_ATOMS} atoms, "
-          f"N_pad {n_pad}, E_pad {e_pad}, AdamW wd 1e-3, warmup_cosine(2e-4, 100, 10000), "
-          f"EMA 0.999  [{tag}]", flush=True)
+    return state, make_matpes_train_step(state, w_stress=w_stress,
+                                         generator=torch.Generator("cuda").manual_seed(0))
+
+
+def _timed_steps(step, counters: dict, what: str, tag: str) -> dict:
+    """``N_WARMUP_STEPS`` + ``N_TRAIN_STEPS`` steps of ``step`` on flagship
+    batches, the launch counts zeroed just before the timed steps; fails if
+    a loss (or a stress term the step reports) is not finite, the guard
+    skipped a step, or a kernel of ``counters`` was never launched."""
+    batches = _flagship_batches(N_WARMUP_STEPS + N_TRAIN_STEPS)
+    print(f"training: {what}, {N_STRUCTURES} structures x {N_ATOMS} atoms, N_pad "
+          f"{batches[0]['pos'].shape[0]}, E_pad {batches[0]['edge_src'].shape[0]}, AdamW wd "
+          f"1e-3, warmup_cosine(2e-4, 100, 10000), EMA 0.999  [{tag}]", flush=True)
 
     def run(i, batch):
         before = {n: d[k] for n, (d, k) in counters.items()}
@@ -735,13 +756,15 @@ def train_phase(counters: dict, tag: str) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         loss = float(loss)
-        if not (np.isfinite(loss) and m["accepted"]):
-            raise RuntimeError(f"training step {i}: loss {loss}, accepted {m['accepted']}")
+        stress = f", stress {float(m['stress_l1']):.4f}" if "stress_l1" in m else ""
+        if not (np.isfinite(loss) and m["accepted"]
+                and np.isfinite(float(m.get("stress_l1", 0.0)))):
+            raise RuntimeError(f"{what} step {i}: loss {loss}{stress}, accepted {m['accepted']}")
         per = {n: d[k] - before[n] for n, (d, k) in counters.items()}
         print(f"train step {i}: {dt * 1e3:.1f} ms, {N_STRUCTURES / dt:.1f} graphs/s, "
-              f"loss {loss:.4f} (E {float(m['energy_l1']):.4f}, F {float(m['force_l1']):.4f}), "
-              f"|g| {float(m['grad_norm']):.3f}, lr {m['lr']:.3e}, launches {per}  [{tag}]",
-              flush=True)
+              f"loss {loss:.4f} (E {float(m['energy_l1']):.4f}, F {float(m['force_l1']):.4f}"
+              f"{stress}), |g| {float(m['grad_norm']):.3f}, lr {m['lr']:.3e}, launches {per}  "
+              f"[{tag}]", flush=True)
         return dt
 
     for i in range(N_WARMUP_STEPS):
@@ -752,14 +775,29 @@ def train_phase(counters: dict, tag: str) -> dict:
     times = [run(i, b) for i, b in enumerate(batches[N_WARMUP_STEPS:])]
     launches = {n: d[k] for n, (d, k) in counters.items()}
     med = float(np.median(times))
-    print(f"training: median step {med * 1e3:.1f} ms ({min(times) * 1e3:.1f}-"
+    print(f"training: {what}: median step {med * 1e3:.1f} ms ({min(times) * 1e3:.1f}-"
           f"{max(times) * 1e3:.1f}), {N_STRUCTURES / med:.1f} graphs/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches per step "
           f"{ {n: c / N_TRAIN_STEPS for n, c in launches.items()} }  [{tag}]", flush=True)
     idle = [n for n, c in launches.items() if c == 0]
     if idle:
-        raise RuntimeError(f"kernels never launched on the training path: {idle}")
+        raise RuntimeError(f"kernels never launched on the {what} path: {idle}")
     return launches
+
+
+def train_phase(counters: dict, tag: str) -> dict:
+    """Phase 6: the flagship bf16 force-training step (bench.py:308-359)."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        FLAGSHIP,
+        EquiformerV2MatPES,
+        init_weights,
+    )
+
+    model = EquiformerV2MatPES(**FLAGSHIP, alpha_drop=0.0, drop_path_rate=0.0,
+                               compute_dtype=torch.bfloat16)
+    init_weights(model, torch.Generator().manual_seed(0)).to("cuda")
+    _, step = _train_state(model)
+    return _timed_steps(step, counters, "flagship bf16 step", tag)
 
 
 def train_parity_phase(tag: str) -> None:
@@ -1265,6 +1303,183 @@ def oc20_parity_phase(tag: str) -> None:
         raise RuntimeError("the OC20 training step on the card disagrees with the CPU plain path")
 
 
+def _rel_l2(got: dict, want: dict) -> float:
+    num = sum(float(((got[k].double() - want[k].double()) ** 2).sum()) for k in want)
+    den = sum(float((want[k].double() ** 2).sum()) for k in want)
+    return (num / den) ** 0.5
+
+
+def baseline_phase(counters: dict, tag: str) -> dict:
+    """Phase 12a: the ``baseline`` config (the original EquiformerV2, no
+    GATA, per-graph stress at w_stress 0.1) at its full width, the
+    flagship's: 2 + 5 bf16 training steps on the flagship's batches, the
+    separable S2 activation on the edges (K2a / K2b / K2c at K = 19,
+    P = 324 on [9920, 19, 128]) and K1 "to" / "from" in a grad-of-grad by
+    positions and strain."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        init_weights,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.train_matpes import (
+        CONFIGS,
+        build_model,
+    )
+
+    cfg = CONFIGS["baseline"]
+    model = init_weights(build_model(cfg, True), torch.Generator().manual_seed(5)).to("cuda")
+    _, step = _train_state(model, cfg["w_stress"])
+    return _timed_steps(step, counters, f"baseline bf16 step with stress (w_stress "
+                        f"{cfg['w_stress']}, {cfg['num_layers']} layers, alpha_drop "
+                        f"{cfg['alpha_drop']}, drop_path {cfg['drop_path_rate']})", tag)
+
+
+def baseline_parity_phase(tag: str) -> None:
+    """Phase 12b: one f32 step of a 2-layer baseline model at the flagship
+    widths with stress on 2 structures with stress labels, on the card and
+    on the CPU plain path from the same weights: loss <= 1e-4 relative;
+    gradients, forces and stress <= 1e-3 relative L2 (phase 7's limits)."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import (
+        as_tensors,
+        collate,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.synthetic import (
+        labelled_structures,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.inference import pad_sizes
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        FLAGSHIP,
+        EquiformerV2MatPES,
+        init_weights,
+        matpes_energy_forces,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        matpes_loss,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.precision import (
+        full_f32_products,
+    )
+
+    cfg = dict(FLAGSHIP, num_layers=2, gata=False, alpha_drop=0.0, drop_path_rate=0.0)
+    weights = init_weights(EquiformerV2MatPES(**cfg), torch.Generator().manual_seed(6))
+    weights = {k: v.clone() for k, v in weights.state_dict().items()}
+    rng = np.random.default_rng(6)
+    samples = labelled_structures(rng, 2, N_ATOMS)
+    for smp in samples:
+        smp.stress = (rng.normal(size=6) * 0.05).astype(np.float32)
+    n_pad, e_pad = pad_sizes([N_ATOMS] * 2, MAX_NEIGHBORS, MAX_NEIGHBORS)
+    pb = collate(samples, CUTOFF, MAX_NEIGHBORS, n_pad, e_pad)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = EquiformerV2MatPES(**cfg)
+        model.load_state_dict(weights)
+        model.to(dev).train()
+        batch = as_tensors(pb, dev)
+        with full_f32_products():
+            outs = matpes_energy_forces(model, batch, create_graph=True, regress_stress=True)
+            loss, m = matpes_loss(outs, batch, 1.0, 1.0, 0.1)
+            loss.backward()
+        res[dev] = dict(loss=float(loss.detach()), stress_l1=float(m["stress_l1"].detach()),
+                        grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                        forces={"f": outs["forces"].detach().cpu()},
+                        stress={"s": outs["stress"].detach().cpu()})
+    g, c = res["cuda"], res["cpu"]
+    errs = dict(loss=abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+                gradients=_rel_l2(g["grads"], c["grads"]),
+                forces=_rel_l2(g["forces"], c["forces"]),
+                stress=_rel_l2(g["stress"], c["stress"]))
+    print(f"baseline gpu vs cpu plain path, one f32 step with stress (2 layers, flagship "
+          f"widths, 2 x {N_ATOMS} atoms): loss {g['loss']:.6f} vs {c['loss']:.6f}, stress_l1 "
+          f"{g['stress_l1']:.6f} vs {c['stress_l1']:.6f}; rel err "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (limits: loss 1e-4, the others 1e-3 relative L2)  [{tag}]", flush=True)
+    if not (errs["loss"] <= 1e-4 and all(v <= 1e-3 for k, v in errs.items() if k != "loss")):
+        raise RuntimeError("the baseline stress step on the card disagrees with the CPU")
+
+
+def options_phase(tag: str) -> None:
+    """Phase 12c: one full-width bf16 flagship step with each GATA-V2
+    option of the JAX configs (``no-attn-norm``, ``phi-every-layer``):
+    finite and accepted."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        FLAGSHIP,
+        EquiformerV2MatPES,
+        init_weights,
+    )
+
+    (batch,) = _flagship_batches(1, seed=8)
+    for option in (dict(normalize_attn_output=False), dict(use_phi_every_layer=True)):
+        model = EquiformerV2MatPES(**FLAGSHIP, alpha_drop=0.0, drop_path_rate=0.0,
+                                   compute_dtype=torch.bfloat16, **option)
+        init_weights(model, torch.Generator().manual_seed(7)).to("cuda")
+        _, step = _train_state(model)
+        t = time.perf_counter()
+        loss, m = step(batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        print(f"flagship bf16 step with {option}: loss {float(loss):.4f}, accepted "
+              f"{m['accepted']}, {dt * 1e3:.1f} ms (first step)  [{tag}]", flush=True)
+        if not (np.isfinite(float(loss)) and m["accepted"]):
+            raise RuntimeError(f"the flagship step with {option} failed")
+        del model, step
+
+
+def fixture_phase(tag: str) -> None:
+    """Phase 12d: train the ``fixture`` config (MatPES-format fixture data)
+    for 2 epochs on the card into a temporary directory, evaluate its
+    checkpoint with train/test_matpes.py on the card and on the CPU, and
+    serve its test structures through ``Predictor.from_checkpoint``.  The
+    MAEs of the three must agree within phase 5's limits: energy 1e-4
+    relative, forces 1e-3 eV/A (1 meV/A) absolute."""
+    import shutil
+    import tempfile
+
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.matpes import (
+        load_matpes,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.inference import Predictor
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train import (
+        test_matpes,
+        train_matpes,
+    )
+
+    data = {k: os.path.join(HERE, train_matpes.CONFIGS["fixture"][k])
+            for k in ("data_path", "split_path")}
+    run = tempfile.mkdtemp(prefix="matpes_fixture_")
+    try:
+        t = time.perf_counter()
+        state = train_matpes.main(["--config", "fixture", "--epochs", "2"],
+                                  overrides={"run_dir": run, **data})
+        torch.cuda.synchronize()
+        print(f"fixture: 2 epochs, {state.step} steps on the card in "
+              f"{time.perf_counter() - t:.1f} s  [{tag}]", flush=True)
+        ckpt = os.path.join(run, "ckpt_best")
+        evals = {dev: test_matpes.main(["--checkpoint", ckpt, "--device", dev])
+                 for dev in ("cuda", "cpu")}
+        pred = Predictor.from_checkpoint(run, device="cuda")
+        _, _, test, _ = load_matpes(data["data_path"], data["split_path"],
+                                    normalize_energy=False)
+        out = pred.predict_batch([dict(atomic_numbers=test[i].atomic_numbers,
+                                       positions=test[i].pos, cell=test[i].cell)
+                                  for i in range(len(test))])
+        evals["Predictor (cuda)"] = {
+            "energy_mae_mev_per_atom": 1e3 * float(np.mean(
+                [abs(out["energy_per_atom"][i] - test[i].energy) for i in range(len(test))])),
+            "force_mae_mev_per_a": 1e3 * float(np.mean(np.concatenate(
+                [np.abs(out["forces"][i] - test[i].forces).ravel()
+                 for i in range(len(test))])))}
+    finally:
+        shutil.rmtree(run, ignore_errors=True)
+    ref = evals["cpu"]
+    print("fixture test MAEs (energy meV/atom, force meV/A): " + "; ".join(
+        f"{k} {v['energy_mae_mev_per_atom']:.4f} / {v['force_mae_mev_per_a']:.4f}"
+        for k, v in evals.items()) + f"  [{tag}]", flush=True)
+    for k, v in evals.items():
+        de = abs(v["energy_mae_mev_per_atom"] - ref["energy_mae_mev_per_atom"])
+        df = abs(v["force_mae_mev_per_a"] - ref["force_mae_mev_per_a"])
+        if not (de <= 1e-4 * ref["energy_mae_mev_per_atom"] and df <= 1.0):
+            raise RuntimeError(f"fixture evaluation {k} disagrees with the CPU: energy MAE "
+                               f"{de:.3e} meV/atom, force MAE {df:.3e} meV/A apart")
+
+
 def main(argv: list[str]) -> int:
     rotation_only = argv == ["--rotation-only"]
     s2act_only = argv == ["--s2act-only"]
@@ -1357,8 +1572,8 @@ def main(argv: list[str]) -> int:
     # K2c is not on the OC20 path (a first-order step): its OC20 instances
     # stay beside the flagship's K2c record
     next(r for r in k2 if r["name"] == "s2act.k3")["oc20_instances"] = [
-        r for r in k2 if r["name"].startswith("s2act.k3[")]
-    records += [r for r in k2 if not r["name"].startswith("s2act.k3[")]
+        r for r in k2 if r["name"].startswith("s2act.k3[K=")]
+    records += [r for r in k2 if not r["name"].startswith("s2act.k3[K=")]
 
     # phase 4: serve, counting launches from zero
     counters = {**{f"rotate_pairs.{k}": (rotate_dense.launches, k)
@@ -1462,6 +1677,24 @@ def main(argv: list[str]) -> int:
 
     # phase 11: one f32 OC20 step, the card against the CPU plain path
     oc20_parity_phase(tag)
+
+    # phase 12: MatPES beyond the synthetic config.  12a: the baseline
+    # config's bf16 stress step at full width, counting from zero: K1 to /
+    # from and K2a-c at K = 19 (its edge site) must launch
+    base_counters = {**{f"rotate_pairs.{k}": (rotate_dense.launches, k) for k in ("to", "from")},
+                     **{f"s2act.{k}[base]": (s2act.launches_by_k, (k, 19))
+                        for k in ("k1", "k2", "k3")}}
+    base_train = baseline_phase(base_counters, tag)
+    for r in records:
+        r["launches_baseline_train"] = base_train.get(r["name"], 0)
+        if r["name"].endswith("[base]"):
+            r["launches"] = r["launches_baseline_train"]
+    # 12b: one f32 baseline stress step, the card against the CPU plain path
+    baseline_parity_phase(tag)
+    # 12c: the flagship step with each GATA-V2 option
+    options_phase(tag)
+    # 12d: the fixture config's checkpoint, evaluated on the card and the CPU
+    fixture_phase(tag)
 
     print(json.dumps({"kernels": records}))
     print(tag)

@@ -35,6 +35,15 @@
 // at data-dependent addresses).  Math is f32 for both input types; the
 // last tile is masked, nothing is padded.  The kernel allocates nothing
 // and launches on the caller's stream.
+//
+// bf16: the JAX package rounds h and uv to bf16 after each f32-accumulated
+// product (ops/pallas/rotate.py:77-113, ops/rotation.py:367-378); this
+// kernel keeps the whole chain, and the block build, in f32 and rounds
+// once, on the store.  Measured on the CPU through rot_plain: one rotation
+// differs from the JAX package's by at most 8.4e-3 of max |JAX| (lmax 4
+// and 6, tests/test_torch_rotate.py), one bf16 OC20 step by 1.3e-3
+// (energies), 5.3e-3 (forces), 6.7e-5 (loss) and 3.8e-3 (gradients, rel.
+// L2; tests/test_torch_oc20.py), inside the bf16 limits 2e-2 / 5e-2.
 
 #include "edge_rotate.cuh"
 

@@ -1,20 +1,22 @@
 """Serving API: energies and forces for batches of structures.
 
-Port of the JAX package's inference.py ``Predictor`` (energy + forces; stress
-and checkpoint loading are not ported yet).  ``Predictor`` takes a model and
-a torch ``state_dict`` (for example one converted from the JAX package's
-Flax params by ``utils/convert.py``).  The model runs on ``cuda`` unless the
-caller passes ``device="cpu"``.
+Port of the JAX package's inference.py ``Predictor`` (energy + forces; the
+JAX ``Predictor`` computes no stress either).  ``Predictor`` takes a model
+and a torch ``state_dict`` (for example one converted from the JAX
+package's Flax params by ``utils/convert.py``), or
+``Predictor.from_checkpoint`` reads a checkpoint of the port's MatPES CLI.
+The model runs on ``cuda`` unless the caller passes ``device="cpu"``.
 
 Example:
-    model = EquiformerV2MatPES()
-    p = Predictor(model, state_dict, cutoff=6.0, max_neighbors=20)
+    p = Predictor.from_checkpoint("runs/matpes_fixture_torch", "ckpt_best")
     out = p.predict_batch([dict(atomic_numbers=z, positions=r, cell=c)])
     out["energy"], out["forces"]
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Sequence
 
 import numpy as np
@@ -58,6 +60,23 @@ class Predictor:
         self.max_neighbors = max_neighbors
         self.energy_mean = energy_mean
         self.energy_std = energy_std
+
+    @classmethod
+    def from_checkpoint(cls, run_dir: str, name: str = "ckpt_best", use_ema: bool = True,
+                        device: str | torch.device = "cuda") -> "Predictor":
+        """A Predictor of ``<run_dir>/<name>.pt``, written by
+        train/train_matpes.py: the model of the stored config (float32,
+        dropout off), its EMA weights (or the trained ones), the cutoff,
+        neighbour cap and energy normalization of the config."""
+        from .train.train_matpes import build_eval_model
+
+        with open(os.path.join(run_dir, f"{name}.meta.json")) as f:
+            cfg = json.load(f)["config"]
+        sd = torch.load(os.path.join(run_dir, f"{name}.pt"), map_location="cpu",
+                        weights_only=True)
+        state = {**sd["model"], **sd["ema"]} if use_ema else sd["model"]
+        return cls(build_eval_model(cfg), state, cfg["cutoff"], cfg.get("max_neighbors"),
+                   cfg.get("energy_mean", 0.0), cfg.get("energy_std", 1.0), device)
 
     def predict(self, atomic_numbers, positions, cell=None) -> dict:
         """Single-structure energy (denormalized, total) + forces."""

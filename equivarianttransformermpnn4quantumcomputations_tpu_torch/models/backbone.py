@@ -14,9 +14,14 @@ Two configurations are ported, both with separable S2 activations,
 (``gata=True``) and the baseline EquiformerV2 of QM9 (``gata=False``: no
 ``h_proj`` / ``W_erp`` / ``t_ij`` / ``rl_ij``).  ``conv_fused`` sends the
 full SO(2)-conv sites through kernel K3 (the JAX package's
-``KernelFlags.conv_fused``; off by default there and here).  Batches come in
-the fixed-degree layout (``data/graph.py:collate``): k = E / N edge slots
-per node.
+``KernelFlags.conv_fused``; off by default there and here).  Two GATA-V2
+options of the JAX package's configs: ``normalize_attn_output=False`` (the
+ablation without the attention-output normalization) and
+``use_phi_every_layer`` (the distance RBF in every layer's value
+activation).  Batches come in the fixed-degree layout
+(``data/graph.py:collate``): k = E / N edge slots per node.  ``cell`` may
+be a strained cell (``models/matpes.py``'s stress): the periodic shifts
+are taken in it, so the edge vectors see the strain.
 
 ``compute_dtype=torch.bfloat16`` follows the JAX package's casts: the node
 features, the edge scalars, ``t_ij`` and ``rl_ij`` enter the block stack in
@@ -72,7 +77,8 @@ class EquiformerV2Backbone(nn.Module):
                  avg_degree: float, alpha_drop: float = 0.0,
                  drop_path_rate: float = 0.0, proj_drop: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32, gata: bool = True,
-                 conv_fused: bool = False, wigner_rep: str = "dense"):
+                 conv_fused: bool = False, wigner_rep: str = "dense",
+                 normalize_attn_output: bool = True, use_phi_every_layer: bool = False):
         super().__init__()
         if wigner_rep not in WIGNER_REPS:
             raise ValueError(
@@ -81,6 +87,7 @@ class EquiformerV2Backbone(nn.Module):
         self.wigner_rep = wigner_rep
         self.lmax, self.mmax = lmax, mmax
         self.gata = gata
+        self.use_phi_every_layer = use_phi_every_layer
         self.compute_dtype = compute_dtype
         self.sphere_channels = sphere_channels
         lay_full, lay_red = get_layout(lmax, lmax), get_layout(lmax, mmax)
@@ -102,7 +109,8 @@ class EquiformerV2Backbone(nn.Module):
                        attn_hidden_channels, num_heads, attn_alpha_channels,
                        attn_value_channels, ffn_hidden_channels,
                        max_num_elements, edge_channels_list, edge_channels,
-                       alpha_drop, drop_path_rate, proj_drop, gata, conv_fused)
+                       alpha_drop, drop_path_rate, proj_drop, gata, conv_fused,
+                       normalize_attn_output, use_phi_every_layer)
             for _ in range(num_layers)
         )
         self.norm = EquivariantRMSNormSH(lmax, sphere_channels)
@@ -150,9 +158,10 @@ class EquiformerV2Backbone(nn.Module):
             t_ij = (t_ij * self.W_erp(phi_r)).to(cdt)
             rl_ij = rl_ij.to(cdt)
         x, edge_scalars = x.to(cdt), phi_r.to(cdt)
+        phi_c = edge_scalars if self.use_phi_every_layer else None
         num_graphs = cell.shape[0]
         for block in self.blocks:
             x, t_ij = block(x, atomic_numbers, edge_scalars, edge_src, edge_dst,
                             edge_mask, wigner, t_ij, rl_ij, k, graph_idx,
-                            num_graphs, generator)
+                            num_graphs, generator, phi_c)
         return BackboneOutput(self.norm(x).float(), phi_r, wigner, k)

@@ -1,11 +1,16 @@
-"""EquiformerV2 GATA-V2 for MatPES: per-atom energy and autograd forces.
+"""EquiformerV2 GATA-V2 for MatPES: per-atom energy, autograd forces and
+stress.
 
-Port of the JAX package's models/matpes.py (``EquiformerV2MatPES`` with
-``gata=True``, the GATA-V2 model, and ``matpes_energy_forces_stress``
-without stress).  Batches come in the fixed-degree layout
-(``data/graph.py:collate``), whatever layout a converted checkpoint
-was trained with: the layout changes no parameter.  Forces
-are ``-d(sum E)/d pos`` by ``torch.autograd.grad``.  Serving
+Port of the JAX package's models/matpes.py (``EquiformerV2MatPES``, with
+``gata=True`` the GATA-V2 model, with ``gata=False`` the baseline
+EquiformerV2; ``matpes_energy_forces_stress`` and
+``matpes_energy_forces_stress_pergraph``).  Batches come in the
+fixed-degree layout (``data/graph.py:collate``), whatever layout a
+converted checkpoint was trained with: the layout changes no parameter.
+Forces are ``-d(sum E)/d pos`` by ``torch.autograd.grad``.  Stress uses the
+strain trick with one symmetric strain per graph: positions and cell are
+deformed by (I + eps), and stress = sym(dE/d eps) / |det cell| in Voigt-6
+order, from the same ``torch.autograd.grad`` call as the forces.  Serving
 (``energy_and_forces``) needs only this first derivative and keeps no graph;
 force training (``matpes_energy_forces`` with ``create_graph=True``) keeps
 it, so the loss backward is a grad-of-grad through every kernel.
@@ -24,7 +29,7 @@ from ..ops.segment import segment_sum
 from .backbone import EquiformerV2Backbone
 
 __all__ = ["EquiformerV2MatPES", "energy_and_forces", "matpes_energy_forces",
-           "init_weights", "FLAGSHIP"]
+           "matpes_energy_forces_stress_pergraph", "init_weights", "FLAGSHIP"]
 
 # The flagship MatPES GATA-V2 configuration (bench.py:327-335); served with
 # cutoff 6.0 and 20 neighbours (bench.py:338-340).
@@ -45,7 +50,9 @@ class EquiformerV2MatPES(nn.Module):
     (conv 2; conv 1 is m = 0 only) through kernel K3, off by default.
     ``gata=False`` builds the baseline EquiformerV2 attention instead of
     GATA-V2; ``wigner_rep`` is the backbone's Wigner representation
-    (``"dense"``: kernel K1, ``"factored"``: kernel K4).
+    (``"dense"``: kernel K1, ``"factored"``: kernel K4);
+    ``normalize_attn_output`` and ``use_phi_every_layer`` are the GATA-V2
+    options of models/backbone.py.
     """
 
     def __init__(self, num_layers: int = 6, sphere_channels: int = 128,
@@ -59,7 +66,8 @@ class EquiformerV2MatPES(nn.Module):
                  proj_drop: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32,
                  conv_fused: bool = False, gata: bool = True,
-                 wigner_rep: str = "dense"):
+                 wigner_rep: str = "dense", normalize_attn_output: bool = True,
+                 use_phi_every_layer: bool = False):
         super().__init__()
         self.backbone = EquiformerV2Backbone(
             num_layers=num_layers, sphere_channels=sphere_channels,
@@ -72,7 +80,8 @@ class EquiformerV2MatPES(nn.Module):
             avg_degree=avg_degree, alpha_drop=alpha_drop,
             drop_path_rate=drop_path_rate, proj_drop=proj_drop,
             compute_dtype=compute_dtype, gata=gata, conv_fused=conv_fused,
-            wigner_rep=wigner_rep,
+            wigner_rep=wigner_rep, normalize_attn_output=normalize_attn_output,
+            use_phi_every_layer=use_phi_every_layer,
         )
         self.energy_block = FeedForward(
             sphere_channels, ffn_hidden_channels, 1, lmax,
@@ -83,13 +92,15 @@ class EquiformerV2MatPES(nn.Module):
                 generator: torch.Generator | None = None) -> dict:
         """Returns energy [B, 1] (per atom), energy_total [B], node_energy [N].
 
-        ``generator`` draws the dropout masks in ``train()`` mode."""
+        ``generator`` draws the dropout masks in ``train()`` mode.  The edge
+        vectors take their periodic shifts in ``batch["strained_cell"]``
+        when the batch has one (stress), else in ``batch["cell"]``."""
         if pos is None:
             pos = batch["pos"]
         x = self.backbone(
             batch["atomic_numbers"], pos, batch["graph_idx"], batch["edge_src"],
             batch["edge_dst"], batch["edge_shift"], batch["edge_mask"],
-            batch["cell"], generator,
+            batch.get("strained_cell", batch["cell"]), generator,
         ).x
         node_energy = self.energy_block(x)[:, 0, 0]
         num_graphs = batch["cell"].shape[0]
@@ -103,29 +114,71 @@ class EquiformerV2MatPES(nn.Module):
         }
 
 
+def _call(model, batch: dict, pos, params, generator):
+    if params is None:
+        return model(batch, pos=pos, generator=generator)
+    return torch.func.functional_call(model, params, (batch,),
+                                      dict(pos=pos, generator=generator))
+
+
 def matpes_energy_forces(model: EquiformerV2MatPES, batch: dict,
                          create_graph: bool = False, params: dict | None = None,
-                         generator: torch.Generator | None = None) -> dict:
-    """Energy outputs plus forces F = -dE_total/d pos (masked to real atoms).
+                         generator: torch.Generator | None = None,
+                         regress_stress: bool = False) -> dict:
+    """Energy outputs plus forces F = -dE_total/d pos (masked to real atoms),
+    and with ``regress_stress`` the stress of
+    ``matpes_energy_forces_stress_pergraph``.
 
-    The counterpart of the JAX package's ``matpes_energy_forces_stress``
-    with ``regress_stress=False``.  ``create_graph=True`` keeps the graph of
-    the force pass, so a loss of the forces can be differentiated by the
-    parameters (force training).  ``params``: a name -> tensor mapping to
-    call the model with (``torch.func.functional_call``), e.g. the bfloat16
-    copies of mixed precision.
+    The counterpart of the JAX package's ``matpes_energy_forces_stress``.
+    ``create_graph=True`` keeps the graph of the force pass, so a loss of
+    the forces can be differentiated by the parameters (force training).
+    ``params``: a name -> tensor mapping to call the model with
+    (``torch.func.functional_call``), e.g. the bfloat16 copies of mixed
+    precision.
     """
+    if regress_stress:
+        return matpes_energy_forces_stress_pergraph(model, batch, create_graph, params,
+                                                    generator)
     pos = batch["pos"].detach().requires_grad_(True)
     with torch.enable_grad():
-        if params is None:
-            outs = model(batch, pos=pos, generator=generator)
-        else:
-            outs = torch.func.functional_call(
-                model, params, (batch,), dict(pos=pos, generator=generator))
+        outs = _call(model, batch, pos, params, generator)
         (dpos,) = torch.autograd.grad(outs["energy_total"].sum(), pos,
                                       create_graph=create_graph)
     result = dict(outs) if create_graph else {k: v.detach() for k, v in outs.items()}
     result["forces"] = -dpos * batch["node_mask"][:, None].to(dpos.dtype)
+    return result
+
+
+def matpes_energy_forces_stress_pergraph(model: EquiformerV2MatPES, batch: dict,
+                                         create_graph: bool = False,
+                                         params: dict | None = None,
+                                         generator: torch.Generator | None = None) -> dict:
+    """Energy outputs, forces and per-graph stress [B, 6] (Voigt: xx, yy,
+    zz, yz, xz, xy; energy units per A^3).
+
+    One strain eps [B, 3, 3] per graph, zero-valued:
+    positions become pos @ (I + eps)[graph] and the cell cell @ (I + eps),
+    and one ``torch.autograd.grad`` over (pos, eps) gives the forces and
+    dE/d eps; stress = sym(dE/d eps) / |det cell|.  Call it inside
+    ``utils/precision.full_f32_products`` (the geometry is float32).
+    """
+    pos = batch["pos"].detach().requires_grad_(True)
+    cell = batch["cell"]
+    strain = torch.zeros_like(cell, requires_grad=True)
+    with torch.enable_grad():
+        defo = torch.eye(3, dtype=cell.dtype, device=cell.device) + strain   # [B, 3, 3]
+        pos_s = torch.einsum("ni,nij->nj", pos, defo[batch["graph_idx"]])
+        strained = dict(batch, strained_cell=torch.einsum("bij,bjk->bik", cell, defo))
+        outs = _call(model, strained, pos_s, params, generator)
+        dpos, dstrain = torch.autograd.grad(outs["energy_total"].sum(), (pos, strain),
+                                            create_graph=create_graph)
+    result = dict(outs) if create_graph else {k: v.detach() for k, v in outs.items()}
+    result["forces"] = -dpos * batch["node_mask"][:, None].to(dpos.dtype)
+    sym = 0.5 * (dstrain + dstrain.transpose(-1, -2))
+    vol = torch.abs(torch.linalg.det(cell))
+    s = sym / torch.clamp(vol, min=1e-9)[:, None, None]
+    result["stress"] = torch.stack([s[:, 0, 0], s[:, 1, 1], s[:, 2, 2], s[:, 1, 2],
+                                    s[:, 0, 2], s[:, 0, 1]], dim=1)
     return result
 
 

@@ -16,9 +16,12 @@ rotated and convolved (the JAX package's default ``m0_only``; exactly equal
 to the full path).  Baseline: the full message is rotated and convolved, and
 the value activation is the separable S2 activation on the reduced grid
 (kernel K2 at the edge site), gated by the extra m = 0 channels.
-``conv_fused`` sends every full SO(2)-conv site through kernel K3.  The
-other attention variants (gate activation, GATA v1, m-share radial, the
-ablation without the attention-output normalization) are not ported yet.
+``conv_fused`` sends every full SO(2)-conv site through kernel K3.
+GATA-V2 options: ``normalize_attn_output`` (on by default) scales the value
+activation's input by the head-mean of alpha; ``use_phi_every_layer`` feeds
+the distance RBF ``phi_r`` to the value activation's bias.  The other
+attention variants (gate activation, GATA v1, m-share radial) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -47,11 +50,13 @@ class GraphAttention(nn.Module):
                  attn_value_channels: int, output_channels: int,
                  max_num_elements: int, edge_channels_list: Sequence[int],
                  edge_channels: int, alpha_drop: float = 0.0, gata: bool = True,
-                 conv_fused: bool = False):
+                 conv_fused: bool = False, normalize_attn_output: bool = True,
+                 use_phi_every_layer: bool = False):
         super().__init__()
         lmax = layout_full.lmax
         self.alpha_drop = alpha_drop
         self.gata = gata
+        self.normalize_attn_output = normalize_attn_output
         self.layout_red, self.grid_red = layout_red, grid_red
         self.num_heads = num_heads
         self.alpha_ch = num_heads * attn_alpha_channels
@@ -71,7 +76,8 @@ class GraphAttention(nn.Module):
         self.alpha_dot = nn.Parameter(torch.empty(num_heads, attn_alpha_channels))
         if gata:
             self.value_act = GATAValueActivation(
-                sphere_channels, hidden_channels, edge_channels, lmax, layout_red.mmax
+                sphere_channels, hidden_channels, edge_channels, lmax, layout_red.mmax,
+                use_phi=use_phi_every_layer, num_rbf=edge_channels_list[0],
             )
         self.so2_conv_2 = SO2Conv(layout_red, hidden_channels,
                                   num_heads * attn_value_channels, conv_fused=conv_fused)
@@ -88,10 +94,10 @@ class GraphAttention(nn.Module):
 
     def forward(self, x, atomic_numbers, edge_scalars, edge_src, edge_dst,
                 edge_mask, wigner, t_ij, rl_ij, k: int,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, phi_r=None):
         """Fixed-degree layout: k edge slots per node (ops/segment.py).
         ``t_ij`` / ``rl_ij``: the GATA edge streams (None when ``gata`` is
-        off)."""
+        off); ``phi_r``: the distance RBF (``use_phi_every_layer`` only)."""
         x_edge = torch.cat(
             [edge_scalars,
              self.src_embedding(atomic_numbers[edge_src]),
@@ -109,10 +115,11 @@ class GraphAttention(nn.Module):
             _, x0_extra = self.so2_conv_1(msg, x_edge)
             # alpha before the value activation (reference fork :315-324)
             alpha = self._alpha(x0_extra[:, : self.alpha_ch], k, edge_mask)
-            # attention-output normalization by the head-mean of alpha
             attn_output = x0_extra[:, self.alpha_ch :]
-            attn_output = attn_output * alpha.mean(dim=1, keepdim=True).to(attn_output.dtype)
-            msg = self.value_act(attn_output, t_ij, h_j, X_j, rl_ij)
+            if self.normalize_attn_output:   # by the head-mean of alpha
+                attn_output = attn_output * alpha.mean(dim=1, keepdim=True).to(
+                    attn_output.dtype)
+            msg = self.value_act(attn_output, t_ij, h_j, X_j, rl_ij, phi_r)
         else:
             msg = rotate_to_edge(wigner, msg, self.layout_red)
             msg, x0_extra = self.so2_conv_1(msg, x_edge)

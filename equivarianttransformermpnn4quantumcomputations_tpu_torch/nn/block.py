@@ -68,7 +68,8 @@ class TransBlock(nn.Module):
                  ffn_hidden_channels: int, max_num_elements: int,
                  edge_channels_list: Sequence[int], edge_channels: int,
                  alpha_drop: float = 0.0, drop_path_rate: float = 0.0,
-                 proj_drop: float = 0.0, gata: bool = True, conv_fused: bool = False):
+                 proj_drop: float = 0.0, gata: bool = True, conv_fused: bool = False,
+                 normalize_attn_output: bool = True, use_phi_every_layer: bool = False):
         super().__init__()
         lmax = layout_full.lmax
         self.gata = gata
@@ -79,7 +80,8 @@ class TransBlock(nn.Module):
             layout_full, layout_red, grid_red, sphere_channels, attn_hidden_channels,
             num_heads, attn_alpha_channels, attn_value_channels,
             sphere_channels, max_num_elements, edge_channels_list,
-            edge_channels, alpha_drop, gata, conv_fused,
+            edge_channels, alpha_drop, gata, conv_fused, normalize_attn_output,
+            use_phi_every_layer,
         )
         self.drop_path = GraphDropPath(drop_path_rate)
         self.proj_drop = EquivariantDropout(proj_drop)
@@ -89,14 +91,15 @@ class TransBlock(nn.Module):
 
     def forward(self, x, atomic_numbers, edge_scalars, edge_src, edge_dst,
                 edge_mask, wigner, t_ij, rl_ij, k: int, graph_idx,
-                num_graphs: int, generator: Optional[torch.Generator] = None):
-        """Returns (x, t_ij); ``t_ij`` and ``rl_ij`` are None without GATA."""
+                num_graphs: int, generator: Optional[torch.Generator] = None, phi_r=None):
+        """Returns (x, t_ij); ``t_ij`` and ``rl_ij`` are None without GATA,
+        ``phi_r`` (the distance RBF) without ``use_phi_every_layer``."""
         if self.gata:
             X_i = gather_nodes(x, edge_src)[:, 1:, :]
             X_j = gather_dst(x, k)[:, 1:, :]
             t_ij = self.htr(t_ij, X_i, X_j, rl_ij)
         h = self.ga(self.attn_norm(x), atomic_numbers, edge_scalars, edge_src,
-                    edge_dst, edge_mask, wigner, t_ij, rl_ij, k, generator)
+                    edge_dst, edge_mask, wigner, t_ij, rl_ij, k, generator, phi_r)
         h = self.drop_path(h, graph_idx, num_graphs, generator)
         x = x + self.proj_drop(h, generator)
         h = self.drop_path(self.ffn(self.ffn_norm(x)), graph_idx, num_graphs, generator)

@@ -73,22 +73,31 @@ class GATAValueActivation(nn.Module):
     (unrotated), rl_ij [E, K-1].  Output [E, K_red, C] in the reduced layout,
     written from unrotated-frame quantities, and for each degree l the first
     min(2l+1, 2 mmax+1) rows — the reference's mmax-clip quirk, kept
-    (activation.py:388-409).
+    (activation.py:388-409).  ``use_phi`` (the phi-every-layer variant)
+    multiplies the bias by ``phi_proj(phi_r)``, phi_r [E, num_rbf] the
+    distance RBF.
     """
 
     def __init__(self, sphere_channels: int, hidden_channels: int,
-                 edge_channels: int, lmax: int, mmax: int):
+                 edge_channels: int, lmax: int, mmax: int, use_phi: bool = False,
+                 num_rbf: int = 0):
         super().__init__()
         S = 1 + 2 * lmax
         self.C, self.lmax, self.mmax = hidden_channels, lmax, mmax
         self.W_rs = Linear(edge_channels, S * hidden_channels)
         self.gamma_s = Linear(sphere_channels, S * hidden_channels)
         self.xj_proj = Linear(sphere_channels, hidden_channels, bias=False)
+        self.use_phi = use_phi
+        if use_phi:
+            self.phi_proj = Linear(num_rbf, S * hidden_channels)
 
-    def forward(self, attn_output, t_ij, h_j, X_j, rl_ij):
+    def forward(self, attn_output, t_ij, h_j, X_j, rl_ij, phi_r=None):
         C, lmax = self.C, self.lmax
         rl_ij = rl_ij.to(attn_output.dtype)
-        combined = attn_output + self.W_rs(t_ij) * F.silu(self.gamma_s(h_j))
+        bias = self.W_rs(t_ij) * F.silu(self.gamma_s(h_j))
+        if self.use_phi:
+            bias = bias * self.phi_proj(phi_r)
+        combined = attn_output + bias
         out = [F.silu(combined[:, :C])[:, None, :]]
         Xp = self.xj_proj(X_j)
         offset = 0

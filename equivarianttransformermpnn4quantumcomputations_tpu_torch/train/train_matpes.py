@@ -2,25 +2,32 @@
 train/train_matpes.py).
 
     python -m equivarianttransformermpnn4quantumcomputations_tpu_torch.train.train_matpes \\
-        --config synthetic [--epochs N] [--mixed-precision] [--checkpoint NAME] \\
+        --config fixture [--epochs N] [--mixed-precision] [--checkpoint NAME] \\
         [--device cuda|cpu]
 
-Trains the MatPES GATA-V2 model with forces by autograd (the loss backward
-is a grad-of-grad), the guarded AdamW, EMA, per-epoch evaluation with the
-EMA weights (energy / force MAE in meV), the best and periodic checkpoints,
-``losses.csv`` / ``metrics.json`` and an emergency checkpoint on SIGTERM.
-``--checkpoint`` resumes from a checkpoint name in the run directory.
-The device is the card unless ``--device cpu`` is given.
+Configs (the JAX CLI's names): ``default`` (GATA-V2), ``debug``,
+``no-attn-norm``, ``phi-every-layer``, ``baseline`` (the original
+EquiformerV2 with stress), ``synthetic``, ``synthetic-convergence`` and
+``fixture``.  Trains the MatPES model with forces by autograd (the loss
+backward is a grad-of-grad; with ``regress_stress`` also the per-graph
+stress, weighted by ``w_stress``), the guarded AdamW, EMA, evaluation with
+the EMA weights every ``eval_every`` epochs (energy / force MAE in meV),
+the best and periodic checkpoints, ``losses.csv`` / ``metrics.json`` and an
+emergency checkpoint on SIGTERM.  ``--checkpoint`` resumes from a
+checkpoint name in the run directory.  The device is the card unless
+``--device cpu`` is given.
 
-Data: ``--config synthetic`` trains on ``data/synthetic.py``'s LJ crystals.
-Loading the MatPES dataset (the JAX package's data/matpes.py) is not ported
-yet, so ``default`` and ``debug`` stop with a message; multi-host and
-sharded-mesh training are not ported either.
+Data: ``synthetic`` and ``synthetic-convergence`` train on
+``data/synthetic.py``'s LJ crystals; every other config reads its MatPES
+json(.gz) and split file (``data/matpes.py``) and stops, naming the path,
+when the file is missing.  Multi-host and sharded-mesh training are not
+ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import time
 
@@ -30,6 +37,7 @@ import torch
 from ..configs import matpes as mp_cfg
 from ..data.graph import as_tensors
 from ..data.loader import PaddedLoader, infer_pad_sizes
+from ..data.matpes import load_matpes
 from ..data.synthetic import SyntheticCrystals
 from ..models.matpes import EquiformerV2MatPES, init_weights, matpes_energy_forces
 from ..utils.logging import RunLogger
@@ -38,29 +46,23 @@ from .checkpoint import CheckpointManager, install_sigterm_checkpoint
 from .schedules import warmup_cosine
 from .trainer import GuardedAdamW, create_train_state, make_matpes_train_step
 
-__all__ = ["main", "evaluate", "build_model"]
+__all__ = ["main", "evaluate", "build_model", "build_eval_model", "load_data", "CONFIGS"]
 
-CONFIGS = {"default": mp_cfg.config, "debug": mp_cfg.config_debug,
-           "synthetic": mp_cfg.synthetic}
-
-
-# model keys of the config whose other values the port cannot build yet
-_NOT_PORTED = {"normalize_attn_output": (False, "the attention without its output "
-                                         "normalization"),
-               "use_phi_every_layer": (True, "the distance RBF in every layer's value path"),
-               "regress_stress": (True, "stress regression")}
+CONFIGS = {
+    "default": mp_cfg.config,
+    "debug": mp_cfg.config_debug,
+    "no-attn-norm": mp_cfg.config_no_attn_norm,
+    "phi-every-layer": mp_cfg.config_phi_every_layer,
+    "baseline": mp_cfg.config_baseline_efv2,
+    "synthetic": mp_cfg.synthetic,
+    "synthetic-convergence": mp_cfg.config_synthetic_convergence,
+    "fixture": mp_cfg.config_fixture,
+}
 
 
 def build_model(cfg: dict, mixed_precision: bool) -> EquiformerV2MatPES:
     """The model of every model key of ``cfg`` (a missing key raises
-    ``KeyError``); a value the port cannot build yet raises ``ValueError``
-    naming its key, rather than training another model."""
-    for key, (value, what) in _NOT_PORTED.items():
-        if cfg[key] == value:
-            raise ValueError(f"{key}={value!r} ({what}) is not ported yet (ROADMAP.md)")
-    if cfg["w_stress"] > 0.0:
-        raise ValueError(f"w_stress={cfg['w_stress']} (stress regression) is not ported yet "
-                         "(ROADMAP.md)")
+    ``KeyError``)."""
     return EquiformerV2MatPES(
         num_layers=cfg["num_layers"], sphere_channels=cfg["sphere_channels"],
         attn_hidden_channels=cfg["attn_hidden_channels"], num_heads=cfg["num_heads"],
@@ -75,13 +77,43 @@ def build_model(cfg: dict, mixed_precision: bool) -> EquiformerV2MatPES:
         compute_dtype=torch.bfloat16 if mixed_precision else torch.float32,
         conv_fused=bool(cfg["conv_fused"]), gata=bool(cfg["gata"]),
         wigner_rep=cfg["wigner_rep"],
+        normalize_attn_output=bool(cfg["normalize_attn_output"]),
+        use_phi_every_layer=bool(cfg["use_phi_every_layer"]),
     )
+
+
+def build_eval_model(cfg: dict) -> EquiformerV2MatPES:
+    """The float32 model of a checkpoint's config, dropout off.  A config
+    the JAX package wrote lacks the port's construction keys, which then
+    take ``configs/matpes.py``'s values."""
+    return build_model({"conv_fused": mp_cfg.config["conv_fused"],
+                        "wigner_rep": mp_cfg.config["wigner_rep"], **cfg,
+                        "alpha_drop": 0.0, "drop_path_rate": 0.0}, False)
+
+
+def load_data(cfg: dict):
+    """(train, val, test, stats) of a config: the synthetic LJ crystals
+    (val and test are one set, sharing the train normalization) or the
+    MatPES file the config names.  A missing MatPES file stops the program
+    with a message naming it."""
+    if cfg.get("synthetic"):
+        train = SyntheticCrystals(n_samples=cfg.get("max_train") or 64)
+        val = SyntheticCrystals(n_samples=cfg.get("max_val") or 16, seed=1,
+                                stats=train.stats)
+        return train, val, val, {"energy_mean": 0.0, "energy_std": 1.0}
+    for key in ("data_path", "split_path"):
+        if cfg.get(key) and not os.path.exists(cfg[key]):
+            raise SystemExit(f"MatPES {key} not found: {cfg[key]} (relative to the "
+                             "working directory)")
+    return load_matpes(cfg["data_path"], cfg.get("split_path"), cfg.get("cache_dir"),
+                       cfg.get("max_train"), cfg.get("max_val"), cfg.get("max_test"))
 
 
 @torch.no_grad()
 def evaluate(model, params: dict, loader, energy_std: float, device) -> tuple[float, float]:
     """Energy MAE (meV/atom) and force MAE (meV/A) with ``params`` (the EMA
-    weights), denormalized (reference test_MatPES.py:89-152)."""
+    weights), denormalized (reference test_MatPES.py:89-152); no stress,
+    as in the JAX package."""
     model.eval()
     e_err = f_err = 0.0
     e_cnt = f_cnt = 0
@@ -112,19 +144,12 @@ def main(argv=None, overrides: dict | None = None):
     cfg = {**CONFIGS[args.config], **(overrides or {})}
     if args.epochs is not None:
         cfg["epochs"] = args.epochs
-    if not cfg.get("synthetic"):
-        raise SystemExit("loading the MatPES dataset is not ported yet; "
-                         "use --config synthetic")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device (pass --device cpu to train on the CPU)")
     mixed_precision = bool(args.mixed_precision or cfg.get("mixed_precision", False))
 
-    train_ds = SyntheticCrystals(n_samples=cfg.get("max_train") or 64)
-    # val shares the train normalization
-    val_ds = SyntheticCrystals(n_samples=cfg.get("max_val") or 16, seed=1,
-                               stats=train_ds.stats)
-    stats = {"energy_mean": 0.0, "energy_std": 1.0}
+    train_ds, val_ds, _, stats = load_data(cfg)
     n_pad, e_pad = infer_pad_sizes(train_ds, cfg["max_neighbors"], cfg["batch_size"])
 
     def loader(ds, shuffle):
@@ -153,7 +178,8 @@ def main(argv=None, overrides: dict | None = None):
               f"step {state.step}")
     logger = RunLogger(cfg["run_dir"], cfg)
     gen = torch.Generator(device=device).manual_seed(cfg["seed"])
-    step_fn = make_matpes_train_step(state, cfg["w_energy"], cfg["w_force"], 0.0,
+    w_stress = cfg["w_stress"] if cfg["regress_stress"] else 0.0
+    step_fn = make_matpes_train_step(state, cfg["w_energy"], cfg["w_force"], w_stress,
                                      cfg["ema_decay"], gen)
     previous = install_sigterm_checkpoint(lambda: state, ckpt)
     try:
@@ -166,13 +192,15 @@ def main(argv=None, overrides: dict | None = None):
 
 def _train(cfg, state, step_fn, train_loader, val_loader, stats, ckpt, logger,
            n_params, device) -> None:
-    """The epoch loop: train, evaluate with the EMA weights, checkpoint, log."""
+    """The epoch loop: train, evaluate with the EMA weights every
+    ``eval_every`` epochs and after the last, checkpoint, log."""
     best_val = np.inf
     nan_batches = 0
+    e_mae = f_mae = float("inf")   # the last evaluation's
     for epoch in range(cfg["epochs"]):
         train_loader.set_epoch(epoch)
         t0 = time.time()
-        losses = []
+        losses, stress = [], []
         for pb in train_loader:
             loss, metrics = step_fn(as_tensors(pb, device))
             loss = float(loss)
@@ -180,18 +208,23 @@ def _train(cfg, state, step_fn, train_loader, val_loader, stats, ckpt, logger,
                 nan_batches += 1  # the guard skipped this update
             else:
                 losses.append(loss)
-        e_mae, f_mae = evaluate(state.model, state.ema, val_loader, stats["energy_std"],
-                                device)
+                if "stress_l1" in metrics:
+                    stress.append(float(metrics["stress_l1"]))
+        if (epoch + 1) % cfg.get("eval_every", 1) == 0 or epoch == cfg["epochs"] - 1:
+            e_mae, f_mae = evaluate(state.model, state.ema, val_loader,
+                                    stats["energy_std"], device)
         dt = time.time() - t0
+        extra = {"train_stress_l1": float(np.mean(stress))} if stress else {}
         print(f"epoch {epoch}: loss={np.mean(losses) if losses else float('nan'):.4f} "
-              f"E={e_mae:.1f} meV/atom F={f_mae:.1f} meV/A "
+              + "".join(f"{k}={v:.4f} " for k, v in extra.items())
+              + f"E={e_mae:.1f} meV/atom F={f_mae:.1f} meV/A "
               f"nan_skipped={nan_batches} ({dt:.1f}s)")
         if train_loader.overflow_batches:
             print(f"  WARNING: {train_loader.overflow_batches} batches overflowed the "
                   f"static pads this epoch (dropped {train_loader.overflow_atoms} atoms / "
                   f"{train_loader.overflow_edges} edges); raise n_pad/e_pad")
         logger.log_epoch(epoch, {
-            "train_loss": float(np.mean(losses)) if losses else float("nan"),
+            "train_loss": float(np.mean(losses)) if losses else float("nan"), **extra,
             "val_energy_mae_mev": e_mae, "val_force_mae_mev": f_mae,
             "nan_batches": nan_batches,
             "overflow_batches": train_loader.overflow_batches,

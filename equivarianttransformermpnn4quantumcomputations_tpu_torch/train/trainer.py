@@ -18,9 +18,11 @@ Port of the JAX package's train/trainer.py (the MatPES and QM9 parts):
 * ``ema_update`` after every step (decay 0.999), as the JAX step does.
 * ``cast_params``: bfloat16 copies of every float parameter, called through
   ``torch.func.functional_call``, so gradients land on the float32 masters.
-* ``matpes_loss``: L1 on per-atom energy + masked L1 on forces.
-* ``make_matpes_train_step``: forces by autograd with ``create_graph=True``,
-  so the loss backward is a grad-of-grad through every kernel; the step
+* ``matpes_loss``: L1 on per-atom energy + masked L1 on forces (+ L1 on
+  the Voigt stress when ``w_stress > 0``).
+* ``make_matpes_train_step``: forces (and, with ``w_stress > 0``, the
+  per-graph stress) by autograd with ``create_graph=True``, so the loss
+  backward is a grad-of-grad through every kernel; the step
   computes in the model's ``compute_dtype`` (bfloat16: through
   ``cast_params``); TF32 is off inside each step (the geometry is float32).
 * ``qm9_loss`` / ``make_qm9_train_step``: L1 (or MSE) on the normalized
@@ -167,9 +169,8 @@ def cast_params(model: nn.Module, dtype: torch.dtype,
 def matpes_loss(outs: dict, batch: dict, w_energy: float = 1.0, w_force: float = 1.0,
                 w_stress: float = 0.0):
     """L1 on per-atom energy + L1 on forces over real atoms (reference
-    train_MatPES_GATAWandB.py:79-81).  Stress is not part of this port."""
-    if w_stress > 0.0:
-        raise NotImplementedError("stress regression is not ported yet")
+    train_MatPES_GATAWandB.py:79-81), + ``w_stress`` x L1 on the stress
+    when ``w_stress > 0`` and the outputs carry one (``stress_l1``)."""
     e_pred = outs["energy"][:, 0].float()
     e_l1 = torch.mean(torch.abs(e_pred - batch["energy"]))
     mask = batch["node_mask"]
@@ -177,7 +178,12 @@ def matpes_loss(outs: dict, batch: dict, w_energy: float = 1.0, w_force: float =
     f_l1 = torch.sum(torch.abs(outs["forces"] - batch["forces"]) * m) / torch.clamp(
         3.0 * mask.sum(), min=1.0)
     loss = w_energy * e_l1 + w_force * f_l1
-    return loss, {"energy_l1": e_l1, "force_l1": f_l1}
+    metrics = {"energy_l1": e_l1, "force_l1": f_l1}
+    if w_stress > 0.0 and "stress" in outs:
+        s_l1 = torch.mean(torch.abs(outs["stress"] - batch["stress"]))
+        loss = loss + w_stress * s_l1
+        metrics["stress_l1"] = s_l1
+    return loss, metrics
 
 
 def make_matpes_train_step(state: TrainState, w_energy: float = 1.0,
@@ -191,10 +197,10 @@ def make_matpes_train_step(state: TrainState, w_energy: float = 1.0,
     bfloat16 copies of its float32 master weights.  A step whose gradient
     norm is not finite applies no update (``metrics["accepted"]`` is
     False); the EMA and ``state.step`` move every step, as in the JAX
-    package.
+    package.  ``w_stress > 0`` takes the per-graph stress path
+    (``models/matpes.py:matpes_energy_forces_stress_pergraph``) and adds
+    the stress term to the loss.
     """
-    if w_stress > 0.0:
-        raise NotImplementedError("stress regression is not ported yet")
     model = state.model
     cdt = model.backbone.compute_dtype
 
@@ -204,8 +210,8 @@ def make_matpes_train_step(state: TrainState, w_energy: float = 1.0,
             model.zero_grad(set_to_none=True)
             params = cast_params(model, cdt) if cdt != torch.float32 else None
             outs = matpes_energy_forces(model, batch, create_graph=True, params=params,
-                                        generator=generator)
-            loss, metrics = matpes_loss(outs, batch, w_energy, w_force)
+                                        generator=generator, regress_stress=w_stress > 0.0)
+            loss, metrics = matpes_loss(outs, batch, w_energy, w_force, w_stress)
             loss.backward()
             info = state.optimizer.step()
             ema_update(state.ema, model, ema_decay)

@@ -19,7 +19,11 @@ onto the port's modules:
   block, ``norm`` after the stack;
 * ``block_i`` -> ``blocks.i``; with ``scan_layers=True`` the stacked
   ``blocks/block`` params (a leading layer axis) are split into
-  ``blocks.0 .. blocks.L-1``.
+  ``blocks.0 .. blocks.L-1``;
+* the options of the JAX package's MatPES configs need no rule of their
+  own: ``use_phi_every_layer``'s ``value_act/phi_proj`` (a named ``Dense``)
+  becomes ``ga.value_act.phi_proj.weight`` / ``.bias`` like every Dense,
+  and ``normalize_attn_output`` adds no parameter.
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ import re
 import statistics
 
 _ROW = re.compile(
-    r"kernel (s2act\.k\d) (.{13}) (\[[\d,]+\]) P=(\d+)\s+"
+    r"kernel (s2act\.k\d) (.+?) (\[[\d,]+\]) P=(\d+)\s+"
     r"f32: ms ([\d.]+), device ms ([\d.]+), bound ([\d.]+) \((\w+).*?"
     r"bf16: ms ([\d.]+), device ms ([\d.]+), bound ([\d.]+) \((\w+)")
 

@@ -2,13 +2,16 @@
 or one training step.
 
     python -m equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling \
-        [--train | --qm9 | --oc20] [--structures N] [--atoms N] [--json PATH]
+        [--train | --baseline | --qm9 | --oc20] [--structures N] [--atoms N] [--json PATH]
 
 Serving (default): the flagship Predictor (``models/matpes.py:FLAGSHIP``,
 seeded random weights) answers requests of random periodic structures.
 ``--train``: one flagship force-training step in bf16 (f32 master weights,
 guarded AdamW, EMA; dropout off as in bench.py) on labelled structures
-(``data/synthetic.py:labelled_structures``).  ``--qm9``: one f32 training
+(``data/synthetic.py:labelled_structures``).  ``--baseline``: the same
+step of the baseline EquiformerV2 (``gata=False``, the ``baseline``
+config's widths, which are the flagship's) with per-graph stress in the
+loss (``w_stress`` 0.1).  ``--qm9``: one f32 training
 step of the full-width QM9 model (``configs/qm9.py:config``, seeded random
 weights, its dropouts) on 64 random molecules of 18 atoms
 (``random_molecules``), once with ``conv_fused`` (kernel K3) and once
@@ -246,7 +249,7 @@ def _serving(args) -> tuple[str, dict]:
                            **profile_call(lambda: pred.predict_batch(req)))
 
 
-def _training(args) -> tuple[str, dict]:
+def _training(args, baseline: bool = False) -> tuple[str, dict]:
     from ..data.graph import as_tensors, collate
     from ..data.synthetic import labelled_structures
     from ..inference import pad_sizes
@@ -255,11 +258,12 @@ def _training(args) -> tuple[str, dict]:
     from ..train.trainer import GuardedAdamW, create_train_state, make_matpes_train_step
 
     model = EquiformerV2MatPES(**FLAGSHIP, alpha_drop=0.0, drop_path_rate=0.0,
-                               compute_dtype=torch.bfloat16)
+                               compute_dtype=torch.bfloat16, gata=not baseline)
     init_weights(model, torch.Generator().manual_seed(0)).to("cuda")
     opt = GuardedAdamW(model.named_parameters(), warmup_cosine(2e-4, 100, 10000), 1e-3, 1.0)
     state = create_train_state(model, opt)
-    step = make_matpes_train_step(state, generator=torch.Generator("cuda").manual_seed(0))
+    step = make_matpes_train_step(state, w_stress=0.1 if baseline else 0.0,
+                                  generator=torch.Generator("cuda").manual_seed(0))
     samples = labelled_structures(np.random.default_rng(0), args.structures, args.atoms)
     n_pad, e_pad = pad_sizes([args.atoms] * args.structures, 20, 20)
     t = time.perf_counter()
@@ -268,8 +272,8 @@ def _training(args) -> tuple[str, dict]:
     batch = as_tensors(pb, "cuda")
     for _ in range(2):
         step(batch)
-    return "training step", dict(host_graph_build_ms=host_ms,
-                                 **profile_call(lambda: step(batch)))
+    what = "baseline training step with stress" if baseline else "training step"
+    return what, dict(host_graph_build_ms=host_ms, **profile_call(lambda: step(batch)))
 
 
 def _qm9(args, conv_fused: bool) -> tuple[str, dict]:
@@ -329,6 +333,8 @@ def main(argv=None) -> int:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--train", action="store_true",
                       help="profile a flagship bf16 training step, not a serving request")
+    mode.add_argument("--baseline", action="store_true",
+                      help="profile a baseline (no GATA) bf16 training step with stress")
     mode.add_argument("--qm9", action="store_true",
                       help="profile a QM9 training step, with and without kernel K3")
     mode.add_argument("--oc20", action="store_true",
@@ -351,8 +357,10 @@ def main(argv=None) -> int:
         calls = [lambda: _qm9(args, True), lambda: _qm9(args, False)]
     elif args.oc20:
         calls = [lambda: _oc20(args, "factored"), lambda: _oc20(args, "dense")]
+    elif args.train or args.baseline:
+        calls = [lambda: _training(args, args.baseline)]
     else:
-        calls = [lambda: (_training if args.train else _serving)(args)]
+        calls = [lambda: _serving(args)]
     recs = []
     for call in calls:
         torch.cuda.reset_peak_memory_stats()

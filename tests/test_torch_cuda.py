@@ -263,6 +263,24 @@ def test_s2act_grad_of_grad_kernel_matches_plain(dev, key, dtype):
             _close(a, b, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_s2act_grad_of_grad_at_the_baseline_edge_site(dev, dtype):
+    """K2c at K = 19 on the flagship's resolution-18 grid (P = 324) at the
+    MatPES baseline's edge site [9920, 19, 128], both outputs against
+    k3_plain, the launch counted under K = 19."""
+    grid = s2grid(4, 2, 18)
+    A, F = grid.tables("cuda")
+    assert A.shape == (324, 19)
+    g = torch.Generator(device=dev).manual_seed(19)
+    x, do, ddx = (torch.randn(9920, 19, 128, generator=g, device=dev).to(dtype)
+                  for _ in range(3))
+    before = s2act.launches_by_k[("k3", 19)]
+    got = s2act.k3(x, do, ddx, grid)
+    assert s2act.launches_by_k[("k3", 19)] == before + 1
+    for a, b in zip(got, s2act.k3_plain(x, do, ddx, A, F)):
+        _close(a, b, dtype)
+
+
 def test_s2act_double_backward_on_the_card_runs_k3(dev):
     """create_graph through the fused activation: the outer backward
     launches K2c once and agrees with the CPU's plain path."""
@@ -526,3 +544,61 @@ def test_training_step_on_the_card_matches_the_cpu(dev):
     for k, p in replay.model.named_parameters():
         torch.testing.assert_close(pg[k], p.detach(), rtol=0, atol=1e-2 * lr, msg=k)
         torch.testing.assert_close(eg[k], replay.ema[k], rtol=0, atol=1e-2 * lr, msg=k)
+
+
+def test_stress_step_on_the_card_matches_the_cpu(dev):
+    """The loss of a small baseline model (no GATA) with per-graph stress:
+    its edge S2 site takes K2a / K2b / K2c at K = 19 and its rotations K1,
+    in a grad-of-grad by positions and strain.  Loss 1e-4 relative;
+    gradients, forces and stress 1e-3 relative L2, card against the CPU."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import (
+        as_tensors,
+        collate,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.synthetic import (
+        labelled_structures,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        matpes_energy_forces,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        matpes_loss,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.precision import (
+        full_f32_products,
+    )
+
+    cfg = dict(num_layers=2, sphere_channels=16, attn_hidden_channels=16, num_heads=2,
+               attn_alpha_channels=8, attn_value_channels=8, ffn_hidden_channels=32,
+               lmax=4, mmax=2, grid_resolution=18, edge_channels=16, num_rbf=32,
+               cutoff=5.0, alpha_drop=0.0, drop_path_rate=0.0, gata=False)
+    weights = init_weights(EquiformerV2MatPES(**cfg), torch.Generator().manual_seed(1))
+    weights = {k: v.clone() for k, v in weights.state_dict().items()}
+    rng = np.random.default_rng(1)
+    samples = labelled_structures(rng, 2, 9)
+    for smp in samples:
+        smp.stress = (rng.normal(size=6) * 0.05).astype(np.float32)
+    pb = collate(samples, 5.0, 8, 32, 256)
+    out = {}
+    for d in ("cuda", "cpu"):
+        model = EquiformerV2MatPES(**cfg)
+        model.load_state_dict(weights)
+        model.to(d).train()
+        before = s2act.launches_by_k[("k3", 19)]
+        batch = as_tensors(pb, d)
+        with full_f32_products():
+            outs = matpes_energy_forces(model, batch, create_graph=True, regress_stress=True)
+            loss, _ = matpes_loss(outs, batch, 1.0, 1.0, 0.1)
+            loss.backward()
+        if d == "cuda":
+            assert s2act.launches_by_k[("k3", 19)] > before
+        out[d] = dict(loss=float(loss.detach()), forces=outs["forces"].detach().cpu(),
+                      stress=outs["stress"].detach().cpu(),
+                      grads={n: p.grad.cpu() for n, p in model.named_parameters()})
+    got, want = out["cuda"], out["cpu"]
+    assert abs(got["loss"] - want["loss"]) <= 1e-4 * abs(want["loss"])
+    for key in ("forces", "stress"):
+        assert float((got[key] - want[key]).norm() / want[key].norm()) <= 1e-3, key
+    num = sum(float(((got["grads"][k] - w) ** 2).sum()) for k, w in want["grads"].items())
+    den = sum(float((w ** 2).sum()) for w in want["grads"].values())
+    assert (num / den) ** 0.5 <= 1e-3

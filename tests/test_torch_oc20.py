@@ -35,6 +35,7 @@ from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.train_oc20 i
 )
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
     GuardedAdamW,
+    cast_params,
     create_train_state,
     make_oc20_train_step,
     oc20_loss,
@@ -179,6 +180,48 @@ def test_oc20_bf16_step_runs():
     # evaluation with the float32 EMA weights runs on their bfloat16 copies
     out = predict(model, tb, state.ema)
     assert all(torch.isfinite(v).all() for v in out.values())
+
+
+def test_oc20_bf16_step_matches_jax():
+    """The bf16 OC20 step against the JAX package's, from the same converted
+    weights and batch, on the factored Wigner representation (the port's
+    kernel K4 in its plain version; the JAX package's XLA chain, which
+    rounds h and uv to bf16 after each product, where the port rounds
+    once).  Limits, relative to max |JAX|: energies, forces and loss 2e-2,
+    gradients 5e-2 relative L2 (the MatPES bf16 limits,
+    tests/test_torch_train.py)."""
+    jb, tb = _batch()
+    cfg = {**CFG, "lmax": 2, "mmax": 1}
+    jm = JaxOC20(**cfg, fixed_degree=True, uniform_blocks=True, wigner_rep="factored",
+                 compute_dtype="bfloat16")
+    params = _random_flax_params(jm, jb, seed=2)
+
+    def loss_fn(p):
+        o = jm.apply(jtrainer.cast_params(p, jnp.bfloat16), jb, deterministic=False)
+        loss = jtrainer.oc20_loss(o["energy"].astype(jnp.float32), jb["energy"],
+                                  o["forces"].astype(jnp.float32), jb["forces"],
+                                  jb["node_mask"])[0]
+        return loss, o
+
+    (loss_j, outs_j), grads_j = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    model = EquiformerV2OC20(**cfg, compute_dtype=torch.bfloat16)
+    model.load_state_dict(flax_to_state_dict(params))
+    model.train()
+    outs = torch.func.functional_call(model, cast_params(model, torch.bfloat16), (tb,))
+    loss, _ = oc20_loss(outs["energy"], tb["energy"], outs["forces"], tb["forces"],
+                        tb["node_mask"])
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    errs = dict(
+        energy=_rel(outs["energy"].detach().float().numpy(),
+                    np.asarray(outs_j["energy"], np.float32)),
+        forces=_rel(outs["forces"].detach().float().numpy(),
+                    np.asarray(outs_j["forces"], np.float32)),
+        loss=abs(float(loss.detach()) - float(loss_j)) / abs(float(loss_j)),
+        grads=_rel_l2(grads, flax_to_state_dict(grads_j)))
+    print("OC20 bf16 step against JAX: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    assert errs["energy"] <= 2e-2 and errs["forces"] <= 2e-2 and errs["loss"] <= 2e-2, errs
+    assert errs["grads"] <= 5e-2, errs
 
 
 @pytest.mark.parametrize("name", ["config", "config_debug", "config_synthetic"])

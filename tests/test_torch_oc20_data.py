@@ -6,14 +6,15 @@
   (``fixed`` included) against the JAX package's collate.
 * ``train_oc20 --config synthetic --device cpu`` then ``test_oc20`` on its
   checkpoint, end to end.
-* The MatPES CLI builds from every model key of its config and raises on
-  a value the port cannot build yet.
+* The MatPES CLI builds from every model key of its config, and every
+  config of the JAX CLI builds its model.
 """
 
 import json
 
 import numpy as np
 import pytest
+import torch
 
 from equivarianttransformermpnn4quantumcomputations_tpu.data import graph as jgraph
 from equivarianttransformermpnn4quantumcomputations_tpu.data import oc20 as joc20
@@ -23,6 +24,7 @@ from equivarianttransformermpnn4quantumcomputations_tpu_torch.data import oc20 a
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.periodic import SYMBOLS
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.train import test_oc20, train_oc20
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.train_matpes import (
+    CONFIGS,
     build_model,
 )
 
@@ -145,12 +147,24 @@ def test_matpes_build_model_reads_every_key(gata):
     assert model.backbone.wigner_rep == mp_cfg.synthetic["wigner_rep"]
 
 
-@pytest.mark.parametrize("key,value", [("normalize_attn_output", False),
-                                       ("use_phi_every_layer", True),
-                                       ("regress_stress", True), ("w_stress", 1.0)])
-def test_matpes_build_model_refuses_what_is_not_ported(key, value):
-    with pytest.raises(ValueError, match=key):
-        build_model({**mp_cfg.synthetic, **_SMALL, key: value}, False)
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_matpes_build_model_builds_every_config(name):
+    """Every config of the JAX CLI builds its model, with its options (one
+    layer: the widths are the config's own)."""
+    cfg = {**CONFIGS[name], "num_layers": 1}
+    model = build_model(cfg, bool(cfg["mixed_precision"]))
+    bb = model.backbone
+    assert bb.gata == cfg["gata"] and (bb.lmax, bb.mmax) == (cfg["lmax"], cfg["mmax"])
+    assert bb.compute_dtype == (torch.bfloat16 if cfg["mixed_precision"] else torch.float32)
+    ga = bb.blocks[0].ga
+    assert ga.normalize_attn_output == cfg["normalize_attn_output"]
+    assert hasattr(ga, "value_act") == cfg["gata"]
+    if cfg["gata"]:
+        assert ga.value_act.use_phi == cfg["use_phi_every_layer"]
+        assert hasattr(ga.value_act, "phi_proj") == cfg["use_phi_every_layer"]
+    assert cfg["regress_stress"] == (cfg["w_stress"] > 0.0) == (name == "baseline")
+    assert not cfg["run_dir"].rstrip("/").endswith(("matpes_fixture",
+                                                    "matpes_synth_convergence"))
 
 
 def test_matpes_build_model_needs_every_key():

@@ -104,6 +104,23 @@ def test_forward_matches_jax(wig, name):
 
 
 @pytest.mark.parametrize("name", NAMES)
+def test_bf16_forward_gap_to_jax(wig, name):
+    """bfloat16 input: the port keeps the chain in f32 and rounds once,
+    the JAX package rounds h and uv to bf16 after each product (its XLA
+    path and its Pallas kernel).  The gap, relative to max |JAX|, is held
+    to the bf16 step's 2e-2 (tests/test_torch_train.py) and printed."""
+    lmax, mmax, wj, wt = wig
+    x = _input(lmax, mmax, name)
+    lay_j, lay_t = jax_layout(lmax, mmax), torch_layout(lmax, mmax)
+    out = _port(name, wt, torch.as_tensor(x).bfloat16(), lay_t).float().numpy()
+    for ref_fn in (_jax_xla, _jax_fused):
+        ref = np.asarray(ref_fn(name, wj, jnp.asarray(x, jnp.bfloat16), lay_j), np.float32)
+        gap = float(np.abs(out - ref).max() / np.abs(ref).max())
+        print(f"{name} lmax {lmax}: bf16 gap to JAX {ref_fn.__name__} {gap:.2e}")
+        assert gap <= 2e-2, (ref_fn.__name__, gap)
+
+
+@pytest.mark.parametrize("name", NAMES)
 def test_gradient_matches_jax(wig, name):
     """The backward of each rotate: the other Function of the pair."""
     lmax, mmax, wj, wt = wig
