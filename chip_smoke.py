@@ -94,6 +94,24 @@ Phases, each of which raises on failure:
      config trained 2 epochs on the card, its checkpoint evaluated by
      train/test_matpes.py on the card and on the CPU and served by
      ``Predictor.from_checkpoint``: the MAEs within phase 5's limits.
+  13. the MatPES variant family of the model registry: (a) every MatPES
+     preset built by ``make_model`` at the flagship's widths with its own
+     overrides (GATA v1: mmax 4), dropout off: one f32 serving request
+     (energy + forces) and one bf16 force-training step (guarded AdamW +
+     EMA), the first-step ms and each kernel's launches counted from zero;
+     fails if an output or loss is not finite, the guard skipped the step,
+     or K1 at the preset's (lmax, mmax) or K2 never launched where the path
+     runs them; (b) the headline preset (GATA-V2, phi every layer, global
+     HTR attention with the RoPE bias, flat layout) on the flagship's
+     batches: 3 serving requests, 2 + 7 timed bf16 steps (median ms,
+     graphs/s, launches per step, peak memory) and one step profiled by
+     utils/profiling.py --variant (with its global-attention stage alone);
+     (c) one f32 force-training step of the headline preset, GATA v1 and
+     the MoE (2 layers, flagship widths, 2 structures) on the card against
+     the CPU plain path (loss 1e-4, gradients and forces 1e-3 relative L2).
+     Phase 3 holds K1's (lmax 4, mmax 4) instance, which GATA v1 runs, at
+     its four kinds on the flagship's edges too (records
+     ``rotate_pairs.<kind>[4,4]``, whose launches are the GATA v1 step's).
 The line before the last is the kernels' JSON record and the card; the last
 line is the device JSON (not with ``--rotation-only``).  Without a CUDA
 device the script exits non-zero and prints no result.
@@ -289,9 +307,68 @@ def _chain_errors(fn, plain, x, dt, what: str) -> tuple:
             _max_err(gg, 2 * plain(plain(ata, 0), 1), dt, f"{what} grad-of-grad"))
 
 
+def _k1_site(kind: str, shape, v, va, site: str, lmax: int, mmax: int, chain: bool, gen,
+             flush, tag: str, rotation_only: bool, name: str) -> dict:
+    """One K1 site: the kernel against its plain version in f32 and bf16
+    (and, with ``chain``, first order and grad-of-grad through its autograd
+    pair), timed beside torch.bmm of the per-edge dense Wigner; returns its
+    row."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
+        rotate_dense as rd,
+    )
+
+    adj = {"to": "from", "from": "to", "to_m0": "from_m0", "from_m0": "to_m0"}
+    info = rd._pair_info(lmax, mmax)
+    pairs, n_out = info["pairs"][kind], info["n_out"][kind]
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        e = [_max_err(rd.pairs_apply_kernel(x, v, lmax, mmax, kind),
+                      rd.pairs_apply_plain(x, v, lmax, mmax, kind), dt, f"{name} at {site}")]
+        if chain:   # through _ToEdge / _FromEdge
+            Fn = rd._ToEdge if kind.startswith("to") else rd._FromEdge
+            e += _chain_errors(
+                lambda a: Fn.apply(a, v, va, lmax, mmax, kind.endswith("m0")),
+                lambda a, t: rd.pairs_apply_plain(a, (v, va)[t], lmax, mmax,
+                                                  (kind, adj[kind])[t]),
+                x, dt, f"{name} at {site}")
+        errs[dt] = e
+    torch.cuda.synchronize()
+    x = torch.randn(shape, generator=gen, device="cuda")
+    dense = _dense_wigner(shape[0], n_out, shape[1], pairs, v)
+    t = time_rotation(lambda a: rd.pairs_apply_kernel(a, v, lmax, mmax, kind), x, dense,
+                      n_out, 4 * v.numel(), 2.0 * len(pairs) * shape[2] * shape[0], flush)
+    plain_ms = time_ms(lambda: rd.pairs_apply_plain(x, v, lmax, mmax, kind), flush)
+    plan = None if rotation_only else _plan("pairs_plan", lmax, mmax, kind, shape[2])
+    err_txt = ", ".join(f"{'f32' if dt == torch.float32 else 'bf16'} "
+                        + " / ".join(f"{a:.2e} ({b:.1e})" for a, b in e)
+                        for dt, e in errs.items())
+    _rotation_line(name, site, shape, (shape[0], n_out, shape[2]), t, plain_ms, plan,
+                   err_txt, tag)
+    return dict(
+        site=site, shape=list(shape), out_shape=[shape[0], n_out, shape[2]],
+        plain_ms=plain_ms, err_f32=errs[torch.float32][0][0],
+        err_bf16=errs[torch.bfloat16][0][0], plan=plan and plan._asdict(), **{
+            f"{k}_{dt}": val for dt, r in t.items() for k, val in r.items()})
+
+
+def _k1_record(name: str, rows: list[dict]) -> dict:
+    main = rows[0]   # the main path's shape
+    return dict(
+        name=name, route="cuda",
+        source=f"{PKG}/csrc/rotate_dense.cu",
+        replaces=f"{TPU_PKG}/ops/pallas/rotate_dense.py:183", launches=0,
+        max_abs_err=main["err_f32"], ms=main["ms_f32"], device_ms=main["device_ms_f32"],
+        plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms_f32"], bound_by=main["bound_by_f32"],
+        library_ms=main["library_ms_f32"], sites=rows)
+
+
 def check_kernels(batch, e_qm9: int, tag: str, rotation_only: bool = False) -> list[dict]:
-    """Phase 3: K1 at the flagship's serving and QM9's training shapes (f32
-    and bf16; forward, gradient and grad-of-grad through its autograd pair);
+    """Phase 3: K1 at the flagship's serving and QM9's training shapes, and
+    its (lmax 4, mmax 4) instance at the GATA v1 preset's
+    (``equiformer_v2_matpes_gata``) on the flagship's edges (f32 and bf16;
+    forward, gradient and grad-of-grad through its autograd pair);
     ``rotation_only`` leaves out the tile plans."""
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
         FLAGSHIP as cfg,
@@ -308,12 +385,13 @@ def check_kernels(batch, e_qm9: int, tag: str, rotation_only: bool = False) -> l
     hv = cfg["num_heads"] * cfg["attn_value_channels"]
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    src = f"{PKG}/csrc"
     w = rd.compute_wigner_dense(lmax, mmax, dvec)
     wq = rd.compute_wigner_dense(lmax, mmax, torch.randn(e_qm9, 3, generator=gen, device=dev))
-    adj = {"to": "from", "from": "to", "to_m0": "from_m0", "from_m0": "to_m0"}
-    # (kind, input shape, values and its adjoint's, site): the flagship's
-    # attention and QM9's (baseline attention, 2C in, C back)
+    w44 = rd.compute_wigner_dense(lmax, lmax, dvec)
+    # (kind, input shape, values and its adjoint's, site, (lmax, mmax)):
+    # the flagship's attention, QM9's (baseline attention, 2C in, C back)
+    # and GATA v1's at mmax = lmax (2C in at m = 0; the value path and the
+    # edge-degree embedding back at full width)
     specs = [
         ("to_m0", (E, K, 2 * C), (w.v_to_m0, w.v_from_m0), "flagship attention in, m=0"),
         ("from", (E, Kr, hv), (w.v_from_res, w.v_to_res), "flagship attention back"),
@@ -324,54 +402,25 @@ def check_kernels(batch, e_qm9: int, tag: str, rotation_only: bool = False) -> l
         ("from", (e_qm9, Kr, C), (wq.v_from_res, wq.v_to_res), "QM9 attention back"),
         ("from", (e_qm9, Kr, 2 * C), (wq.v_from_res, wq.v_to_res), "QM9, 2C wide"),
     ]
-    info = rd._pair_info(lmax, mmax)
+    specs = [sp + ((lmax, mmax),) for sp in specs] + [
+        ("to_m0", (E, K, 2 * C), (w44.v_to_m0, w44.v_from_m0),
+         "GATA v1 attention in, m=0", (lmax, lmax)),
+        ("from", (E, K, hv), (w44.v_from_res, w44.v_to_res), "GATA v1 attention back",
+         (lmax, lmax)),
+        ("to", (E, K, hv), (w44.v_to_res, w44.v_from_res), "GATA v1, adjoint of from",
+         (lmax, lmax)),
+        ("from_m0", (E, lmax + 1, 2 * C), (w44.v_from_m0, w44.v_to_m0),
+         "GATA v1, adjoint of to_m0", (lmax, lmax)),
+    ]
     rows = {}
-    for kind, shape, (v, va), site in specs:
-        name = f"rotate_pairs.{kind}"
-        pairs, n_out = info["pairs"][kind], info["n_out"][kind]
-        errs = {}
-        for dt in (torch.float32, torch.bfloat16):
-            x = torch.randn(shape, generator=gen, device=dev).to(dt)
-            e = [_max_err(rd.pairs_apply_kernel(x, v, lmax, mmax, kind),
-                          rd.pairs_apply_plain(x, v, lmax, mmax, kind), dt, f"{name} at {site}")]
-            if site.startswith("flagship"):   # through _ToEdge / _FromEdge
-                Fn = rd._ToEdge if kind.startswith("to") else rd._FromEdge
-                e += _chain_errors(
-                    lambda a: Fn.apply(a, v, va, lmax, mmax, kind.endswith("m0")),
-                    lambda a, t: rd.pairs_apply_plain(a, (v, va)[t], lmax, mmax,
-                                                      (kind, adj[kind])[t]),
-                    x, dt, f"{name} at {site}")
-            errs[dt] = e
-        torch.cuda.synchronize()
-        x = torch.randn(shape, generator=gen, device=dev)
-        dense = _dense_wigner(shape[0], n_out, shape[1], pairs, v)
-        t = time_rotation(lambda a: rd.pairs_apply_kernel(a, v, lmax, mmax, kind), x, dense,
-                          n_out, 4 * v.numel(), 2.0 * len(pairs) * shape[2] * shape[0], flush)
-        plain_ms = time_ms(lambda: rd.pairs_apply_plain(x, v, lmax, mmax, kind), flush)
-        plan = None if rotation_only else _plan("pairs_plan", lmax, mmax, kind, shape[2])
-        err_txt = ", ".join(f"{'f32' if dt == torch.float32 else 'bf16'} "
-                            + " / ".join(f"{a:.2e} ({b:.1e})" for a, b in e)
-                            for dt, e in errs.items())
-        _rotation_line(name, site, shape, (shape[0], n_out, shape[2]), t, plain_ms, plan,
-                       err_txt, tag)
-        rows.setdefault(kind, []).append(dict(
-            site=site, shape=list(shape), out_shape=[shape[0], n_out, shape[2]],
-            plain_ms=plain_ms, err_f32=errs[torch.float32][0][0],
-            err_bf16=errs[torch.bfloat16][0][0], plan=plan and plan._asdict(), **{
-                f"{k}_{dt}": val for dt, r in t.items() for k, val in r.items()}))
-        del x, dense
-    records = []
-    for kind in ("to_m0", "from", "to", "from_m0"):
-        main = rows[kind][0]   # the flagship's site: the main path's shape
-        records.append(dict(
-            name=f"rotate_pairs.{kind}", route="cuda", source=f"{src}/rotate_dense.cu",
-            replaces=f"{TPU_PKG}/ops/pallas/rotate_dense.py:183", launches=0,
-            max_abs_err=main["err_f32"], ms=main["ms_f32"], device_ms=main["device_ms_f32"],
-            plain_ms=main["plain_ms"],
-            bound_ms=main["bound_ms_f32"], bound_by=main["bound_by_f32"],
-            library_ms=main["library_ms_f32"], sites=rows[kind]))
-    del w, wq
-    return records
+    for kind, shape, (v, va), site, (lm, mm) in specs:
+        suffix = "" if mm == mmax else f"[{lm},{mm}]"
+        name = f"rotate_pairs.{kind}{suffix}"
+        chain = site.startswith(("flagship", "GATA v1"))
+        rows.setdefault(name, []).append(_k1_site(
+            kind, shape, v, va, site, lm, mm, chain, gen, flush, tag, rotation_only, name))
+    del w, wq, w44
+    return [_k1_record(name, r) for name, r in rows.items()]
 
 
 # K2's sites on the main paths: (site, grid (lmax, mmax, resolution), N, C,
@@ -739,12 +788,13 @@ def _train_state(model, w_stress: float = 0.0):
                                          generator=torch.Generator("cuda").manual_seed(0))
 
 
-def _timed_steps(step, counters: dict, what: str, tag: str) -> dict:
-    """``N_WARMUP_STEPS`` + ``N_TRAIN_STEPS`` steps of ``step`` on flagship
+def _timed_steps(step, counters: dict, what: str, tag: str,
+                 n_timed: int = N_TRAIN_STEPS) -> dict:
+    """``N_WARMUP_STEPS`` + ``n_timed`` steps of ``step`` on flagship
     batches, the launch counts zeroed just before the timed steps; fails if
     a loss (or a stress term the step reports) is not finite, the guard
     skipped a step, or a kernel of ``counters`` was never launched."""
-    batches = _flagship_batches(N_WARMUP_STEPS + N_TRAIN_STEPS)
+    batches = _flagship_batches(N_WARMUP_STEPS + n_timed)
     print(f"training: {what}, {N_STRUCTURES} structures x {N_ATOMS} atoms, N_pad "
           f"{batches[0]['pos'].shape[0]}, E_pad {batches[0]['edge_src'].shape[0]}, AdamW wd "
           f"1e-3, warmup_cosine(2e-4, 100, 10000), EMA 0.999  [{tag}]", flush=True)
@@ -778,7 +828,7 @@ def _timed_steps(step, counters: dict, what: str, tag: str) -> dict:
     print(f"training: {what}: median step {med * 1e3:.1f} ms ({min(times) * 1e3:.1f}-"
           f"{max(times) * 1e3:.1f}), {N_STRUCTURES / med:.1f} graphs/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches per step "
-          f"{ {n: c / N_TRAIN_STEPS for n, c in launches.items()} }  [{tag}]", flush=True)
+          f"{ {n: c / n_timed for n, c in launches.items()} }  [{tag}]", flush=True)
     idle = [n for n, c in launches.items() if c == 0]
     if idle:
         raise RuntimeError(f"kernels never launched on the {what} path: {idle}")
@@ -1480,6 +1530,206 @@ def fixture_phase(tag: str) -> None:
                                f"{de:.3e} meV/atom, force MAE {df:.3e} meV/A apart")
 
 
+HEADLINE = "equiformer_v2_matpes_gatav2_htr_global_distance"
+PARITY_PRESETS = (HEADLINE, "equiformer_v2_matpes_gata", "equiformer_v2_matpes_gatav2_moe")
+
+
+def _k1_kinds(model) -> tuple[tuple, tuple]:
+    """The K1 kinds a preset's serving call and its force-training step
+    launch: GATA (V2 or v1) rotates only the m = 0 block in, the others the
+    whole message; the training step adds the adjoints."""
+    bb = model.backbone
+    if bb.gata or bb.gata_v1:
+        return ("to_m0", "from"), ("to_m0", "from", "to", "from_m0")
+    return ("to", "from"), ("to", "from")
+
+
+def _preset_counters(lm: tuple[int, int]) -> dict:
+    """K1's counters at the preset's (lmax, mmax), named as the records
+    are, and K2's."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
+        rotate_dense,
+        s2act,
+    )
+
+    sfx = "" if lm == (4, 2) else f"[{lm[0]},{lm[1]}]"
+    return {**{f"rotate_pairs.{k}{sfx}": (rotate_dense.launches_by_lm, (k,) + lm)
+               for k in rotate_dense.KINDS},
+            **{f"s2act.{k}": (s2act.launches, k) for k in ("k1", "k2", "k3")}}
+
+
+def _zero(counters: dict) -> None:
+    for d, k in counters.values():
+        d[k] = 0
+
+
+def variants_phase(tag: str) -> dict:
+    """Phase 13a: every MatPES preset of the port's registry at the
+    flagship's widths (with the preset's own overrides: GATA v1 at mmax 4),
+    dropout off, seeded random weights: one f32 serving request of 16 x 30
+    atoms through ``Predictor`` and one bf16 force-training step (guarded
+    AdamW + EMA) on a flagship batch, each with the launch counts zeroed
+    just before.  Fails if an output or loss is not finite, the guard
+    skipped the step, or K1 (at the preset's (lmax, mmax)) or K2 never
+    launched where the path runs them."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.inference import Predictor
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.registry import (
+        list_models,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling import (
+        random_structures,
+        variant_model,
+    )
+
+    request = random_structures(np.random.default_rng(0), N_STRUCTURES, N_ATOMS)
+    (batch,) = _flagship_batches(1, seed=9)
+    out = {}
+    for name in [n for n in list_models() if "matpes" in n]:
+        model = variant_model(name, seed=11)
+        lm = (model.backbone.lmax, model.backbone.mmax)
+        counters = _preset_counters(lm)
+        serve_kinds, train_kinds = _k1_kinds(model)
+        sfx = "" if lm == (4, 2) else f"[{lm[0]},{lm[1]}]"
+        pred = Predictor(model, {k: v.clone() for k, v in model.state_dict().items()},
+                         CUTOFF, MAX_NEIGHBORS, device="cuda")
+        _zero(counters)
+        t = time.perf_counter()
+        res = pred.predict_batch(request)
+        torch.cuda.synchronize()
+        serve_ms = (time.perf_counter() - t) * 1e3
+        serve = {n: d[k] for n, (d, k) in counters.items()}
+        ok = (res["energy"].shape == (N_STRUCTURES,) and np.isfinite(res["energy"]).all()
+              and all(f.shape == (N_ATOMS, 3) and np.isfinite(f).all() for f in res["forces"]))
+        del pred, model
+        tmodel = variant_model(name, torch.bfloat16, seed=11).to("cuda")
+        _, step = _train_state(tmodel)
+        _zero(counters)
+        t = time.perf_counter()
+        loss, m = step(batch)
+        torch.cuda.synchronize()
+        train_ms = (time.perf_counter() - t) * 1e3
+        train = {n: d[k] for n, (d, k) in counters.items()}
+        print(f"preset {name} (lmax {lm[0]}, mmax {lm[1]}, "
+              f"{sum(p.numel() for p in tmodel.parameters())} parameters): f32 request "
+              f"{serve_ms:.1f} ms (first), launches {serve}; bf16 step {train_ms:.1f} ms "
+              f"(first), loss {float(loss):.4f}, accepted {m['accepted']}, launches {train}  "
+              f"[{tag}]", flush=True)
+        idle = ([f"serving {k}" for k in [f"rotate_pairs.{k}{sfx}" for k in serve_kinds]
+                 + ["s2act.k1"] if serve[k] == 0]
+                + [f"training {k}" for k in [f"rotate_pairs.{k}{sfx}" for k in train_kinds]
+                   + ["s2act.k1", "s2act.k2", "s2act.k3"] if train[k] == 0])
+        if not ok or not (np.isfinite(float(loss)) and m["accepted"]) or idle:
+            raise RuntimeError(f"preset {name}: outputs finite {ok}, loss {float(loss)}, "
+                               f"accepted {m['accepted']}, kernels never launched {idle}")
+        out[name] = dict(serving=serve, training=train, serving_ms=serve_ms,
+                         training_ms=train_ms)
+        del tmodel, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def headline_phase(tag: str) -> dict:
+    """Phase 13b: the headline preset (GATA-V2, phi every layer, global HTR
+    attention with the RoPE bias) at the flagship's widths on the flagship's
+    batches: 3 serving requests (latency, structures/s), then 2 + 7 timed
+    bf16 training steps (median ms, graphs/s, launches per step, peak
+    memory), then one profiled step (utils/profiling.py --variant)."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.inference import Predictor
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils import profiling
+
+    model = profiling.variant_model(HEADLINE, seed=12)
+    counters = _preset_counters((4, 2))
+    pred = Predictor(model, {k: v.clone() for k, v in model.state_dict().items()},
+                     CUTOFF, MAX_NEIGHBORS, device="cuda")
+    rng = np.random.default_rng(0)
+    requests = [profiling.random_structures(rng, N_STRUCTURES, N_ATOMS)
+                for _ in range(N_REQUESTS)]
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    for i, req in enumerate(requests):
+        before = {n: d[k] for n, (d, k) in counters.items()}
+        t = time.perf_counter()
+        res = pred.predict_batch(req)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if not (np.isfinite(res["energy"]).all()
+                and all(np.isfinite(f).all() for f in res["forces"])):
+            raise RuntimeError(f"{HEADLINE} request {i}: outputs not finite")
+        per = {n: d[k] - before[n] for n, (d, k) in counters.items()}
+        print(f"{HEADLINE} request {i}: {N_STRUCTURES} structures, {dt * 1e3:.1f} ms, "
+              f"{N_STRUCTURES / dt:.1f} structures/s, launches {per}  [{tag}]", flush=True)
+    print(f"{HEADLINE} serving peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  "
+          f"[{tag}]", flush=True)
+    del pred, model
+    tmodel = profiling.variant_model(HEADLINE, torch.bfloat16, seed=12).to("cuda")
+    _, step = _train_state(tmodel)
+    launches = _timed_steps(step, {n: c for n, c in counters.items()},
+                            f"{HEADLINE} bf16 step", tag, n_timed=7)
+    del tmodel, step
+    torch.cuda.empty_cache()
+    recs = profiling.run(["--variant", HEADLINE])
+    return dict(launches=launches, profile=recs)
+
+
+def variant_parity_phase(tag: str) -> None:
+    """Phase 13c: one f32 force-training loss and its gradients of the
+    headline preset, GATA v1 (K1 at (4, 4)) and the MoE, at the flagship's
+    widths with the depth cut to 2 layers, on 2 labelled structures, on the
+    card and on the CPU plain path from the same weights: loss <= 1e-4
+    relative, gradients and forces <= 1e-3 relative L2 (phase 7's limits)."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import (
+        as_tensors,
+        collate,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.synthetic import (
+        labelled_structures,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.inference import pad_sizes
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        matpes_energy_forces,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        matpes_loss,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.precision import (
+        full_f32_products,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling import (
+        variant_model,
+    )
+
+    samples = labelled_structures(np.random.default_rng(13), 2, N_ATOMS)
+    n_pad, e_pad = pad_sizes([N_ATOMS] * 2, MAX_NEIGHBORS, MAX_NEIGHBORS)
+    pb = collate(samples, CUTOFF, MAX_NEIGHBORS, n_pad, e_pad)
+    for name in PARITY_PRESETS:
+        weights = {k: v.clone() for k, v in
+                   variant_model(name, seed=13, num_layers=2).state_dict().items()}
+        res = {}
+        for dev in ("cuda", "cpu"):
+            model = variant_model(name, seed=13, num_layers=2)
+            model.load_state_dict(weights)
+            model.to(dev).train()
+            batch = as_tensors(pb, dev)
+            with full_f32_products():
+                outs = matpes_energy_forces(model, batch, create_graph=True)
+                loss, _ = matpes_loss(outs, batch, 1.0, 1.0)
+                loss.backward()
+            res[dev] = dict(loss=float(loss.detach()), forces={"f": outs["forces"].detach().cpu()},
+                            grads={n: (torch.zeros_like(p) if p.grad is None else p.grad)
+                                   .detach().cpu() for n, p in model.named_parameters()})
+            del model
+        g, c = res["cuda"], res["cpu"]
+        errs = dict(loss=abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+                    gradients=_rel_l2(g["grads"], c["grads"]),
+                    forces=_rel_l2(g["forces"], c["forces"]))
+        print(f"{name} gpu vs cpu plain path, one f32 force-training step (2 layers, flagship "
+              f"widths, 2 x {N_ATOMS} atoms): loss {g['loss']:.6f} vs {c['loss']:.6f}; rel err "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (limits: loss 1e-4, the others 1e-3 relative L2)  [{tag}]", flush=True)
+        if not (errs["loss"] <= 1e-4 and errs["gradients"] <= 1e-3 and errs["forces"] <= 1e-3):
+            raise RuntimeError(f"the {name} step on the card disagrees with the CPU")
+
+
 def main(argv: list[str]) -> int:
     rotation_only = argv == ["--rotation-only"]
     s2act_only = argv == ["--s2act-only"]
@@ -1528,6 +1778,7 @@ def main(argv: list[str]) -> int:
               f"registers, spill stores: {', '.join(spills) or 'none'}")
         for r in rep:  # the instances the serving and training paths run
             if r["name"].startswith(("pairs_kernel<f32,4,2,", "pairs_kernel<bf16,4,2,",
+                                     "pairs_kernel<f32,4,4,", "pairs_kernel<bf16,4,4,",
                                      "s2act_tc_kernel<f32,25,", "s2act_tc_kernel<bf16,25,",
                                      "s2act_tc_kernel<f32,19,", "s2act_tc_kernel<bf16,19,",
                                      "so2conv_kernel<", "b_operand_kernel<", "rot_kernel<f32,6,2,",
@@ -1695,6 +1946,22 @@ def main(argv: list[str]) -> int:
     options_phase(tag)
     # 12d: the fixture config's checkpoint, evaluated on the card and the CPU
     fixture_phase(tag)
+
+    # phase 13: the MatPES variant family.  13a: every registry preset,
+    # one request and one bf16 step each, counting from zero per call
+    presets = variants_phase(tag)
+    gata_v1 = presets["equiformer_v2_matpes_gata"]["training"]
+    for r in records:
+        r["launches_presets"] = {n: p["training"].get(r["name"], 0)
+                                 for n, p in presets.items()}
+        if r["name"].endswith("[4,4]"):   # the GATA v1 preset's step is their main path
+            r["launches"] = gata_v1[r["name"]]
+    # 13b: the headline preset at full width: serving, timed steps, profile
+    headline = headline_phase(tag)
+    for r in records:
+        r["launches_headline_train"] = headline["launches"].get(r["name"], 0)
+    # 13c: the card against the CPU for the headline preset, GATA v1 and MoE
+    variant_parity_phase(tag)
 
     print(json.dumps({"kernels": records}))
     print(tag)

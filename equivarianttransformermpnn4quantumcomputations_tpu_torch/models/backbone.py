@@ -9,16 +9,21 @@ package's model field): ``"dense"`` (the default; the pairs form of kernel
 K1) or ``"factored"`` (the cos / sin tables of kernel K4).  Both give the
 same numbers.
 
-Two configurations are ported, both with separable S2 activations,
-'rms_norm_sh' and unshared atom-edge embeddings: the MatPES GATA-V2 model
-(``gata=True``) and the baseline EquiformerV2 of QM9 (``gata=False``: no
-``h_proj`` / ``W_erp`` / ``t_ij`` / ``rl_ij``).  ``conv_fused`` sends the
-full SO(2)-conv sites through kernel K3 (the JAX package's
-``KernelFlags.conv_fused``; off by default there and here).  Two GATA-V2
-options of the JAX package's configs: ``normalize_attn_output=False`` (the
-ablation without the attention-output normalization) and
-``use_phi_every_layer`` (the distance RBF in every layer's value
-activation).  Batches come in the fixed-degree layout
+Every configuration of the JAX package's backbone fields is ported:
+``gata=True`` (GATA-V2: ``h_proj`` / ``W_erp`` build the edge stream
+``t_ij``, and the global-frame edge SH ``rl_ij`` go to every block),
+``gata_v1`` (GATA v1: ``rl_ij`` only, no ``t_ij``) or neither (the baseline
+EquiformerV2); ``dual_stream`` (a second, angular edge stream ``a_ij``
+from ``a_h_proj`` / ``a_W_erp``); ``norm_type``; the attention and FFN
+options (``use_gate_act``, ``use_grid_mlp``, ``use_sep_s2_act``,
+``use_m_share_rad``, ``use_attn_renorm``, ``normalize_attn_output``,
+``use_phi_every_layer``, ``ffn_variant``, ``num_experts``); and the
+atom-edge embeddings, per block (``use_atom_edge_embedding``) or shared
+by all blocks and the edge-degree embedding
+(``share_atom_edge_embedding``: concatenated to the edge scalars once).
+``conv_fused`` sends the full SO(2)-conv sites through kernel K3 (the JAX
+package's ``KernelFlags.conv_fused``; off by default there and here).
+Batches come in the fixed-degree layout
 (``data/graph.py:collate``): k = E / N edge slots per node.  ``cell`` may
 be a strained cell (``models/matpes.py``'s stress): the periodic shifts
 are taken in it, so the edge vectors see the strain.
@@ -41,7 +46,7 @@ import torch.nn as nn
 from ..nn.block import TransBlock
 from ..nn.embedding import EdgeDegreeEmbedding
 from ..nn.layers import GaussianSmearing, Linear
-from ..nn.norms import EquivariantRMSNormSH
+from ..nn.norms import get_normalization_layer
 from ..ops.cuda.rotate_dense import WignerDense, compute_wigner_dense
 from ..ops.irreps import layout as get_layout
 from ..ops.rotation import WignerFactors, compute_wigner
@@ -49,17 +54,27 @@ from ..ops.s2grid import s2grid
 from ..ops.segment import gather_dst, gather_nodes
 from ..ops.sph import real_sph_harm
 
-__all__ = ["EquiformerV2Backbone", "BackboneOutput", "WIGNER_REPS"]
+__all__ = ["EquiformerV2Backbone", "BackboneOutput", "WIGNER_REPS", "BACKBONE_OPTIONS"]
 
 WIGNER_REPS = ("dense", "factored")
+# the backbone's options beyond the widths, with the JAX package's defaults
+# (models/backbone.py:126-149); the models pass them through by name
+BACKBONE_OPTIONS = dict(
+    norm_type="rms_norm_sh", use_atom_edge_embedding=True,
+    share_atom_edge_embedding=False, use_m_share_rad=False, use_attn_renorm=True,
+    use_gate_act=False, use_grid_mlp=False, use_sep_s2_act=True, gata_v1=False,
+    normalize_attn_output=True, use_phi_every_layer=False, ffn_variant="standard",
+    num_experts=4, dual_stream=False,
+)
 
 
 @dataclass
 class BackboneOutput:
     """What the heads read (the JAX package's ``BackboneOutput``): node
     features after the final norm [N, (lmax+1)^2, C] (float32), the edge
-    scalars (distance RBF, float32), the forward's Wigner rotation and the
-    edge slots per node of the fixed-degree layout."""
+    scalars (distance RBF, with the shared atom-edge embeddings when
+    ``share_atom_edge_embedding``; float32), the forward's Wigner rotation
+    and the edge slots per node of the fixed-degree layout."""
 
     x: torch.Tensor
     edge_scalars: torch.Tensor
@@ -77,43 +92,61 @@ class EquiformerV2Backbone(nn.Module):
                  avg_degree: float, alpha_drop: float = 0.0,
                  drop_path_rate: float = 0.0, proj_drop: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32, gata: bool = True,
-                 conv_fused: bool = False, wigner_rep: str = "dense",
-                 normalize_attn_output: bool = True, use_phi_every_layer: bool = False):
+                 conv_fused: bool = False, wigner_rep: str = "dense", **options):
         super().__init__()
         if wigner_rep not in WIGNER_REPS:
             raise ValueError(
                 f"wigner_rep={wigner_rep!r}: the port builds {WIGNER_REPS}; the per-degree "
                 "'blocks' representation is not ported yet (ROADMAP.md, Queue 1)")
+        unknown = set(options) - set(BACKBONE_OPTIONS)
+        if unknown:
+            raise TypeError(f"unknown backbone options {sorted(unknown)}")
+        opt = {**BACKBONE_OPTIONS, **options}
         self.wigner_rep = wigner_rep
         self.lmax, self.mmax = lmax, mmax
-        self.gata = gata
-        self.use_phi_every_layer = use_phi_every_layer
+        self.gata, self.gata_v1 = gata, opt["gata_v1"]
+        self.dual_stream = gata and opt["dual_stream"]
+        self.use_phi_every_layer = opt["use_phi_every_layer"]
         self.compute_dtype = compute_dtype
         self.sphere_channels = sphere_channels
         lay_full, lay_red = get_layout(lmax, lmax), get_layout(lmax, mmax)
         self.K_full = lay_full.num_coefficients_full
-        edge_channels_list = (num_rbf, edge_channels, edge_channels)
+        edge_channels_list = [num_rbf, edge_channels, edge_channels]
         self.smear = GaussianSmearing(0.0, cutoff, num_rbf, 2.0)
+        self.share = opt["share_atom_edge_embedding"] and opt["use_atom_edge_embedding"]
+        if self.share:
+            self.shared_source_embedding = nn.Embedding(max_num_elements, edge_channels)
+            self.shared_target_embedding = nn.Embedding(max_num_elements, edge_channels)
+            edge_channels_list[0] += 2 * edge_channels
+        block_atom_edge = opt["use_atom_edge_embedding"] and not self.share
         self.sphere_embedding = nn.Embedding(max_num_elements, sphere_channels)
         self.edge_degree_embedding = EdgeDegreeEmbedding(
             sphere_channels, lay_red, max_num_elements, edge_channels_list,
-            avg_degree,
+            avg_degree, use_atom_edge_embedding=block_atom_edge,
         )
         if gata:
             self.h_proj = Linear(sphere_channels, edge_channels)
             self.W_erp = Linear(num_rbf, edge_channels)
+            if self.dual_stream:
+                self.a_h_proj = Linear(sphere_channels, edge_channels)
+                self.a_W_erp = Linear(num_rbf, edge_channels)
         grid_red = s2grid(lmax, mmax, grid_resolution)
         grid_full = s2grid(lmax, lmax, grid_resolution)
+        block_opts = {k: opt[k] for k in (
+            "norm_type", "use_m_share_rad", "use_attn_renorm", "use_gate_act", "use_grid_mlp",
+            "use_sep_s2_act", "gata_v1", "ffn_variant", "num_experts", "dual_stream")}
         self.blocks = nn.ModuleList(
             TransBlock(lay_full, lay_red, grid_red, grid_full, sphere_channels,
                        attn_hidden_channels, num_heads, attn_alpha_channels,
                        attn_value_channels, ffn_hidden_channels,
                        max_num_elements, edge_channels_list, edge_channels,
                        alpha_drop, drop_path_rate, proj_drop, gata, conv_fused,
-                       normalize_attn_output, use_phi_every_layer)
+                       opt["normalize_attn_output"], opt["use_phi_every_layer"],
+                       use_atom_edge_embedding=block_atom_edge, num_rbf=num_rbf,
+                       **block_opts)
             for _ in range(num_layers)
         )
-        self.norm = EquivariantRMSNormSH(lmax, sphere_channels)
+        self.norm = get_normalization_layer(opt["norm_type"], lmax, sphere_channels)
 
     def forward(self, atomic_numbers, pos, graph_idx, edge_src, edge_dst,
                 edge_shift, edge_mask, cell,
@@ -138,30 +171,40 @@ class EquiformerV2Backbone(nn.Module):
         else:
             wigner = compute_wigner_dense(self.lmax, self.mmax, dvec)
         phi_r = self.smear(dist)
+        edge_scalars = phi_r
+        if self.share:
+            edge_scalars = torch.cat([phi_r,
+                                      self.shared_source_embedding(atomic_numbers[edge_src]),
+                                      self.shared_target_embedding(atomic_numbers[edge_dst])],
+                                     dim=1)
 
         x = pos.new_zeros(N, self.K_full, self.sphere_channels)
         x = torch.cat([self.sphere_embedding(atomic_numbers)[:, None, :],
                        x[:, 1:, :]], dim=1)
         x = x + self.edge_degree_embedding(
-            atomic_numbers, phi_r, edge_src, edge_dst, edge_mask, wigner, k,
+            atomic_numbers, edge_scalars, edge_src, edge_dst, edge_mask, wigner, k,
         )
 
         cdt = self.compute_dtype
-        t_ij = rl_ij = None
-        if self.gata:
-            # GATA streams: global-frame edge SH (l >= 1, 'norm', detached)
-            # and t_ij = h_proj(h_i + h_j) * W_erp(phi(r))
+        t_ij = rl_ij = a_ij = None
+        if self.gata or self.gata_v1:
+            # global-frame edge SH (l >= 1, 'norm', detached)
             unit = dvec / dist[:, None]
             rl_ij = real_sph_harm(self.lmax, unit, normalization="norm")[:, 1:].detach()
-            h = x[:, 0, :]
-            t_ij = self.h_proj(gather_nodes(h, edge_src) + gather_dst(h, k))
-            t_ij = (t_ij * self.W_erp(phi_r)).to(cdt)
             rl_ij = rl_ij.to(cdt)
-        x, edge_scalars = x.to(cdt), phi_r.to(cdt)
-        phi_c = edge_scalars if self.use_phi_every_layer else None
+        if self.gata:
+            # t_ij = h_proj(h_i + h_j) * W_erp(phi(r)); the angular stream
+            # a_ij the same way with its own projections
+            h = x[:, 0, :]
+            h_sum = gather_nodes(h, edge_src) + gather_dst(h, k)
+            t_ij = (self.h_proj(h_sum) * self.W_erp(phi_r)).to(cdt)
+            if self.dual_stream:
+                a_ij = (self.a_h_proj(h_sum) * self.a_W_erp(phi_r)).to(cdt)
+        x, edge_scalars_c = x.to(cdt), edge_scalars.to(cdt)
+        phi_c = phi_r.to(cdt) if self.use_phi_every_layer else None
         num_graphs = cell.shape[0]
         for block in self.blocks:
-            x, t_ij = block(x, atomic_numbers, edge_scalars, edge_src, edge_dst,
-                            edge_mask, wigner, t_ij, rl_ij, k, graph_idx,
-                            num_graphs, generator, phi_c)
-        return BackboneOutput(self.norm(x).float(), phi_r, wigner, k)
+            x, t_ij, a_ij = block(x, atomic_numbers, edge_scalars_c, edge_src, edge_dst,
+                                  edge_mask, wigner, t_ij, rl_ij, k, graph_idx,
+                                  num_graphs, generator, phi_c, a_ij)
+        return BackboneOutput(self.norm(x).float(), edge_scalars, wigner, k)

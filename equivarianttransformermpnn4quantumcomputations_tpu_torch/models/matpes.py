@@ -3,7 +3,8 @@ stress.
 
 Port of the JAX package's models/matpes.py (``EquiformerV2MatPES``, with
 ``gata=True`` the GATA-V2 model, with ``gata=False`` the baseline
-EquiformerV2; ``matpes_energy_forces_stress`` and
+EquiformerV2, and with the JAX package's other fields every variant of its
+registry (models/registry.py); ``matpes_energy_forces_stress`` and
 ``matpes_energy_forces_stress_pergraph``).  Batches come in the
 fixed-degree layout (``data/graph.py:collate``), whatever layout a
 converted checkpoint was trained with: the layout changes no parameter.
@@ -23,13 +24,24 @@ import math
 import torch
 import torch.nn as nn
 
-from ..nn.ffn import FeedForward
+from ..nn.ffn import ESENFeedForward, FeedForward
+from ..nn.gata import HTR
+from ..nn.global_attn import (
+    GlobalFullAttention,
+    GlobalFullEquivariantAttention,
+    GlobalHTRAttention,
+    GlobalScalarAttention,
+)
+from ..nn.layers import Linear, RadialMLP, StackedLinear
+from ..nn.moe import MoEHTRFeedForward
+from ..nn.norms import EquivariantDegreeLayerScale, degree_scale_init
 from ..ops.s2grid import s2grid
 from ..ops.segment import segment_sum
-from .backbone import EquiformerV2Backbone
+from .backbone import BACKBONE_OPTIONS, EquiformerV2Backbone
 
 __all__ = ["EquiformerV2MatPES", "energy_and_forces", "matpes_energy_forces",
-           "matpes_energy_forces_stress_pergraph", "init_weights", "FLAGSHIP"]
+           "matpes_energy_forces_stress_pergraph", "init_weights", "routing_entropies",
+           "FLAGSHIP", "GLOBAL_ATTN"]
 
 # The flagship MatPES GATA-V2 configuration (bench.py:327-335); served with
 # cutoff 6.0 and 20 neighbours (bench.py:338-340).
@@ -41,18 +53,33 @@ FLAGSHIP = dict(
 )
 
 
+GLOBAL_ATTN = (None, "scalar", "full", "full_equivariant", "htr", "htr_distance", "htr_rope")
+
+
 class EquiformerV2MatPES(nn.Module):
-    """Backbone + scalar energy head (the JAX package's defaults).
+    """Backbone + [global attention] + scalar energy head (the JAX
+    package's fields and defaults).
 
     ``alpha_drop``, ``drop_path_rate`` and ``proj_drop`` act only in
     ``train()`` mode; ``compute_dtype`` is the block stack's type
-    (models/backbone.py).  ``conv_fused`` sends the full SO(2)-conv site
-    (conv 2; conv 1 is m = 0 only) through kernel K3, off by default.
-    ``gata=False`` builds the baseline EquiformerV2 attention instead of
-    GATA-V2; ``wigner_rep`` is the backbone's Wigner representation
-    (``"dense"``: kernel K1, ``"factored"``: kernel K4);
-    ``normalize_attn_output`` and ``use_phi_every_layer`` are the GATA-V2
-    options of models/backbone.py.
+    (models/backbone.py).  ``conv_fused`` sends the full SO(2)-conv sites
+    through kernel K3, off by default.  ``gata=False`` builds the baseline
+    EquiformerV2 attention instead of GATA-V2; ``wigner_rep`` is the
+    backbone's Wigner representation (``"dense"``: kernel K1,
+    ``"factored"``: kernel K4); ``options`` are the backbone's other fields
+    (``models/backbone.py:BACKBONE_OPTIONS``: norms, activations, GATA v1,
+    FFN variants, dual stream, atom-edge embeddings).
+
+    ``global_attn`` adds an all-to-all attention stage after the final norm,
+    before the energy head (reference equiformerv2_MatPESv2_all2all.py:181
+    and the GLOBALALLATTENTION / HTR forks): None, 'scalar', 'full',
+    'full_equivariant', 'htr', 'htr_distance' or 'htr_rope'
+    (nn/global_attn.py), with ``global_attn_heads`` heads; it runs on the
+    flat padded node axis unless ``global_attn_dense_n_max`` (the most atoms
+    of a graph) asks for per-graph dense packing.  The stage reads the
+    float32 backbone output, as in the JAX package.  The energy head takes
+    ``use_gate_act`` / ``use_grid_mlp`` / ``use_sep_s2_act`` like the blocks'
+    FFNs.
     """
 
     def __init__(self, num_layers: int = 6, sphere_channels: int = 128,
@@ -66,9 +93,14 @@ class EquiformerV2MatPES(nn.Module):
                  proj_drop: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32,
                  conv_fused: bool = False, gata: bool = True,
-                 wigner_rep: str = "dense", normalize_attn_output: bool = True,
-                 use_phi_every_layer: bool = False):
+                 wigner_rep: str = "dense", global_attn: str | None = None,
+                 global_attn_heads: int = 8, global_attn_dense_n_max: int | None = None,
+                 **options):
         super().__init__()
+        if global_attn not in GLOBAL_ATTN:
+            raise ValueError(f"global_attn={global_attn!r}: one of {GLOBAL_ATTN}")
+        self.global_attn_kind = global_attn
+        self.global_attn_dense_n_max = global_attn_dense_n_max
         self.backbone = EquiformerV2Backbone(
             num_layers=num_layers, sphere_channels=sphere_channels,
             attn_hidden_channels=attn_hidden_channels, num_heads=num_heads,
@@ -80,13 +112,38 @@ class EquiformerV2MatPES(nn.Module):
             avg_degree=avg_degree, alpha_drop=alpha_drop,
             drop_path_rate=drop_path_rate, proj_drop=proj_drop,
             compute_dtype=compute_dtype, gata=gata, conv_fused=conv_fused,
-            wigner_rep=wigner_rep, normalize_attn_output=normalize_attn_output,
-            use_phi_every_layer=use_phi_every_layer,
+            wigner_rep=wigner_rep, **options,
         )
+        if global_attn == "scalar":
+            self.global_attn = GlobalScalarAttention(sphere_channels, global_attn_heads)
+        elif global_attn == "full":
+            self.global_attn = GlobalFullAttention(sphere_channels, (lmax + 1) ** 2,
+                                                   global_attn_heads)
+        elif global_attn == "full_equivariant":
+            self.global_attn = GlobalFullEquivariantAttention(sphere_channels, lmax,
+                                                              global_attn_heads)
+        elif global_attn is not None:
+            self.global_attn = GlobalHTRAttention(
+                sphere_channels, lmax, global_attn_heads,
+                use_distance=global_attn == "htr_distance",
+                use_rope=global_attn == "htr_rope")
+        head = {k: options.get(k, BACKBONE_OPTIONS[k])
+                for k in ("use_gate_act", "use_grid_mlp", "use_sep_s2_act")}
         self.energy_block = FeedForward(
             sphere_channels, ffn_hidden_channels, 1, lmax,
-            s2grid(lmax, lmax, grid_resolution),
+            s2grid(lmax, lmax, grid_resolution), **head,
         )
+
+    def _global(self, x, batch, pos):
+        """The global-attention stage on the backbone's output."""
+        dense = self.global_attn_dense_n_max
+        kw = dict(node_slot=batch["node_slot"] if dense else None, n_max=dense,
+                  num_graphs=batch["cell"].shape[0] if dense else None)
+        gm, nm = batch["graph_idx"], batch["node_mask"]
+        if self.global_attn_kind == "scalar":
+            scal = self.global_attn(x[:, 0, :], gm, nm, pos, **kw)
+            return torch.cat([scal[:, None, :], x[:, 1:, :]], dim=1)
+        return self.global_attn(x, gm, nm, pos, **kw)
 
     def forward(self, batch: dict, pos: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> dict:
@@ -102,6 +159,8 @@ class EquiformerV2MatPES(nn.Module):
             batch["edge_dst"], batch["edge_shift"], batch["edge_mask"],
             batch.get("strained_cell", batch["cell"]), generator,
         ).x
+        if self.global_attn_kind is not None:
+            x = self._global(x, batch, pos)
         node_energy = self.energy_block(x)[:, 0, 0]
         num_graphs = batch["cell"].shape[0]
         energy_total = segment_sum(node_energy, batch["graph_idx"], num_graphs,
@@ -112,6 +171,13 @@ class EquiformerV2MatPES(nn.Module):
             "energy_total": energy_total,
             "node_energy": node_energy,
         }
+
+
+def routing_entropies(model: nn.Module) -> list[torch.Tensor]:
+    """The MoE blocks' routing entropies from the last forward, in block
+    order (the values the JAX package sows as ``routing_entropy``)."""
+    return [m.routing_entropy for m in model.modules()
+            if isinstance(m, MoEHTRFeedForward) and m.routing_entropy is not None]
 
 
 def _call(model, batch: dict, pos, params, generator):
@@ -187,37 +253,72 @@ def energy_and_forces(model: EquiformerV2MatPES, batch: dict) -> dict:
     return matpes_energy_forces(model, batch, create_graph=False)
 
 
+# Flax's truncated-normal variance scaling divides the std by the std of a
+# unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Random weights from ``generator`` (the reference's effective init).
+    """Random weights from ``generator``, each leaf drawn from the
+    distribution that the JAX package's initializer gives it:
 
-    Matrices ~ normal(0, 1/fan_in), biases 0, norm scales 1, atom-edge
-    embeddings ~ uniform(+-0.001), ``alpha_dot`` ~ uniform(+-1/sqrt(A)).
-    Stacked heads (``output_blocks``, a leading target axis) take the rule
-    of one head for each slice.
+    * dense, SO3 and SO2 matrices ~ normal(0, 1/fan_in) (``fan_in_normal``,
+      the reference's effective init), biases 0;
+    * radial-MLP linears ~ uniform(+-1/sqrt(fan_in)) (``fan_in_uniform``);
+    * HTR's ``gamma_w`` ~ Xavier uniform;
+    * ``sphere_embedding``: Flax ``nn.Embed``'s default, a truncated normal
+      (+-2 std) of variance 1/features; the atom-edge embeddings ~
+      uniform(+-0.001);
+    * ``alpha_dot`` ~ uniform(+-1/sqrt(A)); ``rope_freqs`` ~ 0.1 normal;
+    * the eSEN gate projections: weight 0, bias 2.0;
+    * norm scales 1 and biases 0 (the per-degree layer scale 1 and
+      1/sqrt(2 l)).
+
+    Stacked parameters (the QM9 heads, the MoE experts: a leading head or
+    expert axis) take the rule of one slice for each slice.
     """
-    for name, stacked in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        owner = name.rsplit(".", 2)[-2] if name.count(".") else ""
-        for p in stacked.unbind(0) if name.startswith("output_blocks.") else (stacked,):
-            _init_one(p, leaf, owner, generator)
+    parent = {c: (m, n) for m in model.modules() for n, c in m.named_children()}
+    for mod in model.modules():
+        owner, name = parent.get(mod, (None, ""))
+        while isinstance(owner, nn.ModuleList):   # the module that holds the list
+            owner, name = parent.get(owner, (None, ""))
+        for leaf, p in mod.named_parameters(recurse=False):
+            _init_leaf(p, mod, leaf, owner, name, generator)
     return model
 
 
-def _init_one(p: torch.Tensor, leaf: str, owner: str, generator: torch.Generator):
-    if leaf == "bias" or leaf.startswith("b_m"):
-        p.zero_()
-    elif "norm" in owner or p.dim() == 1:  # norm scales
+def _init_leaf(p: torch.Tensor, mod: nn.Module, leaf: str, owner: nn.Module | None,
+               name: str, generator: torch.Generator) -> None:
+    esen_gate = isinstance(owner, ESENFeedForward) and name.startswith("gate_proj")
+    if isinstance(mod, EquivariantDegreeLayerScale):
+        p.copy_(degree_scale_init(mod.lmax, p.shape[1], mod.scale_factor))
+    elif leaf == "bias" or leaf.startswith("b_m"):
+        p.fill_(2.0 if esen_gate else 0.0)
+    elif isinstance(mod, nn.LayerNorm) or "Norm" in type(mod).__name__:
         p.fill_(1.0)
-    elif owner == "sphere_embedding":
-        p.normal_(0.0, 1.0, generator=generator)
-    elif owner.endswith("_embedding"):
-        p.uniform_(-1e-3, 1e-3, generator=generator)
+    elif isinstance(mod, nn.Embedding):
+        if name == "sphere_embedding":
+            std = p.shape[1] ** -0.5 / _TRUNC_STD
+            nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=generator)
+        else:
+            p.uniform_(-1e-3, 1e-3, generator=generator)
     elif leaf == "alpha_dot":
         b = 1.0 / math.sqrt(p.shape[1])
         p.uniform_(-b, b, generator=generator)
+    elif leaf == "rope_freqs":
+        p.normal_(0.0, 0.1, generator=generator)
+    elif esen_gate:
+        p.zero_()
+    elif isinstance(owner, RadialMLP):
+        b = 1.0 / math.sqrt(p.shape[-1])
+        p.uniform_(-b, b, generator=generator)
+    elif isinstance(owner, HTR) and name == "gamma_w":
+        b = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
+        p.uniform_(-b, b, generator=generator)
     else:
-        # nn.Linear [out, in] and SO3Linear [L, in, out]: fan-in is dim 1;
-        # SO2Conv w_m* [in, out]: fan-in is dim 0
-        fan_in = p.shape[0] if leaf.startswith("w_m") else p.shape[1]
+        # Linear [out, in] and StackedLinear [T, out, in]: fan-in is the
+        # last axis; SO3Linear [L, in, out], its stacked form and the SO2
+        # conv's w_m* [in, out]: the second to last
+        fan_in = p.shape[-1] if isinstance(mod, (Linear, StackedLinear)) else p.shape[-2]
         p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)

@@ -29,7 +29,8 @@ from ..nn.ffn import FeedForward
 from ..ops.irreps import layout as get_layout
 from ..ops.s2grid import s2grid
 from ..ops.segment import segment_sum
-from .backbone import EquiformerV2Backbone
+from .backbone import BACKBONE_OPTIONS, EquiformerV2Backbone
+from .qm9 import HEAD_OPTIONS, check_options
 
 __all__ = ["EquiformerV2OC20", "AVG_NUM_NODES_OC20", "AVG_DEGREE_OC20"]
 
@@ -41,7 +42,9 @@ class EquiformerV2OC20(nn.Module):
     """Backbone + energy head + force head (the JAX package's defaults:
     12 layers, 128 channels, lmax 6 / mmax 2, 8 heads, FFN 512, 600 RBF,
     cutoff 12).  Dropouts act only in ``train()`` mode; ``compute_dtype``
-    is the block stack's type (the heads read the float32 backbone output)."""
+    is the block stack's type (the heads read the float32 backbone output).
+    ``options``: the backbone options of ``models/qm9.py:BASELINE_OPTIONS``;
+    the force block takes the attention's."""
 
     def __init__(self, num_layers: int = 12, sphere_channels: int = 128,
                  attn_hidden_channels: int = 128, num_heads: int = 8,
@@ -53,8 +56,10 @@ class EquiformerV2OC20(nn.Module):
                  proj_drop: float = 0.0, avg_num_nodes: float = AVG_NUM_NODES_OC20,
                  avg_degree: float = AVG_DEGREE_OC20,
                  compute_dtype: torch.dtype = torch.float32, conv_fused: bool = False,
-                 wigner_rep: str = "factored"):
+                 wigner_rep: str = "factored", **options):
         super().__init__()
+        check_options(options)
+        opt = {**BACKBONE_OPTIONS, **options}
         self.avg_num_nodes = avg_num_nodes
         self.backbone = EquiformerV2Backbone(
             num_layers=num_layers, sphere_channels=sphere_channels,
@@ -67,15 +72,22 @@ class EquiformerV2OC20(nn.Module):
             avg_degree=avg_degree, alpha_drop=alpha_drop,
             drop_path_rate=drop_path_rate, proj_drop=proj_drop,
             compute_dtype=compute_dtype, gata=False, conv_fused=conv_fused,
-            wigner_rep=wigner_rep,
+            wigner_rep=wigner_rep, **options,
         )
         self.energy_block = FeedForward(sphere_channels, ffn_hidden_channels, 1, lmax,
-                                        s2grid(lmax, lmax, grid_resolution))
+                                        s2grid(lmax, lmax, grid_resolution),
+                                        **{k: opt[k] for k in HEAD_OPTIONS})
+        # the backbone's edge scalars carry the shared atom-edge embeddings
+        share = opt["share_atom_edge_embedding"] and opt["use_atom_edge_embedding"]
         self.force_block = GraphAttention(
             get_layout(lmax, lmax), get_layout(lmax, mmax), s2grid(lmax, mmax, grid_resolution),
             sphere_channels, attn_hidden_channels, num_heads, attn_alpha_channels,
-            attn_value_channels, 1, max_num_elements, (num_rbf, edge_channels, edge_channels),
+            attn_value_channels, 1, max_num_elements,
+            (num_rbf + (2 * edge_channels if share else 0), edge_channels, edge_channels),
             edge_channels, alpha_drop, gata=False, conv_fused=conv_fused,
+            use_atom_edge_embedding=opt["use_atom_edge_embedding"] and not share,
+            use_m_share_rad=opt["use_m_share_rad"], use_attn_renorm=opt["use_attn_renorm"],
+            use_gate_act=opt["use_gate_act"], use_sep_s2_act=opt["use_sep_s2_act"],
         )
 
     def forward(self, batch: dict, generator: torch.Generator | None = None) -> dict:

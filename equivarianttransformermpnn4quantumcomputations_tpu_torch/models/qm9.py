@@ -4,7 +4,7 @@ Port of the JAX package's models/qm9.py (``EquiformerV2QM9`` with its
 default ``vmap_heads=True``): the baseline EquiformerV2 backbone
 (``gata=False``, separable S2 activations, default S2 grid), then one
 ``FeedForward`` head per target with weights stacked on a leading target
-axis (nn/ffn.py:StackedFeedForward), each reading its l = 0, channel 0
+axis (nn/ffn.py:FeedForward with ``num``), each reading its l = 0, channel 0
 output, masked-summed over each molecule's atoms with no division by the
 atom count (reference equiformerv2_qm9.py:664-697).  Molecules have no
 periodic cell: collate gives them the identity cell and zero shifts.
@@ -15,12 +15,25 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from ..nn.ffn import StackedFeedForward
+from ..nn.ffn import FeedForward
 from ..ops.s2grid import s2grid
 from ..ops.segment import segment_sum
 from .backbone import EquiformerV2Backbone
 
-__all__ = ["EquiformerV2QM9"]
+__all__ = ["EquiformerV2QM9", "BASELINE_OPTIONS"]
+
+# the backbone options of the JAX package's QM9 and OC20 models
+# (models/qm9.py:37-44); the heads take the three activation options
+BASELINE_OPTIONS = ("norm_type", "use_gate_act", "use_grid_mlp", "use_sep_s2_act",
+                    "use_m_share_rad", "use_attn_renorm", "use_atom_edge_embedding",
+                    "share_atom_edge_embedding")
+HEAD_OPTIONS = ("use_gate_act", "use_grid_mlp", "use_sep_s2_act")
+
+
+def check_options(options: dict) -> None:
+    unknown = set(options) - set(BASELINE_OPTIONS)
+    if unknown:
+        raise TypeError(f"unknown model options {sorted(unknown)}")
 
 
 class EquiformerV2QM9(nn.Module):
@@ -30,6 +43,7 @@ class EquiformerV2QM9(nn.Module):
     ``conv_fused`` sends every SO(2)-conv site through kernel K3 (off by
     default, as the JAX package's ``KernelFlags.conv_fused``).  Dropouts act
     only in ``train()`` mode; ``compute_dtype`` is the block stack's type.
+    ``options``: the backbone options of ``BASELINE_OPTIONS``.
     """
 
     def __init__(self, num_targets: int = 12, num_layers: int = 8,
@@ -42,8 +56,9 @@ class EquiformerV2QM9(nn.Module):
                  avg_degree: float = 6.0, alpha_drop: float = 0.1,
                  drop_path_rate: float = 0.05, proj_drop: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32,
-                 conv_fused: bool = False):
+                 conv_fused: bool = False, **options):
         super().__init__()
+        check_options(options)
         self.backbone = EquiformerV2Backbone(
             num_layers=num_layers, sphere_channels=sphere_channels,
             attn_hidden_channels=attn_hidden_channels, num_heads=num_heads,
@@ -54,11 +69,11 @@ class EquiformerV2QM9(nn.Module):
             num_rbf=num_rbf, max_num_elements=max_num_elements, cutoff=cutoff,
             avg_degree=avg_degree, alpha_drop=alpha_drop,
             drop_path_rate=drop_path_rate, proj_drop=proj_drop,
-            compute_dtype=compute_dtype, gata=False, conv_fused=conv_fused,
+            compute_dtype=compute_dtype, gata=False, conv_fused=conv_fused, **options,
         )
-        self.output_blocks = StackedFeedForward(
-            num_targets, sphere_channels, ffn_hidden_channels, 1, lmax,
-            s2grid(lmax, lmax, grid_resolution),
+        self.output_blocks = FeedForward(
+            sphere_channels, ffn_hidden_channels, 1, lmax, s2grid(lmax, lmax, grid_resolution),
+            num=num_targets, **{k: options[k] for k in HEAD_OPTIONS if k in options},
         )
 
     def forward(self, batch: dict, generator: torch.Generator | None = None):

@@ -1,9 +1,13 @@
 """Transformer block (port of the JAX package's nn/block.py ``TransBlock``,
 ``GraphDropPath`` and ``EquivariantDropout``).
 
-With ``gata=True`` (GATA-V2) HTR first refines the edge stream ``t_ij``;
-then, in both variants, pre-norm attention and pre-norm FFN, each with a
-residual.  Both residual branches pass drop-path (whole graphs) and
+With ``gata=True`` (GATA-V2) HTR first refines the edge stream ``t_ij``
+(and with ``dual_stream`` AngularHTR then refines the angular stream
+``a_ij``); then pre-norm attention and pre-norm FFN, each with a residual.
+``norm_type`` picks the norm (nn/norms.py); ``ffn_variant`` the FFN:
+'standard' (nn/ffn.py:FeedForward with the activation options), 'moe' /
+'moe_breaking' (nn/moe.py), 'esen' (nn/ffn.py:ESENFeedForward) or
+'tensor_product' (nn/dual_stream.py).  Both residual branches pass drop-path (whole graphs) and
 equivariant dropout (whole channels); both are active only in
 ``train()`` mode, with masks drawn from the caller's ``torch.Generator``.
 """
@@ -19,10 +23,14 @@ from ..ops.irreps import IrrepsLayout
 from ..ops.s2grid import S2Grid
 from ..ops.segment import gather_dst, gather_nodes
 from .attention import GraphAttention
-from .ffn import FeedForward
+from .dual_stream import AngularHTR, TensorProductFFN
+from .ffn import ESENFeedForward, FeedForward
 from .gata import HTR
 from .layers import keep_mask
-from .norms import EquivariantRMSNormSH
+from .moe import MoEHTRFeedForward
+from .norms import get_normalization_layer
+
+FFN_VARIANTS = ("standard", "moe", "moe_breaking", "esen", "tensor_product")
 
 __all__ = ["TransBlock", "GraphDropPath", "EquivariantDropout"]
 
@@ -69,39 +77,75 @@ class TransBlock(nn.Module):
                  edge_channels_list: Sequence[int], edge_channels: int,
                  alpha_drop: float = 0.0, drop_path_rate: float = 0.0,
                  proj_drop: float = 0.0, gata: bool = True, conv_fused: bool = False,
-                 normalize_attn_output: bool = True, use_phi_every_layer: bool = False):
+                 normalize_attn_output: bool = True, use_phi_every_layer: bool = False,
+                 norm_type: str = "rms_norm_sh", use_atom_edge_embedding: bool = True,
+                 use_m_share_rad: bool = False, use_attn_renorm: bool = True,
+                 use_gate_act: bool = False, use_grid_mlp: bool = False,
+                 use_sep_s2_act: bool = True, gata_v1: bool = False,
+                 ffn_variant: str = "standard", num_experts: int = 4,
+                 dual_stream: bool = False, num_rbf: int | None = None):
         super().__init__()
+        if ffn_variant not in FFN_VARIANTS:
+            raise ValueError(f"ffn_variant={ffn_variant!r}: one of {FFN_VARIANTS}")
         lmax = layout_full.lmax
-        self.gata = gata
+        self.gata, self.dual_stream = gata, gata and dual_stream
+        self.ffn_variant = ffn_variant
         if gata:
             self.htr = HTR(sphere_channels, edge_channels, lmax)
-        self.attn_norm = EquivariantRMSNormSH(lmax, sphere_channels)
+            if dual_stream:
+                self.angular_htr = AngularHTR(sphere_channels, edge_channels, lmax)
+        self.attn_norm = get_normalization_layer(norm_type, lmax, sphere_channels)
         self.ga = GraphAttention(
             layout_full, layout_red, grid_red, sphere_channels, attn_hidden_channels,
             num_heads, attn_alpha_channels, attn_value_channels,
             sphere_channels, max_num_elements, edge_channels_list,
             edge_channels, alpha_drop, gata, conv_fused, normalize_attn_output,
-            use_phi_every_layer,
+            use_phi_every_layer, use_atom_edge_embedding=use_atom_edge_embedding,
+            use_m_share_rad=use_m_share_rad, use_attn_renorm=use_attn_renorm,
+            use_gate_act=use_gate_act, use_sep_s2_act=use_sep_s2_act, gata_v1=gata_v1,
+            num_rbf=num_rbf,
         )
         self.drop_path = GraphDropPath(drop_path_rate)
         self.proj_drop = EquivariantDropout(proj_drop)
-        self.ffn_norm = EquivariantRMSNormSH(lmax, sphere_channels)
-        self.ffn = FeedForward(sphere_channels, ffn_hidden_channels,
-                               sphere_channels, lmax, grid_full)
+        self.ffn_norm = get_normalization_layer(norm_type, lmax, sphere_channels)
+        if ffn_variant in ("moe", "moe_breaking"):
+            self.ffn = MoEHTRFeedForward(sphere_channels, ffn_hidden_channels, edge_channels,
+                                         lmax, num_experts, ffn_variant == "moe_breaking")
+        elif ffn_variant == "esen":
+            self.ffn = ESENFeedForward(sphere_channels, ffn_hidden_channels, sphere_channels,
+                                       lmax)
+        elif ffn_variant == "tensor_product":
+            self.ffn = TensorProductFFN(sphere_channels, ffn_hidden_channels, edge_channels,
+                                        lmax)
+        else:
+            self.ffn = FeedForward(sphere_channels, ffn_hidden_channels, sphere_channels,
+                                   lmax, grid_full, use_gate_act=use_gate_act,
+                                   use_grid_mlp=use_grid_mlp, use_sep_s2_act=use_sep_s2_act)
 
     def forward(self, x, atomic_numbers, edge_scalars, edge_src, edge_dst,
                 edge_mask, wigner, t_ij, rl_ij, k: int, graph_idx,
-                num_graphs: int, generator: Optional[torch.Generator] = None, phi_r=None):
-        """Returns (x, t_ij); ``t_ij`` and ``rl_ij`` are None without GATA,
-        ``phi_r`` (the distance RBF) without ``use_phi_every_layer``."""
+                num_graphs: int, generator: Optional[torch.Generator] = None, phi_r=None,
+                a_ij=None):
+        """Returns (x, t_ij, a_ij); ``t_ij`` is None without GATA-V2,
+        ``rl_ij`` without GATA (V2 or v1), ``a_ij`` without the dual
+        stream, ``phi_r`` (the distance RBF) without ``use_phi_every_layer``."""
         if self.gata:
             X_i = gather_nodes(x, edge_src)[:, 1:, :]
             X_j = gather_dst(x, k)[:, 1:, :]
             t_ij = self.htr(t_ij, X_i, X_j, rl_ij)
+            if self.dual_stream:
+                a_ij = self.angular_htr(a_ij, t_ij, x, edge_src, k, edge_mask)
         h = self.ga(self.attn_norm(x), atomic_numbers, edge_scalars, edge_src,
                     edge_dst, edge_mask, wigner, t_ij, rl_ij, k, generator, phi_r)
         h = self.drop_path(h, graph_idx, num_graphs, generator)
         x = x + self.proj_drop(h, generator)
-        h = self.drop_path(self.ffn(self.ffn_norm(x)), graph_idx, num_graphs, generator)
+        h = self.ffn_norm(x)
+        if self.ffn_variant in ("moe", "moe_breaking"):
+            h = self.ffn(h, t_ij, k, edge_mask)
+        elif self.ffn_variant == "tensor_product":
+            h = self.ffn(h, t_ij, a_ij if a_ij is not None else t_ij, k, edge_mask)
+        else:
+            h = self.ffn(h)
+        h = self.drop_path(h, graph_idx, num_graphs, generator)
         x = x + self.proj_drop(h, generator)
-        return x, t_ij
+        return x, t_ij, a_ij

@@ -1,58 +1,35 @@
-"""Equivariant feed-forward network (port of the JAX package's nn/ffn.py).
+"""Equivariant feed-forward networks (port of the JAX package's nn/ffn.py).
 
-SO3 linear -> separable-S2 activation -> SO3 linear, on full (mmax = lmax)
-features (reference transformer_block.py:339-453).  The S2 activation here
-is kernel K2's site on the GPU.
+``FeedForward``: SO3 linear -> activation -> SO3 linear on full
+(mmax = lmax) features (reference transformer_block.py:339-453), with the
+JAX package's activation options: the separable S2 activation (the
+default; kernel K2's site on the GPU), the gate activation
+(``use_gate_act``), the plain S2 activation (``use_sep_s2_act=False``, also
+K2), or the grid MLP (``use_grid_mlp``: three dense maps on the grid
+points, with or without separate l = 0 scalars).
 
-``StackedFeedForward`` is T such networks with weights stacked on a leading
+``FeedForward(num=T)`` is T such networks with weights stacked on a leading
 target axis: the JAX package's ``nn.vmap`` of ``FeedForward`` over the QM9
-heads (models/qm9.py:122-133).  Its T S2 activations run as one call over
+heads (models/qm9.py:122-133).  Its T activations run as one call over
 [T N, K, hidden] (one K2a launch on the card).
+
+``ESENFeedForward``: the eSEN-style FFN, gated directly in SH space with no
+grid (reference GATA_and_all2all_escninsipred_envelope_and_simple_gating
+fork, transformer_block.py:369-475).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.s2grid import S2Grid
-from .activations import separable_s2_activation
-from .layers import Linear
+from .activations import gate_activation, s2_activation, separable_s2_activation
+from .layers import Linear, StackedLinear, scaled_silu
 from .so3_layers import SO3Linear
 
-__all__ = ["FeedForward", "StackedFeedForward"]
-
-
-class FeedForward(nn.Module):
-    def __init__(self, sphere_channels: int, hidden_channels: int,
-                 output_channels: int, lmax: int, grid_full: S2Grid):
-        super().__init__()
-        self.grid = grid_full
-        self.gating_linear = Linear(sphere_channels, hidden_channels)
-        self.so3_linear_1 = SO3Linear(sphere_channels, hidden_channels, lmax)
-        self.so3_linear_2 = SO3Linear(hidden_channels, output_channels, lmax)
-
-    def forward(self, x):
-        """x: [N, K_full, C] -> [N, K_full, output_channels]."""
-        gating = self.gating_linear(x[:, 0, :])
-        h = separable_s2_activation(gating, self.so3_linear_1(x), self.grid)
-        return self.so3_linear_2(h)
-
-
-class _StackedLinear(nn.Module):
-    """T dense maps: weight [T, out, in], bias [T, out]; computes in the
-    promoted type of input and weight, as ``Linear`` does."""
-
-    def __init__(self, num: int, in_features: int, out_features: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(num, out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(num, out_features))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [N, in] (shared by the T maps) -> [T, N, out]."""
-        dt = torch.promote_types(x.dtype, self.weight.dtype)
-        return (torch.einsum("ni,toi->tno", x.to(dt), self.weight.to(dt))
-                + self.bias.to(dt)[:, None, :])
+__all__ = ["FeedForward", "ESENFeedForward"]
 
 
 class _StackedSO3Linear(nn.Module):
@@ -74,22 +51,97 @@ class _StackedSO3Linear(nn.Module):
         return torch.cat(out, dim=2)
 
 
-class StackedFeedForward(nn.Module):
-    """``num`` FeedForwards over one input, weights on a leading axis."""
+class FeedForward(nn.Module):
+    """x [N, K_full, C] -> [N, K_full, output_channels]; with ``num`` (the
+    stacked form) -> [num, N, K_full, output_channels]."""
 
-    def __init__(self, num: int, sphere_channels: int, hidden_channels: int,
-                 output_channels: int, lmax: int, grid_full: S2Grid):
+    def __init__(self, sphere_channels: int, hidden_channels: int,
+                 output_channels: int, lmax: int, grid_full: S2Grid,
+                 use_gate_act: bool = False, use_grid_mlp: bool = False,
+                 use_sep_s2_act: bool = True, num: int | None = None):
         super().__init__()
-        self.grid = grid_full
-        self.gating_linear = _StackedLinear(num, sphere_channels, hidden_channels)
-        self.so3_linear_1 = _StackedSO3Linear(num, sphere_channels, hidden_channels, lmax)
-        self.so3_linear_2 = _StackedSO3Linear(num, hidden_channels, output_channels, lmax)
+        self.grid, self.lmax, self.num = grid_full, lmax, num
+        self.use_gate_act, self.use_grid_mlp = use_gate_act, use_grid_mlp
+        self.use_sep_s2_act = use_sep_s2_act
+        C, H = sphere_channels, hidden_channels
 
-    def forward(self, x):
-        """x: [N, K_full, C] -> [T, N, K_full, output_channels]."""
-        gating = self.gating_linear(x[:, 0, :])          # [T, N, H]
-        h = self.so3_linear_1(x)                         # [T, N, K, H]
-        T, N, K, H = h.shape
-        h = separable_s2_activation(gating.reshape(T * N, H), h.reshape(T * N, K, H),
-                                    self.grid)
-        return self.so3_linear_2(h.reshape(T, N, K, H))
+        def dense(i, o, bias=True):
+            return Linear(i, o, bias=bias) if num is None else StackedLinear(num, i, o, bias)
+
+        if use_grid_mlp:
+            if use_sep_s2_act:
+                self.scalar_mlp = dense(C, H)
+        elif use_gate_act:
+            self.gating_linear = dense(C, lmax * H)
+        elif use_sep_s2_act:
+            self.gating_linear = dense(C, H)
+        so3 = SO3Linear if num is None else (lambda *a: _StackedSO3Linear(num, *a))
+        self.so3_linear_1 = so3(C, H, lmax)
+        if use_grid_mlp:
+            for i in range(3):
+                setattr(self, f"grid_mlp_{i}", dense(H, H, bias=False))
+        self.so3_linear_2 = so3(H, output_channels, lmax)
+
+    def _dense(self, mod: nn.Module, x: torch.Tensor, shared: bool = False) -> torch.Tensor:
+        return mod(x) if self.num is None else mod(x, shared=shared)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x0 = x[:, 0, :]
+        gating = None
+        if self.use_grid_mlp:
+            if self.use_sep_s2_act:
+                gating = F.silu(self._dense(self.scalar_mlp, x0, shared=True))
+        elif self.use_gate_act or self.use_sep_s2_act:
+            gating = self._dense(self.gating_linear, x0, shared=True)
+        h = self.so3_linear_1(x)
+        lead, (K, H) = h.shape[:-3], h.shape[-2:]
+        h = h.reshape(-1, K, H)                  # the T heads side by side
+        if gating is not None:
+            gating = gating.reshape(-1, gating.shape[-1])
+
+        if self.use_grid_mlp:
+            g = self.grid.to_grid(h)
+            for i in range(3):
+                g = self._dense(getattr(self, f"grid_mlp_{i}"),
+                                g.reshape(lead + (-1,) + tuple(g.shape[1:])))
+                g = g.reshape((-1,) + tuple(g.shape[len(lead) + 1:]))
+                if i < 2:
+                    g = F.silu(g)
+            h = self.grid.from_grid(g)
+            if self.use_sep_s2_act:
+                h = torch.cat([gating[:, None, :], h[:, 1:, :]], dim=1)
+        elif self.use_gate_act:
+            h = gate_activation(gating, h, self.lmax, self.lmax, H)
+        elif self.use_sep_s2_act:
+            h = separable_s2_activation(gating, h, self.grid)
+        else:
+            h = s2_activation(h, self.grid)
+        return self.so3_linear_2(h.reshape(lead + (-1, K, H)))
+
+
+class ESENFeedForward(nn.Module):
+    """SO3Linear (expand) -> l=0: ScaledSiLU; l>0: x^(l) *
+    sigmoid(gate_proj_l(ScaledSiLU(x^(0)))) -> SO3Linear (contract).
+
+    The gate projections start at weight 0 / bias 2.0, so the gates start
+    nearly open (reference :436-439); the gates are invariant scalars
+    shared across m within each l, so the FFN is exactly equivariant.
+    """
+
+    def __init__(self, sphere_channels: int, hidden_channels: int,
+                 output_channels: int, lmax: int):
+        super().__init__()
+        self.lmax = lmax
+        self.so3_linear_1 = SO3Linear(sphere_channels, hidden_channels, lmax)
+        for l in range(1, lmax + 1):
+            setattr(self, f"gate_proj_{l}", Linear(hidden_channels, hidden_channels))
+        self.so3_linear_2 = SO3Linear(hidden_channels, output_channels, lmax)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.so3_linear_1(x)
+        out_scalar = scaled_silu(h[:, :1, :])
+        out = [out_scalar]
+        for l in range(1, self.lmax + 1):
+            gate = torch.sigmoid(getattr(self, f"gate_proj_{l}")(out_scalar[:, 0, :]))
+            out.append(h[:, l * l : (l + 1) ** 2, :] * gate[:, None, :])
+        return self.so3_linear_2(torch.cat(out, dim=1))

@@ -1,6 +1,7 @@
 """GATA components: HTR edge-stream refinement and the GATA value activation.
 
-Port of the JAX package's nn/gata.py (``HTR``, ``GATAValueActivation``).
+Port of the JAX package's nn/gata.py (``HTR``, ``GATAValueActivation``,
+``gata_value_activation_v1``).
 ``t_ij`` is a per-edge invariant stream threaded through all blocks; HTR
 refines it each layer from inner products of the steerable node features
 with the edge-direction component rejected; the value activation turns it
@@ -16,7 +17,33 @@ import torch.nn.functional as F
 
 from .layers import Linear
 
-__all__ = ["HTR", "GATAValueActivation"]
+__all__ = ["HTR", "GATAValueActivation", "gata_value_activation_v1"]
+
+
+def gata_value_activation_v1(gates: torch.Tensor, X_j: torch.Tensor, rl_ij: torch.Tensor,
+                             lmax: int, hidden_channels: int) -> torch.Tensor:
+    """GATA v1 value activation, parameter-free (reference
+    Gotennet_inspired/activation.py:168-245): no t_ij stream, the gates
+    o_s / o_d^(l) / o_t^(l) come straight from so2_conv_1's extra m = 0
+    outputs, X_j is used unprojected and the output keeps the full
+    (lmax+1)^2 width (so the model runs with mmax == lmax).
+
+    gates: [E, (1 + 2 lmax) C]; X_j: [E, K_full-1, C] unrotated;
+    rl_ij: [E, K_full-1].  Returns [E, K_full, C].
+    """
+    C = hidden_channels
+    rl_ij = rl_ij.to(gates.dtype)
+    out = [F.silu(gates[:, :C])[:, None, :]]
+    offset = 0
+    for l in range(1, lmax + 1):
+        d = 2 * l + 1
+        rl = rl_ij[:, offset : offset + d, None]
+        Xl = X_j[:, offset : offset + d, :]
+        offset += d
+        od = gates[:, l * C : (l + 1) * C][:, None, :]
+        ot = gates[:, (lmax + l) * C : (lmax + l + 1) * C][:, None, :]
+        out.append(od * rl + ot * Xl)
+    return torch.cat(out, dim=1)
 
 
 class HTR(nn.Module):

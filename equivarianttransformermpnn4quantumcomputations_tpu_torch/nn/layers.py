@@ -20,8 +20,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["Linear", "LayerNorm", "RadialMLP", "GaussianSmearing", "smooth_leaky_relu",
-           "keep_mask"]
+__all__ = ["Linear", "StackedLinear", "LayerNorm", "RadialMLP", "GaussianSmearing",
+           "smooth_leaky_relu", "scaled_silu", "keep_mask"]
+
+_SCALED_SILU = 1.6791767923989418
+
+
+def scaled_silu(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x) * _SCALED_SILU
 
 
 def smooth_leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
@@ -45,6 +51,28 @@ class Linear(nn.Linear):
         dt = torch.promote_types(x.dtype, self.weight.dtype)
         b = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class StackedLinear(nn.Module):
+    """T dense maps with weights on a leading axis: weight [T, out, in],
+    bias [T, out] (or none); the JAX package's ``nn.vmap`` of a ``Dense``
+    over stacked params.  Computes in the promoted type of input and
+    weight, as ``Linear`` does."""
+
+    def __init__(self, num: int, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num, out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(num, out_features)) if bias else None
+
+    def forward(self, x: torch.Tensor, shared: bool = False) -> torch.Tensor:
+        """x [T, ..., in] -> [T, ..., out]; with ``shared`` x [..., in] goes
+        through each of the T maps -> [T, ..., out]."""
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        x, w = x.to(dt), self.weight.to(dt)
+        y = torch.einsum("...i,toi->t...o" if shared else "t...i,toi->t...o", x, w)
+        if self.bias is not None:
+            y = y + self.bias.to(dt).reshape((w.shape[0],) + (1,) * (y.dim() - 2) + (-1,))
+        return y
 
 
 class LayerNorm(nn.LayerNorm):

@@ -21,6 +21,7 @@ any order, with no saved activations.
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import numpy as np
@@ -39,6 +40,7 @@ __all__ = [
     "rotate_from_edge_dense",
     "rotate_to_edge_m0_dense",
     "launches",
+    "launches_by_lm",
 ]
 
 KINDS = ("to", "from", "to_m0", "from_m0")
@@ -46,8 +48,10 @@ KINDS = ("to", "from", "to_m0", "from_m0")
 INSTANCES = ((1, 1), (2, 1), (2, 2), (3, 1), (3, 2), (3, 3), (4, 2), (4, 4), (6, 2))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches per kind (the launch wrapper adds one per launch)
+# kernel launches per kind, and per (kind, lmax, mmax) instance (the launch
+# wrapper adds one to each per launch)
 launches = {k: 0 for k in KINDS}
+launches_by_lm: dict[tuple[str, int, int], int] = collections.defaultdict(int)
 
 
 # ── static pair tables ─────────────────────────────────────────────────────
@@ -229,6 +233,7 @@ def pairs_apply_kernel(x: torch.Tensor, v: torch.Tensor, lmax: int, mmax: int,
     )
     build.check("rotate_dense", rc, f"rotate_pairs.{kind}")
     launches[kind] += 1
+    launches_by_lm[(kind, lmax, mmax)] += 1
     return y
 
 

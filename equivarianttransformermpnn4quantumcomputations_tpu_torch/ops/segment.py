@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["gather_nodes", "gather_dst", "segment_sum", "sum_over_slots",
-           "softmax_over_slots"]
+           "mean_over_slots", "softmax_over_slots"]
 
 _NEG = -1e30
 
@@ -53,6 +53,15 @@ def sum_over_slots(values: torch.Tensor, k: int,
     """Sum the k slots of each node: values [N k, ...] -> [N, ...]."""
     values = _masked(values, mask)
     return values.reshape((values.shape[0] // k, k) + tuple(values.shape[1:])).sum(1)
+
+
+def mean_over_slots(values: torch.Tensor, k: int, mask: torch.Tensor) -> torch.Tensor:
+    """Mean over each node's real slots (zeros for a node with none):
+    values [N k, ...] -> [N, ...]; the count is taken in ``values``' type,
+    as the JAX package's ``segment_mean`` does."""
+    cnt = mask.to(values.dtype).reshape(-1, k).sum(1)
+    cnt = torch.clamp(cnt, min=1.0).reshape((-1,) + (1,) * (values.dim() - 1))
+    return sum_over_slots(values, k, mask) / cnt
 
 
 def softmax_over_slots(logits: torch.Tensor, k: int,

@@ -1,29 +1,35 @@
 """Flax params (nested dict of numpy arrays) -> the port's ``state_dict``.
 
-The params of the JAX package's ``EquiformerV2MatPES`` (GATA-V2),
-``EquiformerV2QM9`` (baseline backbone + ``output_blocks``) and
-``EquiformerV2OC20`` (baseline backbone + ``energy_block`` + ``force_block``,
-a ``FeedForward`` and a ``GraphAttention`` at the top level) map one to one
-onto the port's modules:
+The params of the JAX package's ``EquiformerV2MatPES`` (every registry
+variant: GATA-V2, GATA v1, the baseline, the global-attention stage, the
+MoE, dual-stream and eSEN FFNs), ``EquiformerV2QM9`` (baseline backbone +
+``output_blocks``) and ``EquiformerV2OC20`` (baseline backbone +
+``energy_block`` + ``force_block``, a ``FeedForward`` and a
+``GraphAttention`` at the top level) map one to one onto the port's
+modules:
 
 * ``Dense`` ``kernel`` [in, out] -> ``nn.Linear.weight`` [out, in] (the
-  QM9 heads' stacked ``kernel`` [T, in, out] -> [T, out, in]: the last two
-  axes swap);
+  stacked ``kernel`` [T, in, out] of the QM9 heads and of the MoE experts
+  ``experts_eq`` / ``experts_ne`` -> [T, out, in]: the last two axes swap,
+  the head / expert order stays);
   ``Embed`` ``embedding`` -> ``nn.Embedding.weight``; ``LayerNorm``
   ``scale`` -> ``weight``; every other leaf (SO3/SO2 weights, norms,
   ``alpha_dot``) keeps its name and layout;
 * Flax's automatic names become the port's: ``Embed_0`` / ``Embed_1`` ->
   ``src_embedding`` / ``dst_embedding``, ``RadialMLP_0`` -> ``rad``,
-  ``Dense_i`` / ``LayerNorm_i`` -> ``linears.i`` / ``norms.i``, and the
-  ``EquivariantRMSNormSH_*`` norms -> ``attn_norm`` / ``ffn_norm`` inside a
+  ``Dense_i`` / ``LayerNorm_i`` -> ``linears.i`` / ``norms.i`` (the
+  ``LayerNorm_0`` of an ``EquivariantLayerNormSH`` -> ``l0_norm``), and
+  the ``EquivariantRMSNormSH_*`` / ``EquivariantLayerNormSH_*`` /
+  ``EquivariantLayerNorm_*`` norms -> ``attn_norm`` / ``ffn_norm`` inside a
   block, ``norm`` after the stack;
 * ``block_i`` -> ``blocks.i``; with ``scan_layers=True`` the stacked
   ``blocks/block`` params (a leading layer axis) are split into
   ``blocks.0 .. blocks.L-1``;
-* the options of the JAX package's MatPES configs need no rule of their
-  own: ``use_phi_every_layer``'s ``value_act/phi_proj`` (a named ``Dense``)
-  becomes ``ga.value_act.phi_proj.weight`` / ``.bias`` like every Dense,
-  and ``normalize_attn_output`` adds no parameter.
+* every other module is named alike on both sides and needs no rule of
+  its own: ``global_attn/*`` (with ``rope/rope_freqs``), the MoE's
+  ``router_*``, the dual stream's ``a_h_proj`` / ``a_W_erp`` /
+  ``angular_htr`` and ``TensorProductFFN``, the eSEN ``gate_proj_*``, the
+  ``grid_mlp_*`` and ``value_act/phi_proj``.
 """
 
 from __future__ import annotations
@@ -60,8 +66,9 @@ def _rename(path: tuple) -> tuple:
         elif m := re.fullmatch(r"Dense_(\d+)", seg):
             seg = f"linears.{m.group(1)}"
         elif m := re.fullmatch(r"LayerNorm_(\d+)", seg):
-            seg = f"norms.{m.group(1)}"
-        elif m := re.fullmatch(r"EquivariantRMSNormSH_(\d+)", seg):
+            in_sh_norm = i > 0 and re.fullmatch(r"EquivariantLayerNormSH_\d+", path[i - 1])
+            seg = "l0_norm" if in_sh_norm else f"norms.{m.group(1)}"
+        elif m := re.fullmatch(r"Equivariant(?:RMSNormSH|LayerNormSH|LayerNorm)_(\d+)", seg):
             seg = ("attn_norm", "ffn_norm")[int(m.group(1))] if in_block else "norm"
         elif m := re.fullmatch(r"block_(\d+)", seg):
             seg = f"blocks.{m.group(1)}"

@@ -2,7 +2,8 @@
 or one training step.
 
     python -m equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling \
-        [--train | --baseline | --qm9 | --oc20] [--structures N] [--atoms N] [--json PATH]
+        [--train | --baseline | --qm9 | --oc20 | --variant NAME] [--structures N]
+        [--atoms N] [--json PATH]
 
 Serving (default): the flagship Predictor (``models/matpes.py:FLAGSHIP``,
 seeded random weights) answers requests of random periodic structures.
@@ -21,7 +22,13 @@ weights, dropout off as in bench.py) of the full OC20 model
 periodic structures of 72 atoms (``oc20_batch``: cutoff 12, 20
 neighbours, N_pad 320, E_pad 6,400), once with the factored Wigner
 rotation (kernel K4) and once with the dense one (kernel K1), in that
-order.  Each profile warms up twice,
+order.  ``--variant NAME``: one bf16 force-training step of a MatPES
+preset of the model registry (``models/registry.py``) at the flagship's
+widths with the preset's own overrides (GATA v1: mmax 4), dropout off,
+on the ``--train`` batch; a preset with a global-attention stage also
+gets that stage profiled alone at the step's shapes (its forward, the
+first derivative by its input and the second by its parameters: the
+work it adds to a force-training step).  Each profile warms up twice,
 times one call unprofiled, then profiles one with ``torch.profiler`` (CPU and CUDA
 activities) and prints: the call's time with and without the profiler,
 the host time of the graph build and collate, the summed kernel time, the
@@ -45,7 +52,7 @@ import numpy as np
 import torch
 
 __all__ = ["random_structures", "random_molecules", "qm9_batch", "qm9_train_state",
-           "oc20_batch", "oc20_train_state", "profile_call", "main"]
+           "oc20_batch", "oc20_train_state", "variant_model", "profile_call", "run", "main"]
 
 _BUCKETS = (
     # s2act_tc_kernel: K2a, K2b and K2c; s2act_kernel and s2act_k3_kernel:
@@ -276,6 +283,72 @@ def _training(args, baseline: bool = False) -> tuple[str, dict]:
     return what, dict(host_graph_build_ms=host_ms, **profile_call(lambda: step(batch)))
 
 
+def variant_model(name: str, compute_dtype=torch.float32, seed: int = 0, **kw):
+    """A MatPES preset of the registry at the flagship's widths (the
+    preset's own overrides win, e.g. GATA v1's mmax 4; ``kw`` wins over
+    both), dropout off, with seeded random weights, on the CPU."""
+    from ..models.matpes import FLAGSHIP, init_weights
+    from ..models.registry import get_model, make_model
+
+    overrides = get_model(name)[1]
+    widths = {k: v for k, v in FLAGSHIP.items() if k not in overrides}
+    model = make_model(name, **{**widths, "alpha_drop": 0.0, "drop_path_rate": 0.0,
+                                "compute_dtype": compute_dtype, **kw})
+    return init_weights(model, torch.Generator().manual_seed(seed))
+
+
+def _global_stage_call(model, batch):
+    """The preset's global-attention stage alone at the step's shapes: its
+    forward on the backbone's output, the derivative by that input (as the
+    forces take it) and the derivative of that by the parameters."""
+    with torch.no_grad():
+        x0 = model.backbone(batch["atomic_numbers"], batch["pos"], batch["graph_idx"],
+                            batch["edge_src"], batch["edge_dst"], batch["edge_shift"],
+                            batch["edge_mask"], batch["cell"]).x
+    gen = torch.Generator("cuda").manual_seed(1)
+    ct = torch.randn(x0.shape, generator=gen, device="cuda")
+
+    def call():
+        x = x0.clone().requires_grad_(True)
+        y = model._global(x, batch, batch["pos"])
+        (g,) = torch.autograd.grad((y * ct).sum(), x, create_graph=True)
+        (g * ct).sum().backward()
+
+    return call
+
+
+def _variant(args) -> list[tuple[str, dict]]:
+    from ..data.graph import as_tensors, collate
+    from ..data.synthetic import labelled_structures
+    from ..inference import pad_sizes
+    from ..models.matpes import FLAGSHIP
+    from ..train.schedules import warmup_cosine
+    from ..train.trainer import GuardedAdamW, create_train_state, make_matpes_train_step
+
+    model = variant_model(args.variant, torch.bfloat16).to("cuda")
+    opt = GuardedAdamW(model.named_parameters(), warmup_cosine(2e-4, 100, 10000), 1e-3, 1.0)
+    state = create_train_state(model, opt)
+    step = make_matpes_train_step(state, generator=torch.Generator("cuda").manual_seed(0))
+    samples = labelled_structures(np.random.default_rng(0), args.structures, args.atoms)
+    n_pad, e_pad = pad_sizes([args.atoms] * args.structures, 20, 20)
+    t = time.perf_counter()
+    pb = collate(samples, FLAGSHIP["cutoff"], 20, n_pad, e_pad)
+    host_ms = (time.perf_counter() - t) * 1e3
+    batch = as_tensors(pb, "cuda")
+    for _ in range(2):
+        step(batch)
+    out = [(f"{args.variant} training step (bf16)",
+            dict(host_graph_build_ms=host_ms, **profile_call(lambda: step(batch))))]
+    if model.global_attn_kind is not None:
+        call = _global_stage_call(model, batch)
+        for _ in range(2):
+            call()
+        out.append((f"{args.variant} global attention ({model.global_attn_kind}) alone: "
+                    "forward, first and second derivative",
+                    dict(host_graph_build_ms=0.0, **profile_call(call))))
+    return out
+
+
 def _qm9(args, conv_fused: bool) -> tuple[str, dict]:
     from ..data.graph import as_tensors
 
@@ -328,7 +401,9 @@ def _report(card: str, what: str, rec: dict, args) -> dict:
     return rec
 
 
-def main(argv=None) -> int:
+def run(argv=None) -> list[dict]:
+    """Parse ``argv`` as the command line does, profile, print, and return
+    the records."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--train", action="store_true",
@@ -339,6 +414,8 @@ def main(argv=None) -> int:
                       help="profile a QM9 training step, with and without kernel K3")
     mode.add_argument("--oc20", action="store_true",
                       help="profile an OC20 training step, factored (K4) and dense (K1)")
+    mode.add_argument("--variant", default=None, metavar="NAME",
+                      help="profile a bf16 training step of a MatPES registry preset")
     ap.add_argument("--structures", type=int, default=None,
                     help="structures per call (default 16; --qm9: 64 molecules; --oc20: 4)")
     ap.add_argument("--atoms", type=int, default=None,
@@ -354,20 +431,27 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     if args.qm9:
-        calls = [lambda: _qm9(args, True), lambda: _qm9(args, False)]
+        calls = [lambda: [_qm9(args, True)], lambda: [_qm9(args, False)]]
     elif args.oc20:
-        calls = [lambda: _oc20(args, "factored"), lambda: _oc20(args, "dense")]
+        calls = [lambda: [_oc20(args, "factored")], lambda: [_oc20(args, "dense")]]
     elif args.train or args.baseline:
-        calls = [lambda: _training(args, args.baseline)]
+        calls = [lambda: [_training(args, args.baseline)]]
+    elif args.variant:
+        calls = [lambda: _variant(args)]
     else:
-        calls = [lambda: _serving(args)]
+        calls = [lambda: [_serving(args)]]
     recs = []
     for call in calls:
         torch.cuda.reset_peak_memory_stats()
-        recs.append(_report(card, *call(), args))
+        recs += [_report(card, what, rec, args) for what, rec in call()]
     if args.json:
         with open(args.json, "w") as f:
             json.dump(recs if len(recs) > 1 else recs[0], f, indent=1)
+    return recs
+
+
+def main(argv=None) -> int:
+    run(argv)
     return 0
 
 

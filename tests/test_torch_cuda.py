@@ -602,3 +602,55 @@ def test_stress_step_on_the_card_matches_the_cpu(dev):
     num = sum(float(((got["grads"][k] - w) ** 2).sum()) for k, w in want["grads"].items())
     den = sum(float((w ** 2).sum()) for w in want["grads"].values())
     assert (num / den) ** 0.5 <= 1e-3
+
+
+def test_gata_v1_model_on_the_card_matches_the_cpu(dev):
+    """A small GATA v1 model (the registry's ``equiformer_v2_matpes_gata``:
+    lmax = mmax = 4, so K1 runs its (4, 4) instance) forward and backward:
+    energies, forces and the gradients of a force loss (a grad-of-grad) on
+    the card against the CPU plain path."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import (
+        as_tensors,
+        collate,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.synthetic import (
+        labelled_structures,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        matpes_energy_forces,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.registry import (
+        make_model,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        matpes_loss,
+    )
+
+    cfg = dict(num_layers=2, sphere_channels=16, attn_hidden_channels=16, num_heads=2,
+               attn_alpha_channels=8, attn_value_channels=8, ffn_hidden_channels=128,
+               lmax=4, grid_resolution=12, edge_channels=16, num_rbf=32, cutoff=5.0,
+               alpha_drop=0.0, drop_path_rate=0.0)
+    weights = init_weights(make_model("equiformer_v2_matpes_gata", **cfg),
+                           torch.Generator().manual_seed(0)).state_dict()
+    pb = collate(labelled_structures(np.random.default_rng(1), 2, 9), 5.0, 8, 32, 256)
+    out = {}
+    for d in ("cuda", "cpu"):
+        model = make_model("equiformer_v2_matpes_gata", **cfg)
+        model.load_state_dict(weights)
+        model.to(d)
+        before = dict(rd.launches_by_lm)
+        outs = matpes_energy_forces(model, as_tensors(pb, d), create_graph=True)
+        loss, _ = matpes_loss(outs, as_tensors(pb, d), 1.0, 1.0)
+        loss.backward()
+        if d == "cuda":
+            ran = {k for k, c in rd.launches_by_lm.items() if c > before.get(k, 0)}
+            assert ran == {(k, 4, 4) for k in ("to_m0", "from", "to", "from_m0")}, ran
+        out[d] = dict(e=outs["energy"].detach().cpu(), f=outs["forces"].detach().cpu(),
+                      g={n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+                         for n, p in model.named_parameters()})
+    g, c = out["cuda"], out["cpu"]
+    torch.testing.assert_close(g["e"], c["e"], rtol=1e-4, atol=0)
+    assert (g["f"] - c["f"]).abs().max() <= 1e-3 * max(1.0, float(c["f"].abs().max()))
+    num = sum(float((g["g"][k] - c["g"][k]).double().square().sum()) for k in c["g"])
+    den = sum(float(c["g"][k].double().square().sum()) for k in c["g"])
+    assert (num / den) ** 0.5 <= 1e-3
