@@ -112,6 +112,33 @@ Phases, each of which raises on failure:
      Phase 3 holds K1's (lmax 4, mmax 4) instance, which GATA v1 runs, at
      its four kinds on the flagship's edges too (records
      ``rotate_pairs.<kind>[4,4]``, whose launches are the GATA v1 step's).
+  14. data-parallel training (``parallel/data_parallel.py``) on the one card,
+     on phase 6's flagship step and layout, in f32 and in bf16 (the main
+     path's precision), each held to ``DP_LIMITS``: phase 7's limits in
+     f32, the repository's bf16 step limits in bf16 (two runs of the same
+     bf16 step on the card differ by 2e-3 to 1.4e-2; (a) prints it): (a)
+     one process with data=2 micro-batches, launch counts zeroed just
+     before each step; its loss and averaged gradients against the mean of
+     the two single-micro-batch steps; fails if a kernel of the path never
+     launched; (b) the same step in a one-rank NCCL group (a TCP store on
+     localhost): the flat gradient buffer after the all-reduce and the
+     division must be bit-identical to the local mean, the all-reduce's ms
+     and bytes are printed, the step is held to (a); (c) 2 spawned ranks
+     on the one card over gloo (which takes CUDA tensors, through the
+     host: no speed number), one micro-batch each, 2 steps per precision:
+     parameters and EMA bit-identical on both ranks after each step, loss
+     and gradients held to (a), K1's four kinds and K2a-c launched in each
+     rank; (d)
+     ``train/train_matpes.py --config synthetic --multihost --mesh data=2
+     --epochs 1`` as 2 processes over gloo: rank 0 writes the run
+     (losses.csv, metrics.json, checkpoints), rank 1 writes nothing; (e)
+     the OC20 full-width bf16 data-parallel step at 2 ranks over gloo:
+     finite, accepted, replicas identical, K4 "to" / "from" launched; (f)
+     the host graph build + collate of a flagship batch with the C++
+     neighbour-list builder and with numpy: identical edges, ms of each.
+     The ranks load the kernels phase 2 built (a rank that found one
+     missing would build its own copy: ``ops/cuda/build.py`` compiles into
+     a per-process temporary file and renames it into place).
 The line before the last is the kernels' JSON record and the card; the last
 line is the device JSON (not with ``--rotation-only``).  Without a CUDA
 device the script exits non-zero and prints no result.
@@ -1730,6 +1757,384 @@ def variant_parity_phase(tag: str) -> None:
             raise RuntimeError(f"the {name} step on the card disagrees with the CPU")
 
 
+# phase 14: multi-process data-parallel training on the one card
+DP_SEED = 14          # the micro-batches of phase 14 (_flagship_batches' seed)
+DP_TIMEOUT_S = 600    # each group of spawned processes
+# (loss relative, gradients relative L2) a data-parallel step is held to:
+# phase 7's limits in float32; in bfloat16 the limits of the repository's
+# bf16 step tests (tests/test_torch_train.py), since two runs of the same
+# bf16 step on the card already differ by 2e-3 to 1.4e-2 in their gradients
+# (relative L2; the atomics of the gathers' backward reorder bf16 sums;
+# printed by (a))
+DP_LIMITS = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 5e-2)}
+DP_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _flagship_state(dtype: torch.dtype):
+    """A fresh flagship TrainState computing in ``dtype`` on the card, from
+    phase 6's seed (dropouts 0)."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        FLAGSHIP,
+        EquiformerV2MatPES,
+        init_weights,
+    )
+
+    model = EquiformerV2MatPES(**FLAGSHIP, alpha_drop=0.0, drop_path_rate=0.0,
+                               compute_dtype=dtype)
+    init_weights(model, torch.Generator().manual_seed(0)).to("cuda")
+    return _train_state(model)[0]
+
+
+def _digest(state) -> str:
+    """sha256 of every parameter and EMA entry, in order."""
+    import hashlib
+
+    params = [p.detach() for p in state.model.parameters()] + list(state.ema.values())
+    flat = torch.cat([t.reshape(-1) for t in params]).cpu()
+    return hashlib.sha256(flat.numpy().tobytes()).hexdigest()
+
+
+def _dp_rank(rank: int, port: int, out_dir: str) -> None:
+    """Phase 14 (c) and (e) in a spawned process: rank ``rank`` of 2 on the
+    one card over gloo (both ranks on cuda:0).  (c) in f32 and in bf16, 2
+    flagship DP steps each, rank r on micro-batch 2 s + r of step s; (e)
+    one full-width bf16 OC20 DP step.  Writes ``rank<r>.pt``: per precision
+    the step-1 loss and (rank 0) averaged gradients and the parameter + EMA
+    digests after each step; the launches; the OC20 step's."""
+    os.environ.update(WORLD_SIZE="2", RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port), ETQ_DIST_BACKEND="gloo", LOCAL_RANK="0")
+    import torch.distributed as dist
+
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.configs.oc20 import config
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import as_tensors
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
+        rotate,
+        rotate_dense,
+        s2act,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel import multihost
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel.data_parallel import (
+        make_matpes_dp_step,
+        make_oc20_dp_step,
+        stack_microbatches,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling import (
+        oc20_batch,
+        oc20_train_state,
+    )
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))   # the host's cores, shared
+    if not multihost.initialize_from_env(device="cuda", verbose=False):
+        raise RuntimeError("no process group")
+    try:
+        out = {"backend": dist.get_backend()}
+        batches = _flagship_batches(4, seed=DP_SEED)
+        counters = {**{f"rotate_pairs.{k}": (rotate_dense.launches, k)
+                       for k in rotate_dense.launches},
+                    **{f"s2act.{k}": (s2act.launches, k) for k in s2act.launches}}
+        for d, k in counters.values():
+            d[k] = 0
+        for name, dtype in DP_DTYPES.items():
+            state = _flagship_state(dtype)
+            step = make_matpes_dp_step(state, 2)
+            res = out[name] = {"digests": [], "ms": []}
+            for s in range(2):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                loss, m = step(stack_microbatches([batches[2 * s + rank]]))
+                torch.cuda.synchronize()
+                res["ms"].append((time.perf_counter() - t) * 1e3)
+                if not (np.isfinite(float(loss)) and m["accepted"]):
+                    raise RuntimeError(f"rank {rank} {name} step {s}: loss {float(loss)}, "
+                                       f"accepted {m['accepted']}")
+                res["digests"].append(_digest(state))
+                if s == 0:
+                    res["loss"] = float(loss)
+                    if rank == 0:
+                        res["grads"] = {n: g.to("cpu", copy=True)
+                                        for n, g in step.mean_grads().items()}
+            del state, step
+        out["launches"] = {n: d[k] for n, (d, k) in counters.items()}
+        del batches
+
+        ostate, _ = oc20_train_state("factored")
+        ostep = make_oc20_dp_step(ostate, 2, config["w_energy"], config["w_force"],
+                                  config["ema_decay"])
+        pb = oc20_batch(np.random.default_rng(20 + rank), OC20_GRAPHS, OC20_ATOMS)
+        for k in rotate.launches:
+            rotate.launches[k] = 0
+        t = time.perf_counter()
+        loss, m = ostep(stack_microbatches([as_tensors(pb, "cuda")]))
+        torch.cuda.synchronize()
+        out["oc20"] = dict(loss=float(loss), accepted=bool(m["accepted"]),
+                           ms=(time.perf_counter() - t) * 1e3, digest=_digest(ostate),
+                           launches=dict(rotate.launches))
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(target, nprocs: int, *args) -> None:
+    """Run ``target(rank, *args)`` in ``nprocs`` spawned processes; raise
+    unless every one exits 0 within ``DP_TIMEOUT_S`` (a hung one is killed)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, *args)) for r in range(nprocs)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    codes = []
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+        codes.append(p.exitcode)
+    if codes != [0] * nprocs:
+        raise RuntimeError(f"{target.__name__}: exit codes {codes}")
+
+
+def _dp_check(what: str, dtype, loss: float, want_loss: float, grads: dict, want: dict,
+              tag: str) -> tuple[float, float]:
+    """Hold a data-parallel step's loss and gradients to ``DP_LIMITS``."""
+    lim_loss, lim_grad = DP_LIMITS[dtype]
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    grad_rel = _rel_l2(grads, want)
+    print(f"{what}: loss {loss:.6f} vs {want_loss:.6f}, rel err {loss_rel:.2e} (limit "
+          f"{lim_loss:.0e}); gradient rel L2 err {grad_rel:.2e} (limit {lim_grad:.0e})  [{tag}]",
+          flush=True)
+    if not (loss_rel <= lim_loss and grad_rel <= lim_grad):
+        raise RuntimeError(f"{what}: the data-parallel step disagrees")
+    return loss_rel, grad_rel
+
+
+def dp_phase(counters: dict, tag: str) -> dict:
+    """Phase 14: data-parallel training (parallel/data_parallel.py) on the
+    one card.  Returns the launches of (a)'s bf16 step, counted from zero."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data import graph
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.synthetic import (
+        labelled_structures,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.inference import pad_sizes
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel.data_parallel import (
+        make_matpes_dp_step,
+        stack_microbatches,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        matpes_loss_grad,
+    )
+
+    def single(dtype, batch):
+        state = _flagship_state(dtype)
+        loss, _ = matpes_loss_grad(state)(batch)
+        return float(loss), {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach()
+                             for n, p in state.model.named_parameters()}
+
+    out = {"a": {}, "b": {}, "c": {}}
+    batches = _flagship_batches(2, seed=DP_SEED)
+    stacked = stack_microbatches(batches)
+    print(f"data-parallel: the flagship step, data=2 micro-batches of {N_STRUCTURES} x "
+          f"{N_ATOMS} atoms, in f32 and in bf16  [{tag}]", flush=True)
+
+    # (a) one process, data=2, against the mean of the two single steps
+    want, launches = {}, {}
+    for name, dtype in DP_DTYPES.items():
+        (l0, g0), (l1, g1) = single(dtype, batches[0]), single(dtype, batches[1])
+        l0_again, g0_again = single(dtype, batches[0])
+        print(f"(a) {name}: two runs of one single step differ by loss {abs(l0 - l0_again) / abs(l0):.2e}, "
+              f"gradients {_rel_l2(g0_again, g0):.2e} relative L2 (the card's run-to-run "
+              f"noise)  [{tag}]", flush=True)
+        mean = {k: (g0[k] + g1[k]) / 2 for k in g0}
+        norms = [sum(float((g[k].double() ** 2).sum()) for k in g) ** 0.5 for g in (g0, g1, mean)]
+        print(f"(a) {name}: gradient norms |g0| {norms[0]:.4e}, |g1| {norms[1]:.4e}, their mean "
+              f"{norms[2]:.4e} (the smaller the mean, the larger the same noise reads relative "
+              f"to it)  [{tag}]", flush=True)
+        del g0, g1, g0_again
+        state = _flagship_state(dtype)
+        step = make_matpes_dp_step(state, 2)
+        for d, k in counters.values():
+            d[k] = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, m = step(stacked)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        launches[name] = {n: d[k] for n, (d, k) in counters.items()}
+        if not (np.isfinite(float(loss)) and m["accepted"]):
+            raise RuntimeError(f"(a) {name}: loss {float(loss)}, accepted {m['accepted']}")
+        want[name] = (float(loss), {k: v.clone() for k, v in step.mean_grads().items()})
+        print(f"(a) {name} one process, data=2: {dt * 1e3:.1f} ms, launches "
+              f"{launches[name]}  [{tag}]", flush=True)
+        out["a"][name] = _dp_check(f"(a) {name} against the mean of the two single steps",
+                                   dtype, float(loss), (l0 + l1) / 2, want[name][1], mean, tag)
+        idle = [n for n, c in launches[name].items() if c == 0]
+        if idle:
+            raise RuntimeError(f"kernels never launched on the data-parallel path: {idle}")
+        del state, step, mean
+
+    # (b) the same steps inside a one-rank NCCL group
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        for name, dtype in DP_DTYPES.items():
+            state = _flagship_state(dtype)
+            step = make_matpes_dp_step(state, 2)
+            flat = step.accumulate(stacked)
+            local = flat.clone()
+            step.reduce(flat)
+            same = torch.equal(flat, local / 2)
+            buf = local.clone()
+            for _ in range(3):
+                dist.all_reduce(buf)
+            ts = []
+            for _ in range(15):
+                a, b = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                a.record()
+                dist.all_reduce(buf)
+                b.record()
+                b.synchronize()
+                ts.append(a.elapsed_time(b))
+            loss, m = step.finish(flat)
+            print(f"(b) {name} NCCL, world size 1: all-reduce of the flat buffer, "
+                  f"{buf.numel() * 4} bytes ({buf.numel()} f32), median {np.median(ts):.4f} ms "
+                  f"over 15; after it and the division, bit-identical to the local mean: "
+                  f"{same}  [{tag}]", flush=True)
+            if not same:
+                raise RuntimeError("(b): the one-rank all-reduce changed the gradients")
+            out["b"][name] = dict(allreduce_ms=float(np.median(ts)), bytes=buf.numel() * 4,
+                                  errors=_dp_check(f"(b) {name} against (a)", dtype,
+                                                   float(loss), want[name][0],
+                                                   step.mean_grads(), want[name][1], tag))
+            del state, step, flat, local, buf
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) + (e): two ranks on the one card over gloo
+        t = time.perf_counter()
+        _spawn(_dp_rank, 2, _free_port(), tmp)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        print(f"(c) 2 ranks over gloo on one card (gloo copies CUDA tensors through the "
+              f"host: these times are no data-parallel speed): the spawned group took "
+              f"{time.perf_counter() - t:.1f} s; step ms f32 {ranks[0]['f32']['ms']} / "
+              f"{ranks[1]['f32']['ms']}, bf16 {ranks[0]['bf16']['ms']} / "
+              f"{ranks[1]['bf16']['ms']}; launches rank 0 {ranks[0]['launches']}, rank 1 "
+              f"{ranks[1]['launches']}; peak {ranks[0]['peak_gib']:.2f} / "
+              f"{ranks[1]['peak_gib']:.2f} GiB  [{tag}]", flush=True)
+        if any(r["backend"] != "gloo" for r in ranks):
+            raise RuntimeError(f"(c): backends {[r['backend'] for r in ranks]}")
+        for r in ranks:
+            idle = [n for n, c in r["launches"].items() if c == 0]
+            if idle:
+                raise RuntimeError(f"(c): kernels never launched in a rank: {idle}")
+        for name, dtype in DP_DTYPES.items():
+            d0, d1 = ranks[0][name]["digests"], ranks[1][name]["digests"]
+            if d0 != d1:
+                raise RuntimeError(f"(c) {name}: the ranks' parameters differ: {d0} / {d1}")
+            print(f"(c) {name}: parameters and EMA bit-identical on both ranks after steps 1 "
+                  f"and 2 (sha256 {d0[0][:16]}..., {d0[1][:16]}...)  [{tag}]", flush=True)
+            grads = {k: v.cuda() for k, v in ranks[0][name]["grads"].items()}
+            out["c"][name] = _dp_check(f"(c) {name} 2 ranks against (a)", dtype,
+                                       ranks[0][name]["loss"], want[name][0], grads,
+                                       want[name][1], tag)
+            del grads
+        o = [r["oc20"] for r in ranks]
+        print(f"(e) OC20 full-width bf16 DP step, 2 ranks over gloo: loss {o[0]['loss']:.4f} / "
+              f"{o[1]['loss']:.4f}, {o[0]['ms']:.1f} / {o[1]['ms']:.1f} ms, launches "
+              f"{o[0]['launches']} / {o[1]['launches']}, replicas identical "
+              f"{o[0]['digest'] == o[1]['digest']}  [{tag}]", flush=True)
+        for r in o:
+            if not (np.isfinite(r["loss"]) and r["accepted"] and r["launches"]["to"]
+                    and r["launches"]["from"]):
+                raise RuntimeError(f"(e): {r}")
+        if o[0]["digest"] != o[1]["digest"] or o[0]["loss"] != o[1]["loss"]:
+            raise RuntimeError("(e): the OC20 ranks differ")
+        del want
+
+        # (d) the CLI: two processes over gloo, rank 0 writes, rank 1 writes nothing
+        port = _free_port()
+        procs = []
+        for r in range(2):
+            cwd = os.path.join(tmp, f"cli{r}")
+            os.makedirs(cwd)
+            env = dict(os.environ, WORLD_SIZE="2", RANK=str(r), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), ETQ_DIST_BACKEND="gloo", LOCAL_RANK="0",
+                       OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2) // 2)),
+                       PYTHONPATH=os.pathsep.join([HERE, os.environ.get("PYTHONPATH", "")]))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", f"{PKG}.train.train_matpes", "--config", "synthetic",
+                 "--multihost", "--mesh", "data=2", "--epochs", "1"], cwd=cwd, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        t = time.perf_counter()
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise
+        run0 = os.path.join(tmp, "cli0", "runs", "matpes_synthetic")
+        wrote = sorted(os.listdir(run0)) if os.path.isdir(run0) else []
+        rank1 = sorted(os.listdir(os.path.join(tmp, "cli1")))
+        print(f"(d) train_matpes --config synthetic --multihost --mesh data=2 --epochs 1, 2 "
+              f"processes over gloo: rc {[p.returncode for p in procs]}, "
+              f"{time.perf_counter() - t:.1f} s; rank 0 wrote {wrote}; rank 1 wrote "
+              f"{rank1 or 'nothing'}  [{tag}]", flush=True)
+        print("\n".join("  rank 0: " + line for line in logs[0].strip().splitlines()[-4:]))
+        need = {"losses.csv", "metrics.json", "config.json", "ckpt_best.pt",
+                "ckpt_epoch_00000.pt"}
+        if [p.returncode for p in procs] != [0, 0] or not need <= set(wrote) or rank1:
+            raise RuntimeError("(d): the data-parallel CLI failed:\n" + "\n".join(
+                f"--- rank {r} ---\n{log[-3000:]}" for r, log in enumerate(logs)))
+
+    # (f) the host graph build + collate of the flagship batch: C++ builder and numpy
+    samples = labelled_structures(np.random.default_rng(2), N_STRUCTURES, N_ATOMS)
+    n_pad, e_pad = pad_sizes([N_ATOMS] * N_STRUCTURES, MAX_NEIGHBORS, MAX_NEIGHBORS)
+    ms, pbs = {}, {}
+    try:
+        for native in (True, False, False, True):
+            graph.USE_NATIVE = native
+            ts = []
+            for _ in range(7):
+                t = time.perf_counter()
+                pbs[native] = graph.collate(samples, CUTOFF, MAX_NEIGHBORS, n_pad, e_pad)
+                ts.append((time.perf_counter() - t) * 1e3)
+            ms.setdefault(native, []).extend(ts)
+    finally:
+        graph.USE_NATIVE = True
+    same = all(np.array_equal(pbs[True].asdict()[k], pbs[False].asdict()[k])
+               for k in ("edge_src", "edge_dst", "edge_shift", "edge_mask"))
+    n_edges = int(pbs[True].edge_mask.sum())
+    out["f"] = {"native_ms": float(np.median(ms[True])), "numpy_ms": float(np.median(ms[False]))}
+    print(f"(f) host graph build + collate of the flagship batch ({N_STRUCTURES} x {N_ATOMS} "
+          f"atoms, {n_edges} edges), median of 14: C++ builder {out['f']['native_ms']:.2f} ms, "
+          f"numpy {out['f']['numpy_ms']:.2f} ms "
+          f"({out['f']['numpy_ms'] / out['f']['native_ms']:.1f}x); edges identical: {same}  "
+          f"[{tag}]", flush=True)
+    if not same:
+        raise RuntimeError("(f): the C++ neighbour list differs from numpy's")
+    print(f"data-parallel phase: {json.dumps(out)}  [{tag}]", flush=True)
+    return launches["bf16"]
+
 def main(argv: list[str]) -> int:
     rotation_only = argv == ["--rotation-only"]
     s2act_only = argv == ["--s2act-only"]
@@ -1962,6 +2367,11 @@ def main(argv: list[str]) -> int:
         r["launches_headline_train"] = headline["launches"].get(r["name"], 0)
     # 13c: the card against the CPU for the headline preset, GATA v1 and MoE
     variant_parity_phase(tag)
+
+    # phase 14: data-parallel training, counting (a)'s step from zero
+    dp_launches = dp_phase(counters, tag)
+    for r in records:
+        r["launches_dp_step"] = dp_launches.get(r["name"], 0)
 
     print(json.dumps({"kernels": records}))
     print(tag)

@@ -1,10 +1,12 @@
 """Host-side graph construction -> padded, static-shape batches (numpy).
 
 The port's own copy of ``equivarianttransformermpnn4quantumcomputations_tpu/
-data/graph.py`` (numpy neighbour search; the JAX package's optional C++
-builder is not used).  The model receives padded arrays plus masks and
-re-derives displacement vectors from positions + integer cell shifts, so
-forces flow by autograd.
+data/graph.py``.  The neighbour search runs in the C++ builder
+(``data/native.py``, compiled with g++ at first use) while ``USE_NATIVE`` is
+True, as in the JAX package, and in numpy when it is False; both give the
+same edges in the same order, and neither falls back on the other.  The
+model receives padded arrays plus masks and re-derives displacement vectors
+from positions + integer cell shifts, so forces flow by autograd.
 
 Semantics matched to the reference:
 * edges point src -> dst; messages aggregate at dst (edge_index[1]);
@@ -23,8 +25,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .native import neighbor_list_native
+
 __all__ = ["GraphSample", "radius_graph", "radius_graph_pbc", "collate", "PaddedBatch",
-           "as_tensors"]
+           "as_tensors", "USE_NATIVE"]
+
+# the neighbour search: the C++ builder (True) or numpy (False)
+USE_NATIVE = True
+
 
 @dataclass
 class GraphSample:
@@ -45,9 +53,11 @@ class GraphSample:
 def radius_graph(pos: np.ndarray, cutoff: float, max_neighbors: int | None):
     """Non-PBC neighbor search with per-dst closest-k cap.
 
-    Returns (src, dst, shift[E,3]=0) index arrays.
+    Returns (src, dst, shift[E,3]=0) index arrays, from the C++ builder
+    while ``USE_NATIVE`` is True.
     """
-    n = pos.shape[0]
+    if USE_NATIVE:
+        return neighbor_list_native(pos, None, False, cutoff, max_neighbors)
     diff = pos[None, :, :] - pos[:, None, :]       # [i, j] = pos[j] - pos[i]
     dist = np.linalg.norm(diff, axis=-1)
     within = (dist < cutoff) & (dist > 1e-8)
@@ -62,9 +72,11 @@ def radius_graph_pbc(
 ):
     """PBC neighbor search over the 27 first-shell images.
 
-    Returns (src, dst, shift_int) with dvec = pos[dst] + shift_int @ cell - pos[src].
+    Returns (src, dst, shift_int) with dvec = pos[dst] + shift_int @ cell - pos[src],
+    from the C++ builder while ``USE_NATIVE`` is True.
     """
-    n = pos.shape[0]
+    if USE_NATIVE:
+        return neighbor_list_native(pos, cell, True, cutoff, max_neighbors)
     rng = np.array([-1, 0, 1])
     shifts = np.stack(
         np.meshgrid(rng, rng, rng, indexing="ij"), axis=-1

@@ -1,9 +1,11 @@
-"""Padded batch loader with background prefetch (single process).
+"""Padded batch loader with background prefetch.
 
 The port's own copy of the JAX package's data/loader.py
 (``infer_pad_sizes``, ``PaddedLoader``) for the fixed-degree layout: every
 batch has the same (n_pad, e_pad), and a daemon thread builds the next
-batches (the numpy neighbour search) while the device computes.
+batches (the neighbour search) while the device computes.  In a
+multi-process run each rank iterates its strided shard of the shuffled
+order (``num_shards`` / ``shard_id``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,11 @@ class PaddedLoader:
             e.g. one part of ``data/qm9.py:qm9_random_split``.
         shuffle: a numpy shuffle seeded by ``seed + epoch`` (``set_epoch``).
         prefetch: number of batches built ahead on a daemon thread (0: none).
+        num_shards, shard_id: iterate the strided shard ``shard_id`` of
+            ``num_shards`` of the shuffled order, which every rank draws
+            from the same seed (DistributedSampler's semantics, reference
+            train_oc20v2_parallel.py:334-349; ``parallel/multihost.py:
+            host_shard``).
 
     The ragged tail is dropped, so the batch size stays static.
     ``overflow_atoms / overflow_edges / overflow_batches`` count, per epoch,
@@ -57,7 +64,7 @@ class PaddedLoader:
     def __init__(self, dataset, batch_size: int, cutoff: float,
                  max_neighbors: int | None, n_pad: int, e_pad: int,
                  indices: Sequence[int] | None = None, shuffle: bool = False,
-                 seed: int = 0, prefetch: int = 2):
+                 seed: int = 0, prefetch: int = 2, num_shards: int = 1, shard_id: int = 0):
         self.dataset = dataset
         self.indices = (np.asarray(indices) if indices is not None
                         else np.arange(len(dataset)))
@@ -67,13 +74,14 @@ class PaddedLoader:
         self.n_pad, self.e_pad = n_pad, e_pad
         self.shuffle, self.seed = shuffle, seed
         self.prefetch = prefetch
+        self.num_shards, self.shard_id = num_shards, shard_id
         self.epoch = 0
         self.overflow_atoms = 0
         self.overflow_edges = 0
         self.overflow_batches = 0
 
     def __len__(self):
-        return len(self.indices) // self.batch_size
+        return len(range(self.shard_id, len(self.indices), self.num_shards)) // self.batch_size
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -82,6 +90,7 @@ class PaddedLoader:
         idx = self.indices.copy()
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        idx = idx[self.shard_id::self.num_shards]
         for b in range(len(self)):
             yield idx[b * self.batch_size : (b + 1) * self.batch_size]
 

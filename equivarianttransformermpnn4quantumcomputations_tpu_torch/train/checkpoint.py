@@ -6,7 +6,9 @@ directories): ``<run_dir>/<name>.pt`` holds model, optimizer (AdamW moments,
 schedule count, guard counters), EMA and step; ``<name>.meta.json`` holds
 ``{"config": ..., **extra}``.  Writes are atomic (temporary file, then
 ``os.replace``); the last ``KEEP_PERIODIC`` periodic checkpoints are kept;
-``install_sigterm_checkpoint`` writes ``ckpt_emergency`` on SIGTERM.
+``install_sigterm_checkpoint`` writes ``ckpt_emergency`` on SIGTERM.  A
+manager made with ``primary=False`` (every rank but 0 of a multi-process
+run) writes nothing; ``restore`` works on every rank.
 """
 
 from __future__ import annotations
@@ -24,9 +26,12 @@ KEEP_PERIODIC = 2
 
 
 class CheckpointManager:
-    def __init__(self, run_dir: str, config: Mapping[str, Any] | None = None):
+    def __init__(self, run_dir: str, config: Mapping[str, Any] | None = None,
+                 primary: bool = True):
+        self.primary = primary
         self.run_dir = run_dir
-        os.makedirs(run_dir, exist_ok=True)
+        if primary:
+            os.makedirs(run_dir, exist_ok=True)
         self.config = dict(config or {})
 
     def _path(self, name: str) -> str:
@@ -37,6 +42,8 @@ class CheckpointManager:
 
     def save(self, name: str, state, extra: Mapping[str, Any] | None = None) -> None:
         """Save a TrainState (anything with ``state_dict()``) + metadata."""
+        if not self.primary:
+            return
         tmp = self._path(name) + ".tmp"
         torch.save(state.state_dict(), tmp)
         os.replace(tmp, self._path(name))
@@ -51,6 +58,8 @@ class CheckpointManager:
                       if d.startswith("ckpt_epoch_") and d.endswith(".pt"))
 
     def save_periodic(self, epoch: int, state, extra=None) -> None:
+        if not self.primary:
+            return
         self.save(f"ckpt_epoch_{epoch:05d}", state, {**(extra or {}), "epoch": epoch})
         for old in self._periodic()[:-KEEP_PERIODIC]:
             for p in (self._path(old), self._meta_path(old)):

@@ -1,9 +1,8 @@
-"""MatPES training CLI on one device (port of the JAX package's
-train/train_matpes.py).
+"""MatPES training CLI (port of the JAX package's train/train_matpes.py).
 
     python -m equivarianttransformermpnn4quantumcomputations_tpu_torch.train.train_matpes \\
         --config fixture [--epochs N] [--mixed-precision] [--checkpoint NAME] \\
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--multihost] [--mesh data=N]
 
 Configs (the JAX CLI's names): ``default`` (GATA-V2), ``debug``,
 ``no-attn-norm``, ``phi-every-layer``, ``baseline`` (the original
@@ -20,8 +19,16 @@ checkpoint name in the run directory.  The device is the card unless
 Data: ``synthetic`` and ``synthetic-convergence`` train on
 ``data/synthetic.py``'s LJ crystals; every other config reads its MatPES
 json(.gz) and split file (``data/matpes.py``) and stops, naming the path,
-when the file is missing.  Multi-host and sharded-mesh training are not
-ported.
+when the file is missing.
+
+Data-parallel training: ``--mesh data=N`` averages the gradients of N
+micro-batches a step (``parallel/data_parallel.py``), split over the
+processes of a ``--multihost`` run (one per GPU, as ``torchrun`` starts
+them: ``parallel/multihost.py`` reads RANK / WORLD_SIZE / MASTER_ADDR);
+each rank reads its shard of the training data, and rank 0 alone writes
+logs and checkpoints.  Without ``--multihost``, or with one process, the
+one process runs all N micro-batches.  The JAX CLI's other mesh axes
+(``model=``, ``pipe=``, ``sp``) are not ported and stop the program.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import matpes as mp_cfg
 from ..data.graph import as_tensors
@@ -40,13 +48,16 @@ from ..data.loader import PaddedLoader, infer_pad_sizes
 from ..data.matpes import load_matpes
 from ..data.synthetic import SyntheticCrystals
 from ..models.matpes import EquiformerV2MatPES, init_weights, matpes_energy_forces
+from ..parallel import multihost
+from ..parallel.data_parallel import make_matpes_dp_step, microbatches, rank_seed
 from ..utils.logging import RunLogger
 from ..utils.precision import full_f32_products
 from .checkpoint import CheckpointManager, install_sigterm_checkpoint
 from .schedules import warmup_cosine
 from .trainer import GuardedAdamW, create_train_state, make_matpes_train_step
 
-__all__ = ["main", "evaluate", "build_model", "build_eval_model", "load_data", "CONFIGS"]
+__all__ = ["main", "evaluate", "build_model", "build_eval_model", "load_data", "parse_mesh",
+           "CONFIGS"]
 
 CONFIGS = {
     "default": mp_cfg.config,
@@ -130,6 +141,29 @@ def evaluate(model, params: dict, loader, energy_std: float, device) -> tuple[fl
             f_err / max(f_cnt, 1) * energy_std * 1000.0)
 
 
+def parse_mesh(spec: str) -> int:
+    """The ``data`` size of ``--mesh data=N[,model=M|pipe=P][,sp]``.  The axes
+    that are not ported (``model`` > 1, ``pipe`` > 1, ``sp``) stop the
+    program rather than train as pure data parallelism."""
+    axes = {"data": 1, "model": 1, "pipe": 1, "sp": False}
+    for part in (p.strip() for p in spec.split(",")):
+        key, sep, value = part.partition("=")
+        if part == "sp":
+            axes["sp"] = True
+        elif sep and key.strip() in ("data", "model", "pipe") and value.strip().isdigit():
+            axes[key.strip()] = int(value)
+        else:
+            raise SystemExit(f"--mesh {spec}: cannot read {part!r} "
+                             "(data=N[,model=M|pipe=P][,sp])")
+    if axes["model"] > 1 or axes["pipe"] > 1 or axes["sp"]:
+        raise SystemExit(f"--mesh {spec}: the model=, pipe= and sp axes (tensor, expert, "
+                         "sequence and pipeline parallelism) are not ported yet (ROADMAP.md, "
+                         "Queue 1 item 8); --mesh data=N trains data-parallel")
+    if axes["data"] < 1:
+        raise SystemExit(f"--mesh {spec}: data must be at least 1")
+    return axes["data"]
+
+
 def main(argv=None, overrides: dict | None = None):
     """Run the CLI; ``overrides`` update the chosen config (for tests).
     Returns the final TrainState."""
@@ -140,30 +174,52 @@ def main(argv=None, overrides: dict | None = None):
     ap.add_argument("--mixed-precision", action="store_true",
                     help="bf16 compute, f32 master params and norms")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join the process group of RANK / WORLD_SIZE / MASTER_ADDR env vars "
+                         "(no-op single-process); shard data per rank, write logs/checkpoints "
+                         "on rank 0 only (reference train_oc20v2_parallel.py:34-54,334-349,"
+                         "513-535)")
+    ap.add_argument("--mesh", default=None, metavar="data=N",
+                    help="train with a data-parallel step: 'data=4' is 4-way DP (4 "
+                         "microbatches/step, split over the processes).  The JAX CLI's "
+                         "model=, pipe= and sp axes are not ported.  Omitted = "
+                         "single-device step.")
     args = ap.parse_args(argv)
     cfg = {**CONFIGS[args.config], **(overrides or {})}
     if args.epochs is not None:
         cfg["epochs"] = args.epochs
+    data = parse_mesh(args.mesh) if args.mesh else None
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device (pass --device cpu to train on the CPU)")
+    owns_group = args.multihost and not dist.is_initialized()
+    if args.multihost and multihost.initialize_from_env(device=args.device) \
+            and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    world, rank, primary = (multihost.process_count(), multihost.process_index(),
+                            multihost.is_primary())
+    if world > 1 and (data is None or data % world):
+        raise SystemExit(f"{world} processes need --mesh data=N with N a multiple of {world}")
     mixed_precision = bool(args.mixed_precision or cfg.get("mixed_precision", False))
 
     train_ds, val_ds, _, stats = load_data(cfg)
     n_pad, e_pad = infer_pad_sizes(train_ds, cfg["max_neighbors"], cfg["batch_size"])
 
-    def loader(ds, shuffle):
+    def loader(ds, shuffle, shards=(1, 0)):
         return PaddedLoader(ds, cfg["batch_size"], cfg["cutoff"], cfg["max_neighbors"],
-                            n_pad, e_pad, shuffle=shuffle, seed=cfg["seed"])
+                            n_pad, e_pad, shuffle=shuffle, seed=cfg["seed"],
+                            num_shards=shards[0], shard_id=shards[1])
 
-    train_loader, val_loader = loader(train_ds, True), loader(val_ds, False)
+    train_loader, val_loader = loader(train_ds, True, (world, rank)), loader(val_ds, False)
 
     model = build_model(cfg, mixed_precision)
     init_weights(model, torch.Generator().manual_seed(cfg["seed"]))
     model.to(device)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"model params: {n_params / 1e6:.2f}M  pads: n={n_pad} e={e_pad}  "
-          f"device {device}  {'bf16' if mixed_precision else 'f32'} compute")
+    if primary:
+        print(f"model params: {n_params / 1e6:.2f}M  pads: n={n_pad} e={e_pad}  "
+              f"device {device}  {'bf16' if mixed_precision else 'f32'} compute"
+              + (f"  data-parallel: data={data} over {world} processes" if data else ""))
 
     steps_per_epoch = max(len(train_loader), 1)
     sched = warmup_cosine(cfg["lr"], cfg["warmup_epochs"] * steps_per_epoch,
@@ -171,29 +227,46 @@ def main(argv=None, overrides: dict | None = None):
     opt = GuardedAdamW(model.named_parameters(), sched, cfg["weight_decay"],
                        cfg["grad_clip"])
     state = create_train_state(model, opt)
-    ckpt = CheckpointManager(cfg["run_dir"], {**cfg, **stats})
+    ckpt = CheckpointManager(cfg["run_dir"], {**cfg, **stats}, primary=primary)
     if args.checkpoint:
         meta = ckpt.restore(args.checkpoint, state)
-        print(f"resumed from {args.checkpoint}: epoch {meta.get('epoch')}, "
-              f"step {state.step}")
-    logger = RunLogger(cfg["run_dir"], cfg)
-    gen = torch.Generator(device=device).manual_seed(cfg["seed"])
+        if primary:
+            print(f"resumed from {args.checkpoint}: epoch {meta.get('epoch')}, "
+                  f"step {state.step}")
+    logger = RunLogger(cfg["run_dir"], cfg, primary=primary)
+    gen = torch.Generator(device=device).manual_seed(rank_seed(cfg["seed"], rank))
     w_stress = cfg["w_stress"] if cfg["regress_stress"] else 0.0
-    step_fn = make_matpes_train_step(state, cfg["w_energy"], cfg["w_force"], w_stress,
-                                     cfg["ema_decay"], gen)
-    previous = install_sigterm_checkpoint(lambda: state, ckpt)
+    if data is None:
+        step_fn = make_matpes_train_step(state, cfg["w_energy"], cfg["w_force"], w_stress,
+                                         cfg["ema_decay"], gen)
+
+        def batches(loader):
+            return (as_tensors(pb, device) for pb in loader)
+    else:
+        step_fn = make_matpes_dp_step(state, data, cfg["w_energy"], cfg["w_force"],
+                                      w_stress, cfg["ema_decay"], gen)
+        n_local = data // world
+        n_steps = len(train_loader.indices) // world // cfg["batch_size"] // n_local
+
+        def batches(loader):
+            return microbatches(loader, device, n_local, n_steps)
+    previous = install_sigterm_checkpoint(lambda: state, ckpt) if primary else None
     try:
-        _train(cfg, state, step_fn, train_loader, val_loader, stats, ckpt, logger,
-               n_params, device)
+        _train(cfg, state, step_fn, batches, train_loader, val_loader, stats, ckpt, logger,
+               n_params, device, primary)
     finally:
-        signal.signal(signal.SIGTERM, previous)
+        if primary:
+            signal.signal(signal.SIGTERM, previous)
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
     return state
 
 
-def _train(cfg, state, step_fn, train_loader, val_loader, stats, ckpt, logger,
-           n_params, device) -> None:
-    """The epoch loop: train, evaluate with the EMA weights every
-    ``eval_every`` epochs and after the last, checkpoint, log."""
+def _train(cfg, state, step_fn, batches, train_loader, val_loader, stats, ckpt, logger,
+           n_params, device, primary) -> None:
+    """The epoch loop: train on ``batches(train_loader)``, evaluate with the
+    EMA weights every ``eval_every`` epochs and after the last, checkpoint,
+    log (the primary process prints)."""
     best_val = np.inf
     nan_batches = 0
     e_mae = f_mae = float("inf")   # the last evaluation's
@@ -201,8 +274,8 @@ def _train(cfg, state, step_fn, train_loader, val_loader, stats, ckpt, logger,
         train_loader.set_epoch(epoch)
         t0 = time.time()
         losses, stress = [], []
-        for pb in train_loader:
-            loss, metrics = step_fn(as_tensors(pb, device))
+        for batch in batches(train_loader):
+            loss, metrics = step_fn(batch)
             loss = float(loss)
             if not metrics["accepted"] or not np.isfinite(loss):
                 nan_batches += 1  # the guard skipped this update
@@ -215,14 +288,15 @@ def _train(cfg, state, step_fn, train_loader, val_loader, stats, ckpt, logger,
                                     stats["energy_std"], device)
         dt = time.time() - t0
         extra = {"train_stress_l1": float(np.mean(stress))} if stress else {}
-        print(f"epoch {epoch}: loss={np.mean(losses) if losses else float('nan'):.4f} "
-              + "".join(f"{k}={v:.4f} " for k, v in extra.items())
-              + f"E={e_mae:.1f} meV/atom F={f_mae:.1f} meV/A "
-              f"nan_skipped={nan_batches} ({dt:.1f}s)")
-        if train_loader.overflow_batches:
-            print(f"  WARNING: {train_loader.overflow_batches} batches overflowed the "
-                  f"static pads this epoch (dropped {train_loader.overflow_atoms} atoms / "
-                  f"{train_loader.overflow_edges} edges); raise n_pad/e_pad")
+        if primary:
+            print(f"epoch {epoch}: loss={np.mean(losses) if losses else float('nan'):.4f} "
+                  + "".join(f"{k}={v:.4f} " for k, v in extra.items())
+                  + f"E={e_mae:.1f} meV/atom F={f_mae:.1f} meV/A "
+                  f"nan_skipped={nan_batches} ({dt:.1f}s)")
+            if train_loader.overflow_batches:
+                print(f"  WARNING: {train_loader.overflow_batches} batches overflowed the "
+                      f"static pads this epoch (dropped {train_loader.overflow_atoms} atoms / "
+                      f"{train_loader.overflow_edges} edges); raise n_pad/e_pad")
         logger.log_epoch(epoch, {
             "train_loss": float(np.mean(losses)) if losses else float("nan"), **extra,
             "val_energy_mae_mev": e_mae, "val_force_mae_mev": f_mae,

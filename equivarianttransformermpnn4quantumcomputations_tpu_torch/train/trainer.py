@@ -32,6 +32,10 @@ Port of the JAX package's train/trainer.py (the MatPES and QM9 parts):
 * ``oc20_loss`` / ``make_oc20_train_step``: E-MSE x 2 + F-L1 x 100 on the
   energy head and the explicit force head (no derivative of the energy),
   one first-order backward, the same optimizer, EMA and precision rules.
+* Each step is two halves, which ``parallel/data_parallel.py`` runs with a
+  gradient all-reduce between them: ``*_loss_grad`` (the loss, its
+  gradients in the masters' ``.grad``) and ``apply_updates`` (the guarded
+  AdamW, the EMA, ``state.step``).
 """
 
 from __future__ import annotations
@@ -46,8 +50,9 @@ from ..models.matpes import matpes_energy_forces
 from ..utils.precision import full_f32_products
 
 __all__ = ["decays", "wd_mask", "GuardedAdamW", "TrainState", "create_train_state",
-           "ema_update", "cast_params", "matpes_loss", "make_matpes_train_step",
-           "qm9_loss", "make_qm9_train_step", "oc20_loss", "make_oc20_train_step"]
+           "ema_update", "cast_params", "apply_updates", "matpes_loss", "matpes_loss_grad",
+           "make_matpes_train_step", "qm9_loss", "qm9_loss_grad", "make_qm9_train_step",
+           "oc20_loss", "oc20_loss_grad", "make_oc20_train_step"]
 
 
 def decays(name: str, p: torch.Tensor) -> bool:
@@ -186,6 +191,51 @@ def matpes_loss(outs: dict, batch: dict, w_energy: float = 1.0, w_force: float =
     return loss, metrics
 
 
+def apply_updates(state: TrainState, ema_decay: float = 0.999) -> dict:
+    """The update half of a step (the JAX package's
+    ``parallel/data_parallel.py:_apply_updates_factory``): the guarded AdamW
+    from the parameters' ``.grad``, then the EMA and ``state.step``.
+    Returns the optimizer's info (grad_norm, lr, accepted)."""
+    with full_f32_products():
+        info = state.optimizer.step()
+        ema_update(state.ema, state.model, ema_decay)
+    state.step += 1
+    return info
+
+
+def _train_step(state: TrainState, loss_grad: Callable, ema_decay: float):
+    """``step(batch) -> (loss, metrics)``: ``loss_grad`` then ``apply_updates``."""
+
+    def step(batch: dict):
+        loss, metrics = loss_grad(batch)
+        info = apply_updates(state, ema_decay)
+        return loss, {**metrics, "loss": loss, **info}
+
+    return step
+
+
+def matpes_loss_grad(state: TrainState, w_energy: float = 1.0, w_force: float = 1.0,
+                     w_stress: float = 0.0, generator: torch.Generator | None = None):
+    """``loss_grad(batch) -> (loss, metrics)``, the gradient half of the
+    MatPES step: the loss's gradients land in the float32 masters' ``.grad``
+    (None where a parameter is unused).  See ``make_matpes_train_step``."""
+    model = state.model
+    cdt = model.backbone.compute_dtype
+
+    def loss_grad(batch: dict):
+        model.train()
+        with full_f32_products():
+            model.zero_grad(set_to_none=True)
+            params = cast_params(model, cdt) if cdt != torch.float32 else None
+            outs = matpes_energy_forces(model, batch, create_graph=True, params=params,
+                                        generator=generator, regress_stress=w_stress > 0.0)
+            loss, metrics = matpes_loss(outs, batch, w_energy, w_force, w_stress)
+            loss.backward()
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+    return loss_grad
+
+
 def make_matpes_train_step(state: TrainState, w_energy: float = 1.0,
                            w_force: float = 1.0, w_stress: float = 0.0,
                            ema_decay: float = 0.999,
@@ -199,33 +249,44 @@ def make_matpes_train_step(state: TrainState, w_energy: float = 1.0,
     False); the EMA and ``state.step`` move every step, as in the JAX
     package.  ``w_stress > 0`` takes the per-graph stress path
     (``models/matpes.py:matpes_energy_forces_stress_pergraph``) and adds
-    the stress term to the loss.
+    the stress term to the loss.  The step is ``matpes_loss_grad`` followed
+    by ``apply_updates``.
     """
-    model = state.model
-    cdt = model.backbone.compute_dtype
-
-    def step(batch: dict):
-        model.train()
-        with full_f32_products():
-            model.zero_grad(set_to_none=True)
-            params = cast_params(model, cdt) if cdt != torch.float32 else None
-            outs = matpes_energy_forces(model, batch, create_graph=True, params=params,
-                                        generator=generator, regress_stress=w_stress > 0.0)
-            loss, metrics = matpes_loss(outs, batch, w_energy, w_force, w_stress)
-            loss.backward()
-            info = state.optimizer.step()
-            ema_update(state.ema, model, ema_decay)
-        state.step += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss.detach(), {**metrics, "loss": loss.detach(), **info}
-
-    return step
+    return _train_step(state, matpes_loss_grad(state, w_energy, w_force, w_stress, generator),
+                       ema_decay)
 
 
 def qm9_loss(pred: torch.Tensor, target: torch.Tensor, kind: str = "l1") -> torch.Tensor:
     """pred / target [B, T]; the mean over molecules and targets."""
     d = pred.float() - target
     return d.abs().mean() if kind == "l1" else (d * d).mean()
+
+
+def _forward(model: nn.Module, batch: dict, generator: torch.Generator | None):
+    """The model's output, on bfloat16 copies of the masters when the model
+    computes in bfloat16."""
+    cdt = model.backbone.compute_dtype
+    if cdt == torch.float32:
+        return model(batch, generator=generator)
+    return torch.func.functional_call(model, cast_params(model, cdt), (batch,),
+                                      dict(generator=generator))
+
+
+def qm9_loss_grad(state: TrainState, loss_kind: str = "l1",
+                  generator: torch.Generator | None = None):
+    """``loss_grad(batch) -> (loss, metrics)``, the gradient half of the QM9
+    step (see ``make_qm9_train_step``)."""
+    model = state.model
+
+    def loss_grad(batch: dict):
+        model.train()
+        with full_f32_products():
+            model.zero_grad(set_to_none=True)
+            loss = qm9_loss(_forward(model, batch, generator), batch["y"], loss_kind)
+            loss.backward()
+        return loss.detach(), {}
+
+    return loss_grad
 
 
 def make_qm9_train_step(state: TrainState, loss_kind: str = "l1", ema_decay: float = 0.999,
@@ -238,26 +299,7 @@ def make_qm9_train_step(state: TrainState, loss_kind: str = "l1", ema_decay: flo
     bfloat16 copies of its float32 master weights.  The guard, the EMA and
     ``state.step`` behave as in ``make_matpes_train_step``.
     """
-    model = state.model
-    cdt = model.backbone.compute_dtype
-
-    def step(batch: dict):
-        model.train()
-        with full_f32_products():
-            model.zero_grad(set_to_none=True)
-            if cdt == torch.float32:
-                pred = model(batch, generator=generator)
-            else:
-                pred = torch.func.functional_call(model, cast_params(model, cdt), (batch,),
-                                                  dict(generator=generator))
-            loss = qm9_loss(pred, batch["y"], loss_kind)
-            loss.backward()
-            info = state.optimizer.step()
-            ema_update(state.ema, model, ema_decay)
-        state.step += 1
-        return loss.detach(), {"loss": loss.detach(), **info}
-
-    return step
+    return _train_step(state, qm9_loss_grad(state, loss_kind, generator), ema_decay)
 
 
 def oc20_loss(energy_pred: torch.Tensor, energy_tgt: torch.Tensor, force_pred: torch.Tensor,
@@ -272,6 +314,25 @@ def oc20_loss(energy_pred: torch.Tensor, energy_tgt: torch.Tensor, force_pred: t
     return w_energy * e + w_force * f, {"energy_mse": e, "force_l1": f}
 
 
+def oc20_loss_grad(state: TrainState, w_energy: float = 2.0, w_force: float = 100.0,
+                   generator: torch.Generator | None = None):
+    """``loss_grad(batch) -> (loss, metrics)``, the gradient half of the OC20
+    step (see ``make_oc20_train_step``)."""
+    model = state.model
+
+    def loss_grad(batch: dict):
+        model.train()
+        with full_f32_products():
+            model.zero_grad(set_to_none=True)
+            outs = _forward(model, batch, generator)
+            loss, metrics = oc20_loss(outs["energy"], batch["energy"], outs["forces"],
+                                      batch["forces"], batch["node_mask"], w_energy, w_force)
+            loss.backward()
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+    return loss_grad
+
+
 def make_oc20_train_step(state: TrainState, w_energy: float = 2.0, w_force: float = 100.0,
                          ema_decay: float = 0.999, generator: torch.Generator | None = None):
     """``step(batch) -> (loss, metrics)`` for ``models/oc20.py:EquiformerV2OC20``,
@@ -282,25 +343,4 @@ def make_oc20_train_step(state: TrainState, w_energy: float = 2.0, w_force: floa
     bfloat16 copies of its float32 master weights.  The guard, the EMA and
     ``state.step`` behave as in ``make_matpes_train_step``.
     """
-    model = state.model
-    cdt = model.backbone.compute_dtype
-
-    def step(batch: dict):
-        model.train()
-        with full_f32_products():
-            model.zero_grad(set_to_none=True)
-            if cdt == torch.float32:
-                outs = model(batch, generator=generator)
-            else:
-                outs = torch.func.functional_call(model, cast_params(model, cdt), (batch,),
-                                                  dict(generator=generator))
-            loss, metrics = oc20_loss(outs["energy"], batch["energy"], outs["forces"],
-                                      batch["forces"], batch["node_mask"], w_energy, w_force)
-            loss.backward()
-            info = state.optimizer.step()
-            ema_update(state.ema, model, ema_decay)
-        state.step += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss.detach(), {**metrics, "loss": loss.detach(), **info}
-
-    return step
+    return _train_step(state, oc20_loss_grad(state, w_energy, w_force, generator), ema_decay)
