@@ -4,12 +4,14 @@
     python3 chip_smoke.py        (from any directory; needs one CUDA GPU and nvcc)
     python3 chip_smoke.py --rotation-only
     python3 chip_smoke.py --s2act-only
+    python3 chip_smoke.py --composite-only
 
 ``--rotation-only`` runs phases 1 and 2 and phase 3's K1 / K4 rows, and
 stops; ``--s2act-only`` the same with phase 3's K2 rows.  Those rows call
 only the kernels' wrappers, whose interface is the same since K4 (K2) was
 ported, so this script copied into the root of an older checkout times
 that checkout's kernels with the same timers and shapes.
+``--composite-only`` runs phases 1 and 2 and phase 15, and stops.
 
 Phase 3 times each kernel two ways, at the same shapes: CUDA events around
 one call (median of 15, L2 flushed before each), which also hold the part
@@ -139,6 +141,24 @@ Phases, each of which raises on failure:
      The ranks load the kernels phase 2 built (a rank that found one
      missing would build its own copy: ``ops/cuda/build.py`` compiles into
      a per-process temporary file and renames it into place).
+  15. composite DP x TP x EP x SP training (``parallel/sharding.py``) on the
+     one card, each case's ranks spawned over gloo (NCCL places one rank
+     per GPU) and held against the one-process step of the same state,
+     batches and seed: (a) the flagship at full width, data=1 model=2, f32
+     and bf16; (b) the same with ``sp``; (c) the MoE preset under EP, 2
+     layers; (d) data=2 model=2, 4 ranks, 2 layers; (e) one ``conv_fused``
+     step at model=2, 2 layers (kernel K3 at conv 2's sharded C_in = 64).
+     Loss and metrics, energies and forces of a forward, and the gathered
+     gradients within ``DP_LIMITS``; the masters and EMA that the
+     one-process optimizer makes of the ranks' gradients within 1e-2 lr
+     (phase 7); K1's four kinds and K2a-c (and K3 in (e)) launched in every
+     rank.  Before them K1 and K2a-c at the sharded shapes against their
+     plain versions (phase 3's limits): K1 "from" / "to" on 4 of the 8
+     heads, K1 "to_m0" / "from" / "from_m0" on half the edges (``sp``), K2
+     on 256 of the 512 FFN channels; their rows join the kernels' JSON,
+     with the launches of rank 0's bf16 step (a) or (b).  The step times
+     are two ranks sharing one card through the host, not a
+     tensor-parallel speed.
 The line before the last is the kernels' JSON record and the card; the last
 line is the device JSON (not with ``--rotation-only``).  Without a CUDA
 device the script exits non-zero and prints no result.
@@ -487,7 +507,7 @@ def _k2_table_l2_bytes(s2act, kname: str, P: int, K: int, N: int, C: int,
     return -(-N * C // 256) * 2 * 4.0 * (-(-P // 32) * 32) * (-(-K // 4) * 4)
 
 
-def check_k2(n_flagship: int, tag: str) -> list[dict]:
+def check_k2(n_flagship: int, tag: str, sites=K2_SITES) -> list[dict]:
     """Phase 3, K2: K2a, K2b (and K2c where ``K2_SITES`` says) against their
     plain versions at each site, f32 and bf16, and their times in both:
     CUDA events and the device-only timer.  The bound is the tensor-core
@@ -504,7 +524,7 @@ def check_k2(n_flagship: int, tag: str) -> list[dict]:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     records: dict[str, dict] = {}
-    for site, key, N, C, suffix, with_k3 in K2_SITES:
+    for site, key, N, C, suffix, with_k3 in sites:
         N = N or n_flagship
         grid = s2grid(*key)
         A, Fm = grid.tables("cuda")
@@ -1883,16 +1903,16 @@ def _dp_rank(rank: int, port: int, out_dir: str) -> None:
         dist.destroy_process_group()
 
 
-def _spawn(target, nprocs: int, *args) -> None:
+def _spawn(target, nprocs: int, *args, timeout: float = DP_TIMEOUT_S) -> None:
     """Run ``target(rank, *args)`` in ``nprocs`` spawned processes; raise
-    unless every one exits 0 within ``DP_TIMEOUT_S`` (a hung one is killed)."""
+    unless every one exits 0 within ``timeout`` s (a hung one is killed)."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=target, args=(r, *args)) for r in range(nprocs)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + DP_TIMEOUT_S
+    deadline = time.monotonic() + timeout
     for p in procs:
         p.join(max(1.0, deadline - time.monotonic()))
     codes = []
@@ -2135,10 +2155,298 @@ def dp_phase(counters: dict, tag: str) -> dict:
     print(f"data-parallel phase: {json.dumps(out)}  [{tag}]", flush=True)
     return launches["bf16"]
 
+# phase 15: composite DP x TP x EP x SP training on the one card
+TP_SEED = 15          # the micro-batches of phase 15 (_flagship_batches' seed)
+TP_LR = 2e-4          # a constant rate (phase 7's): the first step moves every master
+TP_TIMEOUT_S = 900    # each group of spawned processes
+# (case, (data, model), sp, dtype, layers (None: the flagship's 6), model)
+TP_CASES = [
+    ("a f32", (1, 2), False, "f32", None, "flagship"),
+    ("a bf16", (1, 2), False, "bf16", None, "flagship"),
+    ("b f32 sp", (1, 2), True, "f32", None, "flagship"),
+    ("b bf16 sp", (1, 2), True, "bf16", None, "flagship"),
+    ("c MoE EP", (1, 2), False, "f32", 2, "equiformer_v2_matpes_gatav2_moe"),
+    ("e conv_fused", (1, 2), False, "f32", 2, "conv_fused"),
+    ("d data=2 model=2", (2, 2), False, "f32", 2, "flagship"),
+]
+# the sharded shapes' kernel rows (K1 at the rank's heads or edges, K2 at
+# the rank's FFN channels) and the case whose rank-0 step counts their launches
+TP_K2_SITES = [("flagship FFN, model=2", (4, 4, 18), None, 256, "[tp]", True)]
+TP_ROW_CASE = {"[tp]": "a bf16", "[sp]": "b bf16 sp"}
+
+
+def _tp_state(spec):
+    """A fresh TrainState of a phase-15 case on the card: seeded random
+    weights (the same in every process), dropouts 0, guarded AdamW at the
+    constant ``TP_LR``."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        FLAGSHIP,
+        EquiformerV2MatPES,
+        init_weights,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        GuardedAdamW,
+        create_train_state,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling import (
+        variant_model,
+    )
+
+    _, _, _, dt, layers, what = spec
+    kw = {} if layers is None else {"num_layers": layers}
+    if what.startswith("equiformer"):
+        model = variant_model(what, DP_DTYPES[dt], seed=0, **kw)
+    else:
+        model = EquiformerV2MatPES(**{**FLAGSHIP, **kw}, alpha_drop=0.0, drop_path_rate=0.0,
+                                   compute_dtype=DP_DTYPES[dt],
+                                   conv_fused=what == "conv_fused")
+        init_weights(model, torch.Generator().manual_seed(0))
+    model.to("cuda")
+    opt = GuardedAdamW(model.named_parameters(), lambda step: TP_LR, 1e-3, 1.0)
+    return create_train_state(model, opt)
+
+
+def _tp_counters() -> dict:
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
+        rotate_dense,
+        s2act,
+        so2conv,
+    )
+
+    return {**{f"rotate_pairs.{k}": (rotate_dense.launches, k) for k in rotate_dense.launches},
+            **{f"s2act.{k}": (s2act.launches, k) for k in s2act.launches},
+            **{f"so2conv.{k}": (so2conv.launches, k) for k in so2conv.launches}}
+
+
+def _tp_run(spec, mesh, batches: list[dict]) -> dict:
+    """One phase-15 case on this process's ranks of ``mesh``: the energies
+    and forces of data row 0's first micro-batch, then one composite step
+    (``parallel/sharding.py``) with the launch counts zeroed just before;
+    the step's loss and metrics and the gathered gradients, masters and EMA
+    (on the host), the launches, ms and collectives."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        matpes_energy_forces,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel import sharding
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel.data_parallel import (
+        rank_seed,
+        stack_microbatches,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.precision import (
+        full_f32_products,
+    )
+
+    name, (data, _), sp, _, _, _ = spec
+    state = _tp_state(spec)
+    gen = torch.Generator("cuda").manual_seed(rank_seed(TP_SEED, mesh.data_index))
+    step = sharding.make_composite_matpes_step(state, mesh, data, sp=sp, generator=gen)
+    local, rows = sharding.batch_shards(stack_microbatches(batches[:data]), mesh, sp)
+    with full_f32_products():
+        outs = matpes_energy_forces(state.model, {k: v[0] for k, v in local.items()})
+    counters = _tp_counters()
+    for d, k in counters.values():
+        d[k] = 0
+    for k in mesh.mp.counts:
+        mesh.mp.counts[k] = mesh.mp.bytes[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    loss, m = step(local)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = {n: d[k] for n, (d, k) in counters.items()}
+    if not (np.isfinite(float(loss)) and m["accepted"]):
+        raise RuntimeError(f"phase 15 {name}: loss {float(loss)}, accepted {m['accepted']}")
+    model = state.model
+
+    def host(named):
+        return {k: v.detach().to("cpu", copy=True)
+                for k, v in sharding.gather_named(named, model, mesh).items()}
+
+    return dict(loss=float(loss), metrics={k: float(m[k]) for k in ("energy_l1", "force_l1")},
+                energy=outs["energy"].detach().cpu(), forces=outs["forces"].detach().cpu(),
+                grads=host(step.mean_grads()),
+                params=host({k: p for k, p in model.named_parameters()}),
+                ema=host(state.ema), launches=launches, ms=ms,
+                collectives={k: (mesh.mp.counts[k], mesh.mp.bytes[k]) for k in mesh.mp.counts},
+                edge_rows=None if rows is None else [rows.start, rows.stop],
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _tp_rank(rank: int, world: int, port: int, out_dir: str, names: list[str]) -> None:
+    """Phase 15 in a spawned process: rank ``rank`` of ``world`` on the one
+    card over gloo; every case of ``names``; rank 0 writes each case's
+    results, every rank its launches, ms and collectives."""
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port), ETQ_DIST_BACKEND="gloo", LOCAL_RANK="0")
+    import torch.distributed as dist
+
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel import (
+        multihost,
+        sharding,
+    )
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    if not multihost.initialize_from_env(device="cuda", verbose=False):
+        raise RuntimeError("no process group")
+    try:
+        batches = _flagship_batches(2, seed=TP_SEED)
+        for spec in (s for s in TP_CASES if s[0] in names):
+            name, (_, M), sp = spec[:3]
+            res = _tp_run(spec, sharding.make_composite_mesh(M), batches)
+            keep = res if rank == 0 else {k: res[k] for k in
+                                          ("loss", "launches", "ms", "collectives",
+                                           "edge_rows", "peak_gib")}
+            torch.save(keep, os.path.join(out_dir, f"{name}.rank{rank}.pt"))
+            del res, keep
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def check_sharded_kernels(batch, tag: str) -> list[dict]:
+    """Phase 15, the kernels at the sharded shapes of model = 2, against
+    their plain versions within phase 3's limits (f32 and bf16; forward,
+    gradient and grad-of-grad through the autograd pairs): K1 "from" and its
+    adjoint "to" on the rank's 4 heads ([E, 19, 64], [E, 25, 64]) and, under
+    ``sp``, "to_m0", "from" and "from_m0" on the rank's E / 2 edges at every
+    channel; K2a / K2b / K2c on the rank's 256 FFN channels, [496, 25, 256]."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        FLAGSHIP as cfg,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
+        rotate_dense as rd,
+    )
+
+    dev = torch.device("cuda")
+    lmax, mmax, C = cfg["lmax"], cfg["mmax"], cfg["sphere_channels"]
+    dvec = edge_vectors(batch)
+    E = dvec.shape[0]
+    K, Kr = (lmax + 1) ** 2, rd._pair_info(lmax, mmax)["n_out"]["to"]
+    hv = cfg["num_heads"] * cfg["attn_value_channels"]
+    gen = torch.Generator(device=dev).manual_seed(15)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    w = rd.compute_wigner_dense(lmax, mmax, dvec)
+    wh = rd.compute_wigner_dense(lmax, mmax, dvec[: E // 2])
+    specs = [
+        ("from", "[tp]", (E, Kr, hv // 2), (w.v_from_res, w.v_to_res),
+         "model=2 attention back, 4 heads"),
+        ("to", "[tp]", (E, K, hv // 2), (w.v_to_res, w.v_from_res),
+         "model=2, adjoint of from"),
+        ("to_m0", "[sp]", (E // 2, K, 2 * C), (wh.v_to_m0, wh.v_from_m0),
+         "sp attention in, m=0, E/2"),
+        ("from", "[sp]", (E // 2, Kr, hv), (wh.v_from_res, wh.v_to_res),
+         "sp attention back, E/2"),
+        ("from_m0", "[sp]", (E // 2, lmax + 1, 2 * C), (wh.v_from_m0, wh.v_to_m0),
+         "sp, adjoint of to_m0, E/2"),
+    ]
+    records = []
+    for kind, sfx, shape, (v, va), site in specs:
+        name = f"rotate_pairs.{kind}{sfx}"
+        records.append(_k1_record(name, [_k1_site(kind, shape, v, va, site, lmax, mmax, True,
+                                                  gen, flush, tag, False, name)]))
+    del w, wh
+    return records + check_k2(int(batch["pos"].shape[0]), tag, TP_K2_SITES)
+
+
+def tp_phase(batch, tag: str) -> list[dict]:
+    """Phase 15: the composite DP x TP x EP x SP step (parallel/sharding.py)
+    on the one card, its ranks spawned over gloo (NCCL places one rank per
+    GPU); returns the kernel rows at the sharded shapes, their launches
+    those of rank 0's step in ``TP_ROW_CASE``."""
+    import tempfile
+
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel import sharding
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        apply_updates,
+    )
+
+    records = check_sharded_kernels(batch, tag)
+    print(f"composite step: {len(TP_CASES)} cases at (data, model) ranks on the one card "
+          f"over gloo (gloo copies CUDA tensors through the host; the ranks share one card: "
+          f"no times below are a tensor-parallel speed)  [{tag}]", flush=True)
+    batches = _flagship_batches(2, seed=TP_SEED)
+    refs = {}
+    for spec in TP_CASES:   # the one-process step of each case
+        refs[spec[0]] = _tp_run(spec, sharding.make_composite_mesh(1), batches)
+        torch.cuda.empty_cache()
+    del batches
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        for world in (2, 4):
+            names = [s[0] for s in TP_CASES if s[1][0] * s[1][1] == world]
+            t = time.perf_counter()
+            _spawn(_tp_rank, world, world, _free_port(), tmp, names, timeout=TP_TIMEOUT_S)
+            print(f"composite step: {world} ranks, cases {names}: the spawned group took "
+                  f"{time.perf_counter() - t:.1f} s  [{tag}]", flush=True)
+        for spec in TP_CASES:
+            name, (data, M), sp, dt = spec[:4]
+            ranks = [torch.load(os.path.join(tmp, f"{name}.rank{r}.pt"), weights_only=False)
+                     for r in range(data * M)]
+            got, want = ranks[0], refs[name]
+            lim_loss, lim_grad = DP_LIMITS[DP_DTYPES[dt]]
+            errs = dict(loss=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                        **{k: abs(got["metrics"][k] - want["metrics"][k])
+                           / abs(want["metrics"][k]) for k in want["metrics"]},
+                        energy=_rel_l2({"e": got["energy"]}, {"e": want["energy"]}),
+                        forces=_rel_l2({"f": got["forces"]}, {"f": want["forces"]}),
+                        grads=_rel_l2(got["grads"], want["grads"]))
+            # the update on identical gradients (phase 7): the one-process
+            # optimizer and EMA from the ranks' gathered gradients
+            replay = _tp_state(spec)
+            start = {n: p.detach().cpu() for n, p in replay.model.named_parameters()}
+            for n, p in replay.model.named_parameters():
+                p.grad = got["grads"][n].to("cuda")
+            apply_updates(replay)
+            dp_ = max(float((got["params"][n] - p.detach().cpu()).abs().max())
+                      for n, p in replay.model.named_parameters())
+            de_ = max(float((got["ema"][n] - e.cpu()).abs().max())
+                      for n, e in replay.ema.items())
+            # the step's update beside the one-process step's (no limit: Adam's
+            # first update is sign-like where |g| is near eps)
+            moved = _rel_l2({n: got["params"][n] - start[n] for n in start},
+                            {n: want["params"][n] - start[n] for n in start})
+            del replay, start
+            counts = [r["launches"] for r in ranks]
+            print(f"composite ({name}): data={data} model={M} sp={sp}, rank edge rows "
+                  f"{[r['edge_rows'] for r in ranks]}; loss {got['loss']:.6f} vs one process "
+                  f"{want['loss']:.6f}; rel errs {', '.join(f'{k} {v:.2e}' for k, v in errs.items())} "
+                  f"(limits loss and metrics {lim_loss:.0e}, energies, forces and gradients "
+                  f"{lim_grad:.0e} relative L2); on the ranks' gradients, after the step: "
+                  f"masters max |diff| {dp_:.2e}, EMA {de_:.2e} (limit {1e-2 * TP_LR:.1e} = "
+                  f"1e-2 lr); the update against the one-process step's, rel L2 {moved:.2e}; "
+                  f"step ms by rank {[round(r['ms'], 1) for r in ranks]} (one process "
+                  f"{want['ms']:.1f}); peak GiB by rank "
+                  f"{[round(r['peak_gib'], 2) for r in ranks]}; collectives on rank 0 "
+                  f"(count, bytes) {got['collectives']}; launches by rank {counts}  [{tag}]",
+                  flush=True)
+            if not (max(errs[k] for k in ("loss", "energy_l1", "force_l1")) <= lim_loss
+                    and max(errs[k] for k in ("energy", "forces", "grads")) <= lim_grad
+                    and dp_ <= 1e-2 * TP_LR and de_ <= 1e-2 * TP_LR):
+                raise RuntimeError(f"phase 15 {name}: the composite step disagrees with "
+                                   "the one-process step")
+            if any(r["loss"] != got["loss"] for r in ranks):
+                raise RuntimeError(f"phase 15 {name}: the ranks' losses differ")
+            need = ["rotate_pairs.to", "rotate_pairs.from", "rotate_pairs.to_m0",
+                    "rotate_pairs.from_m0", "s2act.k1", "s2act.k2", "s2act.k3"]
+            need += ["so2conv.fwd", "so2conv.adj"] if spec[5] == "conv_fused" else []
+            idle = [(i, k) for i, c in enumerate(counts) for k in need if c[k] == 0]
+            if idle:
+                raise RuntimeError(f"phase 15 {name}: kernels never launched (rank, kernel): "
+                                   f"{idle}")
+        for r in records:
+            sfx = r["name"][r["name"].index("["):]
+            r["launches"] = torch.load(
+                os.path.join(tmp, f"{TP_ROW_CASE[sfx]}.rank0.pt"),
+                weights_only=False)["launches"][r["name"][: -len(sfx)]]
+    return records
+
+
 def main(argv: list[str]) -> int:
     rotation_only = argv == ["--rotation-only"]
     s2act_only = argv == ["--s2act-only"]
-    if argv and not (rotation_only or s2act_only):
+    composite_only = argv == ["--composite-only"]
+    if argv and not (rotation_only or s2act_only or composite_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2220,6 +2528,11 @@ def main(argv: list[str]) -> int:
     if s2act_only:
         check_k2(int(pb.pos.shape[0]), tag)
         print(f"S2 activation kernels checked and timed  [{tag}]")
+        return 0
+    if composite_only:
+        del pred
+        print(json.dumps({"kernels": tp_phase(batch, tag)}))
+        print(f"composite step checked  [{tag}]")
         return 0
     records = check_kernels(batch, e_qm9, tag)
     records += check_k3(int(pb.edge_src.shape[0]), e_qm9, tag)
@@ -2372,6 +2685,10 @@ def main(argv: list[str]) -> int:
     dp_launches = dp_phase(counters, tag)
     for r in records:
         r["launches_dp_step"] = dp_launches.get(r["name"], 0)
+
+    # phase 15: the composite DP x TP x EP x SP step; its kernel rows at the
+    # sharded shapes count rank 0's launches in its step
+    records += tp_phase(batch, tag)
 
     print(json.dumps({"kernels": records}))
     print(tag)

@@ -33,6 +33,15 @@ features, the edge scalars, ``t_ij`` and ``rl_ij`` enter the block stack in
 bfloat16, the geometry (displacements, Wigner values, RBF) and the
 edge-degree embedding stay float32, norms compute in float32, and the
 final norm's output is float32.
+
+Sequence parallelism (a ``ModelGroup`` with ``sp``, parallel/sharding.py):
+the backbone takes this rank's contiguous slice of the whole edge arrays it
+is given (the slots of its N/M node rows, ``ModelGroup.edge_rows``);
+positions and cell enter the edge region through ``copy_to``, so the forces
+and the strain derivative sum the ranks' shares; the displacements, Wigner
+tables, distance RBF, edge-degree embedding, ``t_ij`` and ``rl_ij`` cover
+the rank's edges only, and the edge-degree embedding's node rows are
+gathered.
 """
 
 from __future__ import annotations
@@ -147,6 +156,7 @@ class EquiformerV2Backbone(nn.Module):
             for _ in range(num_layers)
         )
         self.norm = get_normalization_layer(opt["norm_type"], lmax, sphere_channels)
+        self.mp = None
 
     def forward(self, atomic_numbers, pos, graph_idx, edge_src, edge_dst,
                 edge_shift, edge_mask, cell,
@@ -158,12 +168,25 @@ class EquiformerV2Backbone(nn.Module):
             raise ValueError("the batch must be in the fixed-degree layout "
                              "(data/graph.py:collate: e_pad a multiple of n_pad)")
         k = E // N
+        mp = self.mp
+        rows = mp.edge_rows(N, E) if mp is not None else None
+
+        def edge(module, *args):   # a module on this rank's edges
+            return module(*args) if rows is None else mp.call_divergent(module, *args)
+
+        pos_e = pos
+        if rows is not None:   # this rank's edges; positions enter the edge region
+            es = slice(rows.start * k, rows.stop * k)
+            edge_src, edge_dst, edge_shift, edge_mask = (
+                t[es] for t in (edge_src, edge_dst, edge_shift, edge_mask))
+            pos_e, cell = mp.copy_to(pos), mp.copy_to(cell)
 
         # displacements (carry the gradient to pos)
         shift_cart = torch.einsum(
             "ek,ekj->ej", edge_shift.to(pos.dtype), cell[graph_idx[edge_dst]]
         )
-        dvec = gather_dst(pos, k) + shift_cart - gather_nodes(pos, edge_src)
+        dvec = (gather_dst(pos_e if rows is None else pos_e[rows], k) + shift_cart
+                - gather_nodes(pos_e, edge_src))
         dist = torch.sqrt(torch.clamp((dvec * dvec).sum(-1), min=1e-12))
 
         if self.wigner_rep == "factored":
@@ -174,16 +197,18 @@ class EquiformerV2Backbone(nn.Module):
         edge_scalars = phi_r
         if self.share:
             edge_scalars = torch.cat([phi_r,
-                                      self.shared_source_embedding(atomic_numbers[edge_src]),
-                                      self.shared_target_embedding(atomic_numbers[edge_dst])],
+                                      edge(self.shared_source_embedding,
+                                           atomic_numbers[edge_src]),
+                                      edge(self.shared_target_embedding,
+                                           atomic_numbers[edge_dst])],
                                      dim=1)
 
         x = pos.new_zeros(N, self.K_full, self.sphere_channels)
         x = torch.cat([self.sphere_embedding(atomic_numbers)[:, None, :],
                        x[:, 1:, :]], dim=1)
-        x = x + self.edge_degree_embedding(
-            atomic_numbers, edge_scalars, edge_src, edge_dst, edge_mask, wigner, k,
-        )
+        deg = edge(self.edge_degree_embedding,
+                   atomic_numbers, edge_scalars, edge_src, edge_dst, edge_mask, wigner, k)
+        x = x + (deg if rows is None else mp.gather(deg, dim=0))
 
         cdt = self.compute_dtype
         t_ij = rl_ij = a_ij = None
@@ -196,15 +221,17 @@ class EquiformerV2Backbone(nn.Module):
             # t_ij = h_proj(h_i + h_j) * W_erp(phi(r)); the angular stream
             # a_ij the same way with its own projections
             h = x[:, 0, :]
-            h_sum = gather_nodes(h, edge_src) + gather_dst(h, k)
-            t_ij = (self.h_proj(h_sum) * self.W_erp(phi_r)).to(cdt)
+            if rows is not None:
+                h = mp.copy_to(h)
+            h_sum = gather_nodes(h, edge_src) + gather_dst(h if rows is None else h[rows], k)
+            t_ij = (edge(self.h_proj, h_sum) * edge(self.W_erp, phi_r)).to(cdt)
             if self.dual_stream:
-                a_ij = (self.a_h_proj(h_sum) * self.a_W_erp(phi_r)).to(cdt)
+                a_ij = (edge(self.a_h_proj, h_sum) * edge(self.a_W_erp, phi_r)).to(cdt)
         x, edge_scalars_c = x.to(cdt), edge_scalars.to(cdt)
         phi_c = phi_r.to(cdt) if self.use_phi_every_layer else None
         num_graphs = cell.shape[0]
         for block in self.blocks:
             x, t_ij, a_ij = block(x, atomic_numbers, edge_scalars_c, edge_src, edge_dst,
                                   edge_mask, wigner, t_ij, rl_ij, k, graph_idx,
-                                  num_graphs, generator, phi_c, a_ij)
+                                  num_graphs, generator, phi_c, a_ij, rows=rows)
         return BackboneOutput(self.norm(x).float(), edge_scalars, wigner, k)

@@ -27,6 +27,21 @@ Other options: ``use_atom_edge_embedding`` (per-block atom embeddings in
 the edge scalars), ``use_m_share_rad`` (one radial scale per degree on the
 message instead of conv 1's radial MLP), ``use_attn_renorm`` (the alpha
 LayerNorm).
+
+Tensor parallelism (the JAX package's roles): ``so2_conv_1`` column,
+``so2_conv_2`` and ``proj`` row.  With a ``ModelGroup`` (``mp``,
+parallel/sharding.py) conv 1 gives the rank the alpha logits of its
+num_heads / M heads and its C/M channels of every gate chunk and degree;
+alpha is computed on the rank's heads (the alpha norm and ``alpha_dot``
+replicated, the GATA head-mean of alpha by one ``reduce_from``); the value
+activation runs on the rank's channels; conv 2's partial sums are
+reduce-scattered onto the rank's heads (whole heads: 128 = 8 x 16 splits
+into contiguous halves), so the alpha weighting, the dropout, the rotation
+back (kernel K1 at [E, K_red, 128 / M]) and the slot sum run on them;
+``proj`` closes the block with one ``reduce_from``.  Under sequence
+parallelism the module runs unpartitioned on its rank's edges, called
+through ``ModelGroup.call_divergent``; ``rows`` then names the node rows
+whose slots those edges are.
 """
 
 from __future__ import annotations
@@ -89,13 +104,15 @@ class GraphAttention(nn.Module):
         # GATA: the value path reads only the m = 0 outputs of conv 1
         self.m0_only = any_gata and use_sep_s2_act and not use_gate_act
         if use_gate_act:
-            extra_m0 = self.alpha_ch + lmax * hidden_channels
+            n_gates = lmax
         elif use_sep_s2_act:
             # GATA: alpha + one gate per (l, m != 0 sign) stream; baseline:
             # alpha + the S2 activation's gating scalars
-            extra_m0 = self.alpha_ch + ((1 + 2 * lmax) if any_gata else 1) * hidden_channels
+            n_gates = (1 + 2 * lmax) if any_gata else 1
         else:
-            extra_m0 = self.alpha_ch
+            n_gates = 0
+        extra_chunks = [self.alpha_ch] + [hidden_channels] * n_gates
+        extra_m0 = sum(extra_chunks)
         if self.m0_only and gata_v1:
             if layout_red.mmax != lmax:
                 raise ValueError("gata_v1 requires mmax == lmax (full-width value act; "
@@ -106,7 +123,8 @@ class GraphAttention(nn.Module):
         self.so2_conv_1 = SO2Conv(layout_red, 2 * sphere_channels, hidden_channels,
                                   extra_m0=extra_m0,
                                   rad_channels=None if use_m_share_rad else tuple(ec),
-                                  m0_only=self.m0_only, conv_fused=conv_fused)
+                                  m0_only=self.m0_only, conv_fused=conv_fused, tp="col",
+                                  extra_chunks=extra_chunks)
         self.alpha_norm = LayerNorm(attn_alpha_channels, eps=1e-5) if use_attn_renorm else None
         self.alpha_dot = nn.Parameter(torch.empty(num_heads, attn_alpha_channels))
         if self.m0_only and gata and not gata_v1:
@@ -115,36 +133,52 @@ class GraphAttention(nn.Module):
                 use_phi=use_phi_every_layer, num_rbf=num_rbf or edge_channels_list[0],
             )
         self.so2_conv_2 = SO2Conv(layout_red, hidden_channels,
-                                  num_heads * attn_value_channels, conv_fused=conv_fused)
-        self.proj = SO3Linear(num_heads * attn_value_channels, output_channels, lmax)
+                                  num_heads * attn_value_channels, conv_fused=conv_fused,
+                                  tp="row")
+        self.proj = SO3Linear(num_heads * attn_value_channels, output_channels, lmax,
+                              tp="row")
+        self.mp = None
 
     def _alpha(self, x0_alpha, k: int, edge_mask):
-        """Attention weights [E, heads]: the alpha LayerNorm, smooth leaky
-        ReLU, the per-head dot and the softmax over each node's slots."""
-        a = x0_alpha.reshape(-1, self.num_heads, self.attn_alpha_channels)
+        """Attention weights [E, heads] (the rank's heads under TP): the
+        alpha LayerNorm, smooth leaky ReLU, the per-head dot and the softmax
+        over each node's slots."""
+        mp = self.mp
+        heads = self.num_heads // (mp.size if mp is not None else 1)
+        a = x0_alpha.reshape(-1, heads, self.attn_alpha_channels)
+        dot = self.alpha_dot
+        if mp is not None:   # replicated parameters on the rank's heads
+            dot = mp.copy_to(dot)[mp.part(self.num_heads)]
         if self.alpha_norm is not None:
-            a = self.alpha_norm(a)
+            a = self.alpha_norm(a) if mp is None else mp.call_divergent(self.alpha_norm, a)
         a = smooth_leaky_relu(a)
-        dt = torch.promote_types(a.dtype, self.alpha_dot.dtype)
-        logits = torch.einsum("ehk,hk->eh", a.to(dt), self.alpha_dot.to(dt))
+        dt = torch.promote_types(a.dtype, dot.dtype)
+        logits = torch.einsum("ehk,hk->eh", a.to(dt), dot.to(dt))
         return softmax_over_slots(logits, k, edge_mask)
 
     def forward(self, x, atomic_numbers, edge_scalars, edge_src, edge_dst,
                 edge_mask, wigner, t_ij, rl_ij, k: int,
-                generator: Optional[torch.Generator] = None, phi_r=None):
+                generator: Optional[torch.Generator] = None, phi_r=None,
+                rows: slice | None = None):
         """Fixed-degree layout: k edge slots per node (ops/segment.py).
         ``t_ij`` / ``rl_ij``: the GATA edge streams (None when unused);
-        ``phi_r``: the distance RBF (``use_phi_every_layer`` only)."""
+        ``phi_r``: the distance RBF (``use_phi_every_layer`` only);
+        ``rows``: the edges are the slots of these node rows only (sequence
+        parallelism; the output holds those rows)."""
+        mp = self.mp
         x_edge = edge_scalars
         if self.use_atom_edge_embedding:
             x_edge = torch.cat([edge_scalars,
                                 self.src_embedding(atomic_numbers[edge_src]),
                                 self.dst_embedding(atomic_numbers[edge_dst])], dim=1)
         x_src = gather_nodes(x, edge_src)
-        x_dst = gather_dst(x, k)
+        x_dst = gather_dst(x if rows is None else x[rows], k)
         # unrotated target-node features (reference Gotennet fork
-        # transformer_block.py:255-267 gathers the target embedding)
-        h_j, X_j = x_dst[:, 0, :], x_dst[:, 1:, :]
+        # transformer_block.py:255-267 gathers the target embedding); under
+        # TP the value path's share, copied in at the nodes
+        gata_value = mp is not None and (self.gata or self.gata_v1)
+        x_val = gather_dst(mp.copy_to(x), k) if gata_value else x_dst
+        h_j, X_j = x_val[:, 0, :], x_val[:, 1:, :]
         msg = torch.cat([x_src, x_dst], dim=2)            # [E, K_full, 2C]
         if self.rad is not None:   # m-share radial scale, one per degree
             w = self.rad(x_edge).reshape(msg.shape[0], self.lmax + 1, -1)
@@ -154,10 +188,11 @@ class GraphAttention(nn.Module):
         else:
             msg = rotate_to_edge(wigner, msg, self.layout_red)
         msg, x0_extra = self.so2_conv_1(msg, None if self.rad is not None else x_edge)
-        alpha_in, rest = x0_extra[:, : self.alpha_ch], x0_extra[:, self.alpha_ch :]
+        a_ch = self.alpha_ch // (mp.size if mp is not None else 1)
+        alpha_in, rest = x0_extra[:, :a_ch], x0_extra[:, a_ch:]
         if self.use_gate_act:
             msg = gate_activation(rest, msg, self.lmax, self.layout_red.mmax,
-                                  self.hidden_channels)
+                                  msg.shape[-1])
             alpha = self._alpha(alpha_in, k, edge_mask)
         elif not self.use_sep_s2_act:
             msg = s2_activation(msg, self.grid_red)
@@ -165,25 +200,40 @@ class GraphAttention(nn.Module):
         elif self.gata_v1:
             # gates straight from conv 1, no t_ij bias, no alpha scaling
             # (reference Gotennet_inspired/transformer_block.py:311-325)
-            msg = gata_value_activation_v1(rest, X_j, rl_ij, self.lmax, self.hidden_channels)
+            C = self.hidden_channels
+            if mp is not None:   # the rank's channels of the unprojected X_j
+                C //= mp.size
+                X_j = X_j[..., mp.part(self.hidden_channels)]
+            msg = gata_value_activation_v1(rest, X_j, rl_ij, self.lmax, C)
             alpha = self._alpha(alpha_in, k, edge_mask)
         elif self.gata:
             # alpha before the value activation (reference fork :315-324)
             alpha = self._alpha(alpha_in, k, edge_mask)
             if self.normalize_attn_output:   # by the head-mean of alpha
-                rest = rest * alpha.mean(dim=1, keepdim=True).to(rest.dtype)
-            msg = self.value_act(rest, t_ij, h_j, X_j, rl_ij, phi_r)
+                if mp is None:
+                    mean = alpha.mean(dim=1, keepdim=True)
+                else:
+                    mean = mp.copy_to(mp.reduce_from(alpha.sum(dim=1, keepdim=True))
+                                      / self.num_heads)
+                rest = rest * mean.to(rest.dtype)
+            msg = self.value_act(rest, t_ij, h_j, X_j, rl_ij, phi_r, copied=mp is not None)
         else:
             msg = separable_s2_activation(rest, msg, self.grid_red)
             alpha = self._alpha(alpha_in, k, edge_mask)
 
-        msg, _ = self.so2_conv_2(msg, None)
+        msg, _ = self.so2_conv_2(msg, None, scatter=mp is not None)
         if self.alpha_drop > 0.0 and self.training:
+            # the whole batch's mask, as one process draws it
             keep = 1.0 - self.alpha_drop
-            alpha = alpha * keep_mask(alpha.shape, keep, generator,
-                                      alpha.device).to(alpha.dtype) / keep
+            n_edges = alpha.shape[0] if rows is None else x.shape[0] * k
+            mask = keep_mask((n_edges, self.num_heads), keep, generator, alpha.device)
+            if rows is not None:
+                mask = mask[rows.start * k : rows.stop * k]
+            if mp is not None:
+                mask = mask[:, mp.part(self.num_heads)]
+            alpha = alpha * mask.to(alpha.dtype) / keep
         E, Kr = msg.shape[0], msg.shape[1]
-        msg = msg.reshape(E, Kr, self.num_heads, self.attn_value_channels)
+        msg = msg.reshape(E, Kr, alpha.shape[1], self.attn_value_channels)
         msg = (msg * alpha[:, None, :, None].to(msg.dtype)).reshape(E, Kr, -1)
 
         msg = rotate_from_edge(wigner, msg, self.layout_red)

@@ -10,6 +10,13 @@ With ``gata=True`` (GATA-V2) HTR first refines the edge stream ``t_ij``
 'tensor_product' (nn/dual_stream.py).  Both residual branches pass drop-path (whole graphs) and
 equivariant dropout (whole channels); both are active only in
 ``train()`` mode, with masks drawn from the caller's ``torch.Generator``.
+
+Sequence parallelism (``rows``: this rank's edges are the slots of these
+node rows; parallel/sharding.py): HTR and the attention run on the rank's
+edges with their weights whole (``ModelGroup.call_divergent``), the node
+features entering through ``copy_to``; the attention's node rows are
+gathered before the residual.  The FFN stays tensor-parallel on every node;
+the dual stream's angular refinement runs on the rank's edges as HTR does.
 """
 
 from __future__ import annotations
@@ -121,29 +128,44 @@ class TransBlock(nn.Module):
             self.ffn = FeedForward(sphere_channels, ffn_hidden_channels, sphere_channels,
                                    lmax, grid_full, use_gate_act=use_gate_act,
                                    use_grid_mlp=use_grid_mlp, use_sep_s2_act=use_sep_s2_act)
+        self.mp = None
 
     def forward(self, x, atomic_numbers, edge_scalars, edge_src, edge_dst,
                 edge_mask, wigner, t_ij, rl_ij, k: int, graph_idx,
                 num_graphs: int, generator: Optional[torch.Generator] = None, phi_r=None,
-                a_ij=None):
+                a_ij=None, rows: slice | None = None):
         """Returns (x, t_ij, a_ij); ``t_ij`` is None without GATA-V2,
         ``rl_ij`` without GATA (V2 or v1), ``a_ij`` without the dual
-        stream, ``phi_r`` (the distance RBF) without ``use_phi_every_layer``."""
+        stream, ``phi_r`` (the distance RBF) without ``use_phi_every_layer``;
+        ``rows``: sequence parallelism (module doc)."""
+        sp = self.mp if rows is not None else None
         if self.gata:
-            X_i = gather_nodes(x, edge_src)[:, 1:, :]
-            X_j = gather_dst(x, k)[:, 1:, :]
-            t_ij = self.htr(t_ij, X_i, X_j, rl_ij)
-            if self.dual_stream:
+            xe = x if sp is None else sp.copy_to(x)
+            X_i = gather_nodes(xe, edge_src)[:, 1:, :]
+            X_j = gather_dst(xe if rows is None else xe[rows], k)[:, 1:, :]
+            if sp is None:
+                t_ij = self.htr(t_ij, X_i, X_j, rl_ij)
+            else:
+                t_ij = sp.call_divergent(self.htr, t_ij, X_i, X_j, rl_ij)
+            if self.dual_stream and sp is None:
                 a_ij = self.angular_htr(a_ij, t_ij, x, edge_src, k, edge_mask)
-        h = self.ga(self.attn_norm(x), atomic_numbers, edge_scalars, edge_src,
-                    edge_dst, edge_mask, wigner, t_ij, rl_ij, k, generator, phi_r)
+            elif self.dual_stream:
+                a_ij = sp.call_divergent(self.angular_htr, a_ij, t_ij, sp.copy_to(x), edge_src,
+                                         k, edge_mask, rows=rows)
+        args = (atomic_numbers, edge_scalars, edge_src, edge_dst, edge_mask, wigner, t_ij,
+                rl_ij, k, generator, phi_r)
+        if sp is None:
+            h = self.ga(self.attn_norm(x), *args)
+        else:
+            h = sp.gather(sp.call_divergent(self.ga, sp.copy_to(self.attn_norm(x)), *args,
+                                            rows=rows), dim=0)
         h = self.drop_path(h, graph_idx, num_graphs, generator)
         x = x + self.proj_drop(h, generator)
         h = self.ffn_norm(x)
         if self.ffn_variant in ("moe", "moe_breaking"):
-            h = self.ffn(h, t_ij, k, edge_mask)
+            h = self.ffn(h, t_ij, k, edge_mask, rows=rows)
         elif self.ffn_variant == "tensor_product":
-            h = self.ffn(h, t_ij, a_ij if a_ij is not None else t_ij, k, edge_mask)
+            h = self.ffn(h, t_ij, a_ij if a_ij is not None else t_ij, k, edge_mask, rows=rows)
         else:
             h = self.ffn(h)
         h = self.drop_path(h, graph_idx, num_graphs, generator)

@@ -6,6 +6,12 @@ GATA_and_all2all_Dual_Stream/activation.py:1363-1484 AngularHTR;
 transformer_block.py:375-460 TensorProductFFN).  Two invariant edge streams
 run through the blocks: ``t_ij`` (pairwise, HTR-refined) and ``a_ij``
 (angular, three-body).  Fixed-degree layout: k edge slots per node.
+
+Neither module has a tensor-parallel role.  Under sequence parallelism
+(``rows``: the edges are the slots of these node rows, parallel/sharding.py)
+the angular stream's sums onto the edges' source nodes (the segment-id
+layout) are each rank's partial sums, summed over the ranks with
+``reduce_from``, and the tensor-product FFN's node means are gathered.
 """
 
 from __future__ import annotations
@@ -40,14 +46,22 @@ class AngularHTR(nn.Module):
         self.gamma_w = Linear(edge_channels, edge_channels)
         self.gamma_a_1 = Linear(edge_channels, edge_channels)
         self.gamma_a_2 = Linear(edge_channels, edge_channels)
+        self.mp = None
 
-    def forward(self, a_ij, t_ij, x, edge_src, k: int, edge_mask):
+    def forward(self, a_ij, t_ij, x, edge_src, k: int, edge_mask, rows: slice | None = None):
         """a_ij / t_ij: [E, edge_C]; x: [N, K, C] (the block's input)."""
         N, E = x.shape[0], a_ij.shape[0]
         X_all = self.x_norm(x)[:, 1:, :]
+        if rows is not None:
+            X_all = X_all[rows]
+
+        def source_sum(v):   # onto the source nodes; every rank's edges under SP
+            out = segment_sum(v, edge_src, N, mask=edge_mask)
+            return out if rows is None else self.mp.copy_to(self.mp.reduce_from(out))
+
         t_n = self.t_norm(t_ij)
         # edges per source node, at least 1 (reference :1433-1436)
-        deg = torch.clamp(segment_sum(a_ij.new_ones(E), edge_src, N, mask=edge_mask), min=1.0)
+        deg = torch.clamp(source_sum(a_ij.new_ones(E)), min=1.0)
         w_ang = a_ij.new_zeros(E, a_ij.shape[1])
         offset = 0
         for l in range(1, self.lmax + 1):
@@ -56,7 +70,7 @@ class AngularHTR(nn.Module):
             offset += d
             q = getattr(self, f"W_q_{l}")(Xl_dst)
             kk = getattr(self, f"W_k_{l}")(Xl_dst)
-            agg_k = segment_sum(kk, edge_src, N, mask=edge_mask) / deg[:, None, None]
+            agg_k = source_sum(kk) / deg[:, None, None]
             w_ang = w_ang + (q * gather_nodes(agg_k, edge_src)).sum(1) / d
         w_ang = w_ang * self.t_proj(t_n)
         gw = F.silu(self.gamma_w(w_ang))
@@ -78,12 +92,15 @@ class TensorProductFFN(nn.Module):
                     Linear(2 * edge_channels + 2 * sphere_channels, hidden_channels))
             setattr(self, f"gate_{l}_2", Linear(hidden_channels, hidden_channels))
         self.linear_2 = Linear(hidden_channels, sphere_channels, bias=False)
+        self.mp = None
 
-    def forward(self, x, t_ij, a_ij, k: int, edge_mask):
-        c_i = torch.nan_to_num(mean_over_slots(t_ij, k, edge_mask), nan=0.0, posinf=1.0,
-                               neginf=-1.0)
-        c_a = torch.nan_to_num(mean_over_slots(a_ij, k, edge_mask), nan=0.0, posinf=1.0,
-                               neginf=-1.0)
+    def forward(self, x, t_ij, a_ij, k: int, edge_mask, rows: slice | None = None):
+        def node_mean(v):   # the rank's node rows gathered under SP
+            m = mean_over_slots(v, k, edge_mask)
+            m = m if rows is None else self.mp.gather(m, dim=0)
+            return torch.nan_to_num(m, nan=0.0, posinf=1.0, neginf=-1.0)
+
+        c_i, c_a = node_mean(t_ij), node_mean(a_ij)
         x0 = x[:, 0, :]
         h = self.linear_1(x)
         out = []

@@ -16,6 +16,15 @@ heads (models/qm9.py:122-133).  Its T activations run as one call over
 ``ESENFeedForward``: the eSEN-style FFN, gated directly in SH space with no
 grid (reference GATA_and_all2all_escninsipred_envelope_and_simple_gating
 fork, transformer_block.py:369-475).
+
+Tensor-parallel roles (nn/partition.py, the JAX package's): ``so3_linear_1``,
+the gating scalars (``gating_linear`` / ``scalar_mlp``, the eSEN
+``gate_proj_l``) and the grid MLP's first and last maps split the hidden
+channels (column), ``so3_linear_2`` and the grid MLP's middle map contract
+them (row).  With a ``ModelGroup`` every activation runs on the rank's H/M
+hidden channels (kernel K2 at [N, K, H/M]); the grid MLP gathers the grid
+values before its first map, and the eSEN gates gather the l = 0 scalars.
+The stacked form (``num``) declares no roles.
 """
 
 from __future__ import annotations
@@ -65,22 +74,27 @@ class FeedForward(nn.Module):
         self.use_sep_s2_act = use_sep_s2_act
         C, H = sphere_channels, hidden_channels
 
-        def dense(i, o, bias=True):
-            return Linear(i, o, bias=bias) if num is None else StackedLinear(num, i, o, bias)
+        def dense(i, o, bias=True, tp="col", chunks=None):
+            if num is None:
+                return Linear(i, o, bias=bias, tp=tp, out_chunks=chunks)
+            return StackedLinear(num, i, o, bias)
 
         if use_grid_mlp:
             if use_sep_s2_act:
                 self.scalar_mlp = dense(C, H)
         elif use_gate_act:
-            self.gating_linear = dense(C, lmax * H)
+            self.gating_linear = dense(C, lmax * H, chunks=[H] * lmax)
         elif use_sep_s2_act:
             self.gating_linear = dense(C, H)
-        so3 = SO3Linear if num is None else (lambda *a: _StackedSO3Linear(num, *a))
-        self.so3_linear_1 = so3(C, H, lmax)
+        so3 = (SO3Linear if num is None
+               else (lambda *a, tp=None: _StackedSO3Linear(num, *a)))
+        self.so3_linear_1 = so3(C, H, lmax, tp="col")
         if use_grid_mlp:
             for i in range(3):
-                setattr(self, f"grid_mlp_{i}", dense(H, H, bias=False))
-        self.so3_linear_2 = so3(H, output_channels, lmax)
+                setattr(self, f"grid_mlp_{i}", dense(H, H, bias=False,
+                                                     tp="row" if i == 1 else "col"))
+        self.so3_linear_2 = so3(H, output_channels, lmax, tp="row")
+        self.mp = None
 
     def _dense(self, mod: nn.Module, x: torch.Tensor, shared: bool = False) -> torch.Tensor:
         return mod(x) if self.num is None else mod(x, shared=shared)
@@ -101,6 +115,8 @@ class FeedForward(nn.Module):
 
         if self.use_grid_mlp:
             g = self.grid.to_grid(h)
+            if self.mp is not None:   # the column map reads every channel
+                g = self.mp.gather(g, dim=-1)
             for i in range(3):
                 g = self._dense(getattr(self, f"grid_mlp_{i}"),
                                 g.reshape(lead + (-1,) + tuple(g.shape[1:])))
@@ -132,16 +148,20 @@ class ESENFeedForward(nn.Module):
                  output_channels: int, lmax: int):
         super().__init__()
         self.lmax = lmax
-        self.so3_linear_1 = SO3Linear(sphere_channels, hidden_channels, lmax)
+        self.so3_linear_1 = SO3Linear(sphere_channels, hidden_channels, lmax, tp="col")
         for l in range(1, lmax + 1):
-            setattr(self, f"gate_proj_{l}", Linear(hidden_channels, hidden_channels))
-        self.so3_linear_2 = SO3Linear(hidden_channels, output_channels, lmax)
+            setattr(self, f"gate_proj_{l}", Linear(hidden_channels, hidden_channels, tp="col"))
+        self.so3_linear_2 = SO3Linear(hidden_channels, output_channels, lmax, tp="row")
+        self.mp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.so3_linear_1(x)
         out_scalar = scaled_silu(h[:, :1, :])
         out = [out_scalar]
+        summary = out_scalar[:, 0, :]
+        if self.mp is not None:   # the column gates read every channel
+            summary = self.mp.gather(summary, dim=-1)
         for l in range(1, self.lmax + 1):
-            gate = torch.sigmoid(getattr(self, f"gate_proj_{l}")(out_scalar[:, 0, :]))
+            gate = torch.sigmoid(getattr(self, f"gate_proj_{l}")(summary))
             out.append(h[:, l * l : (l + 1) ** 2, :] * gate[:, None, :])
         return self.so3_linear_2(torch.cat(out, dim=1))

@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .layers import Linear
+from .partition import chunked_index
 
 __all__ = ["HTR", "GATAValueActivation", "gata_value_activation_v1"]
 
@@ -103,6 +104,13 @@ class GATAValueActivation(nn.Module):
     (activation.py:388-409).  ``use_phi`` (the phi-every-layer variant)
     multiplies the bias by ``phi_proj(phi_r)``, phi_r [E, num_rbf] the
     distance RBF.
+
+    Tensor-parallel roles (the JAX package's): ``W_rs``, ``gamma_s`` and
+    ``xj_proj`` split the hidden channels (column; the gates as S chunks of
+    C).  With a ``ModelGroup`` (``mp``) the activation runs on the rank's
+    C/M channels of every chunk: ``attn_output`` holds those channels, and
+    the replicated ``phi_proj`` contributes its columns of them;
+    ``copied``: ``h_j`` and ``X_j`` already went through ``copy_to``.
     """
 
     def __init__(self, sphere_channels: int, hidden_channels: int,
@@ -111,22 +119,36 @@ class GATAValueActivation(nn.Module):
         super().__init__()
         S = 1 + 2 * lmax
         self.C, self.lmax, self.mmax = hidden_channels, lmax, mmax
-        self.W_rs = Linear(edge_channels, S * hidden_channels)
-        self.gamma_s = Linear(sphere_channels, S * hidden_channels)
-        self.xj_proj = Linear(sphere_channels, hidden_channels, bias=False)
+        gates = [hidden_channels] * S
+        self.W_rs = Linear(edge_channels, S * hidden_channels, tp="col", out_chunks=gates)
+        self.gamma_s = Linear(sphere_channels, S * hidden_channels, tp="col", out_chunks=gates)
+        self.xj_proj = Linear(sphere_channels, hidden_channels, bias=False, tp="col")
         self.use_phi = use_phi
         if use_phi:
             self.phi_proj = Linear(num_rbf, S * hidden_channels)
+        self.mp = None
 
-    def forward(self, attn_output, t_ij, h_j, X_j, rl_ij, phi_r=None):
-        C, lmax = self.C, self.lmax
+    def _phi(self, phi_r):
+        """``phi_proj(phi_r)``: on the rank's gate channels under TP."""
+        if self.mp is None:
+            return self.phi_proj(phi_r)
+        mp, S = self.mp, 1 + 2 * self.lmax
+        idx = torch.as_tensor(chunked_index(S * self.C, [self.C] * S, mp.rank, mp.size),
+                              device=phi_r.device)
+        w, b = mp.copy_to(self.phi_proj.weight), mp.copy_to(self.phi_proj.bias)
+        x = mp.copy_to(phi_r)
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return F.linear(x.to(dt), w[idx].to(dt), b[idx].to(dt))
+
+    def forward(self, attn_output, t_ij, h_j, X_j, rl_ij, phi_r=None, copied: bool = False):
+        C, lmax = self.C // (self.mp.size if self.mp is not None else 1), self.lmax
         rl_ij = rl_ij.to(attn_output.dtype)
-        bias = self.W_rs(t_ij) * F.silu(self.gamma_s(h_j))
+        bias = self.W_rs(t_ij) * F.silu(self.gamma_s(h_j, copied=copied))
         if self.use_phi:
-            bias = bias * self.phi_proj(phi_r)
+            bias = bias * self._phi(phi_r)
         combined = attn_output + bias
         out = [F.silu(combined[:, :C])[:, None, :]]
-        Xp = self.xj_proj(X_j)
+        Xp = self.xj_proj(X_j, copied=copied)
         offset = 0
         for l in range(1, lmax + 1):
             d = 2 * l + 1

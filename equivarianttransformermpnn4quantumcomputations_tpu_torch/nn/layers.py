@@ -20,6 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .partition import declare, declare_tp
+
 __all__ = ["Linear", "StackedLinear", "LayerNorm", "RadialMLP", "GaussianSmearing",
            "smooth_leaky_relu", "scaled_silu", "keep_mask"]
 
@@ -45,24 +47,54 @@ def keep_mask(shape, keep: float, generator: Optional[torch.Generator],
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` computing in the promoted type of input and weight."""
+    """``nn.Linear`` computing in the promoted type of input and weight.
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    ``tp``: the tensor-parallel role (the JAX package's ``tp_dense``,
+    nn/partition.py): ``"col"`` splits the output features, ``"row"`` the
+    input features; ``out_chunks`` / ``in_chunks`` list the chunks that the
+    split features concatenate.  Once ``parallel/sharding.py:shard_state``
+    hands it a ``ModelGroup`` (``mp``), a column layer takes its replicated
+    input through ``copy_to`` and returns its share of the outputs; a row
+    layer takes its share of the inputs and returns the whole output
+    (``reduce_from``, then the bias).  ``copied=True`` tells a column layer
+    that its input already went through ``copy_to`` (one collective for
+    the uses of a node tensor before it is gathered to the edges).
+    """
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 tp: str | None = None, out_chunks=None, in_chunks=None):
+        super().__init__(in_features, out_features, bias=bias)
+        declare_tp(self, tp, {"weight": (1, 0)}, "bias" if bias else None, out_chunks,
+                   in_chunks)
+        self.mp = None
+
+    def forward(self, x: torch.Tensor, copied: bool = False) -> torch.Tensor:
         dt = torch.promote_types(x.dtype, self.weight.dtype)
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        if self.mp is None or self.tp is None:
+            return F.linear(x.to(dt), self.weight.to(dt), b)
+        if self.tp == "col":
+            x = x.to(dt) if copied else self.mp.copy_to(x.to(dt))
+            return F.linear(x, self.weight.to(dt), b)
+        y = self.mp.reduce_from(F.linear(x.to(dt), self.weight.to(dt)))
+        return y if b is None else y + b
 
 
 class StackedLinear(nn.Module):
     """T dense maps with weights on a leading axis: weight [T, out, in],
     bias [T, out] (or none); the JAX package's ``nn.vmap`` of a ``Dense``
     over stacked params.  Computes in the promoted type of input and
-    weight, as ``Linear`` does."""
+    weight, as ``Linear`` does.  ``ep=True``: the stacked axis is the MoE's
+    expert axis, split over the ``model`` axis (nn/partition.py)."""
 
-    def __init__(self, num: int, in_features: int, out_features: int, bias: bool = True):
+    def __init__(self, num: int, in_features: int, out_features: int, bias: bool = True,
+                 ep: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(num, out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(num, out_features)) if bias else None
+        for leaf in ("weight", "bias") if ep else ():
+            if getattr(self, leaf) is not None:
+                declare(self, leaf, 0, axis="ep")
 
     def forward(self, x: torch.Tensor, shared: bool = False) -> torch.Tensor:
         """x [T, ..., in] -> [T, ..., out]; with ``shared`` x [..., in] goes

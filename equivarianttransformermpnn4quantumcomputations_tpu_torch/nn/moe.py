@@ -18,6 +18,13 @@ experts of a kind run as one batched product (``StackedLinear``).
 ``MoEHTRFeedForward.routing_entropy`` holds the routing entropy of the last
 forward (detached), the value the JAX package ``sow``s under
 ``intermediates/.../routing_entropy``.
+
+Expert parallelism: the stacked expert axis is declared ``"ep"`` (the JAX
+package's ``metadata_params``).  With a ``ModelGroup`` (``mp``) a rank holds
+num_experts / M experts of each kind and runs them on every atom; the router
+and the mixture weights are replicated, and the weighted sum of the rank's
+experts is reduced over ``model``.  ``rows`` (sequence parallelism): t_ij
+holds the slots of these node rows only, and the node means are gathered.
 """
 
 from __future__ import annotations
@@ -39,9 +46,9 @@ class EquivariantExpertFFN(nn.Module):
                  edge_channels: int, lmax: int):
         super().__init__()
         self.lmax, self.H = lmax, hidden_channels
-        self.linear_1 = StackedLinear(num, sphere_channels, hidden_channels, bias=False)
-        self.gate_proj = StackedLinear(num, edge_channels, hidden_channels * (lmax + 1))
-        self.linear_2 = StackedLinear(num, hidden_channels, sphere_channels, bias=False)
+        self.linear_1 = StackedLinear(num, sphere_channels, hidden_channels, bias=False, ep=True)
+        self.gate_proj = StackedLinear(num, edge_channels, hidden_channels * (lmax + 1), ep=True)
+        self.linear_2 = StackedLinear(num, hidden_channels, sphere_channels, bias=False, ep=True)
 
     def forward(self, x: torch.Tensor, c_i: torch.Tensor) -> torch.Tensor:
         h = self.linear_1(x, shared=True)                       # [T, N, K, H]
@@ -61,9 +68,9 @@ class NonEquivariantExpertFFN(nn.Module):
     def __init__(self, num: int, sphere_channels: int, hidden_channels: int,
                  edge_channels: int, lmax: int):
         super().__init__()
-        self.linear_1 = StackedLinear(num, sphere_channels, hidden_channels)
-        self.gate_proj = StackedLinear(num, edge_channels, hidden_channels)
-        self.linear_2 = StackedLinear(num, hidden_channels, sphere_channels)
+        self.linear_1 = StackedLinear(num, sphere_channels, hidden_channels, ep=True)
+        self.gate_proj = StackedLinear(num, edge_channels, hidden_channels, ep=True)
+        self.linear_2 = StackedLinear(num, hidden_channels, sphere_channels, ep=True)
 
     def forward(self, x: torch.Tensor, c_i: torch.Tensor) -> torch.Tensor:
         h = F.silu(self.linear_1(x, shared=True))   # SiLU on every coefficient
@@ -83,18 +90,32 @@ class MoEHTRFeedForward(nn.Module):
         self.experts_eq = EquivariantExpertFFN(n_equiv, *kw)
         self.experts_ne = (NonEquivariantExpertFFN(num_experts - n_equiv, *kw)
                            if num_experts > n_equiv else None)
+        self.n_equiv = n_equiv
         self.routing_entropy: torch.Tensor | None = None
+        self.mp = None
 
     def forward(self, x: torch.Tensor, t_ij: torch.Tensor, k: int,
-                edge_mask: torch.Tensor) -> torch.Tensor:
+                edge_mask: torch.Tensor, rows: slice | None = None) -> torch.Tensor:
         """x: [N, K, C]; t_ij: [N k, edge_C] -> [N, K, C]."""
         c_i = mean_over_slots(t_ij, k, edge_mask)
+        if rows is not None:   # the rank's node rows -> every node
+            c_i = self.mp.gather(c_i, dim=0)
         c_i = torch.nan_to_num(c_i, nan=0.0, posinf=1.0, neginf=-1.0)
         w = torch.softmax(self.router_2(F.silu(self.router_1(c_i))), dim=-1)
         self.routing_entropy = (-(w * torch.log(w + 1e-8)).sum(-1)).mean().detach()
+        mp = self.mp
+        if mp is not None:   # the rank's experts of each kind, on every atom
+            x, c_i = mp.copy_to(x), mp.copy_to(c_i)
+            n_eq, n_all = self.n_equiv, w.shape[1]
+            mine = torch.cat([torch.arange(n_eq)[mp.part(n_eq)],
+                              torch.arange(n_eq, n_all)[mp.part(n_all - n_eq)]])
+            w = mp.copy_to(w)[:, mine.to(w.device)]
         outs = self.experts_eq(x, c_i)
         if self.experts_ne is not None:
             outs = torch.cat([outs, self.experts_ne(x, c_i)], dim=0)
+        if outs.shape[0] != w.shape[1]:
+            raise ValueError("expert parallelism needs each expert kind to split over model")
         dt = torch.promote_types(w.dtype, outs.dtype)
         # the soft mixture: out[n] = sum_e w[n, e] expert_e(x)[n]
-        return torch.einsum("ne,enqc->nqc", w.to(dt), outs.to(dt))
+        out = torch.einsum("ne,enqc->nqc", w.to(dt), outs.to(dt))
+        return out if mp is None else mp.reduce_from(out)

@@ -28,6 +28,7 @@ import torch.nn as nn
 from ..ops.cuda.so2conv import so2conv_fused, so2conv_supported
 from ..ops.irreps import IrrepsLayout
 from .layers import RadialMLP
+from .partition import declare, declare_tp
 
 __all__ = ["SO3Linear", "SO2Conv"]
 
@@ -48,17 +49,30 @@ class SO3Linear(nn.Module):
     """Per-degree linear map over [N, K, C]; bias only on l = 0.
 
     weight: [lmax+1, in, out] (degree l's block maps its 2l+1 rows).
+    ``tp``: ``"col"`` splits ``out`` (and the bias), ``"row"`` splits ``in``
+    (nn/partition.py).  With a ``ModelGroup`` (``mp``) a column layer takes
+    its replicated input through ``copy_to``; a row layer sums its partial
+    products with ``reduce_from`` and then adds the bias once.
     """
 
-    def __init__(self, in_features: int, out_features: int, lmax: int):
+    def __init__(self, in_features: int, out_features: int, lmax: int,
+                 tp: str | None = None):
         super().__init__()
         self.lmax = lmax
         self.weight = nn.Parameter(torch.empty(lmax + 1, in_features, out_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
+        declare_tp(self, tp, {"weight": (1, 2)}, "bias")
+        self.mp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(x.dtype)
+        tp = self.tp if self.mp is not None else None
+        if tp == "col":
+            x = self.mp.copy_to(x)
         out = [x[:, l * l : (l + 1) ** 2, :] @ w[l] for l in range(self.lmax + 1)]
+        if tp == "row":
+            out = self.mp.reduce_from(torch.cat(out, dim=1))
+            return torch.cat([out[:, :1] + self.bias.to(x.dtype), out[:, 1:]], dim=1)
         out[0] = out[0] + self.bias.to(x.dtype)
         return torch.cat(out, dim=1)
 
@@ -77,16 +91,30 @@ class SO2Conv(nn.Module):
     the message output is None.  ``conv_fused``: a full site whose widths
     the kernel takes (``so2conv_supported``) runs through K3; ``m0_only``
     sites never do.
+
+    ``tp`` (nn/partition.py): ``"col"`` splits every weight's output
+    columns and ``b_m0``: a rank holds its 1/M of each chunk of
+    ``extra_chunks`` (the extra outputs' parts: alpha, gates) and of each
+    degree's C_out channels, so its outputs are the extra parts' shares and
+    C_out / M channels of every row.  ``"row"`` splits the input rows (each
+    degree's C_in channels); ``b_m0`` stays whole.  With a ``ModelGroup``
+    (``mp``) a column conv takes its replicated inputs (after the radial
+    scale) through ``copy_to``; a row conv sums its partial outputs with
+    ``reduce_from`` (or, ``scatter=True``, keeps its contiguous 1/M of the
+    output channels with ``reduce_scatter``) and adds the bias after.  The
+    radial MLP stays replicated.
     """
 
     def __init__(self, layout: IrrepsLayout, in_channels: int, out_channels: int,
                  extra_m0: int = 0, rad_channels: Optional[Sequence[int]] = None,
-                 m0_only: bool = False, conv_fused: bool = False):
+                 m0_only: bool = False, conv_fused: bool = False, tp: str | None = None,
+                 extra_chunks: Optional[Sequence[int]] = None):
         super().__init__()
         self.layout = layout
         self.cin, self.cout = in_channels, out_channels
         self.extra_m0, self.m0_only = extra_m0, m0_only
-        self.fused = (conv_fused and not m0_only
+        self.conv_fused = conv_fused and not m0_only
+        self.fused = (self.conv_fused
                       and so2conv_supported(layout, in_channels, out_channels, extra_m0))
         L0 = int(layout.m_size[0])
         self.rad = None
@@ -108,6 +136,30 @@ class SO2Conv(nn.Module):
         self.register_buffer("m0_rows", torch.as_tensor(
             np.flatnonzero(np.asarray(layout.m_complex) == 0), dtype=torch.long),
             persistent=False)
+        self._declare(tp, extra_chunks)
+        self.mp = None
+
+    def _declare(self, tp, extra_chunks) -> None:
+        if tp not in (None, "col", "row"):
+            raise ValueError(f"unknown tp role: {tp!r}")
+        if tp == "row" and (self.extra_m0 or self.rad is not None):
+            raise ValueError("a row-split SO2Conv has no extra outputs and no radial MLP")
+        self.tp = tp
+        if tp is None:
+            return
+        extra = list(extra_chunks or ([self.extra_m0] if self.extra_m0 else []))
+        if sum(extra) != self.extra_m0:
+            raise ValueError(f"extra_chunks {extra} do not add up to {self.extra_m0}")
+        width = self.cout if tp == "col" else self.cin
+        dim = 1 if tp == "col" else 0
+        L0 = int(self.layout.m_size[0])
+        declare(self, "w_m0", dim, (extra if tp == "col" else []) + [width] * L0)
+        if tp == "col":
+            declare(self, "b_m0", 0, extra + [width] * L0)
+        for m in range(1, self.layout.mmax + 1):
+            Lm = int(self.layout.m_size[m])
+            for part in ("r", "i"):
+                declare(self, f"w_m{m}_{part}", dim, [width] * Lm)
 
     def _packed_weights(self, dtype: torch.dtype) -> list[torch.Tensor]:
         """[w_m0] and the butterfly [[wr, wi], [-wi, wr]] of each m > 0, built
@@ -119,55 +171,82 @@ class SO2Conv(nn.Module):
             ws.append(torch.cat([torch.cat([wr, wi], 1), torch.cat([-wi, wr], 1)], 0))
         return ws
 
-    def _forward_fused(self, x: torch.Tensor, rad: torch.Tensor | None):
+    def _forward_fused(self, x: torch.Tensor, rad: torch.Tensor | None, cout: int,
+                       extra_m0: int, bias: bool = True):
         """All orders in one K3 launch; biases added after the kernel."""
         lay, E = self.layout, x.shape[0]
         if rad is not None:
             rr = rad.reshape(E, int(lay.m_size.sum()), self.cin)
             x = x * rr[:, self.rad_chunk, :].to(x.dtype)
+        if self.tp == "col" and self.mp is not None:
+            x = self.mp.copy_to(x)
         y, extra = so2conv_fused(x, self._packed_weights(x.dtype), lay.lmax, lay.mmax,
-                                 self.cout, self.extra_m0)
+                                 cout, extra_m0)
+        if not bias:
+            return y, extra
         b = self.b_m0.to(y.dtype)
-        if self.extra_m0:
-            extra = extra + b[: self.extra_m0]
-        bias_rows = y.new_zeros(y.shape[1], self.cout).index_copy(
-            0, self.m0_rows, b[self.extra_m0 :].reshape(-1, self.cout))
+        if extra_m0:
+            extra = extra + b[: extra_m0]
+        bias_rows = y.new_zeros(y.shape[1], cout).index_copy(
+            0, self.m0_rows, b[extra_m0 :].reshape(-1, cout))
         return y + bias_rows, extra
 
-    def forward(self, x: torch.Tensor, edge_scalars: torch.Tensor | None = None):
-        lay = self.layout
-        E = x.shape[0]
-        Cin, Cout = self.cin, self.cout
+    def forward(self, x: torch.Tensor, edge_scalars: torch.Tensor | None = None,
+                scatter: bool = False):
+        mp, lay, E = self.mp, self.layout, x.shape[0]
+        col, row = mp is not None and self.tp == "col", mp is not None and self.tp == "row"
+        M = mp.size if mp is not None else 1
+        # the rank's widths: a column conv's outputs, a row conv's inputs
+        Cin = self.cin // M if row else self.cin
+        Cout = self.cout // M if col else self.cout
+        extra_m0 = self.extra_m0 // M if col else self.extra_m0
+        into = mp.copy_to if col else (lambda t: t)
         L0 = int(lay.m_size[0])
         rad = self.rad(edge_scalars) if self.rad is not None else None
-        if self.fused:
-            return self._forward_fused(x, rad)
-
-        xm = x if self.m0_only else x[:, self.to_m, :]  # m-primary
-        x0 = xm[:, :L0, :].reshape(E, L0 * Cin)
-        if rad is not None:
-            x0 = x0 * rad[:, : L0 * Cin]
-        if self.m0_only:
-            # only the extra columns are read downstream (or all of y0)
-            n = self.extra_m0 or self.w_m0.shape[1]
-            y0 = x0 @ self.w_m0[:, :n].to(x0.dtype) + self.b_m0[:n].to(x0.dtype)
-            return None, y0
-        y0 = x0 @ self.w_m0.to(x0.dtype) + self.b_m0.to(x0.dtype)
-        extra = None
-        if self.extra_m0:
-            extra, y0 = y0[:, : self.extra_m0], y0[:, self.extra_m0 :]
-        blocks = [y0.reshape(E, L0, Cout)]
-        offset, offset_rad = L0, L0 * Cin
-        wbigs = self._packed_weights(x.dtype)
-        for m in range(1, lay.mmax + 1):
-            Lm = int(lay.m_size[m])
-            xr = xm[:, offset : offset + Lm, :].reshape(E, Lm * Cin)
-            xi = xm[:, offset + Lm : offset + 2 * Lm, :].reshape(E, Lm * Cin)
+        fused = (self.fused if mp is None
+                 else self.conv_fused and so2conv_supported(lay, Cin, Cout, extra_m0))
+        if fused:
+            y, extra = self._forward_fused(x, rad, Cout, extra_m0, bias=not row)
+        else:
+            xm = x if self.m0_only else x[:, self.to_m, :]  # m-primary
+            x0 = xm[:, :L0, :].reshape(E, L0 * Cin)
             if rad is not None:
-                rm = rad[:, offset_rad : offset_rad + Lm * Cin]
-                xr, xi = xr * rm, xi * rm
-                offset_rad += Lm * Cin
-            y = torch.cat([xr, xi], dim=1) @ wbigs[m]
-            blocks.append(y.reshape(E, 2 * Lm, Cout))
-            offset += 2 * Lm
-        return torch.cat(blocks, dim=1)[:, self.from_m, :], extra
+                x0 = x0 * rad[:, : L0 * Cin]
+            x0 = into(x0)
+            if self.m0_only:
+                # only the extra columns are read downstream (or all of y0)
+                n = extra_m0 or self.w_m0.shape[1]
+                y0 = x0 @ self.w_m0[:, :n].to(x0.dtype) + self.b_m0[:n].to(x0.dtype)
+                return None, y0
+            y0 = x0 @ self.w_m0.to(x0.dtype)
+            if not row:   # a row conv adds its bias once, after the reduction
+                y0 = y0 + self.b_m0.to(x0.dtype)
+            extra = None
+            if extra_m0:
+                extra, y0 = y0[:, :extra_m0], y0[:, extra_m0:]
+            blocks = [y0.reshape(E, L0, Cout)]
+            offset, offset_rad = L0, L0 * Cin
+            wbigs = self._packed_weights(x.dtype)
+            for m in range(1, lay.mmax + 1):
+                Lm = int(lay.m_size[m])
+                xr = xm[:, offset : offset + Lm, :].reshape(E, Lm * Cin)
+                xi = xm[:, offset + Lm : offset + 2 * Lm, :].reshape(E, Lm * Cin)
+                if rad is not None:
+                    rm = rad[:, offset_rad : offset_rad + Lm * Cin]
+                    xr, xi = xr * rm, xi * rm
+                    offset_rad += Lm * Cin
+                y = into(torch.cat([xr, xi], dim=1)) @ wbigs[m]
+                blocks.append(y.reshape(E, 2 * Lm, Cout))
+                offset += 2 * Lm
+            y = torch.cat(blocks, dim=1)[:, self.from_m, :]
+        if not row:
+            return y, extra
+        # the rank's partial sums: whole (reduce_from) or its output channels
+        b = self.b_m0.to(y.dtype).reshape(L0, Cout)
+        if scatter:
+            y = mp.reduce_scatter(y, dim=-1)
+            b = mp.copy_to(b)[:, mp.part(Cout)]
+        else:
+            y = mp.reduce_from(y)
+        bias_rows = y.new_zeros(y.shape[1], b.shape[1]).index_copy(0, self.m0_rows, b)
+        return y + bias_rows, None

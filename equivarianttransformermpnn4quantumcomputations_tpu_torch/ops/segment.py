@@ -12,6 +12,14 @@ transposes are each other.
 
 Padded entries (mask False) contribute exact zeros; a node with no real
 edge gets zeros, never NaN.
+
+Sequence parallelism (parallel/sharding.py) splits E = N k contiguously, so
+a rank's edges are all the slots of its N/M node rows: the slot reductions
+and the slot softmax run unchanged on them and give those rows, which the
+callers gather at the node boundary (``ModelGroup.gather``); the target
+gather reads the rank's rows (``gather_dst(x[rows], k)``).  A sum by other
+ids (``segment_sum`` onto the edges' source nodes, the dual stream's) gives
+each rank's partial sums, which the caller reduces (``reduce_from``).
 """
 
 from __future__ import annotations

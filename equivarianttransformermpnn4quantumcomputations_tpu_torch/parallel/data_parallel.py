@@ -32,7 +32,9 @@ single-process trainer builds is wrapped, so a bf16 model trains in bf16
 here too, with the gradients on the f32 masters and reduced in f32.
 
 Without an initialized process group the step runs all ``data``
-micro-batches in one process (no collective).
+micro-batches in one process (no collective).  ``group`` (the ``data``
+column of a ``parallel/sharding.py`` mesh) restricts the averaging and the
+set-up broadcast to a subgroup of the processes.
 """
 
 from __future__ import annotations
@@ -87,20 +89,21 @@ def microbatches(loader: Iterable, device, n_local: int, n_steps: int):
 
 
 @torch.no_grad()
-def _broadcast_(tensors: list[torch.Tensor], device) -> None:
-    """Overwrite ``tensors`` with rank 0's, one broadcast per dtype (each
-    flattened on ``device``, where the backend can reach it)."""
+def _broadcast_(tensors: list[torch.Tensor], device, src: int = 0, group=None) -> None:
+    """Overwrite ``tensors`` with rank ``src``'s, one broadcast per dtype
+    (each flattened on ``device``, where the backend can reach it)."""
     for dtype in sorted({t.dtype for t in tensors}, key=str):
-        group = [t for t in tensors if t.dtype == dtype]
-        flat = torch.cat([t.reshape(-1).to(device) for t in group])
-        dist.broadcast(flat, src=0)
-        for t, v in zip(group, flat.split([t.numel() for t in group])):
+        same = [t for t in tensors if t.dtype == dtype]
+        flat = torch.cat([t.reshape(-1).to(device) for t in same])
+        dist.broadcast(flat, src=src, group=group)
+        for t, v in zip(same, flat.split([t.numel() for t in same])):
             t.copy_(v.view_as(t))
 
 
-def replicate(state: TrainState) -> None:
-    """Make every rank's state rank 0's: parameters, EMA, the AdamW moments
-    and counts, the guard's counters and the step."""
+def replicate(state: TrainState, group=None) -> None:
+    """Make every rank's state (of ``group``, default all) that of the
+    group's first rank: parameters, EMA, the AdamW moments and counts, the
+    guard's counters and the step."""
     opt = state.optimizer
     device = opt.params[0].device
     adam = [t for p in opt.params for _, t in sorted(opt.opt.state.get(p, {}).items())
@@ -109,11 +112,12 @@ def replicate(state: TrainState) -> None:
                 "notfinite_count": opt.notfinite_count, "total_notfinite": opt.total_notfinite,
                 "last_finite": opt.last_finite}]
     mine = dict(scalars[0])
-    dist.broadcast_object_list(scalars, src=0, device=device)
+    src = 0 if group is None else dist.get_global_rank(group, 0)
+    dist.broadcast_object_list(scalars, src=src, group=group, device=device)
     if scalars[0]["n_adam"] != mine["n_adam"]:
         raise RuntimeError(f"optimizer state differs between ranks: {mine['n_adam']} AdamW "
-                           f"tensors here, {scalars[0]['n_adam']} on rank 0")
-    _broadcast_([*opt.params, *state.ema.values(), *adam], device)
+                           f"tensors here, {scalars[0]['n_adam']} on rank {src}")
+    _broadcast_([*opt.params, *state.ema.values(), *adam], device, src, group)
     opt.count = int(scalars[0]["count"])
     opt.notfinite_count = int(scalars[0]["notfinite_count"])
     opt.total_notfinite = int(scalars[0]["total_notfinite"])
@@ -132,10 +136,11 @@ class DataParallelStep:
     buffer), ``reduce`` (the all-reduce and the division by ``data``) and
     ``finish`` (the means into ``.grad``, then ``apply_updates``).
     ``mean_grads()`` reads the last step's averaged gradients by name.
+    ``group`` / ``group_size``: the processes that average (default all).
     """
 
     def __init__(self, state: TrainState, loss_grad: Callable, data: int,
-                 ema_decay: float = 0.999):
+                 ema_decay: float = 0.999, group=None, group_size: int | None = None):
         self.state, self.loss_grad, self.ema_decay = state, loss_grad, ema_decay
         named = [(n, p) for n, p in state.model.named_parameters() if p.requires_grad]
         self.names = [n for n, _ in named]
@@ -145,7 +150,8 @@ class DataParallelStep:
                              "their order")
         if any(p.dtype != torch.float32 for p in self.params):
             raise ValueError("data-parallel training reduces float32 master gradients")
-        self.world = process_count()
+        self.group = group
+        self.world = group_size or process_count()
         if data < 1 or data % self.world:
             raise ValueError(f"data={data} micro-batches do not split over {self.world} "
                              "processes")
@@ -155,7 +161,7 @@ class DataParallelStep:
         self.keys: list[str] | None = None   # the metric names, from the first step
         self.flat: torch.Tensor | None = None
         if dist.is_initialized():
-            replicate(state)
+            replicate(state, group)
 
     def accumulate(self, stacked: dict) -> torch.Tensor:
         """Run this rank's micro-batches; return the flat buffer holding the
@@ -185,7 +191,7 @@ class DataParallelStep:
         """Sum ``flat`` over the ranks (the step's one collective) and divide
         by ``data``, in place."""
         if dist.is_initialized():
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
         return flat.div_(self.data)
 
     def finish(self, flat: torch.Tensor):

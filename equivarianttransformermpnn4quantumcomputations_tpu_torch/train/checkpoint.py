@@ -8,7 +8,9 @@ schedule count, guard counters), EMA and step; ``<name>.meta.json`` holds
 ``os.replace``); the last ``KEEP_PERIODIC`` periodic checkpoints are kept;
 ``install_sigterm_checkpoint`` writes ``ckpt_emergency`` on SIGTERM.  A
 manager made with ``primary=False`` (every rank but 0 of a multi-process
-run) writes nothing; ``restore`` works on every rank.
+run) writes nothing; ``restore`` works on every rank.  Every rank calls the
+save methods all the same: a sharded train state gathers its whole
+``state_dict()`` over the ranks (parallel/sharding.py), and rank 0 writes it.
 """
 
 from __future__ import annotations
@@ -42,10 +44,11 @@ class CheckpointManager:
 
     def save(self, name: str, state, extra: Mapping[str, Any] | None = None) -> None:
         """Save a TrainState (anything with ``state_dict()``) + metadata."""
+        sd = state.state_dict()   # on every rank: a sharded state gathers
         if not self.primary:
             return
         tmp = self._path(name) + ".tmp"
-        torch.save(state.state_dict(), tmp)
+        torch.save(sd, tmp)
         os.replace(tmp, self._path(name))
         meta = {"config": self.config, **(dict(extra) if extra else {})}
         tmp = self._meta_path(name) + ".tmp"
@@ -58,9 +61,9 @@ class CheckpointManager:
                       if d.startswith("ckpt_epoch_") and d.endswith(".pt"))
 
     def save_periodic(self, epoch: int, state, extra=None) -> None:
+        self.save(f"ckpt_epoch_{epoch:05d}", state, {**(extra or {}), "epoch": epoch})
         if not self.primary:
             return
-        self.save(f"ckpt_epoch_{epoch:05d}", state, {**(extra or {}), "epoch": epoch})
         for old in self._periodic()[:-KEEP_PERIODIC]:
             for p in (self._path(old), self._meta_path(old)):
                 if os.path.exists(p):

@@ -2,7 +2,7 @@
 
     python -m equivarianttransformermpnn4quantumcomputations_tpu_torch.train.train_matpes \\
         --config fixture [--epochs N] [--mixed-precision] [--checkpoint NAME] \\
-        [--device cuda|cpu] [--multihost] [--mesh data=N]
+        [--device cuda|cpu] [--multihost] [--mesh data=D[,model=M][,sp]]
 
 Configs (the JAX CLI's names): ``default`` (GATA-V2), ``debug``,
 ``no-attn-norm``, ``phi-every-layer``, ``baseline`` (the original
@@ -27,8 +27,23 @@ processes of a ``--multihost`` run (one per GPU, as ``torchrun`` starts
 them: ``parallel/multihost.py`` reads RANK / WORLD_SIZE / MASTER_ADDR);
 each rank reads its shard of the training data, and rank 0 alone writes
 logs and checkpoints.  Without ``--multihost``, or with one process, the
-one process runs all N micro-batches.  The JAX CLI's other mesh axes
-(``model=``, ``pipe=``, ``sp``) are not ported and stop the program.
+one process runs all N micro-batches.
+
+Composite training, as the JAX CLI: ``--mesh data=D,model=M[,sp]`` with
+M > 1 runs ``parallel/sharding.py``'s DP x TP x EP (x SP) step over the
+world's processes laid out as (world / M) data rows of M model ranks: M
+must divide the world and D be a multiple of world / M (each data row runs
+D M / world micro-batches a step and reads its shard of the data; the ranks
+of a row read the same).  ``model=2`` alone is data=1, model=2.  Each rank
+holds its share of the sharded weights, AdamW moments and EMA; rank 0
+gathers the state and writes the same checkpoint files as a one-process
+run, and ``--checkpoint`` re-shards one.  ``sp`` splits the edge axis over
+``model`` too; at model=1 it does nothing (``data=2,sp`` trains
+data-parallel).  The pipeline axis (``pipe=``) is not ported yet and stops
+the program; it is the next slice (ROADMAP.md, Queue 1 item 8).  The
+composite step, like the JAX one, keeps the float32 parameters in the
+forward of a ``--mixed-precision`` model, and a sharded run writes no
+emergency checkpoint on SIGTERM (that would need every rank).
 """
 
 from __future__ import annotations
@@ -50,6 +65,7 @@ from ..data.synthetic import SyntheticCrystals
 from ..models.matpes import EquiformerV2MatPES, init_weights, matpes_energy_forces
 from ..parallel import multihost
 from ..parallel.data_parallel import make_matpes_dp_step, microbatches, rank_seed
+from ..parallel.sharding import make_composite_matpes_step, make_composite_mesh
 from ..utils.logging import RunLogger
 from ..utils.precision import full_f32_products
 from .checkpoint import CheckpointManager, install_sigterm_checkpoint
@@ -141,10 +157,11 @@ def evaluate(model, params: dict, loader, energy_std: float, device) -> tuple[fl
             f_err / max(f_cnt, 1) * energy_std * 1000.0)
 
 
-def parse_mesh(spec: str) -> int:
-    """The ``data`` size of ``--mesh data=N[,model=M|pipe=P][,sp]``.  The axes
-    that are not ported (``model`` > 1, ``pipe`` > 1, ``sp``) stop the
-    program rather than train as pure data parallelism."""
+def parse_mesh(spec: str) -> dict:
+    """``{"data": D, "model": M, "sp": bool}`` of
+    ``--mesh data=D[,model=M|pipe=P][,sp]`` (an axis left out is 1, as in
+    the JAX CLI).  ``pipe`` > 1 stops the program: the pipeline is not
+    ported yet."""
     axes = {"data": 1, "model": 1, "pipe": 1, "sp": False}
     for part in (p.strip() for p in spec.split(",")):
         key, sep, value = part.partition("=")
@@ -154,14 +171,13 @@ def parse_mesh(spec: str) -> int:
             axes[key.strip()] = int(value)
         else:
             raise SystemExit(f"--mesh {spec}: cannot read {part!r} "
-                             "(data=N[,model=M|pipe=P][,sp])")
-    if axes["model"] > 1 or axes["pipe"] > 1 or axes["sp"]:
-        raise SystemExit(f"--mesh {spec}: the model=, pipe= and sp axes (tensor, expert, "
-                         "sequence and pipeline parallelism) are not ported yet (ROADMAP.md, "
-                         "Queue 1 item 8); --mesh data=N trains data-parallel")
-    if axes["data"] < 1:
-        raise SystemExit(f"--mesh {spec}: data must be at least 1")
-    return axes["data"]
+                             "(data=D[,model=M|pipe=P][,sp])")
+    if axes["pipe"] > 1:
+        raise SystemExit(f"--mesh {spec}: pipeline parallelism (pipe=) is not ported yet; "
+                         "the DP x GPipe step is the next slice (ROADMAP.md, Queue 1 item 8)")
+    if axes["data"] < 1 or axes["model"] < 1:
+        raise SystemExit(f"--mesh {spec}: data and model must be at least 1")
+    return {k: axes[k] for k in ("data", "model", "sp")}
 
 
 def main(argv=None, overrides: dict | None = None):
@@ -179,16 +195,18 @@ def main(argv=None, overrides: dict | None = None):
                          "(no-op single-process); shard data per rank, write logs/checkpoints "
                          "on rank 0 only (reference train_oc20v2_parallel.py:34-54,334-349,"
                          "513-535)")
-    ap.add_argument("--mesh", default=None, metavar="data=N",
-                    help="train with a data-parallel step: 'data=4' is 4-way DP (4 "
-                         "microbatches/step, split over the processes).  The JAX CLI's "
-                         "model=, pipe= and sp axes are not ported.  Omitted = "
-                         "single-device step.")
+    ap.add_argument("--mesh", default=None, metavar="data=D[,model=M][,sp]",
+                    help="train with a sharded step over the processes: 'data=4' is 4-way DP "
+                         "(4 microbatches/step), 'data=4,model=2' adds Megatron-style TP (+EP "
+                         "for MoE) over model ranks; ',sp' shards the edge axis too.  pipe= "
+                         "is not ported.  Omitted = single-device step.")
     args = ap.parse_args(argv)
     cfg = {**CONFIGS[args.config], **(overrides or {})}
     if args.epochs is not None:
         cfg["epochs"] = args.epochs
-    data = parse_mesh(args.mesh) if args.mesh else None
+    mesh_spec = parse_mesh(args.mesh) if args.mesh else None
+    data = mesh_spec["data"] if mesh_spec else None
+    model_size = mesh_spec["model"] if mesh_spec else 1
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device (pass --device cpu to train on the CPU)")
@@ -198,8 +216,21 @@ def main(argv=None, overrides: dict | None = None):
         device = torch.device("cuda", torch.cuda.current_device())
     world, rank, primary = (multihost.process_count(), multihost.process_index(),
                             multihost.is_primary())
-    if world > 1 and (data is None or data % world):
+    mesh = None
+    if model_size > 1:
+        if world % model_size:
+            raise SystemExit(f"--mesh {args.mesh}: model={model_size} needs a multiple of "
+                             f"{model_size} processes ({world} running): start "
+                             f"{model_size} x the data rows with --multihost, e.g. torchrun "
+                             f"--nproc_per_node {model_size}")
+        if data % (world // model_size):
+            raise SystemExit(f"--mesh {args.mesh}: data={data} is not a multiple of the "
+                             f"{world // model_size} data rows of {world} processes")
+        mesh = make_composite_mesh(model_size)
+    elif world > 1 and (data is None or data % world):
         raise SystemExit(f"{world} processes need --mesh data=N with N a multiple of {world}")
+    # the data shards: one per data row (the ranks of a row read the same)
+    shards, shard_id = (mesh.data, mesh.data_index) if mesh else (world, rank)
     mixed_precision = bool(args.mixed_precision or cfg.get("mixed_precision", False))
 
     train_ds, val_ds, _, stats = load_data(cfg)
@@ -210,7 +241,7 @@ def main(argv=None, overrides: dict | None = None):
                             n_pad, e_pad, shuffle=shuffle, seed=cfg["seed"],
                             num_shards=shards[0], shard_id=shards[1])
 
-    train_loader, val_loader = loader(train_ds, True, (world, rank)), loader(val_ds, False)
+    train_loader, val_loader = loader(train_ds, True, (shards, shard_id)), loader(val_ds, False)
 
     model = build_model(cfg, mixed_precision)
     init_weights(model, torch.Generator().manual_seed(cfg["seed"]))
@@ -219,7 +250,11 @@ def main(argv=None, overrides: dict | None = None):
     if primary:
         print(f"model params: {n_params / 1e6:.2f}M  pads: n={n_pad} e={e_pad}  "
               f"device {device}  {'bf16' if mixed_precision else 'f32'} compute"
-              + (f"  data-parallel: data={data} over {world} processes" if data else ""))
+              + (f"  data-parallel: data={data} over {world} processes"
+                 if data and not mesh else ""))
+        if mesh:
+            print(f"mesh step: data={data} model={model_size} sp={mesh_spec['sp']} "
+                  f"({data} microbatches/step, {world} processes)")
 
     steps_per_epoch = max(len(train_loader), 1)
     sched = warmup_cosine(cfg["lr"], cfg["warmup_epochs"] * steps_per_epoch,
@@ -234,9 +269,18 @@ def main(argv=None, overrides: dict | None = None):
             print(f"resumed from {args.checkpoint}: epoch {meta.get('epoch')}, "
                   f"step {state.step}")
     logger = RunLogger(cfg["run_dir"], cfg, primary=primary)
-    gen = torch.Generator(device=device).manual_seed(rank_seed(cfg["seed"], rank))
+    gen = torch.Generator(device=device).manual_seed(rank_seed(cfg["seed"], shard_id))
     w_stress = cfg["w_stress"] if cfg["regress_stress"] else 0.0
-    if data is None:
+    if mesh is not None:
+        step_fn = make_composite_matpes_step(state, mesh, data, cfg["w_energy"],
+                                             cfg["w_force"], w_stress, mesh_spec["sp"],
+                                             cfg["ema_decay"], gen)
+        n_local = data // shards
+        n_steps = len(train_loader.indices) // shards // cfg["batch_size"] // n_local
+
+        def batches(loader):
+            return microbatches(loader, device, n_local, n_steps)
+    elif data is None:
         step_fn = make_matpes_train_step(state, cfg["w_energy"], cfg["w_force"], w_stress,
                                          cfg["ema_decay"], gen)
 
@@ -250,12 +294,14 @@ def main(argv=None, overrides: dict | None = None):
 
         def batches(loader):
             return microbatches(loader, device, n_local, n_steps)
-    previous = install_sigterm_checkpoint(lambda: state, ckpt) if primary else None
+    # a sharded state's checkpoint needs every rank: no emergency write
+    emergency = primary and mesh is None
+    previous = install_sigterm_checkpoint(lambda: state, ckpt) if emergency else None
     try:
         _train(cfg, state, step_fn, batches, train_loader, val_loader, stats, ckpt, logger,
                n_params, device, primary)
     finally:
-        if primary:
+        if emergency:
             signal.signal(signal.SIGTERM, previous)
         if owns_group and dist.is_initialized():
             dist.destroy_process_group()

@@ -36,6 +36,13 @@ Port of the JAX package's train/trainer.py (the MatPES and QM9 parts):
   gradient all-reduce between them: ``*_loss_grad`` (the loss, its
   gradients in the masters' ``.grad``) and ``apply_updates`` (the guarded
   AdamW, the EMA, ``state.step``).
+* Sharded state (``parallel/sharding.py:shard_state``, tensor / expert
+  parallelism): the optimizer's ``model_group`` and ``sharded`` flags make
+  the global norm sum the squared norms of the shards over the ``model``
+  group and count each replicated leaf once, so the guard takes or skips a
+  step on every rank alike; ``TrainState.state_dict()`` gathers the whole
+  state and ``load_state_dict`` takes a whole one and keeps this rank's
+  share (every rank of the group must call them).
 """
 
 from __future__ import annotations
@@ -87,6 +94,17 @@ class GuardedAdamW:
         self.notfinite_count = 0  # consecutive non-finite steps
         self.total_notfinite = 0
         self.last_finite = True
+        self.model_group = None   # parallel/sharding.py:ModelGroup of a sharded state
+        self.sharded: list[bool] = []
+
+    def _global_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.model_group is None:
+            return torch.linalg.vector_norm(norms)
+        sq = norms * norms
+        mine = torch.as_tensor(self.sharded, device=sq.device)
+        shards = self.model_group.reduce_from(sq[mine].sum())   # every rank's shards
+        return torch.sqrt(sq[~mine].sum() + shards)
 
     def step(self) -> dict:
         """Apply one update from the parameters' ``.grad``; returns the
@@ -96,7 +114,7 @@ class GuardedAdamW:
             if p.grad is None:  # unused this step: a zero gradient, as in JAX
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        gnorm = self._global_norm(grads)
         finite = bool(torch.isfinite(gnorm))  # the step's one host sync
         self.notfinite_count = 0 if finite else self.notfinite_count + 1
         self.total_notfinite += 0 if finite else 1
@@ -127,18 +145,29 @@ class GuardedAdamW:
 
 @dataclass
 class TrainState:
-    """Model (float32 masters), optimizer, EMA of the parameters, step."""
+    """Model (float32 masters), optimizer, EMA of the parameters, step;
+    ``mesh``: the ``parallel/sharding.py:CompositeMesh`` of a sharded
+    state (None: whole)."""
 
     model: nn.Module
     optimizer: GuardedAdamW
     ema: dict[str, torch.Tensor] = field(default_factory=dict)
     step: int = 0
+    mesh: object = None
+
+    def _sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.model > 1
 
     def state_dict(self) -> dict:
+        if self._sharded():
+            return self.mesh.gather_state(self)
         return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
                 "ema": self.ema, "step": self.step}
 
     def load_state_dict(self, sd: dict) -> None:
+        if self._sharded():
+            self.mesh.load_full_state(self, sd)
+            return
         self.model.load_state_dict(sd["model"])
         self.optimizer.load_state_dict(sd["optimizer"])
         for k, v in sd["ema"].items():
@@ -215,10 +244,13 @@ def _train_step(state: TrainState, loss_grad: Callable, ema_decay: float):
 
 
 def matpes_loss_grad(state: TrainState, w_energy: float = 1.0, w_force: float = 1.0,
-                     w_stress: float = 0.0, generator: torch.Generator | None = None):
+                     w_stress: float = 0.0, generator: torch.Generator | None = None,
+                     cast: bool = True):
     """``loss_grad(batch) -> (loss, metrics)``, the gradient half of the
     MatPES step: the loss's gradients land in the float32 masters' ``.grad``
-    (None where a parameter is unused).  See ``make_matpes_train_step``."""
+    (None where a parameter is unused).  See ``make_matpes_train_step``.
+    ``cast=False`` keeps the float32 parameters in the forward of a
+    bfloat16 model (the JAX package's composite step)."""
     model = state.model
     cdt = model.backbone.compute_dtype
 
@@ -226,7 +258,7 @@ def matpes_loss_grad(state: TrainState, w_energy: float = 1.0, w_force: float = 
         model.train()
         with full_f32_products():
             model.zero_grad(set_to_none=True)
-            params = cast_params(model, cdt) if cdt != torch.float32 else None
+            params = cast_params(model, cdt) if cast and cdt != torch.float32 else None
             outs = matpes_energy_forces(model, batch, create_graph=True, params=params,
                                         generator=generator, regress_stress=w_stress > 0.0)
             loss, metrics = matpes_loss(outs, batch, w_energy, w_force, w_stress)

@@ -99,23 +99,37 @@ def test_matpes_cli_multihost_data_parallel_in_one_process(tmp_path, monkeypatch
         assert (run / f).is_file(), f
 
 
-@pytest.mark.parametrize("mesh", ["data=2,model=2", "data=2,pipe=2", "data=2,sp"])
-def test_unported_mesh_axes_stop(mesh, tmp_path):
-    with pytest.raises(SystemExit, match="not ported"):
-        train_matpes.main(["--config", "synthetic", "--device", "cpu", "--mesh", mesh],
-                          dict(TINY, run_dir=str(tmp_path / "run")))
+@pytest.mark.parametrize("mesh,stop", [
+    ("data=2,model=2", "model=2 needs a multiple of 2 processes"),
+    ("data=2,pipe=2", "next slice"),
+    ("data=2,sp", None)], ids=["data=2,model=2", "data=2,pipe=2", "data=2,sp"])
+def test_unported_mesh_axes_stop(mesh, stop, tmp_path, monkeypatch):
+    """One process: model=2 stops for want of processes, pipe= stops (the
+    pipeline is the next slice), and sp at model=1 trains data-parallel."""
+    for name in ENV:
+        monkeypatch.delenv(name, raising=False)
+    argv = ["--config", "synthetic", "--device", "cpu", "--mesh", mesh]
+    if stop is None:
+        state = train_matpes.main(argv, dict(TINY, run_dir=str(tmp_path / "run")))
+        assert state.step == 2 and state.mesh is None   # 4 batches, 2 a step
+        return
+    with pytest.raises(SystemExit, match=stop):
+        train_matpes.main(argv, dict(TINY, run_dir=str(tmp_path / "run")))
     assert not (tmp_path / "run").exists()
 
 
-@pytest.mark.parametrize("mesh,data", [("data=4", 4), ("data=2,model=1", 2),
-                                       ("data=2, pipe=1", 2), ("data=x", None),
-                                       ("model=2", None), ("data=0", None)])
-def test_parse_mesh(mesh, data):
-    if data is None:
+@pytest.mark.parametrize("mesh,axes", [("data=4", (4, 1, False)),
+                                       ("data=2,model=1", (2, 1, False)),
+                                       ("data=2, pipe=1", (2, 1, False)), ("data=x", None),
+                                       ("model=2", (1, 2, False)), ("data=0", None)],
+                         ids=["data=4-4", "data=2,model=1-2", "data=2, pipe=1-2", "data=x-None",
+                              "model=2-None", "data=0-None"])
+def test_parse_mesh(mesh, axes):
+    if axes is None:
         with pytest.raises(SystemExit):
             train_matpes.parse_mesh(mesh)
     else:
-        assert train_matpes.parse_mesh(mesh) == data
+        assert train_matpes.parse_mesh(mesh) == dict(zip(("data", "model", "sp"), axes))
 
 
 def test_oc20_data_parallel_takes_the_plain_step_in_one_process(tmp_path, monkeypatch):

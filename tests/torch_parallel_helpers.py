@@ -1,5 +1,7 @@
 """Worker processes of the port's multi-process tests
-(tests/test_torch_parallel.py, tests/test_torch_native.py).
+(tests/test_torch_parallel.py, tests/test_torch_native.py,
+tests/test_torch_sharding.py, tests/test_torch_composite.py,
+tests/test_torch_composite_cli.py).
 
 This module imports the port, torch and numpy only, never JAX: spawned
 children import it afresh (tests/conftest.py, which imports JAX, is not
@@ -30,9 +32,12 @@ from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.qm9 import 
 )
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel import data_parallel
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel import multihost
+from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel import sharding
+from equivarianttransformermpnn4quantumcomputations_tpu_torch.train import train_matpes
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
     GuardedAdamW,
     create_train_state,
+    make_matpes_train_step,
 )
 
 MODELS = {"qm9": EquiformerV2QM9, "oc20": EquiformerV2OC20, "matpes": EquiformerV2MatPES}
@@ -47,13 +52,18 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(target, nprocs: int, *args, timeout: float = TIMEOUT_S) -> list[int]:
-    """Run ``target(rank, *args)`` in ``nprocs`` spawned processes; returns
-    their exit codes, after killing any still running at ``timeout``."""
+def start(target, nprocs: int, *args) -> list:
+    """Start ``target(rank, *args)`` in ``nprocs`` spawned processes."""
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=target, args=(r, *args)) for r in range(nprocs)]
     for p in procs:
         p.start()
+    return procs
+
+
+def join(procs: list, timeout: float = TIMEOUT_S) -> list[int]:
+    """The exit codes of ``procs``, after killing any still running at
+    ``timeout``."""
     deadline = time.monotonic() + timeout
     for p in procs:
         p.join(max(1.0, deadline - time.monotonic()))
@@ -64,6 +74,12 @@ def spawn(target, nprocs: int, *args, timeout: float = TIMEOUT_S) -> list[int]:
             p.join(10)
         codes.append(p.exitcode)
     return codes
+
+
+def spawn(target, nprocs: int, *args, timeout: float = TIMEOUT_S) -> list[int]:
+    """Run ``target(rank, *args)`` in ``nprocs`` spawned processes; returns
+    their exit codes, after killing any still running at ``timeout``."""
+    return join(start(target, nprocs, *args), timeout)
 
 
 def new_state(case: dict):
@@ -116,3 +132,132 @@ def build_worker(rank: int, build_dir: str, barrier, pos: np.ndarray) -> None:
     barrier.wait(60)
     src, dst, shift = native.neighbor_list_native(pos, None, False, 3.0, None)
     np.savez(Path(build_dir) / f"build{rank}.npz", src=src, dst=dst, shift=shift)
+
+
+def _join_group(rank: int, world: int, port: int, threads: int) -> None:
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.set_num_threads(threads)
+    if not multihost.initialize_from_env(device="cpu", verbose=False):
+        raise RuntimeError("no process group")
+
+
+def composite_step(case: dict) -> dict:
+    """One composite step of ``case`` on this rank (``case["model"]`` model
+    ranks, ``case["sp"]``, micro-batches ``case["batches"]``): the loss,
+    metrics, and the gathered gradients, parameters and EMA after it."""
+    state = new_state(case)
+    model = state.model
+    mesh = sharding.make_composite_mesh(case["model"])
+    gen = torch.Generator().manual_seed(data_parallel.rank_seed(case["seed"], mesh.data_index))
+    data = len(case["batches"])
+    step = sharding.make_composite_matpes_step(state, mesh, data, sp=case["sp"], generator=gen,
+                                               **case["step_kw"])
+    stacked = data_parallel.stack_microbatches(
+        [tgraph.as_tensors(b, "cpu") for b in case["batches"]])
+    local, _ = sharding.batch_shards(stacked, mesh, case["sp"])
+    loss, metrics = step(local)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    return dict(loss=float(loss),
+                metrics={k: float(v) for k, v in metrics.items() if k != "lr"},
+                grads=sharding.gather_named(step.mean_grads(), model, mesh),
+                params=sharding.gather_named(params, model, mesh),
+                ema=sharding.gather_named(state.ema, model, mesh),
+                collectives=dict(mesh.mp.counts))
+
+
+def shard_gather_roundtrip(case: dict) -> dict:
+    """A whole state after one local step (so that the AdamW moments
+    exist), sharded over the model group and gathered back; and the same
+    after a whole state is loaded into the sharded one."""
+    state = new_state(case)
+    make_matpes_train_step(state)(tgraph.as_tensors(case["batches"][0], "cpu"))
+    whole = {k: v for k, v in state.state_dict().items()}
+    whole = torch.utils._pytree.tree_map(
+        lambda t: t.clone() if torch.is_tensor(t) else t, whole)
+    mesh = sharding.make_composite_mesh(case["model"])
+    sharding.shard_state(state, mesh)
+    shapes = {k: tuple(p.shape) for k, p in state.model.named_parameters()}
+    first = state.state_dict()
+    state.load_state_dict(whole)
+    return dict(whole=whole, gathered=first, reloaded=state.state_dict(), shard_shapes=shapes)
+
+
+def region_checks(rank: int, size: int, group) -> dict:
+    """The region functions in a small Megatron pair against the same math
+    in this process: f(x) = col / row pair closed by ``reduce_from``, by
+    ``reduce_scatter`` + ``gather``, and a ``scatter`` / ``gather`` row
+    split; the forward, the gradient of x (a force-like derivative, kept
+    for a second differentiation), and the gradients of a loss of both
+    (grad-of-grad) by x and the weights.  Returns the max relative errors."""
+    mp = sharding.ModelGroup(size, rank, group)
+    g = torch.Generator().manual_seed(0)
+    x0 = torch.randn(6, 4, generator=g, dtype=torch.float64)
+    w1 = torch.randn(4, 8, generator=g, dtype=torch.float64)
+    w2 = torch.randn(8, 4, generator=g, dtype=torch.float64)
+    cols = mp.part(8)
+
+    def run(kind: str, sharded: bool):
+        x = x0.clone().requires_grad_(True)
+        a = w1.clone().requires_grad_(True)
+        b = w2.clone().requires_grad_(True)
+        if not sharded:
+            y = torch.tanh(x @ a) @ b
+            y = y + torch.sin(x) if kind == "scatter" else y
+        elif kind == "scatter":
+            y = mp.reduce_from(torch.tanh(mp.copy_to(x) @ a[:, cols]) @ b[cols])
+            y = y + mp.gather(torch.sin(mp.scatter(x, 0)), 0)
+        else:
+            part = torch.tanh(mp.copy_to(x) @ a[:, cols]) @ b[cols]
+            y = (mp.reduce_from(part) if kind == "reduce_from"
+                 else mp.gather(mp.reduce_scatter(part, -1), -1))
+        (dx,) = torch.autograd.grad((y ** 3).sum(), x, create_graph=True)
+        loss = (dx * dx).sum() + (y * y).sum()
+        loss.backward()
+        return [y.detach(), dx.detach(), x.grad, a.grad, b.grad]
+
+    out = {}
+    for kind in ("reduce_from", "reduce_scatter", "scatter"):
+        want, got = run(kind, False), run(kind, True)
+        # a rank's weight gradient covers its own columns / rows: sum them
+        got[3] = mp.reduce_from(got[3])
+        got[4] = mp.reduce_from(got[4])
+        out[kind] = max(float((u - v).abs().max() / v.abs().max()) for u, v in zip(got, want))
+    return out
+
+
+def composite_worker(rank: int, world: int, port: int, out_dir: str, cases: dict,
+                     threads: int, checks: bool) -> None:
+    """Rank ``rank`` of ``world`` over gloo: every case's composite step,
+    and with ``checks`` the region functions and the shard / gather round
+    trip at model = world; each rank's results go to ``out_dir/rank<r>.pt``."""
+    _join_group(rank, world, port, threads)
+    try:
+        out = {name: composite_step(case) for name, case in cases.items()}
+        if checks:
+            out["regions"] = region_checks(rank, world, None)
+            out["roundtrip"] = shard_gather_roundtrip(
+                dict(next(iter(cases.values())), model=world))
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def cli_worker(rank: int, world: int, port: int, run_dir: str, mesh: str, overrides: dict,
+               threads: int) -> None:
+    """The MatPES CLI under ``--multihost --mesh mesh`` on rank ``rank``: one
+    epoch, then a second resumed from the first's checkpoint."""
+    _join_group(rank, world, port, threads)
+    argv = ["--config", "synthetic", "--device", "cpu", "--multihost", "--mesh", mesh]
+    try:
+        cfg = dict(overrides, run_dir=run_dir)
+        state = train_matpes.main(argv, dict(cfg, epochs=1))
+        steps = [state.step]
+        state = train_matpes.main(argv + ["--checkpoint", "ckpt_epoch_00000"],
+                                  dict(cfg, epochs=2))
+        steps.append(state.step)
+        if rank == 0:
+            torch.save({"steps": steps}, Path(run_dir) / "steps.pt")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
