@@ -5,13 +5,15 @@
     python3 chip_smoke.py --rotation-only
     python3 chip_smoke.py --s2act-only
     python3 chip_smoke.py --composite-only
+    python3 chip_smoke.py --pipeline-only
 
 ``--rotation-only`` runs phases 1 and 2 and phase 3's K1 / K4 rows, and
 stops; ``--s2act-only`` the same with phase 3's K2 rows.  Those rows call
 only the kernels' wrappers, whose interface is the same since K4 (K2) was
 ported, so this script copied into the root of an older checkout times
 that checkout's kernels with the same timers and shapes.
-``--composite-only`` runs phases 1 and 2 and phase 15, and stops.
+``--composite-only`` runs phases 1 and 2 and phase 15, and stops;
+``--pipeline-only`` phases 1, 2 and 16.
 
 Phase 3 times each kernel two ways, at the same shapes: CUDA events around
 one call (median of 15, L2 flushed before each), which also hold the part
@@ -159,6 +161,21 @@ Phases, each of which raises on failure:
      with the launches of rank 0's bf16 step (a) or (b).  The step times
      are two ranks sharing one card through the host, not a
      tensor-parallel speed.
+  16. DP x GPipe pipeline training (``parallel/pipeline.py``) on the one
+     card, the flagship at its 6 layers and full width, each case's ranks
+     spawned over gloo and held against the one-process step of the same
+     state, batches and seed (bfloat16 copies of the masters in bf16, as
+     both steps do): (a) data=1 pipe=2 (3 blocks a stage), f32 and bf16;
+     (b) pipe=3, f32; (c) data=2 x pipe=2, 4 ranks, bf16.  Loss and
+     metrics, the energies and forces of a forward through the pipeline,
+     and the gathered gradients within ``DP_LIMITS``; the masters and EMA
+     that the one-process optimizer makes of the ranks' gradients within
+     1e-2 lr; the ranks' losses equal; K1's four kinds and K2a-c launched
+     on every stage.  Per rank: step ms, peak memory, the ring shift's
+     bytes a forward tick and in the step, the ticks and bubble ticks (the
+     step times are ranks sharing one card through the host, not a
+     pipeline speed).  The flagship's kernel rows carry the launches of
+     rank 0's bf16 step (a).
 The line before the last is the kernels' JSON record and the card; the last
 line is the device JSON (not with ``--rotation-only``).  Without a CUDA
 device the script exits non-zero and prints no result.
@@ -2442,11 +2459,241 @@ def tp_phase(batch, tag: str) -> list[dict]:
     return records
 
 
+# phase 16: DP x GPipe pipeline training on the one card
+PP_SEED = 16          # the micro-batches of phase 16 (_flagship_batches' seed)
+PP_TIMEOUT_S = 900    # each group of spawned processes
+# (case, (data, pipe), dtype): the flagship at its 6 layers, one micro-batch
+# per data row (the CLI's n_micro = data)
+PP_CASES = [
+    ("a f32", (1, 2), "f32"),
+    ("a bf16", (1, 2), "bf16"),
+    ("b f32 pipe=3", (1, 3), "f32"),
+    ("c bf16 data=2", (2, 2), "bf16"),
+]
+PP_NEED = ["rotate_pairs.to", "rotate_pairs.from", "rotate_pairs.to_m0",
+           "rotate_pairs.from_m0", "s2act.k1", "s2act.k2", "s2act.k3"]
+
+
+def _pp_spec(dt: str) -> tuple:
+    """The phase-15 spec of the flagship at full width in ``dt`` (``_tp_state``)."""
+    return ("flagship", (1, 1), False, dt, None, "flagship")
+
+
+def _pp_reference(spec, batches: list[dict]) -> dict:
+    """The one-process step of a phase-16 case: ``data`` micro-batches in
+    one process (``make_matpes_dp_step``, bfloat16 copies of the masters in
+    bf16, as the pipeline step), the energies and forces of the first."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        matpes_energy_forces,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel.data_parallel import (
+        make_matpes_dp_step,
+        stack_microbatches,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.precision import (
+        full_f32_products,
+    )
+
+    name, (data, _), dt = spec
+    state = _tp_state(_pp_spec(dt))
+    step = make_matpes_dp_step(state, data)
+    with full_f32_products():
+        outs = matpes_energy_forces(state.model, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    loss, m = step(stack_microbatches(batches[:data]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    if not (np.isfinite(float(loss)) and m["accepted"]):
+        raise RuntimeError(f"phase 16 {name}: one-process loss {float(loss)}, "
+                           f"accepted {m['accepted']}")
+    return dict(loss=float(loss), metrics={k: float(m[k]) for k in ("energy_l1", "force_l1")},
+                energy=outs["energy"].detach().cpu(), forces=outs["forces"].detach().cpu(),
+                grads={k: v.to("cpu", copy=True) for k, v in step.mean_grads().items()},
+                ms=ms, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _pp_run(spec, batches: list[dict]) -> dict:
+    """One phase-16 case on this process's rank: the energies and forces of
+    its data row's micro-batch through the pipeline, then one pipeline step
+    (``parallel/pipeline.py``) with the launch counts and the stage group's
+    tallies zeroed just before; the step's loss and metrics, the whole
+    gradients, masters and EMA (on the host, gathered over the stages), the
+    launches, ms, peak memory, the ring shift's bytes and the ticks."""
+    import torch.distributed as dist
+
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel import pipeline
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel.data_parallel import (
+        rank_seed,
+        stack_microbatches,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.precision import (
+        full_f32_products,
+    )
+
+    name, (data, pipe), dt = spec
+    state = _tp_state(_pp_spec(dt))
+    mesh = pipeline.make_dp_pipe_mesh(data, pipe)
+    gen = torch.Generator("cuda").manual_seed(rank_seed(PP_SEED, dist.get_rank()))
+    step = pipeline.make_pipeline_matpes_step(state, mesh, data, generator=gen)
+    local = stack_microbatches(batches[mesh.data_index:mesh.data_index + 1])
+    with full_f32_products():
+        outs = pipeline.pipeline_energy_forces(state.model, [batches[mesh.data_index]], mesh)[0]
+    counters = _tp_counters()
+    for d, k in counters.values():
+        d[k] = 0
+    g = mesh.stages
+    for k in g.counts:
+        g.counts[k] = g.bytes[k] = 0
+    g.ticks = g.bubble = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    loss, m = step(local)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = {n: d[k] for n, (d, k) in counters.items()}
+    if not (np.isfinite(float(loss)) and m["accepted"]):
+        raise RuntimeError(f"phase 16 {name}: loss {float(loss)}, accepted {m['accepted']}")
+    parts = [None] * pipe
+    dist.all_gather_object(parts, {k: v.to("cpu", copy=True)
+                                   for k, v in step.mean_grads().items()}, group=g.group)
+    sd = state.state_dict()
+    return dict(loss=float(loss), metrics={k: float(m[k]) for k in ("energy_l1", "force_l1")},
+                energy=outs["energy"].detach().cpu(), forces=outs["forces"].detach().cpu(),
+                grads={k: v for part in parts for k, v in part.items()},
+                params=sd["model"], ema=sd["ema"], launches=launches, ms=ms,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                stage=[mesh.stage.start, mesh.stage.stop], tick_bytes=g.tick_bytes,
+                collectives={k: (g.counts[k], g.bytes[k]) for k in g.counts},
+                ticks=g.ticks, bubble=g.bubble)
+
+
+def _pp_rank(rank: int, world: int, port: int, out_dir: str, names: list[str]) -> None:
+    """Phase 16 in a spawned process: rank ``rank`` of ``world`` on the one
+    card over gloo; every case of ``names``; rank 0 writes each case's
+    results, every rank its launches, ms, memory, shifts and ticks."""
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port), ETQ_DIST_BACKEND="gloo", LOCAL_RANK="0")
+    import torch.distributed as dist
+
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel import multihost
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    if not multihost.initialize_from_env(device="cuda", verbose=False):
+        raise RuntimeError("no process group")
+    try:
+        batches = _flagship_batches(2, seed=PP_SEED)
+        for spec in (s for s in PP_CASES if s[0] in names):
+            res = _pp_run(spec, batches)
+            keep = res if rank == 0 else {k: res[k] for k in (
+                "loss", "launches", "ms", "peak_gib", "stage", "tick_bytes", "collectives",
+                "ticks", "bubble")}
+            torch.save(keep, os.path.join(out_dir, f"{spec[0]}.rank{rank}.pt"))
+            del res, keep
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def pp_phase(tag: str) -> dict:
+    """Phase 16: the DP x GPipe pipeline step (parallel/pipeline.py) on the
+    one card, its ranks spawned over gloo, each case against the
+    one-process step of the same state, batches and seed.  Returns the
+    launches of rank 0's step in case "a bf16"."""
+    import tempfile
+
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        apply_updates,
+    )
+
+    print(f"pipeline step: {len(PP_CASES)} cases at (data, pipe) ranks on the one card over "
+          f"gloo (gloo copies CUDA tensors through the host; the ranks share one card: no "
+          f"times below are a pipeline speed)  [{tag}]", flush=True)
+    batches = _flagship_batches(2, seed=PP_SEED)
+    refs = {}
+    for spec in PP_CASES:
+        refs[spec[0]] = _pp_reference(spec, batches)
+        if spec[2] == "bf16":   # the one-process step against itself: the card's spread
+            again = _pp_reference(spec, batches)
+            refs[spec[0]]["spread"] = _rel_l2(again["grads"], refs[spec[0]]["grads"])
+            del again
+        torch.cuda.empty_cache()
+    del batches
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        for world in (2, 3, 4):
+            names = [s[0] for s in PP_CASES if s[1][0] * s[1][1] == world]
+            t = time.perf_counter()
+            _spawn(_pp_rank, world, world, _free_port(), tmp, names, timeout=PP_TIMEOUT_S)
+            print(f"pipeline step: {world} ranks, cases {names}: the spawned group took "
+                  f"{time.perf_counter() - t:.1f} s  [{tag}]", flush=True)
+        for spec in PP_CASES:
+            name, (data, pipe), dt = spec
+            ranks = [torch.load(os.path.join(tmp, f"{name}.rank{r}.pt"), weights_only=False)
+                     for r in range(data * pipe)]
+            got, want = ranks[0], refs[name]
+            lim_loss, lim_grad = DP_LIMITS[DP_DTYPES[dt]]
+            errs = dict(loss=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                        **{k: abs(got["metrics"][k] - want["metrics"][k])
+                           / abs(want["metrics"][k]) for k in want["metrics"]},
+                        energy=_rel_l2({"e": got["energy"]}, {"e": want["energy"]}),
+                        forces=_rel_l2({"f": got["forces"]}, {"f": want["forces"]}),
+                        grads=_rel_l2(got["grads"], want["grads"]))
+            # the update on identical gradients (phase 7): the one-process
+            # optimizer and EMA from the ranks' gathered gradients
+            replay = _tp_state(_pp_spec(dt))
+            for n, p in replay.model.named_parameters():
+                p.grad = got["grads"][n].to("cuda")
+            apply_updates(replay)
+            dp_ = max(float((got["params"][n] - p.detach().cpu()).abs().max())
+                      for n, p in replay.model.named_parameters())
+            de_ = max(float((got["ema"][n] - e.cpu()).abs().max())
+                      for n, e in replay.ema.items())
+            del replay
+            print(f"pipeline ({name}): data={data} pipe={pipe}; loss {got['loss']:.6f} vs one "
+                  f"process {want['loss']:.6f}; rel errs "
+                  f"{', '.join(f'{k} {v:.2e}' for k, v in errs.items())} (limits loss and "
+                  f"metrics {lim_loss:.0e}, energies, forces and gradients {lim_grad:.0e} "
+                  f"relative L2); on the ranks' gradients, after the step: masters max |diff| "
+                  f"{dp_:.2e}, EMA {de_:.2e} (limit {1e-2 * TP_LR:.1e} = 1e-2 lr); one process "
+                  f"{want['ms']:.1f} ms, peak {want['peak_gib']:.2f} GiB"
+                  + (f"; two one-process steps differ by {want['spread']:.2e} in their "
+                     f"gradients (relative L2)" if "spread" in want else "")
+                  + f"  [{tag}]", flush=True)
+            for r, res in enumerate(ranks):
+                n_shift, b_shift = res["collectives"]["shift"]
+                print(f"  rank {r} (stage {r % pipe}, blocks {res['stage'][0]}-"
+                      f"{res['stage'][1] - 1}): step {res['ms']:.1f} ms, peak "
+                      f"{res['peak_gib']:.2f} GiB; ring shift {res['tick_bytes'] / 1e6:.2f} MB "
+                      f"a forward tick, {n_shift} shifts and {b_shift / 1e6:.1f} MB in the "
+                      f"step (this rank's inputs to the all-gathers); {res['ticks']} ticks, "
+                      f"{res['bubble']} of them bubble; collectives (count, bytes) "
+                      f"{res['collectives']}; launches {res['launches']}  [{tag}]", flush=True)
+            if not (max(errs[k] for k in ("loss", "energy_l1", "force_l1")) <= lim_loss
+                    and max(errs[k] for k in ("energy", "forces", "grads")) <= lim_grad
+                    and dp_ <= 1e-2 * TP_LR and de_ <= 1e-2 * TP_LR):
+                raise RuntimeError(f"phase 16 {name}: the pipeline step disagrees with the "
+                                   "one-process step")
+            if any(r["loss"] != got["loss"] for r in ranks):
+                raise RuntimeError(f"phase 16 {name}: the ranks' losses differ")
+            idle = [(i, k) for i, r in enumerate(ranks) for k in PP_NEED
+                    if r["launches"][k] == 0]
+            if idle:
+                raise RuntimeError(f"phase 16 {name}: kernels never launched on a stage "
+                                   f"(rank, kernel): {idle}")
+        launches = torch.load(os.path.join(tmp, "a bf16.rank0.pt"),
+                              weights_only=False)["launches"]
+    return launches
+
+
 def main(argv: list[str]) -> int:
     rotation_only = argv == ["--rotation-only"]
     s2act_only = argv == ["--s2act-only"]
     composite_only = argv == ["--composite-only"]
-    if argv and not (rotation_only or s2act_only or composite_only):
+    pipeline_only = argv == ["--pipeline-only"]
+    if argv and not (rotation_only or s2act_only or composite_only or pipeline_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2533,6 +2780,12 @@ def main(argv: list[str]) -> int:
         del pred
         print(json.dumps({"kernels": tp_phase(batch, tag)}))
         print(f"composite step checked  [{tag}]")
+        return 0
+    if pipeline_only:
+        del pred, batch
+        torch.cuda.empty_cache()
+        print(f"pipeline step checked, launches of rank 0's bf16 step {pp_phase(tag)}  "
+              f"[{tag}]")
         return 0
     records = check_kernels(batch, e_qm9, tag)
     records += check_k3(int(pb.edge_src.shape[0]), e_qm9, tag)
@@ -2689,6 +2942,12 @@ def main(argv: list[str]) -> int:
     # phase 15: the composite DP x TP x EP x SP step; its kernel rows at the
     # sharded shapes count rank 0's launches in its step
     records += tp_phase(batch, tag)
+
+    # phase 16: the DP x GPipe pipeline step; the flagship's kernel rows
+    # record the launches of rank 0's bf16 step (stage 0 of 2)
+    pp_launches = pp_phase(tag)
+    for r in records:
+        r["launches_pipeline_step_rank0"] = pp_launches.get(r["name"], 0)
 
     print(json.dumps({"kernels": records}))
     print(tag)

@@ -34,6 +34,14 @@ bfloat16, the geometry (displacements, Wigner values, RBF) and the
 edge-degree embedding stay float32, norms compute in float32, and the
 final norm's output is float32.
 
+The forward is three parts: the pre-stack (geometry, Wigner tables,
+embeddings, the GATA streams, the cast to the compute type), the blocks
+(``run_blocks``, one ``block_step`` each, on the carry ``(x, t_ij, a_ij)``
+and the ``StackBroadcast``) and the post-stack (``post_stack``, the final
+norm); the JAX package's ``stack_capture`` / ``stack_override`` hooks stop
+after the first and start at the last, for parallel/pipeline.py's GPipe
+schedule.
+
 Sequence parallelism (a ``ModelGroup`` with ``sp``, parallel/sharding.py):
 the backbone takes this rank's contiguous slice of the whole edge arrays it
 is given (the slots of its N/M node rows, ``ModelGroup.edge_rows``);
@@ -47,7 +55,7 @@ gathered.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -63,7 +71,8 @@ from ..ops.s2grid import s2grid
 from ..ops.segment import gather_dst, gather_nodes
 from ..ops.sph import real_sph_harm
 
-__all__ = ["EquiformerV2Backbone", "BackboneOutput", "WIGNER_REPS", "BACKBONE_OPTIONS"]
+__all__ = ["EquiformerV2Backbone", "BackboneOutput", "StackBroadcast", "block_step", "WIGNER_REPS",
+           "BACKBONE_OPTIONS"]
 
 WIGNER_REPS = ("dense", "factored")
 # the backbone's options beyond the widths, with the JAX package's defaults
@@ -160,13 +169,39 @@ class EquiformerV2Backbone(nn.Module):
 
     def forward(self, atomic_numbers, pos, graph_idx, edge_src, edge_dst,
                 edge_shift, edge_mask, cell,
-                generator: Optional[torch.Generator] = None) -> BackboneOutput:
+                generator: Optional[torch.Generator] = None, stack_capture: bool = False,
+                stack_override=None):
         """The heads' inputs (``BackboneOutput``); ``generator`` draws the
-        dropout masks in ``train()``."""
+        dropout masks in ``train()``.
+
+        The forward is three parts, which an external executor (the GPipe
+        schedule of parallel/pipeline.py) may run apart, as in the JAX
+        package: ``stack_capture=True`` stops before the blocks and returns
+        ``(carry, broadcast)`` (``pre_stack``); ``stack_override=carry``
+        skips the geometry and the blocks and returns the final norm of the
+        carry's node features (``post_stack``; ``BackboneOutput`` without
+        ``edge_scalars`` and ``wigner``)."""
         N, E = atomic_numbers.shape[0], edge_src.shape[0]
         if E % N:
             raise ValueError("the batch must be in the fixed-degree layout "
                              "(data/graph.py:collate: e_pad a multiple of n_pad)")
+        if stack_override is not None:
+            return BackboneOutput(self.post_stack(stack_override[0]), None, None, E // N)
+        carry, broadcast, edge_scalars = self._pre_stack(
+            atomic_numbers, pos, graph_idx, edge_src, edge_dst, edge_shift, edge_mask, cell)
+        if stack_capture:
+            return carry, broadcast
+        rows = self.mp.edge_rows(N, E) if self.mp is not None else None
+        carry = self.run_blocks(carry, broadcast, cell.shape[0], generator=generator, rows=rows)
+        return BackboneOutput(self.post_stack(carry[0]), edge_scalars, broadcast.wigner, E // N)
+
+    def _pre_stack(self, atomic_numbers, pos, graph_idx, edge_src, edge_dst, edge_shift,
+                   edge_mask, cell):
+        """Geometry, Wigner tables, embeddings and the GATA streams, cast to
+        the compute type: ``(carry, broadcast, edge_scalars)``, carry =
+        ``(x, t_ij, a_ij)`` (the JAX package's ``stack_capture`` protocol),
+        ``edge_scalars`` in float32 for the heads."""
+        N, E = atomic_numbers.shape[0], edge_src.shape[0]
         k = E // N
         mp = self.mp
         rows = mp.edge_rows(N, E) if mp is not None else None
@@ -229,9 +264,57 @@ class EquiformerV2Backbone(nn.Module):
                 a_ij = (edge(self.a_h_proj, h_sum) * edge(self.a_W_erp, phi_r)).to(cdt)
         x, edge_scalars_c = x.to(cdt), edge_scalars.to(cdt)
         phi_c = phi_r.to(cdt) if self.use_phi_every_layer else None
-        num_graphs = cell.shape[0]
-        for block in self.blocks:
-            x, t_ij, a_ij = block(x, atomic_numbers, edge_scalars_c, edge_src, edge_dst,
-                                  edge_mask, wigner, t_ij, rl_ij, k, graph_idx,
-                                  num_graphs, generator, phi_c, a_ij, rows=rows)
-        return BackboneOutput(self.norm(x).float(), edge_scalars, wigner, k)
+        broadcast = StackBroadcast(atomic_numbers, edge_scalars_c, edge_src, edge_dst,
+                                   edge_mask, wigner, graph_idx, rl_ij, phi_c, k)
+        return (x, t_ij, a_ij), broadcast, edge_scalars
+
+    def run_blocks(self, carry: tuple, broadcast: "StackBroadcast", num_graphs: int,
+                   lo: int = 0, hi: Optional[int] = None,
+                   generator: Optional[torch.Generator] = None, rows: slice | None = None,
+                   params: Optional[dict] = None):
+        """Blocks ``[lo, hi)`` on ``carry``; returns the carry after them.
+        ``params``: a name -> tensor mapping (the backbone's names) to call
+        the blocks with."""
+        for i in range(lo, len(self.blocks) if hi is None else hi):
+            prefix = f"blocks.{i}."
+            sub = None if params is None else {n[len(prefix):]: v for n, v in params.items()
+                                               if n.startswith(prefix)}
+            carry = block_step(self.blocks[i], carry, broadcast, num_graphs, generator, rows,
+                               sub)
+        return carry
+
+    def post_stack(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm of the block stack's node features (float32)."""
+        return self.norm(x).float()
+
+
+class StackBroadcast(NamedTuple):
+    """What every block reads besides the carry (the JAX package's
+    ``broadcast`` tuple, in its order): ``edge_scalars`` and ``rl_ij`` /
+    ``phi_r`` in the compute type, None where the configuration has none;
+    then the edge slots per node of the fixed-degree layout, ``k``."""
+
+    atomic_numbers: torch.Tensor
+    edge_scalars: torch.Tensor
+    edge_src: torch.Tensor
+    edge_dst: torch.Tensor
+    edge_mask: torch.Tensor
+    wigner: Union[WignerDense, WignerFactors]
+    graph_idx: torch.Tensor
+    rl_ij: Optional[torch.Tensor]
+    phi_r: Optional[torch.Tensor]
+    k: int
+
+
+def block_step(block: nn.Module, carry: tuple, broadcast: StackBroadcast, num_graphs: int,
+               generator: Optional[torch.Generator] = None, rows: slice | None = None,
+               params: Optional[dict] = None) -> tuple:
+    """One block on ``carry`` = (x, t_ij, a_ij); ``params``: a name ->
+    tensor mapping to call the block with (``torch.func.functional_call``)."""
+    x, t_ij, a_ij = carry
+    b = broadcast
+    args = (x, b.atomic_numbers, b.edge_scalars, b.edge_src, b.edge_dst, b.edge_mask,
+            b.wigner, t_ij, b.rl_ij, b.k, b.graph_idx, num_graphs, generator, b.phi_r, a_ij)
+    if params is None:
+        return block(*args, rows=rows)
+    return torch.func.functional_call(block, params, args, {"rows": rows})

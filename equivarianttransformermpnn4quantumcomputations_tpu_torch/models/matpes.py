@@ -146,19 +146,29 @@ class EquiformerV2MatPES(nn.Module):
         return self.global_attn(x, gm, nm, pos, **kw)
 
     def forward(self, batch: dict, pos: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None, stack_capture: bool = False,
+                stack_override=None):
         """Returns energy [B, 1] (per atom), energy_total [B], node_energy [N].
 
         ``generator`` draws the dropout masks in ``train()`` mode.  The edge
         vectors take their periodic shifts in ``batch["strained_cell"]``
-        when the batch has one (stress), else in ``batch["cell"]``."""
+        when the batch has one (stress), else in ``batch["cell"]``.
+        ``stack_capture=True`` returns the backbone's ``(carry, broadcast)``
+        before the blocks; ``stack_override=carry`` runs the heads on the
+        carry of an external block stack (models/backbone.py; the JAX
+        package's hooks of the same names, which parallel/pipeline.py's
+        GPipe step uses)."""
         if pos is None:
             pos = batch["pos"]
         x = self.backbone(
             batch["atomic_numbers"], pos, batch["graph_idx"], batch["edge_src"],
             batch["edge_dst"], batch["edge_shift"], batch["edge_mask"],
             batch.get("strained_cell", batch["cell"]), generator,
-        ).x
+            stack_capture=stack_capture, stack_override=stack_override,
+        )
+        if stack_capture:
+            return x
+        x = x.x
         if self.global_attn_kind is not None:
             x = self._global(x, batch, pos)
         node_energy = self.energy_block(x)[:, 0, 0]

@@ -171,21 +171,24 @@ class DataParallelStep:
             raise ValueError(f"{n} micro-batches given, {self.n_local} expected on each of "
                              f"{self.world} processes (data={self.data})")
         for i in range(n):
-            loss, metrics = self.loss_grad({k: v[i] for k, v in stacked.items()})
-            if self.keys is None:
-                self.keys = list(metrics)
-                self.flat = torch.empty(self.n_grad + 1 + len(self.keys),
-                                        device=self.params[0].device)
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in self.params]
-            tail = torch.stack([loss.float(), *(metrics[k].float() for k in self.keys)])
-            views = [*self.flat[:self.n_grad].split(self.sizes), self.flat[self.n_grad:]]
-            views = [v.view_as(t) for v, t in zip(views, [*grads, tail])]
-            if i == 0:
-                torch._foreach_copy_(views, [*grads, tail])
-            else:
-                torch._foreach_add_(views, [*grads, tail])
+            self._add(i, *self.loss_grad({k: v[i] for k, v in stacked.items()}))
         return self.flat
+
+    def _add(self, i: int, loss: torch.Tensor, metrics: dict) -> None:
+        """Copy (``i`` = 0) or add the gradients in ``.grad``, the loss and
+        the metrics into the flat buffer."""
+        if self.keys is None:
+            self.keys = list(metrics)
+            self.flat = torch.empty(self.n_grad + 1 + len(self.keys),
+                                    device=self.params[0].device)
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        tail = torch.stack([loss.float(), *(metrics[k].float() for k in self.keys)])
+        views = [*self.flat[:self.n_grad].split(self.sizes), self.flat[self.n_grad:]]
+        views = [v.view_as(t) for v, t in zip(views, [*grads, tail])]
+        if i == 0:
+            torch._foreach_copy_(views, [*grads, tail])
+        else:
+            torch._foreach_add_(views, [*grads, tail])
 
     def reduce(self, flat: torch.Tensor) -> torch.Tensor:
         """Sum ``flat`` over the ranks (the step's one collective) and divide

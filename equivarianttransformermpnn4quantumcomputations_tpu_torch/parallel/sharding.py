@@ -263,6 +263,10 @@ class CompositeMesh:
     mp: ModelGroup
     roles: dict | None = None   # param_roles of the whole model (shard_state)
 
+    @property
+    def sharded(self) -> bool:
+        return self.model > 1
+
     def gather_state(self, state) -> dict:
         return gather_state(state, self)
 

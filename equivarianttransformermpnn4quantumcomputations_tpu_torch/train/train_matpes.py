@@ -2,7 +2,7 @@
 
     python -m equivarianttransformermpnn4quantumcomputations_tpu_torch.train.train_matpes \\
         --config fixture [--epochs N] [--mixed-precision] [--checkpoint NAME] \\
-        [--device cuda|cpu] [--multihost] [--mesh data=D[,model=M][,sp]]
+        [--device cuda|cpu] [--multihost] [--mesh data=D[,model=M|pipe=P][,sp]]
 
 Configs (the JAX CLI's names): ``default`` (GATA-V2), ``debug``,
 ``no-attn-norm``, ``phi-every-layer``, ``baseline`` (the original
@@ -39,11 +39,23 @@ holds its share of the sharded weights, AdamW moments and EMA; rank 0
 gathers the state and writes the same checkpoint files as a one-process
 run, and ``--checkpoint`` re-shards one.  ``sp`` splits the edge axis over
 ``model`` too; at model=1 it does nothing (``data=2,sp`` trains
-data-parallel).  The pipeline axis (``pipe=``) is not ported yet and stops
-the program; it is the next slice (ROADMAP.md, Queue 1 item 8).  The
-composite step, like the JAX one, keeps the float32 parameters in the
-forward of a ``--mixed-precision`` model, and a sharded run writes no
-emergency checkpoint on SIGTERM (that would need every rank).
+data-parallel).  The composite step, like the JAX one, keeps the float32
+parameters in the forward of a ``--mixed-precision`` model.
+
+Pipeline training, as the JAX CLI: ``--mesh data=D,pipe=P`` runs
+``parallel/pipeline.py``'s DP x GPipe step over the world's processes laid
+out as (world / P) data rows of P stages (P must divide the world and D be
+a multiple of world / P; each row runs D P / world micro-batches a step
+through its P-stage pipeline and reads its shard of the data).  Each stage
+holds its num_layers / P blocks (their masters, AdamW moments and EMA) and
+every other leaf whole; rank 0 gathers the state and writes the checkpoint
+files of a one-process run, ``--checkpoint`` re-shards one, and evaluation
+runs through the pipeline.  As in the JAX CLI it needs ``scan_layers`` in
+the config (the layer stack's layout; ``default`` has it off), takes no
+stress, cannot be combined with ``model=``, and ignores ``sp``; with
+``--mixed-precision`` the stages compute on bfloat16 copies of the masters,
+as the JAX pipeline step does.  A sharded run (composite or pipeline)
+writes no emergency checkpoint on SIGTERM (that would need every rank).
 """
 
 from __future__ import annotations
@@ -65,6 +77,8 @@ from ..data.synthetic import SyntheticCrystals
 from ..models.matpes import EquiformerV2MatPES, init_weights, matpes_energy_forces
 from ..parallel import multihost
 from ..parallel.data_parallel import make_matpes_dp_step, microbatches, rank_seed
+from ..parallel.pipeline import (make_dp_pipe_mesh, make_pipeline_matpes_step,
+                                 pipeline_energy_forces)
 from ..parallel.sharding import make_composite_matpes_step, make_composite_mesh
 from ..utils.logging import RunLogger
 from ..utils.precision import full_f32_products
@@ -137,17 +151,22 @@ def load_data(cfg: dict):
 
 
 @torch.no_grad()
-def evaluate(model, params: dict, loader, energy_std: float, device) -> tuple[float, float]:
+def evaluate(model, params: dict, loader, energy_std: float, device,
+             mesh=None) -> tuple[float, float]:
     """Energy MAE (meV/atom) and force MAE (meV/A) with ``params`` (the EMA
     weights), denormalized (reference test_MatPES.py:89-152); no stress,
-    as in the JAX package."""
+    as in the JAX package.  ``mesh``: a ``parallel/pipeline.py:PipeMesh``
+    whose stages hold the model (every rank of the row must call this)."""
     model.eval()
     e_err = f_err = 0.0
     e_cnt = f_cnt = 0
     for pb in loader:
         batch = as_tensors(pb, device)
         with full_f32_products():
-            outs = matpes_energy_forces(model, batch, params=params)
+            if mesh is None:
+                outs = matpes_energy_forces(model, batch, params=params)
+            else:
+                outs = pipeline_energy_forces(model, [batch], mesh, params)[0]
         e_err += (outs["energy"][:, 0] - batch["energy"]).abs().sum().item()
         e_cnt += batch["energy"].shape[0]
         m = batch["node_mask"]
@@ -158,10 +177,9 @@ def evaluate(model, params: dict, loader, energy_std: float, device) -> tuple[fl
 
 
 def parse_mesh(spec: str) -> dict:
-    """``{"data": D, "model": M, "sp": bool}`` of
+    """``{"data": D, "model": M, "pipe": P, "sp": bool}`` of
     ``--mesh data=D[,model=M|pipe=P][,sp]`` (an axis left out is 1, as in
-    the JAX CLI).  ``pipe`` > 1 stops the program: the pipeline is not
-    ported yet."""
+    the JAX CLI, which also refuses pipe and model together)."""
     axes = {"data": 1, "model": 1, "pipe": 1, "sp": False}
     for part in (p.strip() for p in spec.split(",")):
         key, sep, value = part.partition("=")
@@ -172,12 +190,11 @@ def parse_mesh(spec: str) -> dict:
         else:
             raise SystemExit(f"--mesh {spec}: cannot read {part!r} "
                              "(data=D[,model=M|pipe=P][,sp])")
-    if axes["pipe"] > 1:
-        raise SystemExit(f"--mesh {spec}: pipeline parallelism (pipe=) is not ported yet; "
-                         "the DP x GPipe step is the next slice (ROADMAP.md, Queue 1 item 8)")
-    if axes["data"] < 1 or axes["model"] < 1:
-        raise SystemExit(f"--mesh {spec}: data and model must be at least 1")
-    return {k: axes[k] for k in ("data", "model", "sp")}
+    if axes["pipe"] > 1 and axes["model"] > 1:
+        raise SystemExit(f"--mesh {spec}: pipe and model axes cannot be combined")
+    if min(axes["data"], axes["model"], axes["pipe"]) < 1:
+        raise SystemExit(f"--mesh {spec}: data, model and pipe must be at least 1")
+    return axes
 
 
 def main(argv=None, overrides: dict | None = None):
@@ -195,11 +212,13 @@ def main(argv=None, overrides: dict | None = None):
                          "(no-op single-process); shard data per rank, write logs/checkpoints "
                          "on rank 0 only (reference train_oc20v2_parallel.py:34-54,334-349,"
                          "513-535)")
-    ap.add_argument("--mesh", default=None, metavar="data=D[,model=M][,sp]",
+    ap.add_argument("--mesh", default=None, metavar="data=D[,model=M|pipe=P][,sp]",
                     help="train with a sharded step over the processes: 'data=4' is 4-way DP "
                          "(4 microbatches/step), 'data=4,model=2' adds Megatron-style TP (+EP "
-                         "for MoE) over model ranks; ',sp' shards the edge axis too.  pipe= "
-                         "is not ported.  Omitted = single-device step.")
+                         "for MoE) over model ranks; ',sp' shards the edge axis too; "
+                         "'data=2,pipe=2' instead runs DP x GPipe pipeline parallelism over "
+                         "the layer stack (requires scan_layers=True, num_layers %% pipe == "
+                         "0).  Omitted = single-device step.")
     args = ap.parse_args(argv)
     cfg = {**CONFIGS[args.config], **(overrides or {})}
     if args.epochs is not None:
@@ -207,6 +226,11 @@ def main(argv=None, overrides: dict | None = None):
     mesh_spec = parse_mesh(args.mesh) if args.mesh else None
     data = mesh_spec["data"] if mesh_spec else None
     model_size = mesh_spec["model"] if mesh_spec else 1
+    pipe = mesh_spec["pipe"] if mesh_spec else 1
+    if pipe > 1 and not cfg.get("scan_layers"):
+        raise SystemExit("--mesh pipe= requires scan_layers=True")
+    if pipe > 1 and cfg.get("regress_stress"):
+        raise SystemExit("--mesh pipe= does not support stress yet")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device (pass --device cpu to train on the CPU)")
@@ -217,16 +241,18 @@ def main(argv=None, overrides: dict | None = None):
     world, rank, primary = (multihost.process_count(), multihost.process_index(),
                             multihost.is_primary())
     mesh = None
-    if model_size > 1:
-        if world % model_size:
-            raise SystemExit(f"--mesh {args.mesh}: model={model_size} needs a multiple of "
-                             f"{model_size} processes ({world} running): start "
-                             f"{model_size} x the data rows with --multihost, e.g. torchrun "
-                             f"--nproc_per_node {model_size}")
-        if data % (world // model_size):
+    split, axis = max((model_size, "model"), (pipe, "pipe"))
+    if split > 1:
+        if world % split:
+            raise SystemExit(f"--mesh {args.mesh}: {axis}={split} needs a multiple of "
+                             f"{split} processes ({world} running): start "
+                             f"{split} x the data rows with --multihost, e.g. torchrun "
+                             f"--nproc_per_node {split}")
+        if data % (world // split):
             raise SystemExit(f"--mesh {args.mesh}: data={data} is not a multiple of the "
-                             f"{world // model_size} data rows of {world} processes")
-        mesh = make_composite_mesh(model_size)
+                             f"{world // split} data rows of {world} processes")
+        mesh = (make_composite_mesh(model_size) if axis == "model"
+                else make_dp_pipe_mesh(world // pipe, pipe))
     elif world > 1 and (data is None or data % world):
         raise SystemExit(f"{world} processes need --mesh data=N with N a multiple of {world}")
     # the data shards: one per data row (the ranks of a row read the same)
@@ -252,7 +278,9 @@ def main(argv=None, overrides: dict | None = None):
               f"device {device}  {'bf16' if mixed_precision else 'f32'} compute"
               + (f"  data-parallel: data={data} over {world} processes"
                  if data and not mesh else ""))
-        if mesh:
+        if mesh and pipe > 1:
+            print(f"pipeline step: data={data} pipe={pipe} ({data} microbatches/step)")
+        elif mesh:
             print(f"mesh step: data={data} model={model_size} sp={mesh_spec['sp']} "
                   f"({data} microbatches/step, {world} processes)")
 
@@ -269,12 +297,19 @@ def main(argv=None, overrides: dict | None = None):
             print(f"resumed from {args.checkpoint}: epoch {meta.get('epoch')}, "
                   f"step {state.step}")
     logger = RunLogger(cfg["run_dir"], cfg, primary=primary)
-    gen = torch.Generator(device=device).manual_seed(rank_seed(cfg["seed"], shard_id))
+    # a pipeline stage draws its own dropout masks; the ranks of a composite
+    # row draw the same
+    gen = torch.Generator(device=device).manual_seed(
+        rank_seed(cfg["seed"], rank if pipe > 1 else shard_id))
     w_stress = cfg["w_stress"] if cfg["regress_stress"] else 0.0
     if mesh is not None:
-        step_fn = make_composite_matpes_step(state, mesh, data, cfg["w_energy"],
-                                             cfg["w_force"], w_stress, mesh_spec["sp"],
-                                             cfg["ema_decay"], gen)
+        if pipe > 1:
+            step_fn = make_pipeline_matpes_step(state, mesh, data, cfg["w_energy"],
+                                                cfg["w_force"], cfg["ema_decay"], gen)
+        else:
+            step_fn = make_composite_matpes_step(state, mesh, data, cfg["w_energy"],
+                                                 cfg["w_force"], w_stress, mesh_spec["sp"],
+                                                 cfg["ema_decay"], gen)
         n_local = data // shards
         n_steps = len(train_loader.indices) // shards // cfg["batch_size"] // n_local
 
@@ -299,7 +334,7 @@ def main(argv=None, overrides: dict | None = None):
     previous = install_sigterm_checkpoint(lambda: state, ckpt) if emergency else None
     try:
         _train(cfg, state, step_fn, batches, train_loader, val_loader, stats, ckpt, logger,
-               n_params, device, primary)
+               n_params, device, primary, mesh if pipe > 1 else None)
     finally:
         if emergency:
             signal.signal(signal.SIGTERM, previous)
@@ -309,10 +344,11 @@ def main(argv=None, overrides: dict | None = None):
 
 
 def _train(cfg, state, step_fn, batches, train_loader, val_loader, stats, ckpt, logger,
-           n_params, device, primary) -> None:
+           n_params, device, primary, pipe_mesh=None) -> None:
     """The epoch loop: train on ``batches(train_loader)``, evaluate with the
-    EMA weights every ``eval_every`` epochs and after the last, checkpoint,
-    log (the primary process prints)."""
+    EMA weights every ``eval_every`` epochs and after the last (through the
+    pipeline of ``pipe_mesh``), checkpoint, log (the primary process
+    prints)."""
     best_val = np.inf
     nan_batches = 0
     e_mae = f_mae = float("inf")   # the last evaluation's
@@ -331,7 +367,7 @@ def _train(cfg, state, step_fn, batches, train_loader, val_loader, stats, ckpt, 
                     stress.append(float(metrics["stress_l1"]))
         if (epoch + 1) % cfg.get("eval_every", 1) == 0 or epoch == cfg["epochs"] - 1:
             e_mae, f_mae = evaluate(state.model, state.ema, val_loader,
-                                    stats["energy_std"], device)
+                                    stats["energy_std"], device, pipe_mesh)
         dt = time.time() - t0
         extra = {"train_stress_l1": float(np.mean(stress))} if stress else {}
         if primary:

@@ -146,8 +146,8 @@ class GuardedAdamW:
 @dataclass
 class TrainState:
     """Model (float32 masters), optimizer, EMA of the parameters, step;
-    ``mesh``: the ``parallel/sharding.py:CompositeMesh`` of a sharded
-    state (None: whole)."""
+    ``mesh``: the ``parallel/sharding.py:CompositeMesh`` or
+    ``parallel/pipeline.py:PipeMesh`` of a sharded state (None: whole)."""
 
     model: nn.Module
     optimizer: GuardedAdamW
@@ -156,7 +156,7 @@ class TrainState:
     mesh: object = None
 
     def _sharded(self) -> bool:
-        return self.mesh is not None and self.mesh.model > 1
+        return self.mesh is not None and self.mesh.sharded
 
     def state_dict(self) -> dict:
         if self._sharded():

@@ -59,7 +59,8 @@ def test_port_has_every_module_of_the_slice():
                 "data/oc20.py", "train/train_oc20.py", "train/test_oc20.py",
                 "data/matpes.py", "train/test_matpes.py", "parallel/multihost.py",
                 "parallel/data_parallel.py", "data/native.py", "csrc/neighborlist.cpp",
-                "nn/partition.py", "parallel/sharding.py"):
+                "nn/partition.py", "parallel/sharding.py", "parallel/pipeline.py",
+                "utils/port.py"):
         assert (PORT / rel).is_file(), rel
 
 

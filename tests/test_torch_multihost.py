@@ -101,11 +101,12 @@ def test_matpes_cli_multihost_data_parallel_in_one_process(tmp_path, monkeypatch
 
 @pytest.mark.parametrize("mesh,stop", [
     ("data=2,model=2", "model=2 needs a multiple of 2 processes"),
-    ("data=2,pipe=2", "next slice"),
+    ("data=2,pipe=2", "pipe=2 needs a multiple of 2 processes"),
     ("data=2,sp", None)], ids=["data=2,model=2", "data=2,pipe=2", "data=2,sp"])
 def test_unported_mesh_axes_stop(mesh, stop, tmp_path, monkeypatch):
-    """One process: model=2 stops for want of processes, pipe= stops (the
-    pipeline is the next slice), and sp at model=1 trains data-parallel."""
+    """One process: model=2 and pipe=2 stop for want of processes (the
+    pipeline trains at 2 processes: tests/test_torch_pipeline_cli.py), and
+    sp at model=1 trains data-parallel."""
     for name in ENV:
         monkeypatch.delenv(name, raising=False)
     argv = ["--config", "synthetic", "--device", "cpu", "--mesh", mesh]
@@ -118,18 +119,24 @@ def test_unported_mesh_axes_stop(mesh, stop, tmp_path, monkeypatch):
     assert not (tmp_path / "run").exists()
 
 
-@pytest.mark.parametrize("mesh,axes", [("data=4", (4, 1, False)),
-                                       ("data=2,model=1", (2, 1, False)),
-                                       ("data=2, pipe=1", (2, 1, False)), ("data=x", None),
-                                       ("model=2", (1, 2, False)), ("data=0", None)],
+@pytest.mark.parametrize("mesh,axes", [("data=4", (4, 1, 1, False)),
+                                       ("data=2,model=1", (2, 1, 1, False)),
+                                       ("data=2, pipe=1", (2, 1, 1, False)), ("data=x", None),
+                                       ("model=2", (1, 2, 1, False)), ("data=0", None),
+                                       ("data=2,pipe=2,sp", (2, 1, 2, True)),
+                                       ("model=2,pipe=2", None), ("pipe=0", None)],
                          ids=["data=4-4", "data=2,model=1-2", "data=2, pipe=1-2", "data=x-None",
-                              "model=2-None", "data=0-None"])
+                              "model=2-None", "data=0-None", "data=2,pipe=2,sp",
+                              "model=2,pipe=2-None", "pipe=0-None"])
 def test_parse_mesh(mesh, axes):
+    """The axes (data, model, pipe, sp); pipe with model stops, as in the
+    JAX CLI."""
     if axes is None:
         with pytest.raises(SystemExit):
             train_matpes.parse_mesh(mesh)
     else:
-        assert train_matpes.parse_mesh(mesh) == dict(zip(("data", "model", "sp"), axes))
+        assert train_matpes.parse_mesh(mesh) == dict(zip(("data", "model", "pipe", "sp"),
+                                                         axes))
 
 
 def test_oc20_data_parallel_takes_the_plain_step_in_one_process(tmp_path, monkeypatch):
