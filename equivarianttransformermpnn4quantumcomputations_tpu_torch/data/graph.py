@@ -150,7 +150,7 @@ def as_tensors(pb: "PaddedBatch", device) -> dict:
 
 @dataclass
 class PaddedBatch:
-    """Static-shape fixed-degree batch (all numpy; tensors are made at use)."""
+    """Static-shape padded batch (all numpy; tensors are made at use)."""
 
     atomic_numbers: np.ndarray   # [N_pad] int32 (0 = padding)
     pos: np.ndarray              # [N_pad, 3] f32
@@ -202,49 +202,74 @@ def collate(
     max_neighbors: int | None,
     n_pad: int,
     e_pad: int,
+    uniform: bool = False,
+    fixed_degree: bool = False,
 ) -> PaddedBatch:
-    """Build graphs per sample and pack them into one fixed-degree batch.
+    """Build graphs per sample and pack them into one padded batch.
 
-    Every graph gets exactly ``n_max = n_pad // B`` node slots and
-    ``e_max = e_pad // B`` edge slots (graph b owns rows [b*n_max, (b+1)*n_max)
-    and [b*e_max, (b+1)*e_max)), and every node owns exactly
+    The default is the ragged layout: the graphs' nodes and edges follow
+    one another from row 0, padding nodes get atomic number 0 and graph 0,
+    and padding edges point 0 -> 0 with mask False.  Within each graph the
+    real edges are sorted by destination, so ``edge_dst`` is non-decreasing
+    over the real edges.
+
+    ``uniform=True``: graph-uniform blocks.  Every graph gets exactly
+    ``n_max = n_pad // B`` node slots and ``e_max = e_pad // B`` edge slots
+    (graph b owns rows [b*n_max, (b+1)*n_max) and [b*e_max, (b+1)*e_max));
+    padding nodes belong to their own graph and padding edges point at
+    their block's first node.
+
+    ``fixed_degree=True`` (implies uniform): every node also owns exactly
     ``k = e_max // n_max`` consecutive edge slots: edge slot ``i*k + j`` is
     the j-th incoming edge of local node i.  Padding slots carry mask False
-    with dst = their own node, so every dst-keyed segment reduction, softmax
-    or gather is a plain [N, k, ...] reshape (ops/segment.py).  Requires
-    ``k >= max_neighbors``.
+    with src = dst = their own node, so every dst-keyed segment reduction,
+    softmax or gather is a plain [N, k, ...] reshape (ops/segment.py).
+    Requires ``k >= max_neighbors``.
 
-    Padding nodes get atomic number 0 and are masked everywhere.  If a graph
-    overflows its slots, edges (then atoms) are truncated; the truncation is
-    counted (``PaddedBatch.overflow_atoms/overflow_edges``) and warned about,
-    since a truncated graph has wrong physics.  ``inference.pad_sizes`` sizes
-    the pads so that this does not happen.
+    If the batch overflows its pads, edges (then atoms) are truncated; the
+    truncation is counted (``PaddedBatch.overflow_atoms/overflow_edges``)
+    and warned about, since a truncated graph has wrong physics
+    (``data/loader.py:infer_pad_sizes`` sizes the pads from the data).
     """
     B = len(samples)
-    if n_pad % B or e_pad % B:
-        raise ValueError(f"collate needs n_pad/e_pad divisible by B={B}")
-    n_max, e_max = n_pad // B, e_pad // B
-    if e_max % n_max:
-        raise ValueError(
-            f"fixed-degree collate needs e_max ({e_max}) divisible by n_max "
-            f"({n_max})"
-        )
-    k_deg = e_max // n_max
-    if max_neighbors is not None and k_deg < max_neighbors:
-        raise ValueError(
-            f"fixed-degree slot count k={k_deg} < max_neighbors={max_neighbors}"
-        )
+    if fixed_degree:
+        uniform = True
+    if uniform and (n_pad % B or e_pad % B):
+        raise ValueError(f"uniform collate needs n_pad/e_pad divisible by B={B}")
+    n_max = n_pad // B if uniform else None
+    e_max = e_pad // B if uniform else None
+    k_deg = None
+    if fixed_degree:
+        if e_max % n_max:
+            raise ValueError(
+                f"fixed_degree needs e_max ({e_max}) divisible by n_max ({n_max})"
+            )
+        k_deg = e_max // n_max
+        if max_neighbors is not None and k_deg < max_neighbors:
+            raise ValueError(
+                f"fixed_degree slot count k={k_deg} < max_neighbors={max_neighbors}"
+            )
     az = np.zeros(n_pad, np.int32)
     pos = np.zeros((n_pad, 3), np.float32)
-    # padding nodes belong to their own graph's block
-    gidx = np.repeat(np.arange(B, dtype=np.int32), n_max)
+    gidx = np.zeros(n_pad, np.int32)
     nslot = np.full(n_pad, 2**30, np.int32)  # OOB sentinel for padding
     nmask = np.zeros(n_pad, bool)
     natoms = np.zeros(B, np.int32)
-    # every slot's dst is its owning node (canonical pattern e -> e // k),
-    # padding included, so dst-keyed reshape-reductions stay in-node
-    edst = np.repeat(np.arange(B * n_max, dtype=np.int32), k_deg)
-    esrc = edst.copy()
+    if uniform:
+        # padding nodes/edges belong to their own block
+        gidx = np.repeat(np.arange(B, dtype=np.int32), n_max)
+        if fixed_degree:
+            # every slot's dst is its owning node (canonical pattern
+            # e -> e // k), padding included, so dst-keyed reshape-reductions
+            # stay in-node
+            edst = np.repeat(np.arange(B * n_max, dtype=np.int32), k_deg)
+            esrc = edst.copy()
+        else:
+            esrc = np.repeat(np.arange(B, dtype=np.int32) * n_max, e_max).astype(np.int32)
+            edst = esrc.copy()
+    else:
+        esrc = np.zeros(e_pad, np.int32)
+        edst = np.zeros(e_pad, np.int32)
     eshift = np.zeros((e_pad, 3), np.int32)
     emask = np.zeros(e_pad, bool)
     cell = np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))
@@ -256,24 +281,68 @@ def collate(
     stress = np.zeros((B, 6), np.float32) if y0.stress is not None else None
     fixed = np.zeros(n_pad, bool) if y0.fixed is not None else None
 
+    node_off = 0
+    edge_off = 0
     overflow_atoms = 0
     overflow_edges = 0
     for b, s in enumerate(samples):
-        node_off = b * n_max
-        edge_off = b * e_max
+        if uniform:
+            node_off = b * n_max
+            edge_off = b * e_max
+            n_cap, e_cap = n_max, e_max
+        else:
+            n_cap = n_pad - node_off
+            e_cap = e_pad - edge_off
         n_real = s.pos.shape[0]
-        n = min(n_real, n_max)
-        overflow_atoms += n_real - n
+        n = min(n_real, n_cap)
+        overflow_atoms += n_real - max(n, 0)
         if n <= 0:
             continue
         sl = slice(node_off, node_off + n)
         az[sl] = s.atomic_numbers[:n]
         pos[sl] = s.pos[:n]
+        gidx[sl] = b
         nslot[sl] = np.arange(n)
         nmask[sl] = True
         natoms[b] = n
         if s.cell is not None:
             cell[b] = s.cell
+        if s.pbc and s.cell is not None:
+            src, dst, shift = radius_graph_pbc(
+                s.pos[:n].astype(np.float64), s.cell, cutoff, max_neighbors
+            )
+        else:
+            src, dst, shift = radius_graph(
+                s.pos[:n].astype(np.float64), cutoff, max_neighbors
+            )
+        # INVARIANT: edges sorted by dst within each graph; graphs appended
+        # in node-offset order, so edge_dst is non-decreasing over the real
+        # edges of a ragged batch
+        order = np.argsort(dst, kind="stable")
+        src, dst, shift = src[order], dst[order], shift[order]
+        e = min(src.size, e_cap)
+        overflow_edges += src.size - e
+        if fixed_degree:
+            # slot = dst * k + rank-within-dst (dst-sorted, so rank =
+            # index - group start); degree <= k by the max_neighbors cap
+            d = dst[:e]
+            first = np.ones(e, dtype=bool)
+            first[1:] = d[1:] != d[:-1]
+            group_start = np.maximum.accumulate(np.where(first, np.arange(e), 0))
+            rank = np.arange(e) - group_start
+            ok = rank < k_deg          # safety when max_neighbors is None
+            overflow_edges += int(e - ok.sum())
+            slots = edge_off + d[ok] * k_deg + rank[ok]
+            esrc[slots] = src[:e][ok] + node_off
+            edst[slots] = d[ok] + node_off
+            eshift[slots] = shift[:e][ok]
+            emask[slots] = True
+        else:
+            esl = slice(edge_off, edge_off + e)
+            esrc[esl] = src[:e] + node_off
+            edst[esl] = dst[:e] + node_off
+            eshift[esl] = shift[:e]
+            emask[esl] = True
         if y is not None:
             y[b] = s.y
         if energy is not None:
@@ -284,32 +353,8 @@ def collate(
             stress[b] = s.stress
         if fixed is not None:
             fixed[sl] = s.fixed[:n]
-        if s.pbc and s.cell is not None:
-            src, dst, shift = radius_graph_pbc(
-                s.pos[:n].astype(np.float64), s.cell, cutoff, max_neighbors
-            )
-        else:
-            src, dst, shift = radius_graph(
-                s.pos[:n].astype(np.float64), cutoff, max_neighbors
-            )
-        order = np.argsort(dst, kind="stable")
-        src, dst, shift = src[order], dst[order], shift[order]
-        e = min(src.size, e_max)
-        overflow_edges += src.size - e
-        # slot = dst * k + rank-within-dst (dst-sorted, so rank =
-        # index - group start); degree <= k by the max_neighbors cap
-        d = dst[:e]
-        first = np.ones(e, dtype=bool)
-        first[1:] = d[1:] != d[:-1]
-        group_start = np.maximum.accumulate(np.where(first, np.arange(e), 0))
-        rank = np.arange(e) - group_start
-        ok = rank < k_deg          # safety when max_neighbors is None
-        overflow_edges += int(e - ok.sum())
-        slots = edge_off + d[ok] * k_deg + rank[ok]
-        esrc[slots] = src[:e][ok] + node_off
-        edst[slots] = d[ok] + node_off
-        eshift[slots] = shift[:e][ok]
-        emask[slots] = True
+        node_off += n
+        edge_off += e
 
     if overflow_atoms or overflow_edges:
         warnings.warn(

@@ -1,8 +1,9 @@
 """Padded batch loader with background prefetch.
 
 The port's own copy of the JAX package's data/loader.py
-(``infer_pad_sizes``, ``PaddedLoader``) for the fixed-degree layout: every
-batch has the same (n_pad, e_pad), and a daemon thread builds the next
+(``infer_pad_sizes``, ``PaddedLoader``) in the three layouts of
+``graph.py:collate`` (ragged, graph-uniform, fixed-degree): every batch has
+the same (n_pad, e_pad), and a daemon thread builds the next
 batches (the neighbour search) while the device computes.  In a
 multi-process run each rank iterates its strided shard of the shuffled
 order (``num_shards`` / ``shard_id``).
@@ -20,29 +21,51 @@ from .graph import PaddedBatch, collate
 
 __all__ = ["PaddedLoader", "infer_pad_sizes"]
 
-PAD_SAMPLE, PAD_SAFETY = 512, 1.25
 
+def infer_pad_sizes(dataset, cutoff: float, max_neighbors: int | None, batch_size: int,
+                    sample: int = 512, safety: float = 1.25, uniform: bool = False,
+                    fixed_degree: bool = False) -> tuple[int, int]:
+    """(n_pad, e_pad) from a sample of ``sample`` graphs of the dataset.
 
-def infer_pad_sizes(dataset, max_neighbors: int | None,
-                    batch_size: int) -> tuple[int, int]:
-    """Fixed-degree (n_pad, e_pad) from a sample of the dataset.
-
-    Every graph gets ``n_slot`` node rows (the largest of ``PAD_SAMPLE``
-    sampled graphs times ``PAD_SAFETY``, rounded up to 4) and every node
-    ``max_neighbors`` edge slots, as the JAX package's
-    ``infer_pad_sizes(fixed_degree=True)`` at its defaults.
+    Ragged (the default): ``batch_size`` times the largest sampled graph's
+    atoms and edges, times ``safety``, rounded up to 8 and 128.
+    ``uniform=True``: per-graph slots (atoms rounded up to 4, edges to 32),
+    times ``batch_size``.  ``fixed_degree=True``: the uniform node slots and
+    ``max_neighbors`` edge slots per node (``collate``'s layouts).
     """
-    if max_neighbors is None:
-        raise ValueError("fixed-degree pad sizing needs max_neighbors")
+    from .graph import radius_graph, radius_graph_pbc
+
     rng = np.random.default_rng(0)
-    idx = rng.choice(len(dataset), size=min(PAD_SAMPLE, len(dataset)), replace=False)
-    n_max = max([1] + [dataset[int(i)].pos.shape[0] for i in idx])
-    n_slot = int(np.ceil(n_max * PAD_SAFETY / 4)) * 4
-    return batch_size * n_slot, batch_size * n_slot * max_neighbors
+    idx = rng.choice(len(dataset), size=min(sample, len(dataset)), replace=False)
+    n_max, e_max = 1, 1
+    for i in idx:
+        s = dataset[int(i)]
+        n_max = max(n_max, s.pos.shape[0])
+        if fixed_degree:   # the node count alone sizes the fixed-degree pads
+            continue
+        if s.pbc and s.cell is not None:
+            src, _, _ = radius_graph_pbc(s.pos.astype(np.float64), s.cell, cutoff,
+                                         max_neighbors)
+        else:
+            src, _, _ = radius_graph(s.pos.astype(np.float64), cutoff, max_neighbors)
+        e_max = max(e_max, src.size)
+    if fixed_degree:
+        if max_neighbors is None:
+            raise ValueError("fixed_degree pad sizing needs max_neighbors")
+        n_slot = int(np.ceil(n_max * safety / 4)) * 4
+        return batch_size * n_slot, batch_size * n_slot * max_neighbors
+    if uniform:
+        n_slot = int(np.ceil(n_max * safety / 4)) * 4
+        e_slot = int(np.ceil(e_max * safety / 32)) * 32
+        return batch_size * n_slot, batch_size * e_slot
+    n_pad = int(np.ceil(batch_size * n_max * safety / 8)) * 8
+    e_pad = int(np.ceil(batch_size * e_max * safety / 128)) * 128
+    return n_pad, e_pad
 
 
 class PaddedLoader:
-    """Iterate a dataset as fixed-degree PaddedBatches of one static shape.
+    """Iterate a dataset as PaddedBatches of one static shape, in the layout
+    ``uniform`` / ``fixed_degree`` select (``graph.py:collate``).
 
     Args:
         dataset: indexable of GraphSample.
@@ -64,7 +87,8 @@ class PaddedLoader:
     def __init__(self, dataset, batch_size: int, cutoff: float,
                  max_neighbors: int | None, n_pad: int, e_pad: int,
                  indices: Sequence[int] | None = None, shuffle: bool = False,
-                 seed: int = 0, prefetch: int = 2, num_shards: int = 1, shard_id: int = 0):
+                 seed: int = 0, prefetch: int = 2, uniform: bool = False,
+                 fixed_degree: bool = False, num_shards: int = 1, shard_id: int = 0):
         self.dataset = dataset
         self.indices = (np.asarray(indices) if indices is not None
                         else np.arange(len(dataset)))
@@ -74,6 +98,7 @@ class PaddedLoader:
         self.n_pad, self.e_pad = n_pad, e_pad
         self.shuffle, self.seed = shuffle, seed
         self.prefetch = prefetch
+        self.uniform, self.fixed_degree = uniform, fixed_degree
         self.num_shards, self.shard_id = num_shards, shard_id
         self.epoch = 0
         self.overflow_atoms = 0
@@ -96,7 +121,8 @@ class PaddedLoader:
 
     def _build(self, batch_idx) -> PaddedBatch:
         samples = [self.dataset[int(i)] for i in batch_idx]
-        pb = collate(samples, self.cutoff, self.max_neighbors, self.n_pad, self.e_pad)
+        pb = collate(samples, self.cutoff, self.max_neighbors, self.n_pad, self.e_pad,
+                     uniform=self.uniform, fixed_degree=self.fixed_degree)
         if pb.overflow_atoms or pb.overflow_edges:
             self.overflow_atoms += pb.overflow_atoms
             self.overflow_edges += pb.overflow_edges

@@ -1,8 +1,13 @@
 """Serving API: energies and forces for batches of structures.
 
 Port of the JAX package's inference.py ``Predictor`` (energy + forces; the
-JAX ``Predictor`` computes no stress either).  ``Predictor`` takes a model
-and a torch ``state_dict`` (for example one converted from the JAX
+JAX ``Predictor`` computes no stress either).  A request is one ragged batch
+(``data/graph.py:collate`` at its defaults): its nodes padded to a multiple
+of 16 above the atom count and its edges to a multiple of 128 above the edge
+count, as in the JAX package, so the model must be built with the layout
+defaults (``uniform_blocks=False``, ``fixed_degree=False``; a model built
+for another layout is refused).  ``Predictor`` takes a model and a torch
+``state_dict`` (for example one converted from the JAX
 package's Flax params by ``utils/convert.py``), or
 ``Predictor.from_checkpoint`` reads a checkpoint of the port's MatPES CLI.
 The model runs on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -26,33 +31,21 @@ from .data.graph import GraphSample, as_tensors, collate, radius_graph, radius_g
 from .models.matpes import energy_and_forces
 from .utils.precision import full_f32_products
 
-__all__ = ["Predictor", "pad_sizes"]
+__all__ = ["Predictor"]
 
 
 def _bucket(n: int, quantum: int = 16) -> int:
     return max(quantum, -(-n // quantum) * quantum)
 
 
-def pad_sizes(n_atoms: Sequence[int], in_degree: int,
-              max_neighbors: int | None) -> tuple[int, int]:
-    """(n_pad, e_pad) of one request in the fixed-degree layout.
-
-    n_pad is the JAX package's bucket (inference.py:144: a multiple of 16
-    above the atom count), raised to a multiple of the graph count that
-    holds the largest graph; e_pad = n_pad * k with k = max_neighbors, else
-    the largest in-degree.
-    """
-    n_pad = _bucket(sum(n_atoms) + 1)
-    B = len(n_atoms)
-    n_max = max(-(-n_pad // B), max(n_atoms))
-    k = max_neighbors if max_neighbors is not None else max(1, in_degree)
-    return B * n_max, B * n_max * k
-
-
 class Predictor:
     def __init__(self, model, state_dict, cutoff: float,
                  max_neighbors: int | None, energy_mean: float = 0.0,
                  energy_std: float = 1.0, device: str | torch.device = "cuda"):
+        bb = model.backbone
+        if bb.uniform_blocks or bb.fixed_degree:
+            raise ValueError("Predictor serves ragged batches: build the model with "
+                             "uniform_blocks=False and fixed_degree=False")
         self.device = torch.device(device)
         model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
@@ -66,8 +59,10 @@ class Predictor:
                         device: str | torch.device = "cuda") -> "Predictor":
         """A Predictor of ``<run_dir>/<name>.pt``, written by
         train/train_matpes.py: the model of the stored config (float32,
-        dropout off), its EMA weights (or the trained ones), the cutoff,
-        neighbour cap and energy normalization of the config."""
+        dropout off, the ragged layout whatever layout it trained in, as the
+        JAX ``Predictor.from_checkpoint`` builds it), its EMA weights (or the
+        trained ones), the cutoff, neighbour cap and energy normalization of
+        the config."""
         from .train.train_matpes import build_eval_model
 
         with open(os.path.join(run_dir, f"{name}.meta.json")) as f:
@@ -75,7 +70,8 @@ class Predictor:
         sd = torch.load(os.path.join(run_dir, f"{name}.pt"), map_location="cpu",
                         weights_only=True)
         state = {**sd["model"], **sd["ema"]} if use_ema else sd["model"]
-        return cls(build_eval_model(cfg), state, cfg["cutoff"], cfg.get("max_neighbors"),
+        model = build_eval_model({**cfg, "uniform_blocks": False, "fixed_degree": False})
+        return cls(model, state, cfg["cutoff"], cfg.get("max_neighbors"),
                    cfg.get("energy_mean", 0.0), cfg.get("energy_std", 1.0), device)
 
     def predict(self, atomic_numbers, positions, cell=None) -> dict:
@@ -88,27 +84,28 @@ class Predictor:
         return {k: v[0] for k, v in out.items()}
 
     def collate(self, structures: Sequence[dict]):
-        """The padded fixed-degree batch (numpy) of one request, sized by
-        ``pad_sizes``.  The neighbour search runs here only to find the
-        largest in-degree when ``max_neighbors`` is None."""
-        samples, n_atoms, in_degree = [], [], 0
+        """The padded ragged batch (numpy) of one request: n_pad is a
+        multiple of 16 above the atom count and e_pad a multiple of 128
+        above the edge count, which the neighbour search here counts (JAX
+        inference.py:119-146)."""
+        samples = []
+        max_e = 1
+        n_tot = 0
         for s in structures:
             pbc = s.get("cell") is not None
-            gs = GraphSample(atomic_numbers=s["atomic_numbers"],
-                             pos=s["positions"], cell=s.get("cell"), pbc=pbc)
+            gs = GraphSample(atomic_numbers=s["atomic_numbers"], pos=s["positions"],
+                             cell=s.get("cell"), pbc=pbc)
             samples.append(gs)
-            n_atoms.append(gs.pos.shape[0])
-            if self.max_neighbors is not None:
-                continue
+            n_tot += gs.pos.shape[0]
             if pbc:
-                _, dst, _ = radius_graph_pbc(gs.pos.astype(np.float64), gs.cell,
-                                             self.cutoff, None)
+                src, _, _ = radius_graph_pbc(gs.pos.astype(np.float64), gs.cell, self.cutoff,
+                                             self.max_neighbors)
             else:
-                _, dst, _ = radius_graph(gs.pos.astype(np.float64), self.cutoff, None)
-            if dst.size:
-                in_degree = max(in_degree, int(np.bincount(dst).max()))
-        n_pad, e_pad = pad_sizes(n_atoms, in_degree, self.max_neighbors)
-        return collate(samples, self.cutoff, self.max_neighbors, n_pad, e_pad)
+                src, _, _ = radius_graph(gs.pos.astype(np.float64), self.cutoff,
+                                         self.max_neighbors)
+            max_e += src.size
+        return collate(samples, self.cutoff, self.max_neighbors, _bucket(n_tot + 1),
+                       _bucket(max_e, 128))
 
     def predict_batch(self, structures: Sequence[dict]) -> dict:
         pb = self.collate(structures)
@@ -120,10 +117,9 @@ class Predictor:
         e_per_atom = (outs["energy"][:, 0].cpu().numpy() * self.energy_std
                       + self.energy_mean)
         forces = outs["forces"].cpu().numpy() * self.energy_std
-        node_off = np.flatnonzero(pb.node_mask)
         out_forces, off = [], 0
-        for n in natoms:
-            out_forces.append(forces[node_off[off : off + n]])
+        for n in natoms:   # the ragged layout's graphs follow one another from row 0
+            out_forces.append(forces[off : off + n])
             off += n
         return {
             "energy": e_per_atom * natoms,

@@ -4,10 +4,12 @@ atom embedding -> distance RBF -> edge-degree embedding -> [GATA edge
 stream] -> N transformer blocks -> final norm.  Displacement vectors are re-derived
 from positions inside the forward, so forces flow by autograd; the per-edge
 Wigner rotation is built once per forward and shared by every rotate, in
-one of two representations chosen at construction (``wigner_rep``, the JAX
-package's model field): ``"dense"`` (the default; the pairs form of kernel
-K1) or ``"factored"`` (the cos / sin tables of kernel K4).  Both give the
-same numbers.
+one of three representations chosen at construction (``wigner_rep``, the
+JAX package's model field): ``"dense"`` (the default; the pairs form of
+kernel K1), ``"factored"`` (the cos / sin tables of kernel K4) or
+``"blocks"`` (one [E, 2l+1, 2l+1] block per degree, applied by batched
+matmuls, as the JAX package applies it outside any Pallas kernel).  All
+three give the same numbers.
 
 Every configuration of the JAX package's backbone fields is ported:
 ``gata=True`` (GATA-V2: ``h_proj`` / ``W_erp`` build the edge stream
@@ -23,8 +25,11 @@ by all blocks and the edge-degree embedding
 (``share_atom_edge_embedding``: concatenated to the edge scalars once).
 ``conv_fused`` sends the full SO(2)-conv sites through kernel K3 (the JAX
 package's ``KernelFlags.conv_fused``; off by default there and here).
-Batches come in the fixed-degree layout
-(``data/graph.py:collate``): k = E / N edge slots per node.  ``cell`` may
+The edge layout is the JAX package's pair of model fields:
+``uniform_blocks`` and ``fixed_degree``, both False by default (the ragged
+layout of ``data/graph.py:collate``); ``fixed_degree`` (k = E / N edge slots
+per node) implies uniform blocks.  The forward turns them into the
+``blocks`` tuple that every segment op reads (ops/segment.py).  ``cell`` may
 be a strained cell (``models/matpes.py``'s stress): the periodic shifts
 are taken in it, so the edge vectors see the strain.
 
@@ -42,9 +47,10 @@ norm); the JAX package's ``stack_capture`` / ``stack_override`` hooks stop
 after the first and start at the last, for parallel/pipeline.py's GPipe
 schedule.
 
-Sequence parallelism (a ``ModelGroup`` with ``sp``, parallel/sharding.py):
-the backbone takes this rank's contiguous slice of the whole edge arrays it
-is given (the slots of its N/M node rows, ``ModelGroup.edge_rows``);
+Sequence parallelism (a ``ModelGroup`` with ``sp``, parallel/sharding.py;
+the fixed-degree layout only): the backbone takes this rank's contiguous
+slice of the whole edge arrays it is given (the slots of its N/M node rows,
+``ModelGroup.edge_rows``);
 positions and cell enter the edge region through ``copy_to``, so the forces
 and the strain derivative sum the ranks' shares; the displacements, Wigner
 tables, distance RBF, edge-degree embedding, ``t_ij`` and ``rl_ij`` cover
@@ -66,15 +72,15 @@ from ..nn.layers import GaussianSmearing, Linear
 from ..nn.norms import get_normalization_layer
 from ..ops.cuda.rotate_dense import WignerDense, compute_wigner_dense
 from ..ops.irreps import layout as get_layout
-from ..ops.rotation import WignerFactors, compute_wigner
+from ..ops.rotation import WignerBlocks, WignerFactors, compute_wigner, compute_wigner_blocks
 from ..ops.s2grid import s2grid
-from ..ops.segment import gather_dst, gather_nodes
+from ..ops.segment import gather_nodes
 from ..ops.sph import real_sph_harm
 
 __all__ = ["EquiformerV2Backbone", "BackboneOutput", "StackBroadcast", "block_step", "WIGNER_REPS",
            "BACKBONE_OPTIONS"]
 
-WIGNER_REPS = ("dense", "factored")
+WIGNER_REPS = ("dense", "factored", "blocks")
 # the backbone's options beyond the widths, with the JAX package's defaults
 # (models/backbone.py:126-149); the models pass them through by name
 BACKBONE_OPTIONS = dict(
@@ -92,12 +98,12 @@ class BackboneOutput:
     features after the final norm [N, (lmax+1)^2, C] (float32), the edge
     scalars (distance RBF, with the shared atom-edge embeddings when
     ``share_atom_edge_embedding``; float32), the forward's Wigner rotation
-    and the edge slots per node of the fixed-degree layout."""
+    and the layout's ``blocks`` tuple (None: ragged)."""
 
     x: torch.Tensor
     edge_scalars: torch.Tensor
-    wigner: Union[WignerDense, WignerFactors]
-    k: int
+    wigner: Union[WignerDense, WignerFactors, WignerBlocks]
+    blocks: Optional[tuple]
 
 
 class EquiformerV2Backbone(nn.Module):
@@ -110,17 +116,17 @@ class EquiformerV2Backbone(nn.Module):
                  avg_degree: float, alpha_drop: float = 0.0,
                  drop_path_rate: float = 0.0, proj_drop: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32, gata: bool = True,
-                 conv_fused: bool = False, wigner_rep: str = "dense", **options):
+                 conv_fused: bool = False, wigner_rep: str = "dense",
+                 uniform_blocks: bool = False, fixed_degree: bool = False, **options):
         super().__init__()
         if wigner_rep not in WIGNER_REPS:
-            raise ValueError(
-                f"wigner_rep={wigner_rep!r}: the port builds {WIGNER_REPS}; the per-degree "
-                "'blocks' representation is not ported yet (ROADMAP.md, Queue 1)")
+            raise ValueError(f"wigner_rep={wigner_rep!r}: one of {WIGNER_REPS}")
         unknown = set(options) - set(BACKBONE_OPTIONS)
         if unknown:
             raise TypeError(f"unknown backbone options {sorted(unknown)}")
         opt = {**BACKBONE_OPTIONS, **options}
         self.wigner_rep = wigner_rep
+        self.uniform_blocks, self.fixed_degree = uniform_blocks, fixed_degree
         self.lmax, self.mmax = lmax, mmax
         self.gata, self.gata_v1 = gata, opt["gata_v1"]
         self.dual_stream = gata and opt["dual_stream"]
@@ -182,18 +188,44 @@ class EquiformerV2Backbone(nn.Module):
         carry's node features (``post_stack``; ``BackboneOutput`` without
         ``edge_scalars`` and ``wigner``)."""
         N, E = atomic_numbers.shape[0], edge_src.shape[0]
-        if E % N:
-            raise ValueError("the batch must be in the fixed-degree layout "
-                             "(data/graph.py:collate: e_pad a multiple of n_pad)")
+        blocks = self.layout_blocks(N, E, cell.shape[0])
         if stack_override is not None:
-            return BackboneOutput(self.post_stack(stack_override[0]), None, None, E // N)
+            return BackboneOutput(self.post_stack(stack_override[0]), None, None, blocks)
         carry, broadcast, edge_scalars = self._pre_stack(
             atomic_numbers, pos, graph_idx, edge_src, edge_dst, edge_shift, edge_mask, cell)
         if stack_capture:
             return carry, broadcast
-        rows = self.mp.edge_rows(N, E) if self.mp is not None else None
+        rows = self._rows(N, E)
         carry = self.run_blocks(carry, broadcast, cell.shape[0], generator=generator, rows=rows)
-        return BackboneOutput(self.post_stack(carry[0]), edge_scalars, broadcast.wigner, E // N)
+        return BackboneOutput(self.post_stack(carry[0]), edge_scalars, broadcast.wigner, blocks)
+
+    def layout_blocks(self, N: int, E: int, num_graphs: int) -> Optional[tuple]:
+        """The layout's ``blocks`` tuple (the JAX backbone's): None for the
+        ragged layout, ``(B, n_max, e_max)`` for uniform blocks, and
+        ``(B, n_max, e_max, k)`` for the fixed-degree layout."""
+        if not (self.uniform_blocks or self.fixed_degree):
+            return None
+        if N % num_graphs or E % num_graphs:
+            raise ValueError("uniform_blocks requires n_pad/e_pad divisible by the number of "
+                             "graphs (use collate(uniform=True))")
+        blocks = (num_graphs, N // num_graphs, E // num_graphs)
+        if self.fixed_degree:
+            if E % N:
+                raise ValueError("fixed_degree requires e_pad divisible by n_pad "
+                                 "(use collate(fixed_degree=True))")
+            blocks = blocks + (E // N,)
+        return blocks
+
+    def _rows(self, N: int, E: int) -> slice | None:
+        """This rank's node rows under sequence parallelism (None without)."""
+        mp = self.mp
+        if mp is None or not mp.sp:
+            return None
+        if not self.fixed_degree:
+            raise ValueError("sequence parallelism (sp) splits the fixed-degree layout's node "
+                             "rows: build the model with fixed_degree=True and collate with "
+                             "fixed_degree=True")
+        return mp.edge_rows(N, E)
 
     def _pre_stack(self, atomic_numbers, pos, graph_idx, edge_src, edge_dst, edge_shift,
                    edge_mask, cell):
@@ -202,15 +234,16 @@ class EquiformerV2Backbone(nn.Module):
         ``(x, t_ij, a_ij)`` (the JAX package's ``stack_capture`` protocol),
         ``edge_scalars`` in float32 for the heads."""
         N, E = atomic_numbers.shape[0], edge_src.shape[0]
-        k = E // N
+        blocks = self.layout_blocks(N, E, cell.shape[0])
         mp = self.mp
-        rows = mp.edge_rows(N, E) if mp is not None else None
+        rows = self._rows(N, E)
 
         def edge(module, *args):   # a module on this rank's edges
             return module(*args) if rows is None else mp.call_divergent(module, *args)
 
         pos_e = pos
         if rows is not None:   # this rank's edges; positions enter the edge region
+            k = blocks[3]
             es = slice(rows.start * k, rows.stop * k)
             edge_src, edge_dst, edge_shift, edge_mask = (
                 t[es] for t in (edge_src, edge_dst, edge_shift, edge_mask))
@@ -220,12 +253,15 @@ class EquiformerV2Backbone(nn.Module):
         shift_cart = torch.einsum(
             "ek,ekj->ej", edge_shift.to(pos.dtype), cell[graph_idx[edge_dst]]
         )
-        dvec = (gather_dst(pos_e if rows is None else pos_e[rows], k) + shift_cart
-                - gather_nodes(pos_e, edge_src))
+        dvec = (gather_nodes(pos_e if rows is None else pos_e[rows], edge_dst, blocks,
+                             canonical_dst=True)
+                + shift_cart - gather_nodes(pos_e, edge_src, blocks))
         dist = torch.sqrt(torch.clamp((dvec * dvec).sum(-1), min=1e-12))
 
         if self.wigner_rep == "factored":
             wigner = compute_wigner(self.lmax, dvec)
+        elif self.wigner_rep == "blocks":
+            wigner = compute_wigner_blocks(self.lmax, dvec)
         else:
             wigner = compute_wigner_dense(self.lmax, self.mmax, dvec)
         phi_r = self.smear(dist)
@@ -242,7 +278,7 @@ class EquiformerV2Backbone(nn.Module):
         x = torch.cat([self.sphere_embedding(atomic_numbers)[:, None, :],
                        x[:, 1:, :]], dim=1)
         deg = edge(self.edge_degree_embedding,
-                   atomic_numbers, edge_scalars, edge_src, edge_dst, edge_mask, wigner, k)
+                   atomic_numbers, edge_scalars, edge_src, edge_dst, edge_mask, wigner, blocks)
         x = x + (deg if rows is None else mp.gather(deg, dim=0))
 
         cdt = self.compute_dtype
@@ -258,14 +294,16 @@ class EquiformerV2Backbone(nn.Module):
             h = x[:, 0, :]
             if rows is not None:
                 h = mp.copy_to(h)
-            h_sum = gather_nodes(h, edge_src) + gather_dst(h if rows is None else h[rows], k)
+            h_sum = (gather_nodes(h, edge_src, blocks)
+                     + gather_nodes(h if rows is None else h[rows], edge_dst, blocks,
+                                    canonical_dst=True))
             t_ij = (edge(self.h_proj, h_sum) * edge(self.W_erp, phi_r)).to(cdt)
             if self.dual_stream:
                 a_ij = (edge(self.a_h_proj, h_sum) * edge(self.a_W_erp, phi_r)).to(cdt)
         x, edge_scalars_c = x.to(cdt), edge_scalars.to(cdt)
         phi_c = phi_r.to(cdt) if self.use_phi_every_layer else None
         broadcast = StackBroadcast(atomic_numbers, edge_scalars_c, edge_src, edge_dst,
-                                   edge_mask, wigner, graph_idx, rl_ij, phi_c, k)
+                                   edge_mask, wigner, graph_idx, rl_ij, phi_c, blocks)
         return (x, t_ij, a_ij), broadcast, edge_scalars
 
     def run_blocks(self, carry: tuple, broadcast: "StackBroadcast", num_graphs: int,
@@ -292,18 +330,18 @@ class StackBroadcast(NamedTuple):
     """What every block reads besides the carry (the JAX package's
     ``broadcast`` tuple, in its order): ``edge_scalars`` and ``rl_ij`` /
     ``phi_r`` in the compute type, None where the configuration has none;
-    then the edge slots per node of the fixed-degree layout, ``k``."""
+    then the layout's ``blocks`` tuple (None: ragged)."""
 
     atomic_numbers: torch.Tensor
     edge_scalars: torch.Tensor
     edge_src: torch.Tensor
     edge_dst: torch.Tensor
     edge_mask: torch.Tensor
-    wigner: Union[WignerDense, WignerFactors]
+    wigner: Union[WignerDense, WignerFactors, WignerBlocks]
     graph_idx: torch.Tensor
     rl_ij: Optional[torch.Tensor]
     phi_r: Optional[torch.Tensor]
-    k: int
+    blocks: Optional[tuple]
 
 
 def block_step(block: nn.Module, carry: tuple, broadcast: StackBroadcast, num_graphs: int,
@@ -314,7 +352,7 @@ def block_step(block: nn.Module, carry: tuple, broadcast: StackBroadcast, num_gr
     x, t_ij, a_ij = carry
     b = broadcast
     args = (x, b.atomic_numbers, b.edge_scalars, b.edge_src, b.edge_dst, b.edge_mask,
-            b.wigner, t_ij, b.rl_ij, b.k, b.graph_idx, num_graphs, generator, b.phi_r, a_ij)
+            b.wigner, t_ij, b.rl_ij, b.blocks, b.graph_idx, num_graphs, generator, b.phi_r, a_ij)
     if params is None:
         return block(*args, rows=rows)
     return torch.func.functional_call(block, params, args, {"rows": rows})

@@ -66,7 +66,9 @@ class EquiformerV2MatPES(nn.Module):
     through kernel K3, off by default.  ``gata=False`` builds the baseline
     EquiformerV2 attention instead of GATA-V2; ``wigner_rep`` is the
     backbone's Wigner representation (``"dense"``: kernel K1,
-    ``"factored"``: kernel K4); ``options`` are the backbone's other fields
+    ``"factored"``: kernel K4, ``"blocks"``: batched matmuls); the batch
+    layout is the backbone's ``uniform_blocks`` / ``fixed_degree`` (both
+    False: ragged); ``options`` are the backbone's other fields
     (``models/backbone.py:BACKBONE_OPTIONS``: norms, activations, GATA v1,
     FFN variants, dual stream, atom-edge embeddings).
 

@@ -44,7 +44,8 @@ class EquiformerV2OC20(nn.Module):
     cutoff 12).  Dropouts act only in ``train()`` mode; ``compute_dtype``
     is the block stack's type (the heads read the float32 backbone output).
     ``options``: the backbone options of ``models/qm9.py:BASELINE_OPTIONS``;
-    the force block takes the attention's."""
+    the force block takes the attention's.  ``uniform_blocks`` /
+    ``fixed_degree``: the batch layout (models/backbone.py)."""
 
     def __init__(self, num_layers: int = 12, sphere_channels: int = 128,
                  attn_hidden_channels: int = 128, num_heads: int = 8,
@@ -56,7 +57,8 @@ class EquiformerV2OC20(nn.Module):
                  proj_drop: float = 0.0, avg_num_nodes: float = AVG_NUM_NODES_OC20,
                  avg_degree: float = AVG_DEGREE_OC20,
                  compute_dtype: torch.dtype = torch.float32, conv_fused: bool = False,
-                 wigner_rep: str = "factored", **options):
+                 wigner_rep: str = "factored", uniform_blocks: bool = False,
+                 fixed_degree: bool = False, **options):
         super().__init__()
         check_options(options)
         opt = {**BACKBONE_OPTIONS, **options}
@@ -72,7 +74,8 @@ class EquiformerV2OC20(nn.Module):
             avg_degree=avg_degree, alpha_drop=alpha_drop,
             drop_path_rate=drop_path_rate, proj_drop=proj_drop,
             compute_dtype=compute_dtype, gata=False, conv_fused=conv_fused,
-            wigner_rep=wigner_rep, **options,
+            wigner_rep=wigner_rep, uniform_blocks=uniform_blocks, fixed_degree=fixed_degree,
+            **options,
         )
         self.energy_block = FeedForward(sphere_channels, ffn_hidden_channels, 1, lmax,
                                         s2grid(lmax, lmax, grid_resolution),
@@ -103,7 +106,7 @@ class EquiformerV2OC20(nn.Module):
                              mask=batch["node_mask"]) / self.avg_num_nodes
         f = self.force_block(out.x, batch["atomic_numbers"], out.edge_scalars,
                              batch["edge_src"], batch["edge_dst"], batch["edge_mask"],
-                             out.wigner, None, None, out.k, generator)
+                             out.wigner, None, None, out.blocks, generator)
         # l = 1 coefficients (m = -1, 0, +1) ~ (y, z, x) -> Cartesian (x, y, z)
         forces = f[:, [3, 1, 2], 0]
         return {"energy": energy,

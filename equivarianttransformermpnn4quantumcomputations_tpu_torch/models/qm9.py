@@ -43,7 +43,9 @@ class EquiformerV2QM9(nn.Module):
     ``conv_fused`` sends every SO(2)-conv site through kernel K3 (off by
     default, as the JAX package's ``KernelFlags.conv_fused``).  Dropouts act
     only in ``train()`` mode; ``compute_dtype`` is the block stack's type.
-    ``options``: the backbone options of ``BASELINE_OPTIONS``.
+    ``wigner_rep``, ``uniform_blocks`` and ``fixed_degree`` are the
+    backbone's (models/backbone.py).  ``options``: the backbone options of
+    ``BASELINE_OPTIONS``.
     """
 
     def __init__(self, num_targets: int = 12, num_layers: int = 8,
@@ -56,7 +58,8 @@ class EquiformerV2QM9(nn.Module):
                  avg_degree: float = 6.0, alpha_drop: float = 0.1,
                  drop_path_rate: float = 0.05, proj_drop: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32,
-                 conv_fused: bool = False, **options):
+                 conv_fused: bool = False, wigner_rep: str = "dense",
+                 uniform_blocks: bool = False, fixed_degree: bool = False, **options):
         super().__init__()
         check_options(options)
         self.backbone = EquiformerV2Backbone(
@@ -69,7 +72,9 @@ class EquiformerV2QM9(nn.Module):
             num_rbf=num_rbf, max_num_elements=max_num_elements, cutoff=cutoff,
             avg_degree=avg_degree, alpha_drop=alpha_drop,
             drop_path_rate=drop_path_rate, proj_drop=proj_drop,
-            compute_dtype=compute_dtype, gata=False, conv_fused=conv_fused, **options,
+            compute_dtype=compute_dtype, gata=False, conv_fused=conv_fused,
+            wigner_rep=wigner_rep, uniform_blocks=uniform_blocks, fixed_degree=fixed_degree,
+            **options,
         )
         self.output_blocks = FeedForward(
             sphere_channels, ffn_hidden_channels, 1, lmax, s2grid(lmax, lmax, grid_resolution),

@@ -54,7 +54,7 @@ import torch.nn as nn
 from ..ops.irreps import IrrepsLayout
 from ..ops.rotation import rotate_from_edge, rotate_to_edge, rotate_to_edge_m0
 from ..ops.s2grid import S2Grid
-from ..ops.segment import gather_dst, gather_nodes, softmax_over_slots, sum_over_slots
+from ..ops.segment import gather_nodes, segment_softmax, segment_sum
 from .activations import gate_activation, s2_activation, separable_s2_activation
 from .gata import GATAValueActivation, gata_value_activation_v1
 from .layers import LayerNorm, RadialMLP, keep_mask, smooth_leaky_relu
@@ -139,7 +139,7 @@ class GraphAttention(nn.Module):
                               tp="row")
         self.mp = None
 
-    def _alpha(self, x0_alpha, k: int, edge_mask):
+    def _alpha(self, x0_alpha, edge_dst, num_nodes: int, edge_mask, blocks):
         """Attention weights [E, heads] (the rank's heads under TP): the
         alpha LayerNorm, smooth leaky ReLU, the per-head dot and the softmax
         over each node's slots."""
@@ -154,13 +154,14 @@ class GraphAttention(nn.Module):
         a = smooth_leaky_relu(a)
         dt = torch.promote_types(a.dtype, dot.dtype)
         logits = torch.einsum("ehk,hk->eh", a.to(dt), dot.to(dt))
-        return softmax_over_slots(logits, k, edge_mask)
+        return segment_softmax(logits, edge_dst, num_nodes, mask=edge_mask, blocks=blocks,
+                               fixed_dst=True)
 
     def forward(self, x, atomic_numbers, edge_scalars, edge_src, edge_dst,
-                edge_mask, wigner, t_ij, rl_ij, k: int,
+                edge_mask, wigner, t_ij, rl_ij, blocks=None,
                 generator: Optional[torch.Generator] = None, phi_r=None,
                 rows: slice | None = None):
-        """Fixed-degree layout: k edge slots per node (ops/segment.py).
+        """``blocks``: the batch layout (ops/segment.py; None: ragged).
         ``t_ij`` / ``rl_ij``: the GATA edge streams (None when unused);
         ``phi_r``: the distance RBF (``use_phi_every_layer`` only);
         ``rows``: the edges are the slots of these node rows only (sequence
@@ -171,13 +172,16 @@ class GraphAttention(nn.Module):
             x_edge = torch.cat([edge_scalars,
                                 self.src_embedding(atomic_numbers[edge_src]),
                                 self.dst_embedding(atomic_numbers[edge_dst])], dim=1)
-        x_src = gather_nodes(x, edge_src)
-        x_dst = gather_dst(x if rows is None else x[rows], k)
+        num_nodes = x.shape[0] if rows is None else rows.stop - rows.start
+        x_src = gather_nodes(x, edge_src, blocks)
+        x_dst = gather_nodes(x if rows is None else x[rows], edge_dst, blocks,
+                             canonical_dst=True)
         # unrotated target-node features (reference Gotennet fork
         # transformer_block.py:255-267 gathers the target embedding); under
         # TP the value path's share, copied in at the nodes
         gata_value = mp is not None and (self.gata or self.gata_v1)
-        x_val = gather_dst(mp.copy_to(x), k) if gata_value else x_dst
+        x_val = (gather_nodes(mp.copy_to(x), edge_dst, blocks, canonical_dst=True)
+                 if gata_value else x_dst)
         h_j, X_j = x_val[:, 0, :], x_val[:, 1:, :]
         msg = torch.cat([x_src, x_dst], dim=2)            # [E, K_full, 2C]
         if self.rad is not None:   # m-share radial scale, one per degree
@@ -193,10 +197,10 @@ class GraphAttention(nn.Module):
         if self.use_gate_act:
             msg = gate_activation(rest, msg, self.lmax, self.layout_red.mmax,
                                   msg.shape[-1])
-            alpha = self._alpha(alpha_in, k, edge_mask)
+            alpha = self._alpha(alpha_in, edge_dst, num_nodes, edge_mask, blocks)
         elif not self.use_sep_s2_act:
             msg = s2_activation(msg, self.grid_red)
-            alpha = self._alpha(x0_extra, k, edge_mask)
+            alpha = self._alpha(x0_extra, edge_dst, num_nodes, edge_mask, blocks)
         elif self.gata_v1:
             # gates straight from conv 1, no t_ij bias, no alpha scaling
             # (reference Gotennet_inspired/transformer_block.py:311-325)
@@ -205,10 +209,10 @@ class GraphAttention(nn.Module):
                 C //= mp.size
                 X_j = X_j[..., mp.part(self.hidden_channels)]
             msg = gata_value_activation_v1(rest, X_j, rl_ij, self.lmax, C)
-            alpha = self._alpha(alpha_in, k, edge_mask)
+            alpha = self._alpha(alpha_in, edge_dst, num_nodes, edge_mask, blocks)
         elif self.gata:
             # alpha before the value activation (reference fork :315-324)
-            alpha = self._alpha(alpha_in, k, edge_mask)
+            alpha = self._alpha(alpha_in, edge_dst, num_nodes, edge_mask, blocks)
             if self.normalize_attn_output:   # by the head-mean of alpha
                 if mp is None:
                     mean = alpha.mean(dim=1, keepdim=True)
@@ -219,16 +223,16 @@ class GraphAttention(nn.Module):
             msg = self.value_act(rest, t_ij, h_j, X_j, rl_ij, phi_r, copied=mp is not None)
         else:
             msg = separable_s2_activation(rest, msg, self.grid_red)
-            alpha = self._alpha(alpha_in, k, edge_mask)
+            alpha = self._alpha(alpha_in, edge_dst, num_nodes, edge_mask, blocks)
 
         msg, _ = self.so2_conv_2(msg, None, scatter=mp is not None)
         if self.alpha_drop > 0.0 and self.training:
             # the whole batch's mask, as one process draws it
             keep = 1.0 - self.alpha_drop
-            n_edges = alpha.shape[0] if rows is None else x.shape[0] * k
+            n_edges = alpha.shape[0] if rows is None else x.shape[0] * blocks[3]
             mask = keep_mask((n_edges, self.num_heads), keep, generator, alpha.device)
             if rows is not None:
-                mask = mask[rows.start * k : rows.stop * k]
+                mask = mask[rows.start * blocks[3] : rows.stop * blocks[3]]
             if mp is not None:
                 mask = mask[:, mp.part(self.num_heads)]
             alpha = alpha * mask.to(alpha.dtype) / keep
@@ -237,4 +241,5 @@ class GraphAttention(nn.Module):
         msg = (msg * alpha[:, None, :, None].to(msg.dtype)).reshape(E, Kr, -1)
 
         msg = rotate_from_edge(wigner, msg, self.layout_red)
-        return self.proj(sum_over_slots(msg, k, edge_mask))
+        return self.proj(segment_sum(msg, edge_dst, num_nodes, mask=edge_mask, sorted_ids=True,
+                                     blocks=blocks, fixed_dst=True))

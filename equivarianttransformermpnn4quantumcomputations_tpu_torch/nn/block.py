@@ -28,7 +28,7 @@ import torch.nn as nn
 
 from ..ops.irreps import IrrepsLayout
 from ..ops.s2grid import S2Grid
-from ..ops.segment import gather_dst, gather_nodes
+from ..ops.segment import gather_nodes
 from .attention import GraphAttention
 from .dual_stream import AngularHTR, TensorProductFFN
 from .ffn import ESENFeedForward, FeedForward
@@ -131,7 +131,7 @@ class TransBlock(nn.Module):
         self.mp = None
 
     def forward(self, x, atomic_numbers, edge_scalars, edge_src, edge_dst,
-                edge_mask, wigner, t_ij, rl_ij, k: int, graph_idx,
+                edge_mask, wigner, t_ij, rl_ij, blocks, graph_idx,
                 num_graphs: int, generator: Optional[torch.Generator] = None, phi_r=None,
                 a_ij=None, rows: slice | None = None):
         """Returns (x, t_ij, a_ij); ``t_ij`` is None without GATA-V2,
@@ -141,19 +141,20 @@ class TransBlock(nn.Module):
         sp = self.mp if rows is not None else None
         if self.gata:
             xe = x if sp is None else sp.copy_to(x)
-            X_i = gather_nodes(xe, edge_src)[:, 1:, :]
-            X_j = gather_dst(xe if rows is None else xe[rows], k)[:, 1:, :]
+            X_i = gather_nodes(xe, edge_src, blocks)[:, 1:, :]
+            X_j = gather_nodes(xe if rows is None else xe[rows], edge_dst, blocks,
+                               canonical_dst=True)[:, 1:, :]
             if sp is None:
                 t_ij = self.htr(t_ij, X_i, X_j, rl_ij)
             else:
                 t_ij = sp.call_divergent(self.htr, t_ij, X_i, X_j, rl_ij)
             if self.dual_stream and sp is None:
-                a_ij = self.angular_htr(a_ij, t_ij, x, edge_src, k, edge_mask)
+                a_ij = self.angular_htr(a_ij, t_ij, x, edge_src, edge_dst, edge_mask, blocks)
             elif self.dual_stream:
                 a_ij = sp.call_divergent(self.angular_htr, a_ij, t_ij, sp.copy_to(x), edge_src,
-                                         k, edge_mask, rows=rows)
+                                         edge_dst, edge_mask, blocks, rows=rows)
         args = (atomic_numbers, edge_scalars, edge_src, edge_dst, edge_mask, wigner, t_ij,
-                rl_ij, k, generator, phi_r)
+                rl_ij, blocks, generator, phi_r)
         if sp is None:
             h = self.ga(self.attn_norm(x), *args)
         else:
@@ -163,9 +164,10 @@ class TransBlock(nn.Module):
         x = x + self.proj_drop(h, generator)
         h = self.ffn_norm(x)
         if self.ffn_variant in ("moe", "moe_breaking"):
-            h = self.ffn(h, t_ij, k, edge_mask, rows=rows)
+            h = self.ffn(h, t_ij, edge_dst, edge_mask, blocks, rows=rows)
         elif self.ffn_variant == "tensor_product":
-            h = self.ffn(h, t_ij, a_ij if a_ij is not None else t_ij, k, edge_mask, rows=rows)
+            h = self.ffn(h, t_ij, a_ij if a_ij is not None else t_ij, edge_dst, edge_mask,
+                         blocks, rows=rows)
         else:
             h = self.ffn(h)
         h = self.drop_path(h, graph_idx, num_graphs, generator)

@@ -5,7 +5,7 @@ Port of the JAX package's nn/dual_stream.py (reference models/NewFunctions/
 GATA_and_all2all_Dual_Stream/activation.py:1363-1484 AngularHTR;
 transformer_block.py:375-460 TensorProductFFN).  Two invariant edge streams
 run through the blocks: ``t_ij`` (pairwise, HTR-refined) and ``a_ij``
-(angular, three-body).  Fixed-degree layout: k edge slots per node.
+(angular, three-body).  Any edge layout (``blocks``, ops/segment.py).
 
 Neither module has a tensor-parallel role.  Under sequence parallelism
 (``rows``: the edges are the slots of these node rows, parallel/sharding.py)
@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.segment import gather_dst, gather_nodes, mean_over_slots, segment_sum
+from ..ops.segment import gather_nodes, segment_mean, segment_sum
 from .layers import LayerNorm, Linear
 from .norms import EquivariantRMSNormSH
 
@@ -48,8 +48,10 @@ class AngularHTR(nn.Module):
         self.gamma_a_2 = Linear(edge_channels, edge_channels)
         self.mp = None
 
-    def forward(self, a_ij, t_ij, x, edge_src, k: int, edge_mask, rows: slice | None = None):
-        """a_ij / t_ij: [E, edge_C]; x: [N, K, C] (the block's input)."""
+    def forward(self, a_ij, t_ij, x, edge_src, edge_dst, edge_mask, blocks=None,
+                rows: slice | None = None):
+        """a_ij / t_ij: [E, edge_C]; x: [N, K, C] (the block's input);
+        ``blocks``: the batch layout (ops/segment.py)."""
         N, E = x.shape[0], a_ij.shape[0]
         X_all = self.x_norm(x)[:, 1:, :]
         if rows is not None:
@@ -66,12 +68,13 @@ class AngularHTR(nn.Module):
         offset = 0
         for l in range(1, self.lmax + 1):
             d = 2 * l + 1
-            Xl_dst = gather_dst(X_all[:, offset : offset + d, :], k)
+            Xl_dst = gather_nodes(X_all[:, offset : offset + d, :], edge_dst, blocks,
+                                  canonical_dst=True)
             offset += d
             q = getattr(self, f"W_q_{l}")(Xl_dst)
             kk = getattr(self, f"W_k_{l}")(Xl_dst)
             agg_k = source_sum(kk) / deg[:, None, None]
-            w_ang = w_ang + (q * gather_nodes(agg_k, edge_src)).sum(1) / d
+            w_ang = w_ang + (q * gather_nodes(agg_k, edge_src, blocks)).sum(1) / d
         w_ang = w_ang * self.t_proj(t_n)
         gw = F.silu(self.gamma_w(w_ang))
         ga = F.silu(self.gamma_a_2(F.silu(self.gamma_a_1(a_ij))))
@@ -94,9 +97,12 @@ class TensorProductFFN(nn.Module):
         self.linear_2 = Linear(hidden_channels, sphere_channels, bias=False)
         self.mp = None
 
-    def forward(self, x, t_ij, a_ij, k: int, edge_mask, rows: slice | None = None):
+    def forward(self, x, t_ij, a_ij, edge_dst, edge_mask, blocks=None,
+                rows: slice | None = None):
+        n = x.shape[0] if rows is None else rows.stop - rows.start
+
         def node_mean(v):   # the rank's node rows gathered under SP
-            m = mean_over_slots(v, k, edge_mask)
+            m = segment_mean(v, edge_dst, n, mask=edge_mask, blocks=blocks, fixed_dst=True)
             m = m if rows is None else self.mp.gather(m, dim=0)
             return torch.nan_to_num(m, nan=0.0, posinf=1.0, neginf=-1.0)
 

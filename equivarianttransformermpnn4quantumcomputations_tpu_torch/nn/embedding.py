@@ -16,7 +16,7 @@ import torch.nn as nn
 
 from ..ops.irreps import IrrepsLayout
 from ..ops.rotation import rotate_from_edge
-from ..ops.segment import sum_over_slots
+from ..ops.segment import segment_sum
 from .layers import RadialMLP
 
 __all__ = ["EdgeDegreeEmbedding"]
@@ -43,8 +43,10 @@ class EdgeDegreeEmbedding(nn.Module):
                              persistent=False)
 
     def forward(self, atomic_numbers, edge_scalars, edge_src, edge_dst, edge_mask,
-                wigner, k: int) -> torch.Tensor:
-        """Fixed-degree layout: k edge slots per node (ops/segment.py)."""
+                wigner, blocks=None) -> torch.Tensor:
+        """The sum onto the edges' targets in the layout of ``blocks``
+        (ops/segment.py); under sequence parallelism (fixed-degree only) the
+        edges are the slots of some node rows, and the output holds those."""
         x_edge = edge_scalars
         if self.use_atom_edge_embedding:
             x_edge = torch.cat([edge_scalars,
@@ -56,4 +58,6 @@ class EdgeDegreeEmbedding(nn.Module):
                              self.sphere_channels)
         x = torch.cat([m0, zeros], dim=1)[:, self.from_m, :]
         x = rotate_from_edge(wigner, x, self.layout)
-        return sum_over_slots(x, k, edge_mask) / self.rescale_factor
+        n = E // blocks[3] if blocks is not None and len(blocks) > 3 else atomic_numbers.shape[0]
+        return segment_sum(x, edge_dst, n, mask=edge_mask, sorted_ids=True, blocks=blocks,
+                           fixed_dst=True) / self.rescale_factor

@@ -33,7 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.segment import mean_over_slots
+from ..ops.segment import segment_mean
 from .layers import Linear, StackedLinear
 
 __all__ = ["EquivariantExpertFFN", "NonEquivariantExpertFFN", "MoEHTRFeedForward"]
@@ -94,10 +94,12 @@ class MoEHTRFeedForward(nn.Module):
         self.routing_entropy: torch.Tensor | None = None
         self.mp = None
 
-    def forward(self, x: torch.Tensor, t_ij: torch.Tensor, k: int,
-                edge_mask: torch.Tensor, rows: slice | None = None) -> torch.Tensor:
-        """x: [N, K, C]; t_ij: [N k, edge_C] -> [N, K, C]."""
-        c_i = mean_over_slots(t_ij, k, edge_mask)
+    def forward(self, x: torch.Tensor, t_ij: torch.Tensor, edge_dst: torch.Tensor,
+                edge_mask: torch.Tensor, blocks=None, rows: slice | None = None) -> torch.Tensor:
+        """x: [N, K, C]; t_ij: [E, edge_C] -> [N, K, C]; ``blocks``: the batch
+        layout (ops/segment.py)."""
+        n = x.shape[0] if rows is None else rows.stop - rows.start
+        c_i = segment_mean(t_ij, edge_dst, n, mask=edge_mask, blocks=blocks, fixed_dst=True)
         if rows is not None:   # the rank's node rows -> every node
             c_i = self.mp.gather(c_i, dim=0)
         c_i = torch.nan_to_num(c_i, nan=0.0, posinf=1.0, neginf=-1.0)

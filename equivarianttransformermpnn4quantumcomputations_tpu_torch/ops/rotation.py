@@ -108,14 +108,23 @@ def _z_rot(l: int, angle: torch.Tensor) -> torch.Tensor:
 
 
 class WignerBlocks:
-    """Per-degree Wigner-D blocks for a batch of edges (detached)."""
+    """Per-degree Wigner-D blocks for a batch of edges (detached), one
+    tensor attribute ``d<l>`` [E, 2l+1, 2l+1] per degree (so that
+    parallel/pipeline.py ships them as it ships any Wigner's tensors)."""
 
     def __init__(self, blocks):
-        self.blocks = list(blocks)  # over l: [E, 2l+1, 2l+1]
+        blocks = list(blocks)
+        self.num_degrees = len(blocks)
+        for l, d in enumerate(blocks):
+            setattr(self, f"d{l}", d)
+
+    @property
+    def blocks(self) -> list:
+        return [getattr(self, f"d{l}") for l in range(self.num_degrees)]
 
     @property
     def lmax(self) -> int:
-        return len(self.blocks) - 1
+        return self.num_degrees - 1
 
 
 def compute_wigner_blocks(lmax: int, edge_vec: torch.Tensor) -> WignerBlocks:
@@ -219,11 +228,40 @@ def compute_wigner(lmax: int, edge_vec: torch.Tensor) -> WignerFactors:
     return WignerFactors(lmax, *cs(alpha), *cs(beta), *cs(gamma))
 
 
+# ── the per-degree blocks representation ───────────────────────────────────
+# (JAX ops/rotation.py:437-529): batched [E, d, d] x [E, d, C] products per
+# degree, in float32, the result in the features' type
+
+
+def _blocks_to_edge(w: WignerBlocks, x: torch.Tensor, layout: IrrepsLayout) -> torch.Tensor:
+    out = []
+    for l in range(layout.lmax + 1):
+        wl = w.blocks[l]
+        if layout.mmax < l:
+            wl = wl[:, torch.as_tensor(_m_keep_rows(l, layout.mmax), device=wl.device), :]
+        out.append(torch.matmul(wl, x[:, l * l : l * l + 2 * l + 1, :].float()))
+    return torch.cat(out, dim=1).to(x.dtype)
+
+
+def _blocks_from_edge(w: WignerBlocks, x: torch.Tensor, layout: IrrepsLayout) -> torch.Tensor:
+    out, offset = [], 0
+    for l in range(layout.lmax + 1):
+        width = 2 * min(l, layout.mmax) + 1
+        xl = x[:, offset : offset + width, :].float()
+        offset += width
+        winv = w.blocks[l].transpose(-1, -2)
+        if layout.mmax < l:
+            keep = torch.as_tensor(_m_keep_rows(l, layout.mmax), device=winv.device)
+            winv = winv[:, :, keep] * float(layout.rescale[l * l])
+        out.append(torch.matmul(winv, xl))
+    return torch.cat(out, dim=1).to(x.dtype)
+
+
 # ── dispatch ───────────────────────────────────────────────────────────────
 
 
 def _check(wigner, layout: IrrepsLayout) -> None:
-    if isinstance(wigner, WignerFactors):
+    if isinstance(wigner, (WignerFactors, WignerBlocks)):
         assert layout.lmax == wigner.lmax
     else:
         assert (layout.lmax, layout.mmax) == (wigner.lmax, wigner.mmax)
@@ -232,8 +270,11 @@ def _check(wigner, layout: IrrepsLayout) -> None:
 def rotate_to_edge(wigner, x: torch.Tensor, layout: IrrepsLayout) -> torch.Tensor:
     """Rotate [E, (lmax+1)**2, C] global-frame features into each edge frame,
     truncated to |m| <= mmax: -> [E, K_red, C] (l-primary reduced layout).
-    ``WignerFactors`` go to kernel K4, ``WignerDense`` to kernel K1."""
+    ``WignerFactors`` go to kernel K4, ``WignerDense`` to kernel K1,
+    ``WignerBlocks`` to batched matmuls."""
     _check(wigner, layout)
+    if isinstance(wigner, WignerBlocks):
+        return _blocks_to_edge(wigner, x, layout)
     if isinstance(wigner, WignerFactors):
         from .cuda.rotate import rotate_to_edge_fused
 
@@ -246,6 +287,9 @@ def rotate_to_edge(wigner, x: torch.Tensor, layout: IrrepsLayout) -> torch.Tenso
 def rotate_to_edge_m0(wigner, x: torch.Tensor, layout: IrrepsLayout) -> torch.Tensor:
     """rotate_to_edge returning only the m = 0 rows: [E, lmax+1, C]."""
     _check(wigner, layout)
+    if isinstance(wigner, WignerBlocks):
+        m0_rows = np.nonzero(np.asarray(layout.m_complex) == 0)[0]
+        return _blocks_to_edge(wigner, x, layout)[:, torch.as_tensor(m0_rows), :]
     if isinstance(wigner, WignerFactors):
         from .cuda.rotate import rotate_to_edge_m0_fused
 
@@ -259,6 +303,8 @@ def rotate_from_edge(wigner, x: torch.Tensor, layout: IrrepsLayout) -> torch.Ten
     """Inverse rotation [E, K_red, C] -> [E, (lmax+1)**2, C], zero-filling the
     truncated orders and applying the sqrt((2l+1)/(2 mmax+1)) rescale."""
     _check(wigner, layout)
+    if isinstance(wigner, WignerBlocks):
+        return _blocks_from_edge(wigner, x, layout)
     if isinstance(wigner, WignerFactors):
         from .cuda.rotate import rotate_from_edge_fused
 

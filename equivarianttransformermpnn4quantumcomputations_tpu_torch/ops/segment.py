@@ -2,32 +2,54 @@
 
 Port of the JAX package's ops/segment.py and ops/pallas/segsum.py (which
 holds no Pallas kernel: it is XLA custom_vjps around one-hot products, a
-TPU workaround for its serialized scatter).  The port batches in the
-fixed-degree layout only (``data/graph.py:collate``): node i owns the
-k edge slots [i k, (i+1) k), and edge slot e points at node e // k.  So
-every reduction onto the edges' target nodes is an [N, k, ...] sum over the
-slots, and the target gather is a broadcast.  The source gather and the
-per-graph energy sum are ``index_select`` and ``index_add``, whose autograd
-transposes are each other.
+TPU workaround for its serialized scatter).  The JAX names and signatures:
+``segment_sum``, ``segment_mean``, ``segment_softmax`` and ``gather_nodes``
+take the batch layout as ``blocks`` (``models/backbone.py``):
+
+* None: the ragged layout (``data/graph.py:collate`` at its defaults);
+* ``(B, n_max, e_max)``: graph-uniform blocks (``collate(uniform=True)``);
+* ``(B, n_max, e_max, k)``: the fixed-degree layout
+  (``collate(fixed_degree=True)``), where node i owns the k edge slots
+  [i k, (i+1) k) and edge slot e points at node e // k.
+
+With ``fixed_dst=True`` (``canonical_dst=True`` for the gather) and a
+fixed-degree ``blocks``, a reduction onto the edges' target nodes is an
+[N, k, ...] sum over the slots and the target gather is a broadcast (the
+slot functions below).  Every other call runs the one ragged
+implementation, which also serves the uniform layout: the JAX package's
+one-hot matmul, sorted-scan and block-dense paths are TPU routes to the same
+function and are not ported as paths of their own.
+
+The ragged gather and sum are a pair of autograd functions, each the
+other's transpose, to any derivative order (JAX ops/pallas/segsum.py:
+114-140).  The sum adds in a fixed order: on a CUDA tensor through
+``index_put_(accumulate=True)``, which sorts the ids and adds each
+segment's rows in order (in float32 for bfloat16 rows), never with
+atomics, so a step gives the same bits every run; on a CPU tensor through
+``index_add_``, which adds the rows one after another.  Neither syncs with
+the host.
 
 Padded entries (mask False) contribute exact zeros; a node with no real
-edge gets zeros, never NaN.
+edge gets zeros, never NaN.  Softmax statistics are in float32, the
+segment max is detached (JAX's ``stop_gradient``), masked logits are
+clamped to -1e30, the denominator is at least 1e-16 and a mean's count at
+least 1.
 
-Sequence parallelism (parallel/sharding.py) splits E = N k contiguously, so
-a rank's edges are all the slots of its N/M node rows: the slot reductions
-and the slot softmax run unchanged on them and give those rows, which the
-callers gather at the node boundary (``ModelGroup.gather``); the target
-gather reads the rank's rows (``gather_dst(x[rows], k)``).  A sum by other
-ids (``segment_sum`` onto the edges' source nodes, the dual stream's) gives
-each rank's partial sums, which the caller reduces (``reduce_from``).
+Sequence parallelism (parallel/sharding.py) needs the fixed-degree layout:
+it splits E = N k contiguously, so a rank's edges are all the slots of its
+N/M node rows, and the slot reductions and the slot softmax run unchanged
+on them and give those rows, which the callers gather at the node boundary
+(``ModelGroup.gather``); the target gather reads the rank's rows.  A sum by
+other ids (onto the edges' source nodes, the dual stream's) gives each
+rank's partial sums, which the caller reduces (``reduce_from``).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["gather_nodes", "gather_dst", "segment_sum", "sum_over_slots",
-           "mean_over_slots", "softmax_over_slots"]
+__all__ = ["gather_nodes", "segment_sum", "segment_mean", "segment_softmax", "gather_dst",
+           "sum_over_slots", "mean_over_slots", "softmax_over_slots"]
 
 _NEG = -1e30
 
@@ -38,22 +60,113 @@ def _masked(values: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
     return values * mask.to(values.dtype).reshape(mask.shape + (1,) * (values.dim() - 1))
 
 
-def gather_nodes(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """x [N, ...] -> x[ids] [E, ...]."""
-    return x.index_select(0, ids)
+def _sum_rows(values: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    out = values.new_zeros((n,) + tuple(values.shape[1:]))
+    if values.is_cuda:
+        return out.index_put_((ids,), values, accumulate=True)
+    return out.index_add_(0, ids, values)
+
+
+class _Gather(torch.autograd.Function):
+    """x [N, ...] -> x[ids] [E, ...]; its backward is ``_SegmentSum``."""
+
+    @staticmethod
+    def forward(ctx, x, ids):
+        ctx.save_for_backward(ids)
+        ctx.n = x.shape[0]
+        return x.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return _SegmentSum.apply(g, ids, ctx.n), None
+
+
+class _SegmentSum(torch.autograd.Function):
+    """values [E, ...] -> [n, ...] summed by ids; its backward is ``_Gather``."""
+
+    @staticmethod
+    def forward(ctx, values, ids, n):
+        ctx.save_for_backward(ids)
+        return _sum_rows(values, ids, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return _Gather.apply(g, ids), None, None
+
+
+def _fixed(blocks, E: int, n: int) -> bool:
+    return blocks is not None and len(blocks) > 3 and E == n * blocks[3]
+
+
+def gather_nodes(x: torch.Tensor, ids: torch.Tensor, blocks=None,
+                 canonical_dst: bool = False) -> torch.Tensor:
+    """x [N, ...] -> x[ids] [E, ...].  ``canonical_dst=True`` with a
+    fixed-degree ``blocks`` (the caller asserts ``ids`` is the slot pattern
+    e -> e // k) is a broadcast over each node's k slots."""
+    if canonical_dst and blocks is not None and len(blocks) > 3:
+        return gather_dst(x, blocks[3])
+    return _Gather.apply(x, ids)
+
+
+def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                mask: torch.Tensor | None = None, sorted_ids: bool = False, blocks=None,
+                fixed_dst: bool = False) -> torch.Tensor:
+    """Sum ``values`` [E, ...] into ``num_segments`` rows by ``segment_ids``;
+    masked entries contribute zero.  ``sorted_ids`` is accepted as in JAX
+    (no path needs it)."""
+    del sorted_ids
+    if fixed_dst and _fixed(blocks, values.shape[0], num_segments):
+        return sum_over_slots(values, blocks[3], mask)
+    return _SegmentSum.apply(_masked(values, mask), segment_ids, num_segments)
+
+
+def segment_mean(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                 mask: torch.Tensor | None = None, blocks=None,
+                 fixed_dst: bool = False) -> torch.Tensor:
+    """Mean over each segment's real entries (zeros for an empty one); the
+    count is taken in ``values``' type, as in JAX."""
+    E = values.shape[0]
+    if fixed_dst and _fixed(blocks, E, num_segments):
+        m = values.new_ones(E, dtype=torch.bool) if mask is None else mask
+        return mean_over_slots(values, blocks[3], m)
+    s = segment_sum(values, segment_ids, num_segments, mask)
+    cnt = segment_sum(values.new_ones(E), segment_ids, num_segments, mask)
+    cnt = torch.clamp(cnt, min=1.0).reshape((-1,) + (1,) * (values.dim() - 1))
+    return s / cnt
+
+
+def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                    mask: torch.Tensor | None = None, sorted_ids: bool = False, blocks=None,
+                    fixed_dst: bool = False) -> torch.Tensor:
+    """Softmax of ``logits`` [E, ...] over the leading axis within each
+    segment, in float32; masked entries get weight 0."""
+    del sorted_ids
+    if fixed_dst and _fixed(blocks, logits.shape[0], num_segments):
+        return softmax_over_slots(logits, blocks[3], mask)
+    lg = logits.float()
+    if mask is not None:
+        m = mask.reshape(mask.shape + (1,) * (lg.dim() - 1))
+        lg = torch.where(m, lg, torch.full_like(lg, _NEG))
+    idx = segment_ids.reshape((-1,) + (1,) * (lg.dim() - 1)).expand_as(lg)
+    seg_max = lg.new_full((num_segments,) + tuple(lg.shape[1:]), _NEG).scatter_reduce_(
+        0, idx, lg.detach(), "amax")
+    ex = torch.exp(lg - seg_max.index_select(0, segment_ids))
+    if mask is not None:
+        ex = ex * m.to(ex.dtype)
+    denom = _SegmentSum.apply(ex, segment_ids, num_segments)
+    out = ex / torch.clamp(_Gather.apply(denom, segment_ids), min=1e-16)
+    return out.to(logits.dtype)
+
+
+# the fixed-degree layout's slot functions
 
 
 def gather_dst(x: torch.Tensor, k: int) -> torch.Tensor:
     """Each node's features on its k slots: x [N, ...] -> [N k, ...]."""
     N, rest = x.shape[0], tuple(x.shape[1:])
     return x[:, None].expand((N, k) + rest).reshape((N * k,) + rest)
-
-
-def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int, mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Sum ``values`` [E, ...] into ``num_segments`` rows by ``segment_ids``."""
-    out = values.new_zeros((num_segments,) + tuple(values.shape[1:]))
-    return out.index_add(0, segment_ids, _masked(values, mask))
 
 
 def sum_over_slots(values: torch.Tensor, k: int,

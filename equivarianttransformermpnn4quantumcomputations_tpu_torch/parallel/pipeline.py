@@ -351,16 +351,16 @@ def _flatten(carry: tuple, bc: StackBroadcast) -> tuple[tuple, tuple]:
     w = bc.wigner
     wn = [n for n, v in vars(w).items() if torch.is_tensor(v)]
     leaves = (*carry, *bc[:5], *(getattr(w, n) for n in wn), *bc[6:9])
-    return leaves, (w, wn, bc.k)
+    return leaves, (w, wn, bc.blocks)
 
 
 def _unflatten(leaves: tuple, spec: tuple) -> tuple[tuple, StackBroadcast]:
-    w0, wn, k = spec
+    w0, wn, blocks = spec
     w = copy.copy(w0)
     w.__dict__.update(zip(wn, leaves[8:8 + len(wn)]))
     if "_tables" in vars(w):   # the factored tables are per Wigner object
         w._tables = {}
-    return tuple(leaves[:3]), StackBroadcast(*leaves[3:8], w, *leaves[8 + len(wn):], k)
+    return tuple(leaves[:3]), StackBroadcast(*leaves[3:8], w, *leaves[8 + len(wn):], blocks)
 
 
 def pipeline_energy_forces(model: nn.Module, batches: Sequence[dict], mesh: PipeMesh,

@@ -460,10 +460,9 @@ def batch_shards(stacked: dict, mesh: CompositeMesh, sp: bool = False):
 class CompositeStep(DataParallelStep):
     """``DataParallelStep`` over the ``data`` group whose ``reduce`` also
     averages, over the ``model`` group, the replicated leaves' gradients
-    and the loss and metrics.  Each rank of a row computes those whole; on
-    the card the atomics of their backward make the ranks' copies differ in
-    the last bits, and the average keeps the replicated masters identical
-    on every rank of the row."""
+    and the loss and metrics.  Each rank of a row computes those whole, and
+    the average keeps the replicated masters identical on every rank of the
+    row whatever order a rank's sums take."""
 
     def __init__(self, state, loss_grad, data: int, ema_decay: float, mesh: CompositeMesh):
         super().__init__(state, loss_grad, data, ema_decay, group=mesh.data_group,

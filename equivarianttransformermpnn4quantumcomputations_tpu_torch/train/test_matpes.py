@@ -45,10 +45,13 @@ def evaluate_state_dict(cfg: dict, state_dict: dict, split: str = "test", device
               f"{cfg['energy_std']:.6f}; using the checkpoint's")
         stats["energy_std"] = cfg["energy_std"]
     ds = test_ds if split == "test" else val_ds
-    n_pad, e_pad = infer_pad_sizes(ds, cfg["max_neighbors"], cfg["batch_size"])
+    # the JAX CLI's layout: fixed-degree unless the config says otherwise
+    fixed_degree = cfg.get("fixed_degree", True)
+    n_pad, e_pad = infer_pad_sizes(ds, cfg["cutoff"], cfg["max_neighbors"], cfg["batch_size"],
+                                   fixed_degree=fixed_degree)
     loader = PaddedLoader(ds, cfg["batch_size"], cfg["cutoff"], cfg["max_neighbors"],
-                          n_pad, e_pad)
-    model = build_eval_model(cfg)
+                          n_pad, e_pad, fixed_degree=fixed_degree)
+    model = build_eval_model({**cfg, "uniform_blocks": False, "fixed_degree": fixed_degree})
     model.load_state_dict(state_dict)
     model.to(device)
     e_mae, f_mae = evaluate(model, None, loader, stats["energy_std"], device)

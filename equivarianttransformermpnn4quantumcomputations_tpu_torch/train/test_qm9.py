@@ -2,13 +2,15 @@
 reference test_qm9v3.py).
 
     python -m equivarianttransformermpnn4quantumcomputations_tpu_torch.train.test_qm9 \\
-        --checkpoint runs/qm9_fixture_torch/ckpt_best [--split test|val] \\
-        [--device cuda|cpu]
+        --checkpoint runs/qm9_fixture_torch/ckpt_best [--run-dir DIR] \\
+        [--split test|val] [--device cuda|cpu]
 
 Loads a checkpoint of the port (``<name>.pt`` + ``<name>.meta.json``, as
 train/train_qm9.py writes them), rebuilds the model from the stored config,
 and writes ``eval_<split>.json`` (per-property MAE in paper units),
-``predictions.npy`` and ``targets.npy`` into the run directory, with the
+``predictions.npy`` and ``targets.npy`` into the run directory
+(``--run-dir``, where the checkpoint is read; default: the checkpoint's
+directory), with the
 EMA weights (as the JAX package's CLI does).  ``evaluate_state_dict`` does
 the same for any ``state_dict`` (for example one converted from the JAX
 package's Flax params by utils/convert.py).  The device is the card unless
@@ -55,13 +57,16 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--checkpoint", required=True,
                     help="<run_dir>/<name> of a port checkpoint (without .pt)")
+    ap.add_argument("--run-dir", default=None,
+                    help="the checkpoint's directory (default: that of --checkpoint)")
     ap.add_argument("--split", default="test", choices=["val", "test"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    run_dir = os.path.dirname(args.checkpoint) or "."
-    with open(f"{args.checkpoint}.meta.json") as f:
+    run_dir = args.run_dir or os.path.dirname(args.checkpoint) or "."
+    path = os.path.join(run_dir, os.path.basename(args.checkpoint))
+    with open(f"{path}.meta.json") as f:
         cfg = json.load(f)["config"]
-    sd = torch.load(f"{args.checkpoint}.pt", map_location="cpu", weights_only=True)
+    sd = torch.load(f"{path}.pt", map_location="cpu", weights_only=True)
     out = evaluate_state_dict(cfg, {**sd["model"], **sd["ema"]}, args.split, args.device,
                               run_dir)
     print(f"\nQM9 {args.split} MAE (paper units), {out['count']} molecules:")

@@ -103,7 +103,8 @@ CONFIGS = {
 
 def build_model(cfg: dict, mixed_precision: bool) -> EquiformerV2MatPES:
     """The model of every model key of ``cfg`` (a missing key raises
-    ``KeyError``)."""
+    ``KeyError``), in the layout of ``cfg``'s ``uniform_blocks`` /
+    ``fixed_degree`` (both True when absent, as the JAX CLI reads them)."""
     return EquiformerV2MatPES(
         num_layers=cfg["num_layers"], sphere_channels=cfg["sphere_channels"],
         attn_hidden_channels=cfg["attn_hidden_channels"], num_heads=cfg["num_heads"],
@@ -120,6 +121,8 @@ def build_model(cfg: dict, mixed_precision: bool) -> EquiformerV2MatPES:
         wigner_rep=cfg["wigner_rep"],
         normalize_attn_output=bool(cfg["normalize_attn_output"]),
         use_phi_every_layer=bool(cfg["use_phi_every_layer"]),
+        uniform_blocks=bool(cfg.get("uniform_blocks", True)),
+        fixed_degree=bool(cfg.get("fixed_degree", True)),
     )
 
 
@@ -260,12 +263,17 @@ def main(argv=None, overrides: dict | None = None):
     mixed_precision = bool(args.mixed_precision or cfg.get("mixed_precision", False))
 
     train_ds, val_ds, _, stats = load_data(cfg)
-    n_pad, e_pad = infer_pad_sizes(train_ds, cfg["max_neighbors"], cfg["batch_size"])
+    uniform = cfg.get("uniform_blocks", True)
+    fixed_degree = cfg.get("fixed_degree", True)
+    n_pad, e_pad = infer_pad_sizes(train_ds, cfg["cutoff"], cfg["max_neighbors"],
+                                   cfg["batch_size"], uniform=uniform,
+                                   fixed_degree=fixed_degree)
 
     def loader(ds, shuffle, shards=(1, 0)):
         return PaddedLoader(ds, cfg["batch_size"], cfg["cutoff"], cfg["max_neighbors"],
-                            n_pad, e_pad, shuffle=shuffle, seed=cfg["seed"],
-                            num_shards=shards[0], shard_id=shards[1])
+                            n_pad, e_pad, shuffle=shuffle, seed=cfg["seed"], uniform=uniform,
+                            fixed_degree=fixed_degree, num_shards=shards[0],
+                            shard_id=shards[1])
 
     train_loader, val_loader = loader(train_ds, True, (shards, shard_id)), loader(val_ds, False)
 

@@ -65,8 +65,10 @@ CONFIGS = {"default": oc_cfg.config, "debug": oc_cfg.config_debug,
 
 def build_oc20_model(cfg: dict, compute_dtype: torch.dtype = torch.float32) -> EquiformerV2OC20:
     """``EquiformerV2OC20`` from a config (shared by the trainer and
-    train/test_oc20.py, which rebuilds it from a checkpoint's config)."""
+    train/test_oc20.py, which rebuilds it from a checkpoint's config), in
+    the fixed-degree layout unless the config's ``fixed_degree`` is False."""
     return EquiformerV2OC20(
+        fixed_degree=cfg.get("fixed_degree", True),
         num_layers=cfg["num_layers"], sphere_channels=cfg["sphere_channels"],
         attn_hidden_channels=cfg["attn_hidden_channels"], num_heads=cfg["num_heads"],
         attn_alpha_channels=cfg["attn_alpha_channels"],
@@ -97,7 +99,8 @@ def make_loader(cfg: dict, dataset, n_pad: int, e_pad: int, shuffle: bool,
     """The config's loader; ``shards`` = (number of shards, this shard)."""
     return PaddedLoader(dataset, cfg["batch_size"], cfg["cutoff"], cfg["max_neighbors"],
                         n_pad, e_pad, shuffle=shuffle, seed=cfg["seed"],
-                        num_shards=shards[0], shard_id=shards[1])
+                        fixed_degree=cfg.get("fixed_degree", True), num_shards=shards[0],
+                        shard_id=shards[1])
 
 
 @torch.no_grad()
@@ -165,7 +168,8 @@ def main(argv=None, overrides: dict | None = None):
         raise SystemExit(f"{world} processes train together only with --data-parallel")
 
     train_ds, val_ds = make_datasets(cfg)
-    n_pad, e_pad = infer_pad_sizes(train_ds, cfg["max_neighbors"], cfg["batch_size"])
+    n_pad, e_pad = infer_pad_sizes(train_ds, cfg["cutoff"], cfg["max_neighbors"],
+                                   cfg["batch_size"], fixed_degree=cfg.get("fixed_degree", True))
     train_loader = make_loader(cfg, train_ds, n_pad, e_pad, True, (world, rank))
     val_loader = make_loader(cfg, val_ds, n_pad, e_pad, False)
 

@@ -49,8 +49,11 @@ CONFIGS = {"default": qm9_cfg.config, "debug": qm9_cfg.config_debug,
 
 
 def build_model(cfg: dict) -> EquiformerV2QM9:
+    """The QM9 model of a config, in the fixed-degree layout unless the
+    config's ``fixed_degree`` is False (the JAX CLI's rule)."""
     return EquiformerV2QM9(
         num_targets=len(cfg["target_indices"]) if cfg.get("target_indices") else 12,
+        fixed_degree=cfg.get("fixed_degree", True),
         num_layers=cfg["num_layers"], sphere_channels=cfg["sphere_channels"],
         attn_hidden_channels=cfg["attn_hidden_channels"], num_heads=cfg["num_heads"],
         attn_alpha_channels=cfg["attn_alpha_channels"],
@@ -66,17 +69,21 @@ def build_model(cfg: dict) -> EquiformerV2QM9:
 
 def make_loaders(cfg: dict, splits=("train", "val", "test")):
     """(dataset, {split: PaddedLoader}) of the config's database: the
-    reference's random split, fixed-degree pads sized over the dataset as
-    the JAX package's CLI sizes them; only ``train`` shuffles."""
+    reference's random split, pads sized over the dataset as the JAX
+    package's CLI sizes them, in the fixed-degree layout unless the
+    config's ``fixed_degree`` is False; only ``train`` shuffles."""
     dataset = QM9Dataset(cfg["db_path"], stats_json=cfg.get("stats_json"),
                          max_samples=cfg.get("max_samples"),
                          target_indices=cfg.get("target_indices"))
     idx = dict(zip(("train", "val", "test"),
                    qm9_random_split(len(dataset), cfg["val_split"], cfg["test_split"])))
-    n_pad, e_pad = infer_pad_sizes(dataset, cfg["max_neighbors"], cfg["batch_size"])
+    fixed_degree = cfg.get("fixed_degree", True)
+    n_pad, e_pad = infer_pad_sizes(dataset, cfg["cutoff"], cfg["max_neighbors"],
+                                   cfg["batch_size"], fixed_degree=fixed_degree)
     loaders = {s: PaddedLoader(dataset, cfg["batch_size"], cfg["cutoff"],
                                cfg["max_neighbors"], n_pad, e_pad, indices=idx[s],
-                               shuffle=s == "train", seed=cfg["seed"])
+                               shuffle=s == "train", seed=cfg["seed"],
+                               fixed_degree=fixed_degree)
                for s in splits}
     return dataset, loaders
 

@@ -6,7 +6,9 @@ or one training step.
         [--atoms N] [--json PATH]
 
 Serving (default): the flagship Predictor (``models/matpes.py:FLAGSHIP``,
-seeded random weights) answers requests of random periodic structures.
+seeded random weights; ragged batches) answers requests of random periodic
+structures; ``--mixed``: the mixed-size request (one structure of 120 atoms
+and fifteen of 16, ``MIXED``, ``mixed_structures``).
 ``--train``: one flagship force-training step in bf16 (f32 master weights,
 guarded AdamW, EMA; dropout off as in bench.py) on labelled structures
 (``data/synthetic.py:labelled_structures``).  ``--baseline``: the same
@@ -52,7 +54,12 @@ import numpy as np
 import torch
 
 __all__ = ["random_structures", "random_molecules", "qm9_batch", "qm9_train_state",
-           "oc20_batch", "oc20_train_state", "variant_model", "profile_call", "run", "main"]
+           "oc20_batch", "oc20_train_state", "variant_model", "profile_call", "run", "main",
+           "FIXED_DEGREE", "fixed_degree_pads", "MIXED", "mixed_structures"]
+
+# the model fields of the fixed-degree layout, which the training profiles
+# (and chip_smoke.py's training phases) collate in
+FIXED_DEGREE = dict(uniform_blocks=True, fixed_degree=True)
 
 _BUCKETS = (
     # s2act_tc_kernel: K2a, K2b and K2c; s2act_kernel and s2act_k3_kernel:
@@ -79,6 +86,35 @@ def random_structures(rng: np.random.Generator, n: int, atoms: int) -> list[dict
         z = rng.integers(1, 80, size=atoms).astype(np.int32)
         out.append(dict(atomic_numbers=z, positions=pos, cell=cell))
     return out
+
+
+# the mixed-size serving request: one large structure and fifteen small
+MIXED = (120,) + (16,) * 15
+
+
+def mixed_structures(rng: np.random.Generator, sizes=MIXED, density_atoms: int = 30) -> list:
+    """Random periodic structures of ``sizes`` atoms at ``random_structures``'
+    density (``density_atoms`` atoms in a ~6 A cell): each cell's side is
+    scaled by the cube root of its atom count."""
+    out = []
+    for n in sizes:
+        side = 6.0 * (n / density_atoms) ** (1.0 / 3.0)
+        cell = (np.eye(3) * side + rng.normal(size=(3, 3)) * 0.2).astype(np.float32)
+        pos = (rng.uniform(0, 1, size=(n, 3)) @ cell).astype(np.float32)
+        out.append(dict(atomic_numbers=rng.integers(1, 80, size=n).astype(np.int32),
+                        positions=pos, cell=cell))
+    return out
+
+
+def fixed_degree_pads(n_atoms, k: int) -> tuple[int, int]:
+    """(n_pad, e_pad) of a fixed-degree batch of graphs of ``n_atoms`` atoms:
+    the ragged request's node bucket (a multiple of 16 above the atom
+    count), raised to a multiple of the graph count that holds the largest
+    graph, and ``k`` edge slots per node."""
+    n_pad = max(16, -(-(sum(n_atoms) + 1) // 16) * 16)
+    B = len(n_atoms)
+    n_max = max(-(-n_pad // B), max(n_atoms))
+    return B * n_max, B * n_max * k
 
 
 def random_molecules(rng: np.random.Generator, n: int, atoms: int) -> list:
@@ -109,7 +145,8 @@ def qm9_batch(rng: np.random.Generator, n: int, atoms: int, cutoff: float = 5.0)
     from ..data.graph import collate
 
     n_pad = n * atoms
-    pb = collate(random_molecules(rng, n, atoms), cutoff, None, n_pad, n_pad * (atoms - 1))
+    pb = collate(random_molecules(rng, n, atoms), cutoff, None, n_pad, n_pad * (atoms - 1),
+                 fixed_degree=True)
     if pb.overflow_atoms or pb.overflow_edges:
         raise RuntimeError("QM9 batch overflowed its pads")
     return pb
@@ -145,7 +182,8 @@ def oc20_batch(rng: np.random.Generator, n: int = 4, atoms: int = 72):
     from ..data.synthetic import labelled_structures
 
     n_pad = n * 80
-    pb = collate(labelled_structures(rng, n, atoms), 12.0, 20, n_pad, n_pad * 20)
+    pb = collate(labelled_structures(rng, n, atoms), 12.0, 20, n_pad, n_pad * 20,
+                 fixed_degree=True)
     if pb.overflow_atoms or pb.overflow_edges:
         raise RuntimeError("OC20 batch overflowed its pads")
     return pb
@@ -246,35 +284,36 @@ def _serving(args) -> tuple[str, dict]:
 
     model = init_weights(EquiformerV2MatPES(**FLAGSHIP), torch.Generator().manual_seed(0))
     pred = Predictor(model, model.state_dict(), FLAGSHIP["cutoff"], 20, device="cuda")
-    req = random_structures(np.random.default_rng(0), args.structures, args.atoms)
+    rng = np.random.default_rng(0)
+    req = (mixed_structures(rng) if args.mixed
+           else random_structures(rng, args.structures, args.atoms))
     for _ in range(2):
         pred.predict_batch(req)
     t = time.perf_counter()
     pred.collate(req)
     host_ms = (time.perf_counter() - t) * 1e3
-    return "request", dict(host_graph_build_ms=host_ms,
+    return "mixed-size request" if args.mixed else "request", dict(host_graph_build_ms=host_ms,
                            **profile_call(lambda: pred.predict_batch(req)))
 
 
 def _training(args, baseline: bool = False) -> tuple[str, dict]:
     from ..data.graph import as_tensors, collate
     from ..data.synthetic import labelled_structures
-    from ..inference import pad_sizes
     from ..models.matpes import FLAGSHIP, EquiformerV2MatPES, init_weights
     from ..train.schedules import warmup_cosine
     from ..train.trainer import GuardedAdamW, create_train_state, make_matpes_train_step
 
     model = EquiformerV2MatPES(**FLAGSHIP, alpha_drop=0.0, drop_path_rate=0.0,
-                               compute_dtype=torch.bfloat16, gata=not baseline)
+                               compute_dtype=torch.bfloat16, gata=not baseline, **FIXED_DEGREE)
     init_weights(model, torch.Generator().manual_seed(0)).to("cuda")
     opt = GuardedAdamW(model.named_parameters(), warmup_cosine(2e-4, 100, 10000), 1e-3, 1.0)
     state = create_train_state(model, opt)
     step = make_matpes_train_step(state, w_stress=0.1 if baseline else 0.0,
                                   generator=torch.Generator("cuda").manual_seed(0))
     samples = labelled_structures(np.random.default_rng(0), args.structures, args.atoms)
-    n_pad, e_pad = pad_sizes([args.atoms] * args.structures, 20, 20)
+    n_pad, e_pad = fixed_degree_pads([args.atoms] * args.structures, 20)
     t = time.perf_counter()
-    pb = collate(samples, FLAGSHIP["cutoff"], 20, n_pad, e_pad)
+    pb = collate(samples, FLAGSHIP["cutoff"], 20, n_pad, e_pad, fixed_degree=True)
     host_ms = (time.perf_counter() - t) * 1e3
     batch = as_tensors(pb, "cuda")
     for _ in range(2):
@@ -320,19 +359,18 @@ def _global_stage_call(model, batch):
 def _variant(args) -> list[tuple[str, dict]]:
     from ..data.graph import as_tensors, collate
     from ..data.synthetic import labelled_structures
-    from ..inference import pad_sizes
     from ..models.matpes import FLAGSHIP
     from ..train.schedules import warmup_cosine
     from ..train.trainer import GuardedAdamW, create_train_state, make_matpes_train_step
 
-    model = variant_model(args.variant, torch.bfloat16).to("cuda")
+    model = variant_model(args.variant, torch.bfloat16, **FIXED_DEGREE).to("cuda")
     opt = GuardedAdamW(model.named_parameters(), warmup_cosine(2e-4, 100, 10000), 1e-3, 1.0)
     state = create_train_state(model, opt)
     step = make_matpes_train_step(state, generator=torch.Generator("cuda").manual_seed(0))
     samples = labelled_structures(np.random.default_rng(0), args.structures, args.atoms)
-    n_pad, e_pad = pad_sizes([args.atoms] * args.structures, 20, 20)
+    n_pad, e_pad = fixed_degree_pads([args.atoms] * args.structures, 20)
     t = time.perf_counter()
-    pb = collate(samples, FLAGSHIP["cutoff"], 20, n_pad, e_pad)
+    pb = collate(samples, FLAGSHIP["cutoff"], 20, n_pad, e_pad, fixed_degree=True)
     host_ms = (time.perf_counter() - t) * 1e3
     batch = as_tensors(pb, "cuda")
     for _ in range(2):
@@ -416,6 +454,8 @@ def run(argv=None) -> list[dict]:
                       help="profile an OC20 training step, factored (K4) and dense (K1)")
     mode.add_argument("--variant", default=None, metavar="NAME",
                       help="profile a bf16 training step of a MatPES registry preset")
+    mode.add_argument("--mixed", action="store_true",
+                      help="profile the mixed-size serving request (1 x 120 + 15 x 16 atoms)")
     ap.add_argument("--structures", type=int, default=None,
                     help="structures per call (default 16; --qm9: 64 molecules; --oc20: 4)")
     ap.add_argument("--atoms", type=int, default=None,

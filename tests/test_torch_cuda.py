@@ -506,7 +506,8 @@ def test_training_step_on_the_card_matches_the_cpu(dev):
                cutoff=5.0, alpha_drop=0.0, drop_path_rate=0.0)
     weights = init_weights(EquiformerV2MatPES(**cfg), torch.Generator().manual_seed(0))
     weights = {k: v.clone() for k, v in weights.state_dict().items()}
-    pb = collate(labelled_structures(np.random.default_rng(0), 2, 9), 5.0, 8, 32, 256)
+    pb = collate(labelled_structures(np.random.default_rng(0), 2, 9), 5.0, 8, 32, 256,
+                 fixed_degree=True)
     lr, out = 1e-3, {}
 
     def train_state(d):
@@ -578,7 +579,8 @@ def test_stress_step_on_the_card_matches_the_cpu(dev):
     samples = labelled_structures(rng, 2, 9)
     for smp in samples:
         smp.stress = (rng.normal(size=6) * 0.05).astype(np.float32)
-    pb = collate(samples, 5.0, 8, 32, 256)
+    pb = collate(samples, 5.0, 8, 32, 256,
+                 fixed_degree=True)
     out = {}
     for d in ("cuda", "cpu"):
         model = EquiformerV2MatPES(**cfg)
@@ -632,7 +634,8 @@ def test_gata_v1_model_on_the_card_matches_the_cpu(dev):
                alpha_drop=0.0, drop_path_rate=0.0)
     weights = init_weights(make_model("equiformer_v2_matpes_gata", **cfg),
                            torch.Generator().manual_seed(0)).state_dict()
-    pb = collate(labelled_structures(np.random.default_rng(1), 2, 9), 5.0, 8, 32, 256)
+    pb = collate(labelled_structures(np.random.default_rng(1), 2, 9), 5.0, 8, 32, 256,
+                 fixed_degree=True)
     out = {}
     for d in ("cuda", "cpu"):
         model = make_model("equiformer_v2_matpes_gata", **cfg)
@@ -654,3 +657,32 @@ def test_gata_v1_model_on_the_card_matches_the_cpu(dev):
     num = sum(float((g["g"][k] - c["g"][k]).double().square().sum()) for k in c["g"])
     den = sum(float(c["g"][k].double().square().sum()) for k in c["g"])
     assert (num / den) ** 0.5 <= 1e-3
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_deterministic_segment_pair_on_the_card(dev, dt):
+    """ops/segment.py's gather / segment-sum pair on CUDA tensors: the same
+    bits twice, to the second derivative, and index_select / index_add
+    (atomics) within their rounding (f32 1e-5, bf16 2e-2 of the largest)."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops import segment as seg
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n, E = 496, 9920
+    ids = torch.randint(0, n, (E,), generator=gen, device=dev)
+    x = torch.randn(n, 25, 64, generator=gen, device=dev).to(dt)
+    u = torch.randn(n, 25, 64, generator=gen, device=dev).to(dt)
+
+    def run(gather):
+        w = x.clone().requires_grad_(True)
+        y = seg.segment_sum(gather(w).float().square().to(dt), ids, n)
+        (g,) = torch.autograd.grad(y.float().sum(), w, create_graph=True)
+        (h,) = torch.autograd.grad((g.float() * u.float()).sum(), w)
+        return y.detach(), g.detach(), h
+
+    a, b = run(lambda w: seg.gather_nodes(w, ids)), run(lambda w: seg.gather_nodes(w, ids))
+    for p, q in zip(a, b):
+        assert torch.equal(p, q)
+    ref = run(lambda w: w.index_select(0, ids))
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    for p, r in zip(a, ref):
+        assert (p.float() - r.float()).abs().max() <= tol * r.float().abs().max()

@@ -4,9 +4,10 @@ Small configuration (2 layers, lmax 2 / mmax 1, 16 channels).  Random Flax
 params, made by numpy from a seed, move to the port through
 utils/convert.py; the same structures go through the JAX package's
 ``matpes_energy_forces_stress`` (dense Wigner) and through the port's
-``Predictor`` on the CPU, which batches them in the fixed-degree layout.
-The JAX side runs that same batch, or its own packed batch of the same
-structures (the layout changes no parameter and no result).  Energies are
+``Predictor`` on the CPU, which batches them in the ragged layout.  The JAX
+side runs the port's fixed-degree collate of the structures, or the JAX
+package's own packed batch of them (the layout changes no parameter and no
+result).  Energies are
 held to a relative error of 1e-5 and forces to 1e-4 max|F|.
 """
 
@@ -23,16 +24,16 @@ from equivarianttransformermpnn4quantumcomputations_tpu.models.matpes import (
 )
 from equivarianttransformermpnn4quantumcomputations_tpu.utils import flags
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.data import graph as tgraph
-from equivarianttransformermpnn4quantumcomputations_tpu_torch.inference import (
-    Predictor,
-    pad_sizes,
-)
+from equivarianttransformermpnn4quantumcomputations_tpu_torch.inference import Predictor
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
     EquiformerV2MatPES,
     init_weights,
 )
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.convert import (
     flax_to_state_dict,
+)
+from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling import (
+    fixed_degree_pads,
 )
 
 CFG = dict(num_layers=2, sphere_channels=16, attn_hidden_channels=16, num_heads=2,
@@ -65,6 +66,15 @@ def _random_flax_params(jm, batch, seed=0):
     return jax.tree_util.tree_map(fill, shapes)
 
 
+def _fixed_degree_batch(structs):
+    """The port's fixed-degree collate of the structures."""
+    samples = [tgraph.GraphSample(s["atomic_numbers"], s["positions"], s["cell"],
+                                  s["cell"] is not None) for s in structs]
+    n_pad, e_pad = fixed_degree_pads([len(s["atomic_numbers"]) for s in structs],
+                                     MAX_NEIGHBORS)
+    return tgraph.collate(samples, CUTOFF, MAX_NEIGHBORS, n_pad, e_pad, fixed_degree=True)
+
+
 def _jax_packed_batch(structs):
     """The JAX package's own packed collate of the structures."""
     samples = [jgraph.GraphSample(s["atomic_numbers"], s["positions"], s["cell"],
@@ -83,9 +93,7 @@ def test_predictor_matches_jax(monkeypatch, jax_layout, s2_fused):
     structs = _structures()
     port = EquiformerV2MatPES(**CFG)
     fixed = jax_layout == "fixed_degree"
-    pb = (Predictor(port, port.state_dict(), CUTOFF, MAX_NEIGHBORS,
-                    device="cpu").collate(structs) if fixed
-          else _jax_packed_batch(structs))
+    pb = _fixed_degree_batch(structs) if fixed else _jax_packed_batch(structs)
     batch = {k: jnp.asarray(v) for k, v in pb.asdict().items()}
     jm = JaxMatPES(**CFG, fixed_degree=fixed, uniform_blocks=fixed,
                    wigner_rep="dense", remat=False, alpha_drop=0.0, drop_path_rate=0.0)
@@ -111,8 +119,7 @@ def test_scan_layers_params_convert_like_unrolled():
     state_dict as the unrolled model's, and it loads strictly."""
     structs = _structures(sizes=(4, 5))
     port = EquiformerV2MatPES(**CFG)
-    pb = Predictor(port, port.state_dict(), CUTOFF, MAX_NEIGHBORS,
-                   device="cpu").collate(structs)
+    pb = _fixed_degree_batch(structs)
     batch = {k: jnp.asarray(v) for k, v in pb.asdict().items()}
     kw = dict(fixed_degree=True, uniform_blocks=True, wigner_rep="dense", remat=False)
     unrolled = _random_flax_params(JaxMatPES(**CFG, **kw), batch, seed=1)
@@ -140,7 +147,7 @@ def test_collate_copy_matches_jax(monkeypatch):
     samples_j = [jgraph.GraphSample(s["atomic_numbers"], s["positions"], s["cell"],
                                     s["cell"] is not None) for s in structs]
     n_pad, e_pad = 24, 24 * MAX_NEIGHBORS
-    a = tgraph.collate(samples_t, CUTOFF, MAX_NEIGHBORS, n_pad, e_pad)
+    a = tgraph.collate(samples_t, CUTOFF, MAX_NEIGHBORS, n_pad, e_pad, fixed_degree=True)
     b = jgraph.collate(samples_j, CUTOFF, MAX_NEIGHBORS, n_pad, e_pad, fixed_degree=True)
     assert (a.overflow_atoms, a.overflow_edges) == (b.overflow_atoms, b.overflow_edges)
     a, b = a.asdict(), b.asdict()
@@ -150,10 +157,11 @@ def test_collate_copy_matches_jax(monkeypatch):
 
 
 def test_pad_sizes():
-    # the JAX package's n_pad bucket split evenly over the graphs, k slots per node
-    assert pad_sizes([30] * 16, 20, 20) == (496, 9920)
-    # ... raised to hold the largest graph; k = the largest in-degree
-    assert pad_sizes([3, 40], 7, None) == (80, 560)
+    # the fixed-degree pads: the ragged request's n_pad bucket split evenly
+    # over the graphs, k slots per node
+    assert fixed_degree_pads([30] * 16, 20) == (496, 9920)
+    # ... raised to hold the largest graph
+    assert fixed_degree_pads([3, 40], 7) == (80, 560)
 
 
 def test_random_init_serves_finite_outputs_and_predict_agrees():

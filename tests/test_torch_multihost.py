@@ -55,7 +55,7 @@ def test_loader_shards_equal_the_jax_loader(num_shards):
               seed=5, prefetch=0, num_shards=num_shards)
     seen = []
     for shard in range(num_shards):
-        t = tloader.PaddedLoader(ds, shard_id=shard, **kw)
+        t = tloader.PaddedLoader(ds, shard_id=shard, uniform=True, fixed_degree=True, **kw)
         j = jloader.PaddedLoader(ds, shard_id=shard, uniform=True, fixed_degree=True, **kw)
         for loader in (t, j):
             loader.set_epoch(3)

@@ -85,9 +85,9 @@ def test_collate_is_the_same_on_either_path(monkeypatch):
                                           cell=None if cell is None else cell.astype(np.float32),
                                           pbc=cell is not None))
     args = (samples, 3.5, 6, 4 * 12, 4 * 12 * 8)
-    got = tgraph.collate(*args).asdict()
+    got = tgraph.collate(*args, fixed_degree=True).asdict()
     monkeypatch.setattr(tgraph, "USE_NATIVE", False)
-    want = tgraph.collate(*args).asdict()
+    want = tgraph.collate(*args, fixed_degree=True).asdict()
     assert got.keys() == want.keys()
     for key in got:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)

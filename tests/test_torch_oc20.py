@@ -64,7 +64,8 @@ def _batch():
             pos=(rng.uniform(0, 1, size=(n, 3)) @ cell).astype(np.float32), cell=cell,
             pbc=True, energy=float(rng.normal()),
             forces=rng.normal(size=(n, 3)).astype(np.float32), fixed=rng.uniform(size=n) < 0.3))
-    pb = tgraph.collate(samples, CUTOFF, MAX_NEIGHBORS, 16, 16 * MAX_NEIGHBORS)
+    pb = tgraph.collate(samples, CUTOFF, MAX_NEIGHBORS, 16, 16 * MAX_NEIGHBORS,
+                        fixed_degree=True)
     assert not (pb.overflow_atoms or pb.overflow_edges)
     return {k: jnp.asarray(v) for k, v in pb.asdict().items()}, tgraph.as_tensors(pb, "cpu")
 
@@ -234,8 +235,10 @@ def test_oc20_configs_build_the_factored_model(name):
 
 
 def test_backbone_names_the_unported_wigner_representation():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        EquiformerV2OC20(**CFG, wigner_rep="blocks")
+    # every representation of the JAX package is ported; another is refused
+    # with the list of the three
+    with pytest.raises(ValueError, match="'dense', 'factored', 'blocks'"):
+        EquiformerV2OC20(**CFG, wigner_rep="sparse")
 
 
 def test_factored_tables_are_built_once_per_forward(setup):

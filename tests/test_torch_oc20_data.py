@@ -93,7 +93,7 @@ def test_oc20_collate_matches_jax(oc20_dir, monkeypatch):
     monkeypatch.setattr(jgraph, "USE_NATIVE", False)
     dt = toc20.OC20Dataset(str(oc20_dir))
     samples = [dt[i] for i in range(4)]
-    pt = tgraph.collate(samples, 6.0, 12, 48, 48 * 12)
+    pt = tgraph.collate(samples, 6.0, 12, 48, 48 * 12, fixed_degree=True)
     pj = jgraph.collate(samples, 6.0, 12, 48, 48 * 12, fixed_degree=True)
     dj = pj.asdict()
     # no loss reads ``fixed`` yet, so the port keeps it off the device dict
@@ -117,7 +117,7 @@ def test_oc20_cli_trains_then_evaluates(tmp_path):
     out = test_oc20.main(["--checkpoint", str(run_dir / "ckpt_best"), "--device", "cpu"])
     assert out["n_frames"] == 16 and out["data"] == "synthetic"
     assert np.isfinite(out["energy_mae_mev"]) and np.isfinite(out["force_mae_mev_per_a"])
-    assert json.loads((run_dir / "eval_oc20.json").read_text()) == out
+    assert json.loads((run_dir / "eval_oc20_val.json").read_text()) == out
 
 
 def test_oc20_cli_reads_extxyz(oc20_dir, tmp_path):

@@ -58,7 +58,7 @@ def _molecules(seed):
     samples = [tgraph.GraphSample(atomic_numbers=rng.integers(1, 9, size=n).astype(np.int32),
                                   pos=(rng.normal(size=(n, 3)) * 1.5).astype(np.float32),
                                   y=rng.normal(size=3).astype(np.float32)) for n in (5, 4)]
-    return tgraph.collate(samples, CUTOFF, K, 12, 12 * K)
+    return tgraph.collate(samples, CUTOFF, K, 12, 12 * K, fixed_degree=True)
 
 
 def _crystals(seed, stress=False):
@@ -72,7 +72,7 @@ def _crystals(seed, stress=False):
             pbc=True, energy=float(rng.normal()),
             forces=rng.normal(size=(n, 3)).astype(np.float32),
             stress=rng.normal(size=6).astype(np.float32) if stress else None))
-    pb = tgraph.collate(samples, CUTOFF, K, 12, 12 * K)
+    pb = tgraph.collate(samples, CUTOFF, K, 12, 12 * K, fixed_degree=True)
     assert not (pb.overflow_atoms or pb.overflow_edges)
     return pb
 

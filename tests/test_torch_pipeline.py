@@ -85,7 +85,7 @@ def _micro(seed: int, n: int = 5):
         atomic_numbers=rng.integers(1, 15, size=n).astype(np.int32),
         pos=(rng.normal(size=(n, 3)) * 1.5).astype(np.float32), energy=float(rng.normal()),
         forces=rng.normal(size=(n, 3)).astype(np.float32) * 0.1)
-    pb = tgraph.collate([s], 5.0, 8, 8, 64)
+    pb = tgraph.collate([s], 5.0, 8, 8, 64, fixed_degree=True)
     assert not (pb.overflow_atoms or pb.overflow_edges)
     return pb
 

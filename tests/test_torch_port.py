@@ -175,7 +175,7 @@ def _batches(periodic: bool):
             pos=((rng.uniform(0, 1, size=(n, 3)) @ cell) if periodic
                  else rng.uniform(0, 3.0, size=(n, 3))).astype(np.float32),
             cell=cell if periodic else None, pbc=periodic))
-    pb = tgraph.collate(samples, 5.0, 6, 18, 108)
+    pb = tgraph.collate(samples, 5.0, 6, 18, 108, fixed_degree=True)
     return {k: jnp.asarray(v) for k, v in pb.asdict().items()}, tgraph.as_tensors(pb, "cpu")
 
 

@@ -62,7 +62,8 @@ def _batch():
             atomic_numbers=rng.integers(1, 10, size=n).astype(np.int32),
             pos=rng.uniform(0, 3.0, size=(n, 3)).astype(np.float32),
             y=rng.normal(size=12).astype(np.float32)))
-    pb = tgraph.collate(samples, CUTOFF, MAX_NEIGHBORS, 24, 24 * MAX_NEIGHBORS)
+    pb = tgraph.collate(samples, CUTOFF, MAX_NEIGHBORS, 24, 24 * MAX_NEIGHBORS,
+                        fixed_degree=True)
     return {k: jnp.asarray(v) for k, v in pb.asdict().items()}, tgraph.as_tensors(pb, "cpu")
 
 

@@ -92,9 +92,9 @@ def test_loader_subset_and_synthetic_molecules_match_jax(monkeypatch):
         np.testing.assert_array_equal(a.y, b.y)
         np.testing.assert_array_equal(a.forces, b.forces)
     idx = [0, 2, 3, 5, 7, 8, 11, 9]
-    n_pad, e_pad = tloader.infer_pad_sizes(ts, 8, 4)
+    n_pad, e_pad = tloader.infer_pad_sizes(ts, 5.0, 8, 4, fixed_degree=True)
     tl = tloader.PaddedLoader(ts, 4, 5.0, 8, n_pad, e_pad, indices=idx, shuffle=True,
-                              seed=1, prefetch=0)
+                              seed=1, prefetch=0, fixed_degree=True)
     jl = jloader.PaddedLoader(js, 4, 5.0, 8, n_pad, e_pad, indices=idx, shuffle=True,
                               seed=1, prefetch=0, fixed_degree=True)
     assert len(tl) == len(jl) == 2

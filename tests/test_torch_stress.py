@@ -67,7 +67,7 @@ def _crystal(rng, n):
 
 def _collate(samples, n_slot=8):
     pb = tgraph.collate(samples, CUTOFF, MAX_NEIGHBORS, len(samples) * n_slot,
-                        len(samples) * n_slot * MAX_NEIGHBORS)
+                        len(samples) * n_slot * MAX_NEIGHBORS, fixed_degree=True)
     assert not (pb.overflow_atoms or pb.overflow_edges)
     return pb
 

@@ -79,7 +79,8 @@ def _samples(pkg, n=3, seed=0):
 
 def _batch(monkeypatch):
     monkeypatch.setattr(jgraph, "USE_NATIVE", False)
-    pb = tgraph.collate(_samples(tsynth), CUTOFF, MAX_NEIGHBORS, 24, 24 * MAX_NEIGHBORS)
+    pb = tgraph.collate(_samples(tsynth), CUTOFF, MAX_NEIGHBORS, 24, 24 * MAX_NEIGHBORS,
+                        fixed_degree=True)
     return pb, {k: jnp.asarray(v) for k, v in pb.asdict().items()}, tgraph.as_tensors(pb, "cpu")
 
 
@@ -318,11 +319,12 @@ def test_collate_labels_synthetic_and_loader_match_jax(monkeypatch):
         np.testing.assert_array_equal(a.pos, b.pos)
         np.testing.assert_array_equal(a.forces, b.forces)
         assert a.energy == b.energy
-    n_pad, e_pad = tloader.infer_pad_sizes(ts, MAX_NEIGHBORS, 4)
+    n_pad, e_pad = tloader.infer_pad_sizes(ts, CUTOFF, MAX_NEIGHBORS, 4, uniform=True,
+                                           fixed_degree=True)
     assert (n_pad, e_pad) == jloader.infer_pad_sizes(js, CUTOFF, MAX_NEIGHBORS, 4,
                                                      uniform=True, fixed_degree=True)
     tl = tloader.PaddedLoader(ts, 4, CUTOFF, MAX_NEIGHBORS, n_pad, e_pad, shuffle=True,
-                              seed=7, prefetch=1)
+                              seed=7, prefetch=1, uniform=True, fixed_degree=True)
     jl = jloader.PaddedLoader(js, 4, CUTOFF, MAX_NEIGHBORS, n_pad, e_pad, shuffle=True,
                               seed=7, prefetch=0, uniform=True, fixed_degree=True)
     for loader in (tl, jl):

@@ -38,6 +38,7 @@ import torch_variant_helpers as h
 LMAX, C, H, EC = 2, 8, 12, 6
 K = (LMAX + 1) ** 2
 N, KS = 6, 3                      # nodes and edge slots per node
+FIXED_BLOCKS = (1, N, N * KS, KS)  # the port's fixed-degree layout of _graph's edges
 TOL = 1e-5
 
 
@@ -133,7 +134,8 @@ def test_moe_ffn_and_routing_entropy_match_jax(breaking):
     tm = tmoe.MoEHTRFeedForward(C, H, EC, LMAX, num_experts=3, breaking_equivariance=breaking)
     params = _init(jm, x, t, jnp.asarray(dst), jnp.asarray(mask))
     _check(h.module_errors(lambda p, a, b: jm.apply(p, a, b, dst, mask)[0], params, tm,
-                           lambda a, b: tm(a, b, KS, torch.as_tensor(mask)), [x, t]))
+                           lambda a, b: tm(a, b, torch.as_tensor(dst), torch.as_tensor(mask),
+                                           FIXED_BLOCKS), [x, t]))
     entropy = h.run_jax(lambda p: jm.apply(p, x, t, dst, mask)[1], params)
     np.testing.assert_allclose(float(tm.routing_entropy), float(entropy), rtol=1e-6)
 
@@ -164,7 +166,8 @@ def test_angular_htr_matches_jax():
     tm = tdual.AngularHTR(C, EC, LMAX)
     params = _init(jm, a, t, x, src, dst, mask)
     _check(h.module_errors(lambda p, *v: jm.apply(p, *v, src, dst, mask), params, tm,
-                           lambda *v: tm(*v, torch.as_tensor(src), KS, torch.as_tensor(mask)),
+                           lambda *v: tm(*v, torch.as_tensor(src), torch.as_tensor(dst),
+                                         torch.as_tensor(mask), FIXED_BLOCKS),
                            [a, t, x]))
 
 
@@ -175,4 +178,5 @@ def test_tensor_product_ffn_matches_jax():
     tm = tdual.TensorProductFFN(C, H, EC, LMAX)
     params = _init(jm, x, t, a, dst, mask)
     _check(h.module_errors(lambda p, *v: jm.apply(p, *v, dst, mask), params, tm,
-                           lambda *v: tm(*v, KS, torch.as_tensor(mask)), [x, t, a]))
+                           lambda *v: tm(*v, torch.as_tensor(dst), torch.as_tensor(mask),
+                                         FIXED_BLOCKS), [x, t, a]))

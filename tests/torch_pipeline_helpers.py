@@ -101,7 +101,7 @@ def _crystals(seed: int):
             pos=(rng.uniform(0, 1, size=(n, 3)) @ cell).astype(np.float32), cell=cell,
             pbc=True, energy=float(rng.normal()),
             forces=rng.normal(size=(n, 3)).astype(np.float32)))
-    return tgraph.collate(samples, 5.0, 6, 12, 72)
+    return tgraph.collate(samples, 5.0, 6, 12, 72, fixed_degree=True)
 
 
 def model_run(mesh, M: int, pipelined: bool) -> dict:

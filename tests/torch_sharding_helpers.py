@@ -56,7 +56,8 @@ def crystals(seed: int, stress: bool = False):
             pbc=True, energy=float(rng.normal()),
             forces=rng.normal(size=(n, 3)).astype(np.float32),
             stress=rng.normal(size=6).astype(np.float32) if stress else None))
-    pb = tgraph.collate(samples, CUTOFF, MAX_NEIGHBORS, 12, 12 * MAX_NEIGHBORS)
+    pb = tgraph.collate(samples, CUTOFF, MAX_NEIGHBORS, 12, 12 * MAX_NEIGHBORS,
+                        fixed_degree=True)
     assert not (pb.overflow_atoms or pb.overflow_edges)
     return pb
 
@@ -80,7 +81,11 @@ def case(model_size: int, sp: bool, n_micro: int = 1, kw: dict | None = None,
         import torch
         port_kw["compute_dtype"] = torch.bfloat16
     weights = {k: v.numpy() for k, v in flax_to_state_dict(params).items()}
-    c = dict(kind="matpes", cfg={**TINY, **port_kw, **(cfg_kw or {})}, weights=weights,
+    # the port's model in the layout of the batches (sequence parallelism
+    # needs the fixed-degree layout)
+    layout = dict(uniform_blocks=True, fixed_degree=True)
+    c = dict(kind="matpes", cfg={**TINY, **layout, **port_kw, **(cfg_kw or {})},
+             weights=weights,
              batches=batches, lr=LR, wd=WD, model=model_size, sp=sp, seed=seed,
              step_kw=dict(w_stress=0.1) if stress else {})
     return c, jm, params

@@ -83,7 +83,7 @@ def batches(seed=0, sizes=(4, 6, 5), n_slot=8):
     """(JAX batch, port batch) of the same fixed-degree collate."""
     samples = crystals(seed, sizes)
     pb = tgraph.collate(samples, CUTOFF, MAX_NEIGHBORS, len(samples) * n_slot,
-                        len(samples) * n_slot * MAX_NEIGHBORS)
+                        len(samples) * n_slot * MAX_NEIGHBORS, fixed_degree=True)
     assert not (pb.overflow_atoms or pb.overflow_edges)
     return {k: jnp.asarray(v) for k, v in pb.asdict().items()}, tgraph.as_tensors(pb, "cpu")
 
