@@ -19,7 +19,25 @@ import numpy as np
 
 from .graph import PaddedBatch, collate
 
-__all__ = ["PaddedLoader", "infer_pad_sizes"]
+__all__ = ["PaddedLoader", "infer_pad_sizes", "bucket", "FIXED_DEGREE", "fixed_degree_pads"]
+
+# the model fields of the fixed-degree layout (``collate(fixed_degree=True)``)
+FIXED_DEGREE = dict(uniform_blocks=True, fixed_degree=True)
+
+
+def bucket(n: int, quantum: int = 16) -> int:
+    """``n`` rounded up to a multiple of ``quantum`` (at least one): the
+    serving request's pads (JAX inference.py ``_bucket``)."""
+    return max(quantum, -(-n // quantum) * quantum)
+
+
+def fixed_degree_pads(n_atoms, k: int) -> tuple[int, int]:
+    """(n_pad, e_pad) of a fixed-degree batch of graphs of ``n_atoms`` atoms:
+    the ragged request's node bucket, raised to a multiple of the graph
+    count that holds the largest graph, and ``k`` edge slots per node."""
+    B = len(n_atoms)
+    n_max = max(-(-bucket(sum(n_atoms) + 1) // B), max(n_atoms))
+    return B * n_max, B * n_max * k
 
 
 def infer_pad_sizes(dataset, cutoff: float, max_neighbors: int | None, batch_size: int,

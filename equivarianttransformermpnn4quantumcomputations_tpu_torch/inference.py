@@ -28,14 +28,11 @@ import numpy as np
 import torch
 
 from .data.graph import GraphSample, as_tensors, collate, radius_graph, radius_graph_pbc
+from .data.loader import bucket
 from .models.matpes import energy_and_forces
 from .utils.precision import full_f32_products
 
 __all__ = ["Predictor"]
-
-
-def _bucket(n: int, quantum: int = 16) -> int:
-    return max(quantum, -(-n // quantum) * quantum)
 
 
 class Predictor:
@@ -104,8 +101,8 @@ class Predictor:
                 src, _, _ = radius_graph(gs.pos.astype(np.float64), self.cutoff,
                                          self.max_neighbors)
             max_e += src.size
-        return collate(samples, self.cutoff, self.max_neighbors, _bucket(n_tot + 1),
-                       _bucket(max_e, 128))
+        return collate(samples, self.cutoff, self.max_neighbors, bucket(n_tot + 1),
+                       bucket(max_e, 128))
 
     def predict_batch(self, structures: Sequence[dict]) -> dict:
         pb = self.collate(structures)

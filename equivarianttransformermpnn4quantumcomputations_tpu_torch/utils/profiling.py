@@ -53,13 +53,11 @@ import time
 import numpy as np
 import torch
 
+from ..data.loader import FIXED_DEGREE, fixed_degree_pads
+
 __all__ = ["random_structures", "random_molecules", "qm9_batch", "qm9_train_state",
            "oc20_batch", "oc20_train_state", "variant_model", "profile_call", "run", "main",
-           "FIXED_DEGREE", "fixed_degree_pads", "MIXED", "mixed_structures"]
-
-# the model fields of the fixed-degree layout, which the training profiles
-# (and chip_smoke.py's training phases) collate in
-FIXED_DEGREE = dict(uniform_blocks=True, fixed_degree=True)
+           "MIXED", "mixed_structures"]
 
 _BUCKETS = (
     # s2act_tc_kernel: K2a, K2b and K2c; s2act_kernel and s2act_k3_kernel:
@@ -104,17 +102,6 @@ def mixed_structures(rng: np.random.Generator, sizes=MIXED, density_atoms: int =
         out.append(dict(atomic_numbers=rng.integers(1, 80, size=n).astype(np.int32),
                         positions=pos, cell=cell))
     return out
-
-
-def fixed_degree_pads(n_atoms, k: int) -> tuple[int, int]:
-    """(n_pad, e_pad) of a fixed-degree batch of graphs of ``n_atoms`` atoms:
-    the ragged request's node bucket (a multiple of 16 above the atom
-    count), raised to a multiple of the graph count that holds the largest
-    graph, and ``k`` edge slots per node."""
-    n_pad = max(16, -(-(sum(n_atoms) + 1) // 16) * 16)
-    B = len(n_atoms)
-    n_max = max(-(-n_pad // B), max(n_atoms))
-    return B * n_max, B * n_max * k
 
 
 def random_molecules(rng: np.random.Generator, n: int, atoms: int) -> list:

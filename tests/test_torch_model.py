@@ -32,7 +32,7 @@ from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes impo
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.convert import (
     flax_to_state_dict,
 )
-from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling import (
+from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.loader import (
     fixed_degree_pads,
 )
 

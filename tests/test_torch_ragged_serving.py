@@ -27,6 +27,7 @@ from equivarianttransformermpnn4quantumcomputations_tpu.models.matpes import (
     EquiformerV2MatPES as JaxMatPES,
 )
 from equivarianttransformermpnn4quantumcomputations_tpu.utils import flags
+from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.loader import bucket
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.inference import Predictor
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
     EquiformerV2MatPES,
@@ -88,6 +89,13 @@ def test_ragged_predictor_matches_jax(monkeypatch, periodic):
     for got, f in zip(out["forces"], ref["forces"]):
         f = np.asarray(f)
         np.testing.assert_allclose(got, f, rtol=0, atol=1e-4 * np.abs(f).max())
+
+
+@pytest.mark.parametrize("quantum", [16, 128])
+def test_request_bucket_matches_jax(quantum):
+    # the serving request's pad rule, exact: every count from 0 to 4 quanta
+    for n in range(4 * quantum + 2):
+        assert bucket(n, quantum) == jinference._bucket(n, quantum), n
 
 
 def test_predictor_refuses_another_layout():
