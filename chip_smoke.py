@@ -6,6 +6,7 @@
     python3 chip_smoke.py --s2act-only
     python3 chip_smoke.py --composite-only
     python3 chip_smoke.py --pipeline-only
+    python3 chip_smoke.py --remat-only
 
 ``--rotation-only`` runs phases 1 and 2 and phase 3's K1 / K4 rows, and
 stops; ``--s2act-only`` the same with phase 3's K2 rows.  Those rows call
@@ -13,7 +14,7 @@ only the kernels' wrappers, whose interface is the same since K4 (K2) was
 ported, so this script copied into the root of an older checkout times
 that checkout's kernels with the same timers and shapes.
 ``--composite-only`` runs phases 1 and 2 and phase 15, and stops;
-``--pipeline-only`` phases 1, 2 and 16.
+``--pipeline-only`` phases 1, 2 and 16; ``--remat-only`` phases 1, 2 and 20.
 
 Phase 3 times each kernel two ways, at the same shapes: CUDA events around
 one call (median of 15, L2 flushed before each), which also hold the part
@@ -73,9 +74,11 @@ Phases, each of which raises on failure:
      EMA that the card's step and the CPU's optimizer make of the card's
      gradients;
   8. QM9: 2 + 5 full-width f32 steps (64 molecules x 18 atoms) with K3, the
-     same without K3 in turns (the composed A/B), then 3 evaluation
-     requests with the EMA weights; fail if a kernel of the path was never
-     launched, a loss is not finite or the guard skipped a step;
+     same without K3 in turns (the composed A/B), 2 + 5 bf16 steps with K3
+     (bf16 compute, f32 masters: step ms by CUDA events, peak memory,
+     launches), then 3 evaluation requests with the EMA weights; fail if a
+     kernel of the path was never launched, a loss is not finite or the
+     guard skipped a step;
   9. one f32 QM9 step (2 layers, full width) on the card against the CPU;
   10. OC20 S2EF: 2 + 5 full-width bf16 training steps (configs/oc20.py:
      12 layers, lmax 6 / mmax 2; f32 masters, dropouts 0) on 4 labelled
@@ -198,7 +201,18 @@ Phases, each of which raises on failure:
   19. the gradient half of the flagship bf16 step twice from one state:
      bit for bit equal, or the phase fails; then the host syncs of one
      gradient half and the step's CUDA-event ms (median of 10).
-Phases 19 and 18 run after phase 7, phase 17 after phase 5.
+  20. rematerialization (nn/remat.py): the flagship bf16 force-training
+     step (phase 6's model, layout and structures) at 16 x 30 and 64 x 30
+     atoms with remat off, remat, inner_ckpt and both: from one state and
+     batch each mode's gradients against remat off within ``DP_LIMITS``
+     (bf16), the off and remat gradient halves twice (the remat half bit
+     for bit equal at 16 x 30, phase 19's size); each mode's
+     step ms (CUDA events, median of 5 after 2 warm-ups), peak device
+     memory and K1 / K2a-c launches per step (all must launch); at 64 x 30
+     remat's peak at most 0.6x the peak without; the f32 16 x 30 step's
+     remat and inner_ckpt gradients within 1e-5 relative L2 of remat off;
+     the remat'd force pass with and without its parameters' VJPs.
+Phases 19, 18 and 20 run after phase 7, phase 17 after phase 5.
 The line before the last is the kernels' JSON record and the card; the last
 line is the device JSON (not with ``--rotation-only``).  Without a CUDA
 device the script exits non-zero and prints no result.
@@ -839,9 +853,9 @@ def check_k3(e_flagship: int, e_qm9: int, tag: str) -> list[dict]:
     return records + [b_record]
 
 
-def _flagship_batches(n: int, seed: int = 2) -> list[dict]:
-    """``n`` labelled batches of ``N_STRUCTURES`` x ``N_ATOMS`` on the card
-    (the flagship's layout: N_pad 496, E_pad 9920)."""
+def _flagship_batches(n: int, seed: int = 2, structures: int = N_STRUCTURES) -> list[dict]:
+    """``n`` labelled batches of ``structures`` x ``N_ATOMS`` on the card
+    (the flagship's layout; 16 structures: N_pad 496, E_pad 9920)."""
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import (
         as_tensors,
         collate,
@@ -851,10 +865,10 @@ def _flagship_batches(n: int, seed: int = 2) -> list[dict]:
     )
 
     rng = np.random.default_rng(seed)
-    n_pad, e_pad = fixed_degree_pads([N_ATOMS] * N_STRUCTURES, MAX_NEIGHBORS)
+    n_pad, e_pad = fixed_degree_pads([N_ATOMS] * structures, MAX_NEIGHBORS)
     batches = []
     for _ in range(n):
-        pb = collate(labelled_structures(rng, N_STRUCTURES, N_ATOMS), CUTOFF,
+        pb = collate(labelled_structures(rng, structures, N_ATOMS), CUTOFF,
                      MAX_NEIGHBORS, n_pad, e_pad, fixed_degree=True)
         if pb.overflow_atoms or pb.overflow_edges:
             raise RuntimeError("training batch overflowed its pads")
@@ -1098,6 +1112,7 @@ def qm9_phase(counters: dict, tag: str) -> tuple[dict, dict]:
     idle = [n for n, c in launches.items() if c == 0]
     if idle:
         raise RuntimeError(f"kernels never launched on the QM9 training path: {idle}")
+    qm9_bf16_step(counters, train, tag)
 
     state = arms[True][0]
     del arms[False]
@@ -1115,6 +1130,44 @@ def qm9_phase(counters: dict, tag: str) -> tuple[dict, dict]:
     eval_launches = {n: d[k] for n, (d, k) in counters.items()}
     print(f"launches over {N_REQUESTS} QM9 requests: {eval_launches}  [{tag}]", flush=True)
     return launches, eval_launches
+
+
+def qm9_bf16_step(counters: dict, batches: list[dict], tag: str) -> dict:
+    """Phase 8's bf16 QM9 step (bf16 compute, f32 masters, K3 on) on the f32
+    steps' batches: CUDA-event ms (median of the timed steps after the
+    warm-ups), peak device memory over them, launches per step; fails if a
+    loss is not finite, the guard skipped a step or a kernel of the path
+    never launched."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling import (
+        qm9_train_state,
+    )
+
+    state, step = qm9_train_state(conv_fused=True, compute_dtype=torch.bfloat16)
+    for b in batches[:N_WARMUP_STEPS]:
+        step(b)
+    torch.cuda.synchronize()
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    timed, losses = iter(batches[N_WARMUP_STEPS:]), []
+    ms = _event_ms(lambda: losses.append(step(next(timed))), len(batches) - N_WARMUP_STEPS)
+    n = len(ms)
+    rec = dict(step_ms=float(np.median(ms)), step_ms_min=min(ms), step_ms_max=max(ms),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches={k: d[c] / n for k, (d, c) in counters.items()})
+    print(f"QM9 training, bf16 (f32 masters), conv_fused on: median step {rec['step_ms']:.2f} "
+          f"ms (CUDA events, {n} steps after {N_WARMUP_STEPS} warm-ups; "
+          f"{rec['step_ms_min']:.2f}-{rec['step_ms_max']:.2f}), "
+          f"{QM9_MOLECULES / rec['step_ms'] * 1e3:.1f} molecules/s, peak memory "
+          f"{rec['peak_gib']:.3f} GiB, launches per step {rec['launches']}  [{tag}]",
+          flush=True)
+    bad = [i for i, (loss, m) in enumerate(losses)
+           if not (np.isfinite(float(loss)) and m["accepted"])]
+    idle = [k for k, c in rec["launches"].items() if c == 0]
+    if bad or idle:
+        raise RuntimeError(f"QM9 bf16 steps {bad} not finite or skipped; kernels never "
+                           f"launched {idle}")
+    del state, step
+    return rec
 
 
 def qm9_parity_phase(tag: str) -> None:
@@ -2208,6 +2261,200 @@ def determinism_phase(tag: str) -> dict:
     return rec
 
 
+# phase 20: rematerialization of the flagship force-training step
+REMAT_SIZES = (16, 64)    # structures of N_ATOMS atoms a batch
+# mode -> (the model's remat, the step's inner_ckpt)
+REMAT_MODES = {"off": (False, False), "remat": (True, False), "inner_ckpt": (False, True),
+               "remat + inner_ckpt": (True, True)}
+REMAT_F32_LIMIT = 1e-5    # the f32 16 x 30 step's gradients against remat off (rel L2)
+
+
+def _grad_half(state, batch, inner: bool) -> tuple[float, dict]:
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        matpes_loss_grad,
+    )
+
+    loss, _ = matpes_loss_grad(state, inner_ckpt=inner)(batch)
+    return float(loss), {n: p.grad.detach().clone()
+                         for n, p in state.model.named_parameters() if p.grad is not None}
+
+
+def _differing(got: dict, want: dict) -> list[str]:
+    """The parameters whose gradients are not bit for bit equal."""
+    return [n for n, g in want.items() if not torch.equal(got[n], g)]
+
+
+def _event_ms(fn, reps: int) -> list[float]:
+    ms = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    return ms
+
+
+def _force_pass_ms(state, batch) -> dict:
+    """CUDA-event ms (median of 5 after 1 warm-up) of the remat'd bf16 force
+    pass (forces with their graph kept, no loss backward) with the bf16
+    parameter copies requiring a gradient (the step's: each block's
+    backward also computes its parameters' VJP) and with them detached (no
+    parameter VJP)."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        matpes_energy_forces,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        cast_params,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.precision import (
+        full_f32_products,
+    )
+
+    model = state.model
+    out = {}
+    for what, detach in (("with parameter VJPs", False), ("without", True)):
+        def call():
+            with full_f32_products():
+                params = cast_params(model, torch.bfloat16)
+                if detach:
+                    params = {n: p.detach() for n, p in params.items()}
+                matpes_energy_forces(model, batch, create_graph=True, params=params)
+        call()
+        out[what] = float(np.median(_event_ms(call, 5)))
+    return out
+
+
+def remat_phase(counters: dict, tag: str) -> dict:
+    """Phase 20: the flagship bf16 force-training step (phase 6's model,
+    layout and structures) at 16 x 30 and 64 x 30 atoms in each mode of
+    ``REMAT_MODES``: from one state and batch, each mode's gradient half
+    (after warm-up calls: a process's first two calls differ) against
+    remat off (loss and gradients within ``DP_LIMITS[bf16]``,
+    and whether bit for bit equal); the off and remat halves twice (at
+    16 x 30 the remat half must repeat bit for bit, as phase 19's step);
+    then each mode's step timed with
+    CUDA events (median of 5 after 2 warm-ups), the peak device memory over
+    the timed steps and K1 / K2a-c launches per step (every kernel of the
+    path must launch).  At 64 x 30 remat's peak must be at most 0.6x the
+    peak without.  Then the f32 step at 16 x 30: remat and inner_ckpt
+    gradients within ``REMAT_F32_LIMIT`` of remat off; and the remat'd
+    bf16 force pass with and without the parameters' VJPs.  Returns the
+    records."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        make_matpes_train_step,
+    )
+
+    lim_loss, lim_grad = DP_LIMITS[torch.bfloat16]
+    recs = {}
+    for structures in REMAT_SIZES:
+        batches = _flagship_batches(1 + N_WARMUP_STEPS + N_TRAIN_STEPS, seed=20,
+                                    structures=structures)
+        state = _flagship_state(torch.bfloat16)
+        size = f"{structures} x {N_ATOMS}"
+        print(f"remat: flagship bf16 step, {size} atoms, N_pad {batches[0]['pos'].shape[0]}, "
+              f"E_pad {batches[0]['edge_src'].shape[0]}  [{tag}]", flush=True)
+        ref = None
+        # a process's first two gradient halves differ from the later ones
+        # in bf16 (8.4e-4 relative L2, with or without remat; phase 19 warms
+        # up too): warm up twice, then once more in each mode
+        _grad_half(state, batches[0], False)
+        for mode, (use_remat, inner) in REMAT_MODES.items():   # from one state: no update
+            state.model.backbone.remat = use_remat
+            _grad_half(state, batches[0], inner)
+            loss, grads = _grad_half(state, batches[0], inner)
+            if ref is None:
+                ref = (loss, grads)
+            rec = recs[(size, mode)] = dict(
+                loss_rel=abs(loss / ref[0] - 1), grad_rel_l2=_rel_l2(grads, ref[1]),
+                differ_off=_differing(grads, ref[1]))
+            rec["bit_equal_off"] = loss == ref[0] and not rec["differ_off"]
+            if mode in ("off", "remat"):
+                again = _grad_half(state, batches[0], inner)
+                rec["differ_repeat"] = _differing(again[1], grads)
+                rec["repeat_bit_equal"] = again[0] == loss and not rec["differ_repeat"]
+                rec["repeat_rel_l2"] = _rel_l2(again[1], grads)
+            del grads
+        del ref
+        for mode, (use_remat, inner) in REMAT_MODES.items():
+            state.model.backbone.remat = use_remat
+            rec = recs[(size, mode)]
+            step = make_matpes_train_step(state, inner_ckpt=inner)
+            for b in batches[1:1 + N_WARMUP_STEPS]:
+                step(b)
+            torch.cuda.synchronize()
+            _zero(counters)
+            torch.cuda.reset_peak_memory_stats()
+            timed = iter(batches[1 + N_WARMUP_STEPS:])
+            accepted = []
+            ms = _event_ms(lambda: accepted.append(bool(step(next(timed))[1]["accepted"])),
+                           N_TRAIN_STEPS)
+            rec.update(step_ms=float(np.median(ms)), step_ms_min=min(ms), step_ms_max=max(ms),
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       launches={n: d[k] / N_TRAIN_STEPS for n, (d, k) in counters.items()})
+            print(f"remat {size} {mode}: loss rel {rec['loss_rel']:.3e}, gradients rel L2 "
+                  f"{rec['grad_rel_l2']:.3e} against off (limits {lim_loss:.1e}, "
+                  f"{lim_grad:.1e}; bit for bit {rec['bit_equal_off']}, parameters differing "
+                  f"{rec['differ_off'][:4]} of {len(rec['differ_off'])})"
+                  + (f", repeat bit for bit {rec['repeat_bit_equal']} (rel L2 "
+                     f"{rec['repeat_rel_l2']:.3e}; parameters differing "
+                     f"{rec['differ_repeat'][:4]} of {len(rec['differ_repeat'])})"
+                     if "repeat_bit_equal" in rec else "")
+                  + f"; step {rec['step_ms']:.2f} ms (CUDA events, median of {N_TRAIN_STEPS} "
+                  f"after {N_WARMUP_STEPS} warm-ups; {rec['step_ms_min']:.2f}-"
+                  f"{rec['step_ms_max']:.2f}), peak {rec['peak_gib']:.3f} GiB, launches per "
+                  f"step {rec['launches']}  [{tag}]", flush=True)
+            idle = [n for n, c in rec["launches"].items() if c == 0]
+            if not all(accepted) or idle:
+                raise RuntimeError(f"phase 20 {size} {mode}: accepted {accepted}, kernels "
+                                   f"never launched {idle}")
+            if rec["loss_rel"] > lim_loss or rec["grad_rel_l2"] > lim_grad:
+                raise RuntimeError(f"phase 20 {size} {mode}: the step disagrees with remat off")
+            # phase 19's check, at phase 19's size (at 64 x 30 the step
+            # without remat may differ from itself too: a bf16 bit of an
+            # embedding gradient, 3e-9 relative L2, PERF.md section 6, PR 17)
+            if (mode == "remat" and structures == REMAT_SIZES[0]
+                    and not rec["repeat_bit_equal"]):
+                raise RuntimeError(f"phase 20 {size}: the remat gradient half differs from "
+                                   "itself")
+        off, on = recs[(size, "off")], recs[(size, "remat")]
+        print(f"remat {size}: peak remat / off {on['peak_gib'] / off['peak_gib']:.3f}, "
+              f"remat + inner_ckpt / off "
+              f"{recs[(size, 'remat + inner_ckpt')]['peak_gib'] / off['peak_gib']:.3f}, "
+              f"inner_ckpt / off {recs[(size, 'inner_ckpt')]['peak_gib'] / off['peak_gib']:.3f}"
+              f"; step remat / off {on['step_ms'] / off['step_ms']:.3f}  [{tag}]", flush=True)
+        if structures == REMAT_SIZES[0]:
+            state.model.backbone.remat = True
+            fp = _force_pass_ms(state, batches[0])
+            recs[(size, "force pass")] = fp
+            print(f"remat {size}: the remat'd bf16 force pass {fp}, parameter VJPs "
+                  f"{fp['with parameter VJPs'] - fp['without']:.2f} ms (CUDA events, median "
+                  f"of 5)  [{tag}]", flush=True)
+        if structures == REMAT_SIZES[-1] and on["peak_gib"] > 0.6 * off["peak_gib"]:
+            raise RuntimeError(f"phase 20 {size}: remat's peak {on['peak_gib']:.3f} GiB is "
+                               f"above 0.6x the peak without ({off['peak_gib']:.3f} GiB)")
+        del state, batches
+        torch.cuda.empty_cache()
+
+    state = _flagship_state(torch.float32)
+    (batch,) = _flagship_batches(1, seed=21)
+    _grad_half(state, batch, False)
+    loss0, g0 = _grad_half(state, batch, False)
+    for mode in ("remat", "inner_ckpt"):
+        state.model.backbone.remat = mode == "remat"
+        loss, g = _grad_half(state, batch, mode == "inner_ckpt")
+        err = _rel_l2(g, g0)
+        recs[("16 x 30 f32", mode)] = dict(loss_rel=abs(loss / loss0 - 1), grad_rel_l2=err)
+        print(f"remat 16 x 30 f32 {mode}: loss rel {abs(loss / loss0 - 1):.3e}, gradients rel "
+              f"L2 {err:.3e} against off (limit {REMAT_F32_LIMIT:.0e})  [{tag}]", flush=True)
+        if err > REMAT_F32_LIMIT or abs(loss / loss0 - 1) > REMAT_F32_LIMIT:
+            raise RuntimeError(f"phase 20 f32 {mode}: the step disagrees with remat off")
+    del state, g0, g
+    torch.cuda.empty_cache()
+    return recs
+
+
 # phase 14: multi-process data-parallel training on the one card
 DP_SEED = 14          # the micro-batches of phase 14 (_flagship_batches' seed)
 DP_TIMEOUT_S = 600    # each group of spawned processes
@@ -3103,12 +3350,25 @@ def pp_phase(tag: str) -> dict:
     return launches
 
 
+def _train_counters() -> dict:
+    """The launch counters of the flagship's paths: K1's four kinds, K2a-c."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
+        rotate_dense,
+        s2act,
+    )
+
+    return {**{f"rotate_pairs.{k}": (rotate_dense.launches, k) for k in rotate_dense.launches},
+            **{f"s2act.{k}": (s2act.launches, k) for k in s2act.launches}}
+
+
 def main(argv: list[str]) -> int:
     rotation_only = argv == ["--rotation-only"]
     s2act_only = argv == ["--s2act-only"]
     composite_only = argv == ["--composite-only"]
     pipeline_only = argv == ["--pipeline-only"]
-    if argv and not (rotation_only or s2act_only or composite_only or pipeline_only):
+    remat_only = argv == ["--remat-only"]
+    if argv and not (rotation_only or s2act_only or composite_only or pipeline_only
+                     or remat_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3208,6 +3468,12 @@ def main(argv: list[str]) -> int:
         print(f"pipeline step checked, launches of rank 0's bf16 step {pp_phase(tag)}  "
               f"[{tag}]")
         return 0
+    if remat_only:
+        del pred, batch
+        torch.cuda.empty_cache()
+        remat_phase(_train_counters(), tag)
+        print(f"remat step checked  [{tag}]")
+        return 0
     records = check_kernels(batch, e_qm9, tag)
     records += check_k3(int(pb.edge_src.shape[0]), e_qm9, tag)
     records += check_k4(edge_vectors(batch), oc20_vec, tag)
@@ -3219,9 +3485,7 @@ def main(argv: list[str]) -> int:
     records += [r for r in k2 if not r["name"].startswith("s2act.k3[K=")]
 
     # phase 4: serve, counting launches from zero
-    counters = {**{f"rotate_pairs.{k}": (rotate_dense.launches, k)
-                   for k in rotate_dense.launches},
-                **{f"s2act.{k}": (s2act.launches, k) for k in s2act.launches}}
+    counters = _train_counters()
     k3_counters = {f"so2conv.{k}": (so2conv.launches, k) for k in so2conv.launches}
     for d, k in counters.values():
         d[k] = 0
@@ -3294,6 +3558,10 @@ def main(argv: list[str]) -> int:
     determinism_phase(tag)
     # phase 18: a bf16 step in the uniform layout and on the blocks Wigner
     layout_step_phase(tag)
+    # phase 20: the step with remat and inner_ckpt, at 16 x 30 and 64 x 30
+    remat = remat_phase(counters, tag)
+    for r in records:
+        r["launches_remat_step"] = remat[("16 x 30", "remat")]["launches"].get(r["name"], 0)
 
     # phase 8: QM9 with K3 (K1 to / from, K2a / K2b at the edge site, the
     # FFNs and the heads, K3 at both conv sites), counting from zero

@@ -67,6 +67,8 @@ config = {
     "ckpt_every_epochs": 1,
     "use_wandb": False,
     "scan_layers": False,
+    # rematerialize each block / the whole energy evaluation in the force
+    # step's backwards (nn/remat.py): less memory, a longer step
     "remat": False,
     "inner_ckpt": False,
     "mixed_precision": True,

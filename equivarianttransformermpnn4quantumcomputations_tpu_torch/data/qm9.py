@@ -13,8 +13,10 @@ models/data_loader_qm9_v4.py):
 * ``denormalize_targets`` (reference :323-340).
 
 The database is read with ``sqlite3`` alone (``_AseDbLite``: ASE's sqlite
-format, as the reference writes it), so the port needs no ``ase``.  The
-npz-backed ``QM9NpzDataset`` of the JAX package is not ported yet.
+format, as the reference writes it), so the port needs no ``ase``.
+``QM9NpzDataset`` reads the one-file npz dump of ``data/prep.py:save_qm9_npz``
+(raw targets in ``RAW_KEY_ORDER``) through the same target pipeline, the
+paper order and units taken by one column permutation and scale.
 """
 
 from __future__ import annotations
@@ -29,8 +31,11 @@ import torch
 
 from .graph import GraphSample
 
-__all__ = ["PROPERTY_ORDER", "load_qm9_stats", "paper_targets", "QM9Dataset",
-           "qm9_random_split", "denormalize_targets"]
+__all__ = ["PROPERTY_ORDER", "RAW_KEY_ORDER", "load_qm9_stats", "paper_targets", "QM9Dataset",
+           "QM9NpzDataset", "qm9_random_split", "denormalize_targets"]
+
+# raw (PyG download) column order, as data/prep.py and the npz dump store it
+RAW_KEY_ORDER = ["mu", "alpha", "homo", "lumo", "gap", "r2", "zpve", "U0", "U", "H", "G", "Cv"]
 
 # paper order (reference data_loader_qm9_v4.py:44-45)
 PROPERTY_ORDER = [
@@ -46,6 +51,9 @@ _PAPER_KEYS = (
     ("mu", 1.0), ("Cv", 1.0), ("G", EV_TO_MEV), ("H", EV_TO_MEV), ("r2", 1.0),
     ("U", EV_TO_MEV), ("U0", EV_TO_MEV), ("zpve", EV_TO_MEV),
 )
+# the same as a column permutation of the raw columns and a scale
+_PAPER_FROM_RAW_IDX = np.asarray([RAW_KEY_ORDER.index(k) for k, _ in _PAPER_KEYS], np.int64)
+_PAPER_SCALE = np.asarray([s for _, s in _PAPER_KEYS], np.float32)
 
 
 def load_qm9_stats(json_path: str) -> tuple[np.ndarray, np.ndarray]:
@@ -103,7 +111,36 @@ class _AseDbLite:
         return numbers, positions, json.loads(data_txt) if data_txt else {}
 
 
-class QM9Dataset:
+class _Targets:
+    """The target pipeline of both datasets: subsets, then the z-score of
+    the stats JSON (``stats_json`` or ``qm9_full_stats.json`` beside the
+    data) unless ``normalize=False``."""
+
+    def _init_targets(self, data_path: str, stats_json: str | None, normalize: bool,
+                      target_indices: Sequence[int] | None):
+        self.normalize = normalize
+        self.target_indices = (np.asarray(target_indices)
+                               if target_indices is not None else None)
+        if normalize:
+            if stats_json is None:
+                stats_json = os.path.join(os.path.dirname(data_path), "qm9_full_stats.json")
+            self.mean, self.std = load_qm9_stats(stats_json)
+        else:
+            self.mean = np.zeros(12, np.float32)
+            self.std = np.ones(12, np.float32)
+
+    def _sample(self, numbers, positions, targets: np.ndarray) -> GraphSample:
+        mean, std = self.mean, self.std
+        if self.target_indices is not None:
+            targets = targets[self.target_indices]
+            mean, std = mean[self.target_indices], std[self.target_indices]
+        if self.normalize:
+            targets = (targets - mean) / std
+        return GraphSample(atomic_numbers=np.asarray(numbers, np.int32),
+                           pos=np.asarray(positions, np.float32), y=targets)
+
+
+class QM9Dataset(_Targets):
     """ASE-db backed QM9 dataset of GraphSamples (paper units and order,
     z-scored unless ``normalize=False``)."""
 
@@ -112,30 +149,43 @@ class QM9Dataset:
                  target_indices: Sequence[int] | None = None):
         self._db = _AseDbLite(db_path)
         self.keys = list(range(1, self._db.count() + 1))[:max_samples]
-        self.normalize = normalize
-        self.target_indices = (np.asarray(target_indices)
-                               if target_indices is not None else None)
-        if normalize:
-            if stats_json is None:
-                stats_json = os.path.join(os.path.dirname(db_path), "qm9_full_stats.json")
-            self.mean, self.std = load_qm9_stats(stats_json)
-        else:
-            self.mean = np.zeros(12, np.float32)
-            self.std = np.ones(12, np.float32)
+        self._init_targets(db_path, stats_json, normalize, target_indices)
 
     def __len__(self):
         return len(self.keys)
 
     def __getitem__(self, idx: int) -> GraphSample:
         numbers, positions, data = self._db.get(self.keys[idx])
-        targets, mean, std = paper_targets(data), self.mean, self.std
-        if self.target_indices is not None:
-            targets = targets[self.target_indices]
-            mean, std = mean[self.target_indices], std[self.target_indices]
-        if self.normalize:
-            targets = (targets - mean) / std
-        return GraphSample(atomic_numbers=np.asarray(numbers, np.int32),
-                           pos=np.asarray(positions, np.float32), y=targets)
+        return self._sample(numbers, positions, paper_targets(data))
+
+
+class QM9NpzDataset(_Targets):
+    """npz-backed QM9 dataset (the JAX package's), the same targets as
+    ``QM9Dataset``.  The npz (``data/prep.py:save_qm9_npz``): ``numbers``
+    int32 and ``positions`` float32 [A, 3] concatenated over the molecules,
+    ``offsets`` int64 [N + 1] their boundaries, ``targets_raw`` float32
+    [N, 12] in ``RAW_KEY_ORDER`` (raw PyG units)."""
+
+    def __init__(self, npz_path: str, stats_json: str | None = None,
+                 max_samples: int | None = None, normalize: bool = True,
+                 target_indices: Sequence[int] | None = None):
+        with np.load(npz_path) as f:
+            self.numbers = np.asarray(f["numbers"], np.int32)
+            self.positions = np.asarray(f["positions"], np.float32)
+            self.offsets = np.asarray(f["offsets"], np.int64)
+            raw = np.asarray(f["targets_raw"], np.float32)
+        # paper_targets for every molecule at once
+        self.targets = (raw[:, _PAPER_FROM_RAW_IDX] * _PAPER_SCALE).astype(np.float32)
+        self.n = len(self.targets) if max_samples is None else min(len(self.targets),
+                                                                    max_samples)
+        self._init_targets(npz_path, stats_json, normalize, target_indices)
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, idx: int) -> GraphSample:
+        a, b = int(self.offsets[idx]), int(self.offsets[idx + 1])
+        return self._sample(self.numbers[a:b], self.positions[a:b], self.targets[idx])
 
 
 def qm9_random_split(n: int, val_split: float = 0.1, test_split: float = 0.1,

@@ -25,6 +25,10 @@ by all blocks and the edge-degree embedding
 (``share_atom_edge_embedding``: concatenated to the edge scalars once).
 ``conv_fused`` sends the full SO(2)-conv sites through kernel K3 (the JAX
 package's ``KernelFlags.conv_fused``; off by default there and here).
+``remat`` rematerializes each block in every backward (nn/remat.py, the
+JAX package's ``nn.remat``): a block keeps only its inputs and
+parameters, so force training holds one block's second-order graph at a
+time.
 The edge layout is the JAX package's pair of model fields:
 ``uniform_blocks`` and ``fixed_degree``, both False by default (the ragged
 layout of ``data/graph.py:collate``); ``fixed_degree`` (k = E / N edge slots
@@ -70,6 +74,7 @@ from ..nn.block import TransBlock
 from ..nn.embedding import EdgeDegreeEmbedding
 from ..nn.layers import GaussianSmearing, Linear
 from ..nn.norms import get_normalization_layer
+from ..nn.remat import remat_call
 from ..ops.cuda.rotate_dense import WignerDense, compute_wigner_dense
 from ..ops.irreps import layout as get_layout
 from ..ops.rotation import WignerBlocks, WignerFactors, compute_wigner, compute_wigner_blocks
@@ -117,7 +122,8 @@ class EquiformerV2Backbone(nn.Module):
                  drop_path_rate: float = 0.0, proj_drop: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32, gata: bool = True,
                  conv_fused: bool = False, wigner_rep: str = "dense",
-                 uniform_blocks: bool = False, fixed_degree: bool = False, **options):
+                 uniform_blocks: bool = False, fixed_degree: bool = False,
+                 remat: bool = False, **options):
         super().__init__()
         if wigner_rep not in WIGNER_REPS:
             raise ValueError(f"wigner_rep={wigner_rep!r}: one of {WIGNER_REPS}")
@@ -127,6 +133,7 @@ class EquiformerV2Backbone(nn.Module):
         opt = {**BACKBONE_OPTIONS, **options}
         self.wigner_rep = wigner_rep
         self.uniform_blocks, self.fixed_degree = uniform_blocks, fixed_degree
+        self.remat = remat
         self.lmax, self.mmax = lmax, mmax
         self.gata, self.gata_v1 = gata, opt["gata_v1"]
         self.dual_stream = gata and opt["dual_stream"]
@@ -318,7 +325,7 @@ class EquiformerV2Backbone(nn.Module):
             sub = None if params is None else {n[len(prefix):]: v for n, v in params.items()
                                                if n.startswith(prefix)}
             carry = block_step(self.blocks[i], carry, broadcast, num_graphs, generator, rows,
-                               sub)
+                               sub, self.remat)
         return carry
 
     def post_stack(self, x: torch.Tensor) -> torch.Tensor:
@@ -346,13 +353,21 @@ class StackBroadcast(NamedTuple):
 
 def block_step(block: nn.Module, carry: tuple, broadcast: StackBroadcast, num_graphs: int,
                generator: Optional[torch.Generator] = None, rows: slice | None = None,
-               params: Optional[dict] = None) -> tuple:
+               params: Optional[dict] = None, remat: bool = False) -> tuple:
     """One block on ``carry`` = (x, t_ij, a_ij); ``params``: a name ->
-    tensor mapping to call the block with (``torch.func.functional_call``)."""
-    x, t_ij, a_ij = carry
-    b = broadcast
-    args = (x, b.atomic_numbers, b.edge_scalars, b.edge_src, b.edge_dst, b.edge_mask,
-            b.wigner, t_ij, b.rl_ij, b.blocks, b.graph_idx, num_graphs, generator, b.phi_r, a_ij)
-    if params is None:
-        return block(*args, rows=rows)
-    return torch.func.functional_call(block, params, args, {"rows": rows})
+    tensor mapping to call the block with (``torch.func.functional_call``);
+    ``remat``: rematerialized in each backward (nn/remat.py), keeping only
+    the carry, the broadcast and the parameters."""
+
+    def call(x, t_ij, a_ij, b, prm, gen):
+        args = (x, b.atomic_numbers, b.edge_scalars, b.edge_src, b.edge_dst, b.edge_mask,
+                b.wigner, t_ij, b.rl_ij, b.blocks, b.graph_idx, num_graphs, gen, b.phi_r, a_ij)
+        if prm is None:
+            return block(*args, rows=rows)
+        return torch.func.functional_call(block, prm, args, {"rows": rows})
+
+    if not remat:
+        return call(*carry, broadcast, params, generator)
+    # every parameter of the block passes through the recompute's inputs
+    prm = {**dict(block.named_parameters()), **(params or {})}
+    return remat_call(call, (*carry, broadcast), prm, generator, module=block)

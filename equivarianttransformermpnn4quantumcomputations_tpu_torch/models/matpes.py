@@ -35,6 +35,7 @@ from ..nn.global_attn import (
 from ..nn.layers import Linear, RadialMLP, StackedLinear
 from ..nn.moe import MoEHTRFeedForward
 from ..nn.norms import EquivariantDegreeLayerScale, degree_scale_init
+from ..nn.remat import remat_call
 from ..ops.s2grid import s2grid
 from ..ops.segment import segment_sum
 from .backbone import BACKBONE_OPTIONS, EquiformerV2Backbone
@@ -68,7 +69,10 @@ class EquiformerV2MatPES(nn.Module):
     backbone's Wigner representation (``"dense"``: kernel K1,
     ``"factored"``: kernel K4, ``"blocks"``: batched matmuls); the batch
     layout is the backbone's ``uniform_blocks`` / ``fixed_degree`` (both
-    False: ragged); ``options`` are the backbone's other fields
+    False: ragged); ``remat`` rematerializes each block in every backward
+    (the JAX package's field, whose default there is True; here False, as
+    every JAX configuration and bench path sets it); ``options`` are the
+    backbone's other fields
     (``models/backbone.py:BACKBONE_OPTIONS``: norms, activations, GATA v1,
     FFN variants, dual stream, atom-edge embeddings).
 
@@ -97,7 +101,7 @@ class EquiformerV2MatPES(nn.Module):
                  conv_fused: bool = False, gata: bool = True,
                  wigner_rep: str = "dense", global_attn: str | None = None,
                  global_attn_heads: int = 8, global_attn_dense_n_max: int | None = None,
-                 **options):
+                 remat: bool = False, **options):
         super().__init__()
         if global_attn not in GLOBAL_ATTN:
             raise ValueError(f"global_attn={global_attn!r}: one of {GLOBAL_ATTN}")
@@ -114,7 +118,7 @@ class EquiformerV2MatPES(nn.Module):
             avg_degree=avg_degree, alpha_drop=alpha_drop,
             drop_path_rate=drop_path_rate, proj_drop=proj_drop,
             compute_dtype=compute_dtype, gata=gata, conv_fused=conv_fused,
-            wigner_rep=wigner_rep, **options,
+            wigner_rep=wigner_rep, remat=remat, **options,
         )
         if global_attn == "scalar":
             self.global_attn = GlobalScalarAttention(sphere_channels, global_attn_heads)
@@ -199,10 +203,35 @@ def _call(model, batch: dict, pos, params, generator):
                                       dict(pos=pos, generator=generator))
 
 
+_OUTPUTS = ("energy", "energy_total", "node_energy")
+
+
+def _energy(model, batch: dict, pos, strain, params, generator, inner_ckpt: bool) -> dict:
+    """The model's outputs at ``pos``, deformed by ``strain`` unless it is
+    None; with ``inner_ckpt`` the whole evaluation is rematerialized in
+    every backward (nn/remat.py; the JAX package's ``jax.checkpoint`` of
+    its energy function)."""
+
+    def fn(pos, strain, prm, gen):
+        b = batch
+        if strain is not None:   # positions and cell deformed by (I + eps) per graph
+            cell = batch["cell"]
+            defo = torch.eye(3, dtype=cell.dtype, device=cell.device) + strain   # [B, 3, 3]
+            pos = torch.einsum("ni,nij->nj", pos, defo[batch["graph_idx"]])
+            b = dict(batch, strained_cell=torch.einsum("bij,bjk->bik", cell, defo))
+        outs = _call(model, b, pos, prm, gen)
+        return tuple(outs[k] for k in _OUTPUTS)
+
+    if not inner_ckpt:
+        return dict(zip(_OUTPUTS, fn(pos, strain, params, generator)))
+    prm = dict(model.named_parameters()) if params is None else params
+    return dict(zip(_OUTPUTS, remat_call(fn, (pos, strain), prm, generator, module=model)))
+
+
 def matpes_energy_forces(model: EquiformerV2MatPES, batch: dict,
                          create_graph: bool = False, params: dict | None = None,
                          generator: torch.Generator | None = None,
-                         regress_stress: bool = False) -> dict:
+                         regress_stress: bool = False, inner_ckpt: bool = False) -> dict:
     """Energy outputs plus forces F = -dE_total/d pos (masked to real atoms),
     and with ``regress_stress`` the stress of
     ``matpes_energy_forces_stress_pergraph``.
@@ -212,14 +241,16 @@ def matpes_energy_forces(model: EquiformerV2MatPES, batch: dict,
     the forces can be differentiated by the parameters (force training).
     ``params``: a name -> tensor mapping to call the model with
     (``torch.func.functional_call``), e.g. the bfloat16 copies of mixed
-    precision.
+    precision.  ``inner_ckpt`` rematerializes the whole energy evaluation in
+    every backward (the JAX package's argument of the same name): the
+    loss's backward then recomputes the force pass.
     """
     if regress_stress:
         return matpes_energy_forces_stress_pergraph(model, batch, create_graph, params,
-                                                    generator)
+                                                    generator, inner_ckpt)
     pos = batch["pos"].detach().requires_grad_(True)
     with torch.enable_grad():
-        outs = _call(model, batch, pos, params, generator)
+        outs = _energy(model, batch, pos, None, params, generator, inner_ckpt)
         (dpos,) = torch.autograd.grad(outs["energy_total"].sum(), pos,
                                       create_graph=create_graph)
     result = dict(outs) if create_graph else {k: v.detach() for k, v in outs.items()}
@@ -230,7 +261,8 @@ def matpes_energy_forces(model: EquiformerV2MatPES, batch: dict,
 def matpes_energy_forces_stress_pergraph(model: EquiformerV2MatPES, batch: dict,
                                          create_graph: bool = False,
                                          params: dict | None = None,
-                                         generator: torch.Generator | None = None) -> dict:
+                                         generator: torch.Generator | None = None,
+                                         inner_ckpt: bool = False) -> dict:
     """Energy outputs, forces and per-graph stress [B, 6] (Voigt: xx, yy,
     zz, yz, xz, xy; energy units per A^3).
 
@@ -239,15 +271,13 @@ def matpes_energy_forces_stress_pergraph(model: EquiformerV2MatPES, batch: dict,
     and one ``torch.autograd.grad`` over (pos, eps) gives the forces and
     dE/d eps; stress = sym(dE/d eps) / |det cell|.  Call it inside
     ``utils/precision.full_f32_products`` (the geometry is float32).
+    ``inner_ckpt``: as ``matpes_energy_forces``.
     """
     pos = batch["pos"].detach().requires_grad_(True)
     cell = batch["cell"]
     strain = torch.zeros_like(cell, requires_grad=True)
     with torch.enable_grad():
-        defo = torch.eye(3, dtype=cell.dtype, device=cell.device) + strain   # [B, 3, 3]
-        pos_s = torch.einsum("ni,nij->nj", pos, defo[batch["graph_idx"]])
-        strained = dict(batch, strained_cell=torch.einsum("bij,bjk->bik", cell, defo))
-        outs = _call(model, strained, pos_s, params, generator)
+        outs = _energy(model, batch, pos, strain, params, generator, inner_ckpt)
         dpos, dstrain = torch.autograd.grad(outs["energy_total"].sum(), (pos, strain),
                                             create_graph=create_graph)
     result = dict(outs) if create_graph else {k: v.detach() for k, v in outs.items()}

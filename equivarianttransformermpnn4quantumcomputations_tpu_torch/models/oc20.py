@@ -45,7 +45,8 @@ class EquiformerV2OC20(nn.Module):
     is the block stack's type (the heads read the float32 backbone output).
     ``options``: the backbone options of ``models/qm9.py:BASELINE_OPTIONS``;
     the force block takes the attention's.  ``uniform_blocks`` /
-    ``fixed_degree``: the batch layout (models/backbone.py)."""
+    ``fixed_degree``: the batch layout; ``remat``: each block
+    rematerialized in every backward (models/backbone.py)."""
 
     def __init__(self, num_layers: int = 12, sphere_channels: int = 128,
                  attn_hidden_channels: int = 128, num_heads: int = 8,
@@ -58,7 +59,7 @@ class EquiformerV2OC20(nn.Module):
                  avg_degree: float = AVG_DEGREE_OC20,
                  compute_dtype: torch.dtype = torch.float32, conv_fused: bool = False,
                  wigner_rep: str = "factored", uniform_blocks: bool = False,
-                 fixed_degree: bool = False, **options):
+                 fixed_degree: bool = False, remat: bool = False, **options):
         super().__init__()
         check_options(options)
         opt = {**BACKBONE_OPTIONS, **options}
@@ -75,7 +76,7 @@ class EquiformerV2OC20(nn.Module):
             drop_path_rate=drop_path_rate, proj_drop=proj_drop,
             compute_dtype=compute_dtype, gata=False, conv_fused=conv_fused,
             wigner_rep=wigner_rep, uniform_blocks=uniform_blocks, fixed_degree=fixed_degree,
-            **options,
+            remat=remat, **options,
         )
         self.energy_block = FeedForward(sphere_channels, ffn_hidden_channels, 1, lmax,
                                         s2grid(lmax, lmax, grid_resolution),

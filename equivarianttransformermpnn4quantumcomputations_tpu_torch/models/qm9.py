@@ -43,8 +43,8 @@ class EquiformerV2QM9(nn.Module):
     ``conv_fused`` sends every SO(2)-conv site through kernel K3 (off by
     default, as the JAX package's ``KernelFlags.conv_fused``).  Dropouts act
     only in ``train()`` mode; ``compute_dtype`` is the block stack's type.
-    ``wigner_rep``, ``uniform_blocks`` and ``fixed_degree`` are the
-    backbone's (models/backbone.py).  ``options``: the backbone options of
+    ``wigner_rep``, ``uniform_blocks``, ``fixed_degree`` and ``remat`` are
+    the backbone's (models/backbone.py).  ``options``: the backbone options of
     ``BASELINE_OPTIONS``.
     """
 
@@ -59,7 +59,8 @@ class EquiformerV2QM9(nn.Module):
                  drop_path_rate: float = 0.05, proj_drop: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32,
                  conv_fused: bool = False, wigner_rep: str = "dense",
-                 uniform_blocks: bool = False, fixed_degree: bool = False, **options):
+                 uniform_blocks: bool = False, fixed_degree: bool = False,
+                 remat: bool = False, **options):
         super().__init__()
         check_options(options)
         self.backbone = EquiformerV2Backbone(
@@ -74,7 +75,7 @@ class EquiformerV2QM9(nn.Module):
             drop_path_rate=drop_path_rate, proj_drop=proj_drop,
             compute_dtype=compute_dtype, gata=False, conv_fused=conv_fused,
             wigner_rep=wigner_rep, uniform_blocks=uniform_blocks, fixed_degree=fixed_degree,
-            **options,
+            remat=remat, **options,
         )
         self.output_blocks = FeedForward(
             sphere_channels, ffn_hidden_channels, 1, lmax, s2grid(lmax, lmax, grid_resolution),

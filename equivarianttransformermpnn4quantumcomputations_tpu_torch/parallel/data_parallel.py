@@ -233,8 +233,10 @@ def make_oc20_dp_step(state: TrainState, data: int, w_energy: float = 2.0,
 
 def make_matpes_dp_step(state: TrainState, data: int, w_energy: float = 1.0,
                         w_force: float = 1.0, w_stress: float = 0.0, ema_decay: float = 0.999,
-                        generator: torch.Generator | None = None):
+                        generator: torch.Generator | None = None, inner_ckpt: bool = False):
     """Data-parallel MatPES step with autograd forces (and, with
-    ``w_stress > 0``, the per-graph stress)."""
+    ``w_stress > 0``, the per-graph stress); ``inner_ckpt`` as
+    ``train/trainer.py:make_matpes_train_step``."""
     return DataParallelStep(state, matpes_loss_grad(state, w_energy, w_force, w_stress,
-                                                    generator), data, ema_decay)
+                                                    generator, inner_ckpt=inner_ckpt),
+                            data, ema_decay)

@@ -490,7 +490,8 @@ class CompositeStep(DataParallelStep):
 def make_composite_matpes_step(state, mesh: CompositeMesh, data: int, w_energy: float = 1.0,
                                w_force: float = 1.0, w_stress: float = 0.0, sp: bool = False,
                                ema_decay: float = 0.999,
-                               generator: torch.Generator | None = None) -> Callable:
+                               generator: torch.Generator | None = None,
+                               inner_ckpt: bool = False) -> Callable:
     """Composite DP x TP x EP (x SP) MatPES train step (the JAX package's
     ``make_composite_matpes_step``): ``step(stacked) -> (loss, metrics)``,
     ``stacked`` this data row's micro-batches (``batch_shards``).  The loss
@@ -500,9 +501,11 @@ def make_composite_matpes_step(state, mesh: CompositeMesh, data: int, w_energy: 
     TrainState (the step shards it with ``shard_state``); every rank of a
     data row must hold the same weights and draw the same dropout masks
     (``generator`` seeded from the data index).  The parameters keep their
-    float32 type in the forward (no ``cast_params``, as in JAX)."""
+    float32 type in the forward (no ``cast_params``, as in JAX).
+    ``inner_ckpt`` as ``train/trainer.py:make_matpes_train_step``: every
+    rank recomputes the same region collectives in the same order."""
     mesh.mp.sp = sp
     shard_state(state, mesh)
     loss_grad = matpes_loss_grad(state, w_energy, w_force, w_stress, generator,
-                                 cast=False)
+                                 cast=False, inner_ckpt=inner_ckpt)
     return CompositeStep(state, loss_grad, data, ema_decay, mesh)

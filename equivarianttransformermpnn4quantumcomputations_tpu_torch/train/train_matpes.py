@@ -56,6 +56,12 @@ stress, cannot be combined with ``model=``, and ignores ``sp``; with
 ``--mixed-precision`` the stages compute on bfloat16 copies of the masters,
 as the JAX pipeline step does.  A sharded run (composite or pipeline)
 writes no emergency checkpoint on SIGTERM (that would need every rank).
+
+Memory, as the JAX CLI: the config's ``remat`` builds the model with each
+block rematerialized in every backward, and ``inner_ckpt`` rematerializes
+the whole energy evaluation in the loss's backward (nn/remat.py); both
+cut the force step's peak device memory for a longer step.  Every step
+takes ``remat``; the pipelined step refuses ``inner_ckpt``.
 """
 
 from __future__ import annotations
@@ -123,16 +129,19 @@ def build_model(cfg: dict, mixed_precision: bool) -> EquiformerV2MatPES:
         use_phi_every_layer=bool(cfg["use_phi_every_layer"]),
         uniform_blocks=bool(cfg.get("uniform_blocks", True)),
         fixed_degree=bool(cfg.get("fixed_degree", True)),
+        remat=bool(cfg.get("remat", False)),
     )
 
 
 def build_eval_model(cfg: dict) -> EquiformerV2MatPES:
-    """The float32 model of a checkpoint's config, dropout off.  A config
-    the JAX package wrote lacks the port's construction keys, which then
-    take ``configs/matpes.py``'s values."""
+    """The float32 model of a checkpoint's config, dropout off, no remat
+    (evaluation differentiates once and keeps no graph, so a recompute
+    would only add a forward).  A config the JAX package wrote lacks the
+    port's construction keys, which then take ``configs/matpes.py``'s
+    values."""
     return build_model({"conv_fused": mp_cfg.config["conv_fused"],
                         "wigner_rep": mp_cfg.config["wigner_rep"], **cfg,
-                        "alpha_drop": 0.0, "drop_path_rate": 0.0}, False)
+                        "alpha_drop": 0.0, "drop_path_rate": 0.0, "remat": False}, False)
 
 
 def load_data(cfg: dict):
@@ -234,6 +243,10 @@ def main(argv=None, overrides: dict | None = None):
         raise SystemExit("--mesh pipe= requires scan_layers=True")
     if pipe > 1 and cfg.get("regress_stress"):
         raise SystemExit("--mesh pipe= does not support stress yet")
+    inner_ckpt = bool(cfg.get("inner_ckpt", False))
+    if pipe > 1 and inner_ckpt:
+        raise SystemExit("--mesh pipe= does not support inner_ckpt (the pipelined step "
+                         "rematerializes per block with remat=True)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device (pass --device cpu to train on the CPU)")
@@ -317,7 +330,7 @@ def main(argv=None, overrides: dict | None = None):
         else:
             step_fn = make_composite_matpes_step(state, mesh, data, cfg["w_energy"],
                                                  cfg["w_force"], w_stress, mesh_spec["sp"],
-                                                 cfg["ema_decay"], gen)
+                                                 cfg["ema_decay"], gen, inner_ckpt)
         n_local = data // shards
         n_steps = len(train_loader.indices) // shards // cfg["batch_size"] // n_local
 
@@ -325,13 +338,13 @@ def main(argv=None, overrides: dict | None = None):
             return microbatches(loader, device, n_local, n_steps)
     elif data is None:
         step_fn = make_matpes_train_step(state, cfg["w_energy"], cfg["w_force"], w_stress,
-                                         cfg["ema_decay"], gen)
+                                         cfg["ema_decay"], gen, inner_ckpt)
 
         def batches(loader):
             return (as_tensors(pb, device) for pb in loader)
     else:
         step_fn = make_matpes_dp_step(state, data, cfg["w_energy"], cfg["w_force"],
-                                      w_stress, cfg["ema_decay"], gen)
+                                      w_stress, cfg["ema_decay"], gen, inner_ckpt)
         n_local = data // world
         n_steps = len(train_loader.indices) // world // cfg["batch_size"] // n_local
 

@@ -48,9 +48,10 @@ CONFIGS = {"default": qm9_cfg.config, "debug": qm9_cfg.config_debug,
            "aggressive": qm9_cfg.config_aggressive, "fixture": qm9_cfg.config_fixture}
 
 
-def build_model(cfg: dict) -> EquiformerV2QM9:
+def build_model(cfg: dict, compute_dtype: torch.dtype = torch.float32) -> EquiformerV2QM9:
     """The QM9 model of a config, in the fixed-degree layout unless the
-    config's ``fixed_degree`` is False (the JAX CLI's rule)."""
+    config's ``fixed_degree`` is False (the JAX CLI's rule), its block
+    stack computing in ``compute_dtype``."""
     return EquiformerV2QM9(
         num_targets=len(cfg["target_indices"]) if cfg.get("target_indices") else 12,
         fixed_degree=cfg.get("fixed_degree", True),
@@ -63,7 +64,7 @@ def build_model(cfg: dict) -> EquiformerV2QM9:
         max_num_elements=cfg["max_num_elements"], cutoff=cfg["cutoff"],
         avg_degree=cfg["avg_degree"], alpha_drop=cfg["alpha_drop"],
         drop_path_rate=cfg["drop_path_rate"], proj_drop=cfg.get("proj_drop", 0.0),
-        conv_fused=bool(cfg.get("conv_fused", False)),
+        conv_fused=bool(cfg.get("conv_fused", False)), compute_dtype=compute_dtype,
     )
 
 

@@ -22,7 +22,9 @@ Port of the JAX package's train/trainer.py (the MatPES and QM9 parts):
   the Voigt stress when ``w_stress > 0``).
 * ``make_matpes_train_step``: forces (and, with ``w_stress > 0``, the
   per-graph stress) by autograd with ``create_graph=True``, so the loss
-  backward is a grad-of-grad through every kernel; the step
+  backward is a grad-of-grad through every kernel (rematerialized per
+  block with the model's ``remat``, and as a whole with ``inner_ckpt``:
+  nn/remat.py); the step
   computes in the model's ``compute_dtype`` (bfloat16: through
   ``cast_params``); TF32 is off inside each step (the geometry is float32).
 * ``qm9_loss`` / ``make_qm9_train_step``: L1 (or MSE) on the normalized
@@ -245,12 +247,13 @@ def _train_step(state: TrainState, loss_grad: Callable, ema_decay: float):
 
 def matpes_loss_grad(state: TrainState, w_energy: float = 1.0, w_force: float = 1.0,
                      w_stress: float = 0.0, generator: torch.Generator | None = None,
-                     cast: bool = True):
+                     cast: bool = True, inner_ckpt: bool = False):
     """``loss_grad(batch) -> (loss, metrics)``, the gradient half of the
     MatPES step: the loss's gradients land in the float32 masters' ``.grad``
     (None where a parameter is unused).  See ``make_matpes_train_step``.
     ``cast=False`` keeps the float32 parameters in the forward of a
-    bfloat16 model (the JAX package's composite step)."""
+    bfloat16 model (the JAX package's composite step); ``inner_ckpt``:
+    ``models/matpes.py:matpes_energy_forces``'s."""
     model = state.model
     cdt = model.backbone.compute_dtype
 
@@ -260,7 +263,8 @@ def matpes_loss_grad(state: TrainState, w_energy: float = 1.0, w_force: float = 
             model.zero_grad(set_to_none=True)
             params = cast_params(model, cdt) if cast and cdt != torch.float32 else None
             outs = matpes_energy_forces(model, batch, create_graph=True, params=params,
-                                        generator=generator, regress_stress=w_stress > 0.0)
+                                        generator=generator, regress_stress=w_stress > 0.0,
+                                        inner_ckpt=inner_ckpt)
             loss, metrics = matpes_loss(outs, batch, w_energy, w_force, w_stress)
             loss.backward()
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
@@ -271,7 +275,8 @@ def matpes_loss_grad(state: TrainState, w_energy: float = 1.0, w_force: float = 
 def make_matpes_train_step(state: TrainState, w_energy: float = 1.0,
                            w_force: float = 1.0, w_stress: float = 0.0,
                            ema_decay: float = 0.999,
-                           generator: torch.Generator | None = None):
+                           generator: torch.Generator | None = None,
+                           inner_ckpt: bool = False):
     """``step(batch) -> (loss, metrics)``, updating ``state`` in place.
 
     The model runs in ``train()`` mode (dropout masks from ``generator``).
@@ -281,11 +286,13 @@ def make_matpes_train_step(state: TrainState, w_energy: float = 1.0,
     False); the EMA and ``state.step`` move every step, as in the JAX
     package.  ``w_stress > 0`` takes the per-graph stress path
     (``models/matpes.py:matpes_energy_forces_stress_pergraph``) and adds
-    the stress term to the loss.  The step is ``matpes_loss_grad`` followed
-    by ``apply_updates``.
+    the stress term to the loss.  ``inner_ckpt`` rematerializes the whole
+    energy evaluation in the loss's backward (the JAX package's argument;
+    a model built with ``remat`` rematerializes each block).  The step is
+    ``matpes_loss_grad`` followed by ``apply_updates``.
     """
-    return _train_step(state, matpes_loss_grad(state, w_energy, w_force, w_stress, generator),
-                       ema_decay)
+    return _train_step(state, matpes_loss_grad(state, w_energy, w_force, w_stress, generator,
+                                               inner_ckpt=inner_ckpt), ema_decay)
 
 
 def qm9_loss(pred: torch.Tensor, target: torch.Tensor, kind: str = "l1") -> torch.Tensor:

@@ -3,7 +3,7 @@ or one training step.
 
     python -m equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling \
         [--train | --baseline | --qm9 | --oc20 | --variant NAME] [--structures N]
-        [--atoms N] [--json PATH]
+        [--atoms N] [--remat] [--inner-ckpt] [--bf16] [--json PATH]
 
 Serving (default): the flagship Predictor (``models/matpes.py:FLAGSHIP``,
 seeded random weights; ragged batches) answers requests of random periodic
@@ -14,7 +14,10 @@ guarded AdamW, EMA; dropout off as in bench.py) on labelled structures
 (``data/synthetic.py:labelled_structures``).  ``--baseline``: the same
 step of the baseline EquiformerV2 (``gata=False``, the ``baseline``
 config's widths, which are the flagship's) with per-graph stress in the
-loss (``w_stress`` 0.1).  ``--qm9``: one f32 training
+loss (``w_stress`` 0.1).  With ``--remat`` / ``--inner-ckpt`` these two
+steps take the MatPES config keys of those names (each block, or the
+whole energy evaluation, rematerialized in the backwards: nn/remat.py).
+``--qm9``: one f32 (``--bf16``: bf16 compute, f32 masters) training
 step of the full-width QM9 model (``configs/qm9.py:config``, seeded random
 weights, its dropouts) on 64 random molecules of 18 atoms
 (``random_molecules``), once with ``conv_fused`` (kernel K3) and once
@@ -139,17 +142,17 @@ def qm9_batch(rng: np.random.Generator, n: int, atoms: int, cutoff: float = 5.0)
     return pb
 
 
-def qm9_train_state(conv_fused: bool):
+def qm9_train_state(conv_fused: bool, compute_dtype: torch.dtype = torch.float32):
     """The full-width QM9 model (``configs/qm9.py:config``, its dropouts)
-    with seeded random weights on the card, its guarded AdamW, EMA and
-    step."""
+    computing in ``compute_dtype`` (float32 masters) with seeded random
+    weights on the card, its guarded AdamW, EMA and step."""
     from ..configs.qm9 import config as cfg
     from ..models.matpes import init_weights
     from ..train.schedules import warmup_cosine
     from ..train.train_qm9 import build_model
     from ..train.trainer import GuardedAdamW, create_train_state, make_qm9_train_step
 
-    model = build_model({**cfg, "conv_fused": conv_fused})
+    model = build_model({**cfg, "conv_fused": conv_fused}, compute_dtype)
     init_weights(model, torch.Generator().manual_seed(0)).to("cuda")
     opt = GuardedAdamW(model.named_parameters(), warmup_cosine(cfg["lr"], 100, 10000),
                        cfg["weight_decay"], cfg["grad_clip"])
@@ -291,12 +294,14 @@ def _training(args, baseline: bool = False) -> tuple[str, dict]:
     from ..train.trainer import GuardedAdamW, create_train_state, make_matpes_train_step
 
     model = EquiformerV2MatPES(**FLAGSHIP, alpha_drop=0.0, drop_path_rate=0.0,
-                               compute_dtype=torch.bfloat16, gata=not baseline, **FIXED_DEGREE)
+                               compute_dtype=torch.bfloat16, gata=not baseline,
+                               remat=args.remat, **FIXED_DEGREE)
     init_weights(model, torch.Generator().manual_seed(0)).to("cuda")
     opt = GuardedAdamW(model.named_parameters(), warmup_cosine(2e-4, 100, 10000), 1e-3, 1.0)
     state = create_train_state(model, opt)
     step = make_matpes_train_step(state, w_stress=0.1 if baseline else 0.0,
-                                  generator=torch.Generator("cuda").manual_seed(0))
+                                  generator=torch.Generator("cuda").manual_seed(0),
+                                  inner_ckpt=args.inner_ckpt)
     samples = labelled_structures(np.random.default_rng(0), args.structures, args.atoms)
     n_pad, e_pad = fixed_degree_pads([args.atoms] * args.structures, 20)
     t = time.perf_counter()
@@ -306,6 +311,8 @@ def _training(args, baseline: bool = False) -> tuple[str, dict]:
     for _ in range(2):
         step(batch)
     what = "baseline training step with stress" if baseline else "training step"
+    what += "".join(f", {k}" for k, on in (("remat", args.remat),
+                                           ("inner_ckpt", args.inner_ckpt)) if on)
     return what, dict(host_graph_build_ms=host_ms, **profile_call(lambda: step(batch)))
 
 
@@ -377,7 +384,8 @@ def _variant(args) -> list[tuple[str, dict]]:
 def _qm9(args, conv_fused: bool) -> tuple[str, dict]:
     from ..data.graph import as_tensors
 
-    state, step = qm9_train_state(conv_fused)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    state, step = qm9_train_state(conv_fused, dtype)
     t = time.perf_counter()
     pb = qm9_batch(np.random.default_rng(0), args.structures, args.atoms)
     host_ms = (time.perf_counter() - t) * 1e3
@@ -386,7 +394,8 @@ def _qm9(args, conv_fused: bool) -> tuple[str, dict]:
         step(batch)
     rec = dict(host_graph_build_ms=host_ms, **profile_call(lambda: step(batch)))
     del state, step
-    return f"QM9 training step (conv_fused {'on' if conv_fused else 'off'})", rec
+    return (f"QM9 training step ({'bf16' if args.bf16 else 'f32'}, conv_fused "
+            f"{'on' if conv_fused else 'off'})", rec)
 
 
 def _oc20(args, wigner_rep: str) -> tuple[str, dict]:
@@ -447,6 +456,12 @@ def run(argv=None) -> list[dict]:
                     help="structures per call (default 16; --qm9: 64 molecules; --oc20: 4)")
     ap.add_argument("--atoms", type=int, default=None,
                     help="atoms per structure (default 30; --qm9: 18; --oc20: 72)")
+    ap.add_argument("--remat", action="store_true",
+                    help="--train / --baseline: rematerialize each block (the config key)")
+    ap.add_argument("--inner-ckpt", action="store_true",
+                    help="--train / --baseline: rematerialize the whole energy evaluation")
+    ap.add_argument("--bf16", action="store_true",
+                    help="--qm9: bf16 compute with f32 master weights")
     ap.add_argument("--json", default=None, help="write the records here too")
     args = ap.parse_args(argv)
     args.structures = args.structures or (64 if args.qm9 else 4 if args.oc20 else 16)

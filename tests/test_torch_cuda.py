@@ -686,3 +686,59 @@ def test_deterministic_segment_pair_on_the_card(dev, dt):
     tol = 1e-5 if dt == torch.float32 else 2e-2
     for p, r in zip(a, ref):
         assert (p.float() - r.float()).abs().max() <= tol * r.float().abs().max()
+
+
+@pytest.mark.parametrize("mode", ["remat", "inner_ckpt"])
+def test_remat_step_on_the_card_matches_the_step_without(dev, mode):
+    """The float32 force loss of a small model (K1 rotations, K2a-c S2
+    sites) with each block rematerialized (``remat``) or the whole energy
+    evaluation (``inner_ckpt``): loss and gradients on the card within
+    1e-5 (relative, relative L2) of the same step without, and every
+    kernel launched inside the recomputes."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import (
+        as_tensors,
+        collate,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.synthetic import (
+        labelled_structures,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        matpes_energy_forces,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        matpes_loss,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.precision import (
+        full_f32_products,
+    )
+
+    cfg = dict(num_layers=2, sphere_channels=16, attn_hidden_channels=16, num_heads=2,
+               attn_alpha_channels=8, attn_value_channels=8, ffn_hidden_channels=128,
+               lmax=4, mmax=2, grid_resolution=12, edge_channels=16, num_rbf=32,
+               cutoff=5.0, alpha_drop=0.0, drop_path_rate=0.0, fixed_degree=True,
+               uniform_blocks=True)
+    model = init_weights(EquiformerV2MatPES(**cfg), torch.Generator().manual_seed(0)).to(dev)
+    batch = as_tensors(collate(labelled_structures(np.random.default_rng(0), 2, 9), 5.0, 8,
+                               32, 256, fixed_degree=True), dev)
+    out = {}
+    for on in (False, True):
+        model.backbone.remat = on and mode == "remat"
+        model.zero_grad(set_to_none=True)
+        before = {**{f"r.{k}": c for k, c in rd.launches.items()},
+                  **{f"s.{k}": c for k, c in s2act.launches.items()}}
+        with full_f32_products():
+            outs = matpes_energy_forces(model, batch, create_graph=True,
+                                        inner_ckpt=on and mode == "inner_ckpt")
+            loss, _ = matpes_loss(outs, batch)
+            loss.backward()
+        after = {**{f"r.{k}": c for k, c in rd.launches.items()},
+                 **{f"s.{k}": c for k, c in s2act.launches.items()}}
+        assert all(after[k] > before[k] for k in before), (before, after)
+        out[on] = (float(loss.detach()), {n: p.grad.clone() for n, p in model.named_parameters()
+                                          if p.grad is not None})
+    (l0, g0), (l1, g1) = out[False], out[True]
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    assert g1.keys() == g0.keys()
+    num = sum(float(((g1[k] - g0[k]).double() ** 2).sum()) for k in g0)
+    den = sum(float((g0[k].double() ** 2).sum()) for k in g0)
+    assert (num / den) ** 0.5 <= 1e-5

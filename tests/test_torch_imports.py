@@ -60,7 +60,7 @@ def test_port_has_every_module_of_the_slice():
                 "data/matpes.py", "train/test_matpes.py", "parallel/multihost.py",
                 "parallel/data_parallel.py", "data/native.py", "csrc/neighborlist.cpp",
                 "nn/partition.py", "parallel/sharding.py", "parallel/pipeline.py",
-                "utils/port.py"):
+                "utils/port.py", "nn/remat.py", "data/prep.py", "utils/plots.py"):
         assert (PORT / rel).is_file(), rel
 
 

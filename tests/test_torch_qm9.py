@@ -169,3 +169,47 @@ def test_default_s2_grid_matches_jax(lm):
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(F.numpy(), np.asarray(gj.from_grid_mat).reshape(P, -1),
                                rtol=1e-5, atol=1e-6)
+
+
+def test_qm9_bf16_step_matches_jax():
+    """One bf16 step (bf16 compute, f32 masters; conv_fused on both sides)
+    against the JAX package's ``make_qm9_train_step(mixed_precision=True)``
+    of a ``compute_dtype='bfloat16'`` model: the step's loss, and the
+    gradients of its loss by the masters (``jax.grad`` of the JAX step's
+    loss function, compiled apart: in bf16 the two JAX programs' losses
+    differ by 9e-5), at the bf16 limits of
+    tests/test_torch_oc20.py: loss 2e-2 relative, gradients 5e-2 relative L2.
+    The masters after the step are not compared (Adam's first step turns a
+    bf16 gradient's sign noise into lr-sized moves)."""
+    jb, tb = _batch()
+    jm = JaxQM9(**CFG, fixed_degree=True, uniform_blocks=True, wigner_rep="dense",
+                compute_dtype="bfloat16")
+    params = _random_flax_params(jm, jb, seed=2)
+
+    def loss_fn(p):   # make_qm9_train_step's, mixed_precision=True
+        pred = jm.apply(jtrainer.cast_params(p, jnp.bfloat16), jb, deterministic=False)
+        return jtrainer.qm9_loss(pred.astype(jnp.float32), jb["y"], "l1")
+
+    tx = jtrainer.make_optimizer(jsched.warmup_cosine(LR, WARMUP, TOTAL), WD, CLIP)
+    with flags.override(wigner="dense", conv_fused="force"):
+        loss_j, grads_j = jax.jit(jax.value_and_grad(loss_fn))(params)
+        _, jm_out = jax.jit(jtrainer.make_qm9_train_step(jm, tx, "l1", 0.9,
+                                                         mixed_precision=True))(
+            jtrainer.create_train_state(params, tx), jb, jax.random.PRNGKey(0))
+
+    model = EquiformerV2QM9(**CFG, conv_fused=True, compute_dtype=torch.bfloat16)
+    model.load_state_dict(flax_to_state_dict(params))
+    state = create_train_state(model, GuardedAdamW(model.named_parameters(),
+                                                   tsched.warmup_cosine(LR, WARMUP, TOTAL),
+                                                   WD, CLIP))
+    loss, m = make_qm9_train_step(state, "l1", 0.9)(tb)
+    assert m["accepted"] and all(p.dtype == torch.float32 for p in model.parameters())
+    grads_t = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    # the step clipped its gradients to the global norm 1 (CLIP): unclip them
+    grads_t = {n: g / min(1.0, CLIP / float(m["grad_norm"])) for n, g in grads_t.items()}
+    grads_j = flax_to_state_dict(grads_j)
+    err_l = abs(float(loss) - float(jm_out["loss"])) / abs(float(jm_out["loss"]))
+    err_g = _rel_l2(grads_t, grads_j)
+    print(f"QM9 bf16 step: loss rel err {err_l:.2e}, gradient rel L2 err {err_g:.2e}")
+    assert err_l <= 2e-2, err_l
+    assert err_g <= 5e-2, err_g

@@ -11,6 +11,14 @@ evaluation, run on the CPU on a copy of the checkpoint (that CLI writes
 into its run directory, and ``runs/qm9_fixture`` is committed evidence).
 The gap to the committed ``eval_test.json``, taken on a TPU, is printed
 (``pytest -s``), not held.
+
+The npz side (``data/prep.py`` and ``QM9NpzDataset``) on the 96 molecules
+of ``tests/fixtures/train/qm9_train.db``: ``save_qm9_npz`` writes the JAX
+package's arrays bit for bit, ``QM9NpzDataset`` gives its samples bit for
+bit (normalized, raw, a target subset, ``max_samples``), and
+``compute_qm9_stats_arrays`` its JSON; ``compute_qm9_stats`` on the
+database (float64 sums, as the JAX package's) equals the float32 array
+path's to 1e-6 relative.
 """
 
 import json
@@ -24,6 +32,7 @@ import numpy as np
 import pytest
 
 from equivarianttransformermpnn4quantumcomputations_tpu.data import graph as jgraph
+from equivarianttransformermpnn4quantumcomputations_tpu.data import prep as jprep
 from equivarianttransformermpnn4quantumcomputations_tpu.data import loader as jloader
 from equivarianttransformermpnn4quantumcomputations_tpu.data import qm9 as jqm9
 from equivarianttransformermpnn4quantumcomputations_tpu.data import synthetic as jsynth
@@ -38,6 +47,7 @@ from equivarianttransformermpnn4quantumcomputations_tpu.train.checkpoint import 
 )
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.configs import qm9 as tcfg
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.data import loader as tloader
+from equivarianttransformermpnn4quantumcomputations_tpu_torch.data import prep as tprep
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.data import qm9 as tqm9
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.data import synthetic as tsynth
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.train import test_qm9, train_qm9
@@ -167,3 +177,75 @@ def test_qm9_clis_write_only_their_own_run_dir(tmp_path, monkeypatch):
     assert sorted(os.listdir(run)) == sorted(
         ["ckpt_best.pt", "ckpt_best.meta.json", "config.json", "losses.csv", "metrics.json",
          "eval_test.json", "predictions.npy", "targets.npy"])
+
+
+TRAIN_DB = FIX / "train" / "qm9_train.db"
+
+
+def _molecules():
+    """(numbers, positions, raw targets in RAW_KEY_ORDER) of the fixture db."""
+    db = tqm9._AseDbLite(str(TRAIN_DB))
+    out = []
+    for i in range(1, db.count() + 1):
+        numbers, positions, data = db.get(i)
+        out.append((numbers, positions, [data[k] for k in tqm9.RAW_KEY_ORDER]))
+    return out
+
+
+@pytest.fixture(scope="module")
+def npz_pair(tmp_path_factory):
+    d = tmp_path_factory.mktemp("npz")
+    mols = _molecules()
+    return (tprep.save_qm9_npz(mols, str(d / "t.npz")),
+            jprep.save_qm9_npz(mols, str(d / "j.npz")), mols)
+
+
+def test_save_qm9_npz_matches_jax(npz_pair):
+    t, j, mols = npz_pair
+    assert tqm9.RAW_KEY_ORDER == jqm9.RAW_KEY_ORDER
+    with np.load(t) as a, np.load(j) as b:
+        assert sorted(a.files) == sorted(b.files) == ["numbers", "offsets", "positions",
+                                                      "targets_raw"]
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert a["offsets"][-1] == len(a["numbers"]) and len(a["targets_raw"]) == len(mols)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(normalize=False), dict(target_indices=[10, 1]),
+                                dict(max_samples=7)],
+                         ids=["normalized", "raw", "subset", "max_samples"])
+def test_qm9_npz_dataset_matches_jax(npz_pair, kw):
+    path, _, mols = npz_pair
+    stats = str(FIX / "qm9_full_stats.json")
+    t, j = tqm9.QM9NpzDataset(path, stats, **kw), jqm9.QM9NpzDataset(path, stats, **kw)
+    assert len(t) == len(j) == min(len(mols), kw.get("max_samples", len(mols)))
+    for i in range(len(t)):
+        a, b = t[i], j[i]
+        for k in ("atomic_numbers", "pos", "y"):
+            assert getattr(a, k).dtype == getattr(b, k).dtype, k
+            np.testing.assert_array_equal(getattr(a, k), getattr(b, k), err_msg=k)
+    # the npz path gives the database path's samples
+    db = tqm9.QM9Dataset(str(TRAIN_DB), stats, **kw)
+    for i in (0, len(t) - 1):
+        np.testing.assert_array_equal(t[i].pos, db[i].pos)
+        np.testing.assert_allclose(t[i].y, db[i].y, rtol=1e-6, atol=1e-6)
+
+
+def test_qm9_stats_match_jax(tmp_path):
+    raw = np.asarray([m[2] for m in _molecules()])
+    got = tprep.compute_qm9_stats_arrays(raw, str(tmp_path / "t" / "stats.json"))
+    want = jprep.compute_qm9_stats_arrays(raw, str(tmp_path / "j" / "stats.json"))
+    assert got == want and got["count"] == 96
+    with open(tmp_path / "t" / "stats.json") as f:
+        assert json.load(f) == want
+    # the database path (float64) against the array path (float32)
+    from_db = tprep.compute_qm9_stats(str(TRAIN_DB), str(tmp_path / "db.json"))
+    assert from_db["count"] == got["count"] and from_db["stats"].keys() == got["stats"].keys()
+    for name, st in got["stats"].items():
+        for k, v in st.items():
+            np.testing.assert_allclose(from_db["stats"][name][k], v, rtol=1e-6, atol=1e-6,
+                                       err_msg=f"{name} {k}")
+    # the loader reads what the tool writes
+    mean, std = tqm9.load_qm9_stats(str(tmp_path / "db.json"))
+    assert mean.shape == std.shape == (12,) and np.all(std > 0)
