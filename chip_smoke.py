@@ -154,18 +154,24 @@ Phases, each of which raises on failure:
      batches and seed: (a) the flagship at full width, data=1 model=2, f32
      and bf16; (b) the same with ``sp``; (c) the MoE preset under EP, 2
      layers; (d) data=2 model=2, 4 ranks, 2 layers; (e) one ``conv_fused``
-     step at model=2, 2 layers (kernel K3 at conv 2's sharded C_in = 64).
+     step at model=2, 2 layers (kernel K3 at conv 2's sharded C_in = 64);
+     (f) the flagship with ``sp`` on the same structures collated ragged
+     (N_pad 496, E_pad 9728: a node's edges straddle the ranks' halves and
+     the last rank holds the padded edges), f32 and bf16; (g) the same in
+     the graph-uniform layout (N_pad 640, E_pad 12,288), bf16.
      Loss and metrics, energies and forces of a forward, and the gathered
      gradients within ``DP_LIMITS``; the masters and EMA that the
      one-process optimizer makes of the ranks' gradients within 1e-2 lr
      (phase 7); K1's four kinds and K2a-c (and K3 in (e)) launched in every
-     rank.  Before them K1 and K2a-c at the sharded shapes against their
+     rank; each rank's edge shard and collective counts and bytes a step.
+     Before them K1 and K2a-c at the sharded shapes against their
      plain versions (phase 3's limits): K1 "from" / "to" on 4 of the 8
-     heads, K1 "to_m0" / "from" / "from_m0" on half the edges (``sp``), K2
-     on 256 of the 512 FFN channels; their rows join the kernels' JSON,
-     with the launches of rank 0's bf16 step (a) or (b).  The step times
-     are two ranks sharing one card through the host, not a
-     tensor-parallel speed.
+     heads, K1 "to_m0" / "from" / "from_m0" on half the edges (``sp``), K1's
+     four kinds on the last rank's half of the ragged batch (rows
+     ``[sp ragged]``), K2 on 256 of the 512 FFN channels; their rows join
+     the kernels' JSON, with the launches of rank 0's bf16 step (a), (b) or
+     (f).  The step times are two ranks sharing one card through the host,
+     not a tensor-parallel speed.
   16. DP x GPipe pipeline training (``parallel/pipeline.py``) on the one
      card, the flagship at its 6 layers and full width, each case's ranks
      spawned over gloo and held against the one-process step of the same
@@ -246,6 +252,10 @@ QM9_MOLECULES, QM9_ATOMS = 64, 18      # configs/qm9.py batch; QM9's mean size
 OC20_GRAPHS, OC20_ATOMS = 4, 72        # bench.py:435 (N_pad 320, E_pad 6,400)
 # H100 SXM published peaks: HBM3 bandwidth; FP32 on FFMA, dense TF32 and
 # BF16 on the tensor cores
+# the graph-uniform layout's node and edge slots per 30-atom structure
+# (``infer_pad_sizes``' 1.25 safety, rounded up to 4 and 32)
+UNIFORM_SLOTS = (int(np.ceil(N_ATOMS * 1.25 / 4)) * 4,
+                 int(np.ceil(N_ATOMS * MAX_NEIGHBORS * 1.25 / 32)) * 32)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"ffma": 67e12, "tf32": 495e12, "bf16": 989e12}
 PKG = "equivarianttransformermpnn4quantumcomputations_tpu_torch"
@@ -853,23 +863,33 @@ def check_k3(e_flagship: int, e_qm9: int, tag: str) -> list[dict]:
     return records + [b_record]
 
 
-def _flagship_batches(n: int, seed: int = 2, structures: int = N_STRUCTURES) -> list[dict]:
-    """``n`` labelled batches of ``structures`` x ``N_ATOMS`` on the card
-    (the flagship's layout; 16 structures: N_pad 496, E_pad 9920)."""
+def _flagship_batches(n: int, seed: int = 2, structures: int = N_STRUCTURES,
+                      layout: str = "fixed") -> list[dict]:
+    """``n`` labelled batches of ``structures`` x ``N_ATOMS`` on the card, in
+    the flagship's fixed-degree layout (16 structures: N_pad 496, E_pad
+    9920), ragged (N_pad as the fixed-degree batch's, E_pad the most edges
+    ``MAX_NEIGHBORS`` allows rounded up to 128, the serving request's
+    quantum: 9728 for 16 x 30) or uniform (phase 18's per-graph slots: 640
+    / 12,288); the same structures in every layout."""
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import (
         as_tensors,
         collate,
     )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.loader import bucket
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.synthetic import (
         labelled_structures,
     )
 
     rng = np.random.default_rng(seed)
     n_pad, e_pad = fixed_degree_pads([N_ATOMS] * structures, MAX_NEIGHBORS)
+    pads = {"fixed": (n_pad, e_pad, dict(fixed_degree=True)),
+            "ragged": (n_pad, bucket(structures * N_ATOMS * MAX_NEIGHBORS + 1, 128), {}),
+            "uniform": (structures * UNIFORM_SLOTS[0], structures * UNIFORM_SLOTS[1],
+                        dict(uniform=True))}[layout]
     batches = []
     for _ in range(n):
         pb = collate(labelled_structures(rng, structures, N_ATOMS), CUTOFF,
-                     MAX_NEIGHBORS, n_pad, e_pad, fixed_degree=True)
+                     MAX_NEIGHBORS, pads[0], pads[1], **pads[2])
         if pb.overflow_atoms or pb.overflow_edges:
             raise RuntimeError("training batch overflowed its pads")
         batches.append(as_tensors(pb, "cuda"))
@@ -2140,13 +2160,6 @@ def layout_step_phase(tag: str) -> None:
     and one on the ``blocks`` Wigner representation (the fixed-degree
     batch): finite, accepted, K2a-c launched, and K1's four kinds in the
     uniform step (the blocks representation rotates by batched matmuls)."""
-    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import (
-        as_tensors,
-        collate,
-    )
-    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.synthetic import (
-        labelled_structures,
-    )
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
         FLAGSHIP,
         EquiformerV2MatPES,
@@ -2160,13 +2173,9 @@ def layout_step_phase(tag: str) -> None:
     counters = {**{f"rotate_pairs.{k}": (rotate_dense.launches, k)
                    for k in rotate_dense.launches},
                 **{f"s2act.{k}": (s2act.launches, k) for k in s2act.launches}}
-    samples = labelled_structures(np.random.default_rng(18), N_STRUCTURES, N_ATOMS)
-    n_slot = int(np.ceil(N_ATOMS * 1.25 / 4)) * 4
-    e_slot = int(np.ceil(N_ATOMS * MAX_NEIGHBORS * 1.25 / 32)) * 32
-    uniform = collate(samples, CUTOFF, MAX_NEIGHBORS, N_STRUCTURES * n_slot,
-                      N_STRUCTURES * e_slot, uniform=True)
+    (uniform,) = _flagship_batches(1, seed=18, layout="uniform")
     (fixed,) = _flagship_batches(1, seed=18)
-    cases = [("uniform blocks", dict(uniform_blocks=True), as_tensors(uniform, "cuda")),
+    cases = [("uniform blocks", dict(uniform_blocks=True), uniform),
              ("blocks Wigner", dict(wigner_rep="blocks", **FIXED_DEGREE), fixed)]
     for what, kw, batch in cases:
         model = EquiformerV2MatPES(**FLAGSHIP, alpha_drop=0.0, drop_path_rate=0.0,
@@ -2838,20 +2847,26 @@ def dp_phase(counters: dict, tag: str) -> dict:
 TP_SEED = 15          # the micro-batches of phase 15 (_flagship_batches' seed)
 TP_LR = 2e-4          # a constant rate (phase 7's): the first step moves every master
 TP_TIMEOUT_S = 900    # each group of spawned processes
-# (case, (data, model), sp, dtype, layers (None: the flagship's 6), model)
+# (case, (data, model), sp, dtype, layers (None: the flagship's 6), model,
+# edge layout)
 TP_CASES = [
-    ("a f32", (1, 2), False, "f32", None, "flagship"),
-    ("a bf16", (1, 2), False, "bf16", None, "flagship"),
-    ("b f32 sp", (1, 2), True, "f32", None, "flagship"),
-    ("b bf16 sp", (1, 2), True, "bf16", None, "flagship"),
-    ("c MoE EP", (1, 2), False, "f32", 2, "equiformer_v2_matpes_gatav2_moe"),
-    ("e conv_fused", (1, 2), False, "f32", 2, "conv_fused"),
-    ("d data=2 model=2", (2, 2), False, "f32", 2, "flagship"),
+    ("a f32", (1, 2), False, "f32", None, "flagship", "fixed"),
+    ("a bf16", (1, 2), False, "bf16", None, "flagship", "fixed"),
+    ("b f32 sp", (1, 2), True, "f32", None, "flagship", "fixed"),
+    ("b bf16 sp", (1, 2), True, "bf16", None, "flagship", "fixed"),
+    ("c MoE EP", (1, 2), False, "f32", 2, "equiformer_v2_matpes_gatav2_moe", "fixed"),
+    ("e conv_fused", (1, 2), False, "f32", 2, "conv_fused", "fixed"),
+    ("f f32 sp ragged", (1, 2), True, "f32", None, "flagship", "ragged"),
+    ("f bf16 sp ragged", (1, 2), True, "bf16", None, "flagship", "ragged"),
+    ("g bf16 sp uniform", (1, 2), True, "bf16", None, "flagship", "uniform"),
+    ("d data=2 model=2", (2, 2), False, "f32", 2, "flagship", "fixed"),
 ]
+# the models' layout fields of each batch layout
+TP_LAYOUTS = {"fixed": FIXED_DEGREE, "ragged": {}, "uniform": dict(uniform_blocks=True)}
 # the sharded shapes' kernel rows (K1 at the rank's heads or edges, K2 at
 # the rank's FFN channels) and the case whose rank-0 step counts their launches
 TP_K2_SITES = [("flagship FFN, model=2", (4, 4, 18), None, 256, "[tp]", True)]
-TP_ROW_CASE = {"[tp]": "a bf16", "[sp]": "b bf16 sp"}
+TP_ROW_CASE = {"[tp]": "a bf16", "[sp]": "b bf16 sp", "[sp ragged]": "f bf16 sp ragged"}
 
 
 def _tp_state(spec):
@@ -2871,8 +2886,9 @@ def _tp_state(spec):
         variant_model,
     )
 
-    _, _, _, dt, layers, what = spec
-    kw = dict(FIXED_DEGREE) if layers is None else {"num_layers": layers, **FIXED_DEGREE}
+    _, _, _, dt, layers, what, layout = spec
+    kw = dict(TP_LAYOUTS[layout]) if layers is None else {"num_layers": layers,
+                                                           **TP_LAYOUTS[layout]}
     if what.startswith("equiformer"):
         model = variant_model(what, DP_DTYPES[dt], seed=0, **kw)
     else:
@@ -2902,7 +2918,8 @@ def _tp_run(spec, mesh, batches: list[dict]) -> dict:
     and forces of data row 0's first micro-batch, then one composite step
     (``parallel/sharding.py``) with the launch counts zeroed just before;
     the step's loss and metrics and the gathered gradients, masters and EMA
-    (on the host), the launches, ms and collectives."""
+    (on the host), the launches, ms, collectives and the rank's edge shard
+    (edges, node rows)."""
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
         matpes_energy_forces,
     )
@@ -2915,11 +2932,11 @@ def _tp_run(spec, mesh, batches: list[dict]) -> dict:
         full_f32_products,
     )
 
-    name, (data, _), sp, _, _, _ = spec
+    name, (data, _), sp = spec[:3]
     state = _tp_state(spec)
     gen = torch.Generator("cuda").manual_seed(rank_seed(TP_SEED, mesh.data_index))
     step = sharding.make_composite_matpes_step(state, mesh, data, sp=sp, generator=gen)
-    local, rows = sharding.batch_shards(stack_microbatches(batches[:data]), mesh, sp)
+    local, shard = sharding.batch_shards(stack_microbatches(batches[:data]), mesh, sp)
     with full_f32_products():
         outs = matpes_energy_forces(state.model, {k: v[0] for k, v in local.items()})
     counters = _tp_counters()
@@ -2948,7 +2965,8 @@ def _tp_run(spec, mesh, batches: list[dict]) -> dict:
                 params=host({k: p for k, p in model.named_parameters()}),
                 ema=host(state.ema), launches=launches, ms=ms,
                 collectives={k: (mesh.mp.counts[k], mesh.mp.bytes[k]) for k in mesh.mp.counts},
-                edge_rows=None if rows is None else [rows.start, rows.stop],
+                edge_shard=None if shard is None else [
+                    (shard.edges.start, shard.edges.stop), (shard.rows.start, shard.rows.stop)],
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
@@ -2969,13 +2987,15 @@ def _tp_rank(rank: int, world: int, port: int, out_dir: str, names: list[str]) -
     if not multihost.initialize_from_env(device="cuda", verbose=False):
         raise RuntimeError("no process group")
     try:
-        batches = _flagship_batches(2, seed=TP_SEED)
+        batches = {}
         for spec in (s for s in TP_CASES if s[0] in names):
-            name, (_, M), sp = spec[:3]
-            res = _tp_run(spec, sharding.make_composite_mesh(M), batches)
+            name, (_, M), sp, layout = spec[0], spec[1], spec[2], spec[6]
+            if layout not in batches:
+                batches[layout] = _flagship_batches(2, seed=TP_SEED, layout=layout)
+            res = _tp_run(spec, sharding.make_composite_mesh(M), batches[layout])
             keep = res if rank == 0 else {k: res[k] for k in
                                           ("loss", "launches", "ms", "collectives",
-                                           "edge_rows", "peak_gib")}
+                                           "edge_shard", "peak_gib")}
             torch.save(keep, os.path.join(out_dir, f"{name}.rank{rank}.pt"))
             del res, keep
             torch.cuda.empty_cache()
@@ -2983,13 +3003,30 @@ def _tp_rank(rank: int, world: int, port: int, out_dir: str, names: list[str]) -
         dist.destroy_process_group()
 
 
-def check_sharded_kernels(batch, tag: str) -> list[dict]:
+def _split_facts(batch: dict, size: int) -> tuple[int, int]:
+    """(the nodes whose real incoming edges lie on more than one of ``size``
+    ranks' even slices of the edge axis, the padded edges on the last
+    rank's)."""
+    E = batch["edge_dst"].shape[0]
+    rank = torch.arange(E, device=batch["edge_dst"].device) // (E // size)
+    real = batch["edge_mask"]
+    dst, r = batch["edge_dst"][real], rank[real]
+    first = torch.full((batch["pos"].shape[0],), size, device=dst.device).scatter_reduce(
+        0, dst, r, "amin")
+    last = torch.full_like(first, -1).scatter_reduce(0, dst, r, "amax")
+    return int(((last >= 0) & (last != first)).sum()), int((~real[rank == size - 1]).sum())
+
+
+def check_sharded_kernels(batch, ragged, tag: str) -> list[dict]:
     """Phase 15, the kernels at the sharded shapes of model = 2, against
     their plain versions within phase 3's limits (f32 and bf16; forward,
     gradient and grad-of-grad through the autograd pairs): K1 "from" and its
     adjoint "to" on the rank's 4 heads ([E, 19, 64], [E, 25, 64]) and, under
     ``sp``, "to_m0", "from" and "from_m0" on the rank's E / 2 edges at every
-    channel; K2a / K2b / K2c on the rank's 256 FFN channels, [496, 25, 256]."""
+    channel; K1's four kinds on the last rank's half of the ragged batch
+    ``ragged`` (its padded edges included; E_pad / 2 is no multiple of the
+    fixed-degree layout's 20 slots); K2a / K2b / K2c on the rank's 256 FFN
+    channels, [496, 25, 256]."""
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
         FLAGSHIP as cfg,
     )
@@ -3007,6 +3044,9 @@ def check_sharded_kernels(batch, tag: str) -> list[dict]:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     w = rd.compute_wigner_dense(lmax, mmax, dvec)
     wh = rd.compute_wigner_dense(lmax, mmax, dvec[: E // 2])
+    rvec = edge_vectors(ragged)
+    Er = rvec.shape[0] // 2
+    wr = rd.compute_wigner_dense(lmax, mmax, rvec[Er:])
     specs = [
         ("from", "[tp]", (E, Kr, hv // 2), (w.v_from_res, w.v_to_res),
          "model=2 attention back, 4 heads"),
@@ -3018,13 +3058,21 @@ def check_sharded_kernels(batch, tag: str) -> list[dict]:
          "sp attention back, E/2"),
         ("from_m0", "[sp]", (E // 2, lmax + 1, 2 * C), (wh.v_from_m0, wh.v_to_m0),
          "sp, adjoint of to_m0, E/2"),
+        ("to_m0", "[sp ragged]", (Er, K, 2 * C), (wr.v_to_m0, wr.v_from_m0),
+         "sp ragged attention in, m=0, last rank's E_pad/2"),
+        ("from", "[sp ragged]", (Er, Kr, hv), (wr.v_from_res, wr.v_to_res),
+         "sp ragged attention back, E_pad/2"),
+        ("to", "[sp ragged]", (Er, K, hv), (wr.v_to_res, wr.v_from_res),
+         "sp ragged, adjoint of from, E_pad/2"),
+        ("from_m0", "[sp ragged]", (Er, lmax + 1, 2 * C), (wr.v_from_m0, wr.v_to_m0),
+         "sp ragged, adjoint of to_m0, E_pad/2"),
     ]
     records = []
     for kind, sfx, shape, (v, va), site in specs:
         name = f"rotate_pairs.{kind}{sfx}"
         records.append(_k1_record(name, [_k1_site(kind, shape, v, va, site, lmax, mmax, True,
                                                   gen, flush, tag, False, name)]))
-    del w, wh
+    del w, wh, wr
     return records + check_k2(int(batch["pos"].shape[0]), tag, TP_K2_SITES)
 
 
@@ -3040,17 +3088,24 @@ def tp_phase(batch, tag: str) -> list[dict]:
         apply_updates,
     )
 
-    records = check_sharded_kernels(batch, tag)
+    batches = {layout: _flagship_batches(2, seed=TP_SEED, layout=layout)
+               for layout in TP_LAYOUTS}
+    records = check_sharded_kernels(batch, batches["ragged"][0], tag)
     print(f"composite step: {len(TP_CASES)} cases at (data, model) ranks on the one card "
           f"over gloo (gloo copies CUDA tensors through the host; the ranks share one card: "
           f"no times below are a tensor-parallel speed)  [{tag}]", flush=True)
-    batches = _flagship_batches(2, seed=TP_SEED)
+    for layout, (b, _) in batches.items():
+        straddling, padded = _split_facts(b, 2)
+        print(f"composite step, {layout} batches: N_pad {b['pos'].shape[0]}, E_pad "
+              f"{b['edge_src'].shape[0]}; at model=2 {straddling} nodes have real edges on "
+              f"both ranks, the last rank holds {padded} padded edges  [{tag}]", flush=True)
     refs = {}
     for spec in TP_CASES:   # the one-process step of each case
-        refs[spec[0]] = _tp_run(spec, sharding.make_composite_mesh(1), batches)
+        refs[spec[0]] = _tp_run(spec, sharding.make_composite_mesh(1), batches[spec[6]])
         torch.cuda.empty_cache()
     del batches
     torch.cuda.empty_cache()
+    mb = {}   # each case's collective MB per rank and step
     with tempfile.TemporaryDirectory() as tmp:
         for world in (2, 4):
             names = [s[0] for s in TP_CASES if s[1][0] * s[1][1] == world]
@@ -3087,8 +3142,15 @@ def tp_phase(batch, tag: str) -> list[dict]:
                             {n: want["params"][n] - start[n] for n in start})
             del replay, start
             counts = [r["launches"] for r in ranks]
-            print(f"composite ({name}): data={data} model={M} sp={sp}, rank edge rows "
-                  f"{[r['edge_rows'] for r in ranks]}; loss {got['loss']:.6f} vs one process "
+            mb[name] = [sum(b for _, b in r["collectives"].values()) / 1e6 for r in ranks]
+            fixed_sp = f"b {dt} sp"
+            beside = (f" (fixed-degree sp, {fixed_sp}: {[round(v, 1) for v in mb[fixed_sp]]})"
+                      if sp and name != fixed_sp and fixed_sp in mb else "")
+            print(f"composite ({name}): data={data} model={M} sp={sp} layout {spec[6]}, "
+                  f"rank edge shard (edges, node rows) {[r['edge_shard'] for r in ranks]}; "
+                  f"collective MB a step by rank {[round(v, 1) for v in mb[name]]}{beside}, "
+                  f"(count, bytes) by rank {[r['collectives'] for r in ranks]}; "
+                  f"loss {got['loss']:.6f} vs one process "
                   f"{want['loss']:.6f}; rel errs {', '.join(f'{k} {v:.2e}' for k, v in errs.items())} "
                   f"(limits loss and metrics {lim_loss:.0e}, energies, forces and gradients "
                   f"{lim_grad:.0e} relative L2); on the ranks' gradients, after the step: "
@@ -3096,9 +3158,8 @@ def tp_phase(batch, tag: str) -> list[dict]:
                   f"1e-2 lr); the update against the one-process step's, rel L2 {moved:.2e}; "
                   f"step ms by rank {[round(r['ms'], 1) for r in ranks]} (one process "
                   f"{want['ms']:.1f}); peak GiB by rank "
-                  f"{[round(r['peak_gib'], 2) for r in ranks]}; collectives on rank 0 "
-                  f"(count, bytes) {got['collectives']}; launches by rank {counts}  [{tag}]",
-                  flush=True)
+                  f"{[round(r['peak_gib'], 2) for r in ranks]}; launches by rank {counts}  "
+                  f"[{tag}]", flush=True)
             if not (max(errs[k] for k in ("loss", "energy_l1", "force_l1")) <= lim_loss
                     and max(errs[k] for k in ("energy", "forces", "grads")) <= lim_grad
                     and dp_ <= 1e-2 * TP_LR and de_ <= 1e-2 * TP_LR):
@@ -3138,7 +3199,7 @@ PP_NEED = ["rotate_pairs.to", "rotate_pairs.from", "rotate_pairs.to_m0",
 
 def _pp_spec(dt: str) -> tuple:
     """The phase-15 spec of the flagship at full width in ``dt`` (``_tp_state``)."""
-    return ("flagship", (1, 1), False, dt, None, "flagship")
+    return ("flagship", (1, 1), False, dt, None, "flagship", "fixed")
 
 
 def _pp_reference(spec, batches: list[dict]) -> dict:

@@ -52,13 +52,14 @@ after the first and start at the last, for parallel/pipeline.py's GPipe
 schedule.
 
 Sequence parallelism (a ``ModelGroup`` with ``sp``, parallel/sharding.py;
-the fixed-degree layout only): the backbone takes this rank's contiguous
-slice of the whole edge arrays it is given (the slots of its N/M node rows,
-``ModelGroup.edge_rows``);
+any edge layout): the backbone takes this rank's even, contiguous slice of
+the whole edge arrays it is given (``ModelGroup.edge_shard``: edges
+[r E/M, (r+1) E/M), node rows [r N/M, (r+1) N/M));
 positions and cell enter the edge region through ``copy_to``, so the forces
 and the strain derivative sum the ranks' shares; the displacements, Wigner
 tables, distance RBF, edge-degree embedding, ``t_ij`` and ``rl_ij`` cover
-the rank's edges only, and the edge-degree embedding's node rows are
+the rank's edges only; the edge-degree embedding's sums onto the targets
+are completed onto the rank's node rows (ops/segment.py), which are
 gathered.
 """
 
@@ -202,8 +203,9 @@ class EquiformerV2Backbone(nn.Module):
             atomic_numbers, pos, graph_idx, edge_src, edge_dst, edge_shift, edge_mask, cell)
         if stack_capture:
             return carry, broadcast
-        rows = self._rows(N, E)
-        carry = self.run_blocks(carry, broadcast, cell.shape[0], generator=generator, rows=rows)
+        shard = self._shard(N, E)
+        carry = self.run_blocks(carry, broadcast, cell.shape[0], generator=generator,
+                                shard=shard)
         return BackboneOutput(self.post_stack(carry[0]), edge_scalars, broadcast.wigner, blocks)
 
     def layout_blocks(self, N: int, E: int, num_graphs: int) -> Optional[tuple]:
@@ -223,16 +225,13 @@ class EquiformerV2Backbone(nn.Module):
             blocks = blocks + (E // N,)
         return blocks
 
-    def _rows(self, N: int, E: int) -> slice | None:
-        """This rank's node rows under sequence parallelism (None without)."""
+    def _shard(self, N: int, E: int):
+        """This rank's ``EdgeShard`` under sequence parallelism (None without,
+        or where the edge axis stays whole)."""
         mp = self.mp
-        if mp is None or not mp.sp:
+        if mp is None:
             return None
-        if not self.fixed_degree:
-            raise ValueError("sequence parallelism (sp) splits the fixed-degree layout's node "
-                             "rows: build the model with fixed_degree=True and collate with "
-                             "fixed_degree=True")
-        return mp.edge_rows(N, E)
+        return mp.edge_shard(N, E, fixed=self.fixed_degree)
 
     def _pre_stack(self, atomic_numbers, pos, graph_idx, edge_src, edge_dst, edge_shift,
                    edge_mask, cell):
@@ -243,25 +242,23 @@ class EquiformerV2Backbone(nn.Module):
         N, E = atomic_numbers.shape[0], edge_src.shape[0]
         blocks = self.layout_blocks(N, E, cell.shape[0])
         mp = self.mp
-        rows = self._rows(N, E)
+        shard = self._shard(N, E)
 
-        def edge(module, *args):   # a module on this rank's edges
-            return module(*args) if rows is None else mp.call_divergent(module, *args)
+        def edge(module, *args, **kw):   # a module on this rank's edges
+            return module(*args, **kw) if shard is None else mp.call_divergent(module, *args,
+                                                                               **kw)
 
         pos_e = pos
-        if rows is not None:   # this rank's edges; positions enter the edge region
-            k = blocks[3]
-            es = slice(rows.start * k, rows.stop * k)
+        if shard is not None:   # this rank's edges; positions enter the edge region
             edge_src, edge_dst, edge_shift, edge_mask = (
-                t[es] for t in (edge_src, edge_dst, edge_shift, edge_mask))
+                t[shard.edges] for t in (edge_src, edge_dst, edge_shift, edge_mask))
             pos_e, cell = mp.copy_to(pos), mp.copy_to(cell)
 
         # displacements (carry the gradient to pos)
         shift_cart = torch.einsum(
             "ek,ekj->ej", edge_shift.to(pos.dtype), cell[graph_idx[edge_dst]]
         )
-        dvec = (gather_nodes(pos_e if rows is None else pos_e[rows], edge_dst, blocks,
-                             canonical_dst=True)
+        dvec = (gather_nodes(pos_e, edge_dst, blocks, canonical_dst=True, shard=shard)
                 + shift_cart - gather_nodes(pos_e, edge_src, blocks))
         dist = torch.sqrt(torch.clamp((dvec * dvec).sum(-1), min=1e-12))
 
@@ -284,9 +281,9 @@ class EquiformerV2Backbone(nn.Module):
         x = pos.new_zeros(N, self.K_full, self.sphere_channels)
         x = torch.cat([self.sphere_embedding(atomic_numbers)[:, None, :],
                        x[:, 1:, :]], dim=1)
-        deg = edge(self.edge_degree_embedding,
-                   atomic_numbers, edge_scalars, edge_src, edge_dst, edge_mask, wigner, blocks)
-        x = x + (deg if rows is None else mp.gather(deg, dim=0))
+        deg = edge(self.edge_degree_embedding, atomic_numbers, edge_scalars, edge_src,
+                   edge_dst, edge_mask, wigner, blocks, shard=shard)
+        x = x + (deg if shard is None else mp.gather(deg, dim=0))
 
         cdt = self.compute_dtype
         t_ij = rl_ij = a_ij = None
@@ -299,11 +296,10 @@ class EquiformerV2Backbone(nn.Module):
             # t_ij = h_proj(h_i + h_j) * W_erp(phi(r)); the angular stream
             # a_ij the same way with its own projections
             h = x[:, 0, :]
-            if rows is not None:
+            if shard is not None:
                 h = mp.copy_to(h)
             h_sum = (gather_nodes(h, edge_src, blocks)
-                     + gather_nodes(h if rows is None else h[rows], edge_dst, blocks,
-                                    canonical_dst=True))
+                     + gather_nodes(h, edge_dst, blocks, canonical_dst=True, shard=shard))
             t_ij = (edge(self.h_proj, h_sum) * edge(self.W_erp, phi_r)).to(cdt)
             if self.dual_stream:
                 a_ij = (edge(self.a_h_proj, h_sum) * edge(self.a_W_erp, phi_r)).to(cdt)
@@ -315,16 +311,16 @@ class EquiformerV2Backbone(nn.Module):
 
     def run_blocks(self, carry: tuple, broadcast: "StackBroadcast", num_graphs: int,
                    lo: int = 0, hi: Optional[int] = None,
-                   generator: Optional[torch.Generator] = None, rows: slice | None = None,
+                   generator: Optional[torch.Generator] = None, shard=None,
                    params: Optional[dict] = None):
         """Blocks ``[lo, hi)`` on ``carry``; returns the carry after them.
         ``params``: a name -> tensor mapping (the backbone's names) to call
-        the blocks with."""
+        the blocks with; ``shard``: sequence parallelism's ``EdgeShard``."""
         for i in range(lo, len(self.blocks) if hi is None else hi):
             prefix = f"blocks.{i}."
             sub = None if params is None else {n[len(prefix):]: v for n, v in params.items()
                                                if n.startswith(prefix)}
-            carry = block_step(self.blocks[i], carry, broadcast, num_graphs, generator, rows,
+            carry = block_step(self.blocks[i], carry, broadcast, num_graphs, generator, shard,
                                sub, self.remat)
         return carry
 
@@ -352,7 +348,7 @@ class StackBroadcast(NamedTuple):
 
 
 def block_step(block: nn.Module, carry: tuple, broadcast: StackBroadcast, num_graphs: int,
-               generator: Optional[torch.Generator] = None, rows: slice | None = None,
+               generator: Optional[torch.Generator] = None, shard=None,
                params: Optional[dict] = None, remat: bool = False) -> tuple:
     """One block on ``carry`` = (x, t_ij, a_ij); ``params``: a name ->
     tensor mapping to call the block with (``torch.func.functional_call``);
@@ -363,8 +359,8 @@ def block_step(block: nn.Module, carry: tuple, broadcast: StackBroadcast, num_gr
         args = (x, b.atomic_numbers, b.edge_scalars, b.edge_src, b.edge_dst, b.edge_mask,
                 b.wigner, t_ij, b.rl_ij, b.blocks, b.graph_idx, num_graphs, gen, b.phi_r, a_ij)
         if prm is None:
-            return block(*args, rows=rows)
-        return torch.func.functional_call(block, prm, args, {"rows": rows})
+            return block(*args, shard=shard)
+        return torch.func.functional_call(block, prm, args, {"shard": shard})
 
     if not remat:
         return call(*carry, broadcast, params, generator)

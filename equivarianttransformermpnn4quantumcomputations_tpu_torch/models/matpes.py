@@ -140,11 +140,11 @@ class EquiformerV2MatPES(nn.Module):
             s2grid(lmax, lmax, grid_resolution), **head,
         )
 
-    def _global(self, x, batch, pos):
+    def _global(self, x, batch, pos, generator=None):
         """The global-attention stage on the backbone's output."""
         dense = self.global_attn_dense_n_max
         kw = dict(node_slot=batch["node_slot"] if dense else None, n_max=dense,
-                  num_graphs=batch["cell"].shape[0] if dense else None)
+                  num_graphs=batch["cell"].shape[0] if dense else None, generator=generator)
         gm, nm = batch["graph_idx"], batch["node_mask"]
         if self.global_attn_kind == "scalar":
             scal = self.global_attn(x[:, 0, :], gm, nm, pos, **kw)
@@ -176,7 +176,7 @@ class EquiformerV2MatPES(nn.Module):
             return x
         x = x.x
         if self.global_attn_kind is not None:
-            x = self._global(x, batch, pos)
+            x = self._global(x, batch, pos, generator)
         node_energy = self.energy_block(x)[:, 0, 0]
         num_graphs = batch["cell"].shape[0]
         energy_total = segment_sum(node_energy, batch["graph_idx"], num_graphs,

@@ -40,8 +40,10 @@ into contiguous halves), so the alpha weighting, the dropout, the rotation
 back (kernel K1 at [E, K_red, 128 / M]) and the slot sum run on them;
 ``proj`` closes the block with one ``reduce_from``.  Under sequence
 parallelism the module runs unpartitioned on its rank's edges, called
-through ``ModelGroup.call_divergent``; ``rows`` then names the node rows
-whose slots those edges are.
+through ``ModelGroup.call_divergent``; ``shard`` (``EdgeShard``) then
+names them and the node rows whose complete sums the rank takes: the
+softmax and the sum onto the targets run over every rank's edges
+(ops/segment.py), and ``proj`` runs on the rank's rows.
 """
 
 from __future__ import annotations
@@ -139,7 +141,7 @@ class GraphAttention(nn.Module):
                               tp="row")
         self.mp = None
 
-    def _alpha(self, x0_alpha, edge_dst, num_nodes: int, edge_mask, blocks):
+    def _alpha(self, x0_alpha, edge_dst, num_nodes: int, edge_mask, blocks, shard=None):
         """Attention weights [E, heads] (the rank's heads under TP): the
         alpha LayerNorm, smooth leaky ReLU, the per-head dot and the softmax
         over each node's slots."""
@@ -155,27 +157,25 @@ class GraphAttention(nn.Module):
         dt = torch.promote_types(a.dtype, dot.dtype)
         logits = torch.einsum("ehk,hk->eh", a.to(dt), dot.to(dt))
         return segment_softmax(logits, edge_dst, num_nodes, mask=edge_mask, blocks=blocks,
-                               fixed_dst=True)
+                               fixed_dst=True, shard=shard)
 
     def forward(self, x, atomic_numbers, edge_scalars, edge_src, edge_dst,
                 edge_mask, wigner, t_ij, rl_ij, blocks=None,
-                generator: Optional[torch.Generator] = None, phi_r=None,
-                rows: slice | None = None):
+                generator: Optional[torch.Generator] = None, phi_r=None, shard=None):
         """``blocks``: the batch layout (ops/segment.py; None: ragged).
         ``t_ij`` / ``rl_ij``: the GATA edge streams (None when unused);
         ``phi_r``: the distance RBF (``use_phi_every_layer`` only);
-        ``rows``: the edges are the slots of these node rows only (sequence
-        parallelism; the output holds those rows)."""
+        ``shard``: the edges are this rank's (sequence parallelism; ``x`` is
+        every node, the output holds the rank's node rows)."""
         mp = self.mp
         x_edge = edge_scalars
         if self.use_atom_edge_embedding:
             x_edge = torch.cat([edge_scalars,
                                 self.src_embedding(atomic_numbers[edge_src]),
                                 self.dst_embedding(atomic_numbers[edge_dst])], dim=1)
-        num_nodes = x.shape[0] if rows is None else rows.stop - rows.start
+        num_nodes = x.shape[0]
         x_src = gather_nodes(x, edge_src, blocks)
-        x_dst = gather_nodes(x if rows is None else x[rows], edge_dst, blocks,
-                             canonical_dst=True)
+        x_dst = gather_nodes(x, edge_dst, blocks, canonical_dst=True, shard=shard)
         # unrotated target-node features (reference Gotennet fork
         # transformer_block.py:255-267 gathers the target embedding); under
         # TP the value path's share, copied in at the nodes
@@ -197,10 +197,10 @@ class GraphAttention(nn.Module):
         if self.use_gate_act:
             msg = gate_activation(rest, msg, self.lmax, self.layout_red.mmax,
                                   msg.shape[-1])
-            alpha = self._alpha(alpha_in, edge_dst, num_nodes, edge_mask, blocks)
+            alpha = self._alpha(alpha_in, edge_dst, num_nodes, edge_mask, blocks, shard)
         elif not self.use_sep_s2_act:
             msg = s2_activation(msg, self.grid_red)
-            alpha = self._alpha(x0_extra, edge_dst, num_nodes, edge_mask, blocks)
+            alpha = self._alpha(x0_extra, edge_dst, num_nodes, edge_mask, blocks, shard)
         elif self.gata_v1:
             # gates straight from conv 1, no t_ij bias, no alpha scaling
             # (reference Gotennet_inspired/transformer_block.py:311-325)
@@ -209,10 +209,10 @@ class GraphAttention(nn.Module):
                 C //= mp.size
                 X_j = X_j[..., mp.part(self.hidden_channels)]
             msg = gata_value_activation_v1(rest, X_j, rl_ij, self.lmax, C)
-            alpha = self._alpha(alpha_in, edge_dst, num_nodes, edge_mask, blocks)
+            alpha = self._alpha(alpha_in, edge_dst, num_nodes, edge_mask, blocks, shard)
         elif self.gata:
             # alpha before the value activation (reference fork :315-324)
-            alpha = self._alpha(alpha_in, edge_dst, num_nodes, edge_mask, blocks)
+            alpha = self._alpha(alpha_in, edge_dst, num_nodes, edge_mask, blocks, shard)
             if self.normalize_attn_output:   # by the head-mean of alpha
                 if mp is None:
                     mean = alpha.mean(dim=1, keepdim=True)
@@ -223,16 +223,16 @@ class GraphAttention(nn.Module):
             msg = self.value_act(rest, t_ij, h_j, X_j, rl_ij, phi_r, copied=mp is not None)
         else:
             msg = separable_s2_activation(rest, msg, self.grid_red)
-            alpha = self._alpha(alpha_in, edge_dst, num_nodes, edge_mask, blocks)
+            alpha = self._alpha(alpha_in, edge_dst, num_nodes, edge_mask, blocks, shard)
 
         msg, _ = self.so2_conv_2(msg, None, scatter=mp is not None)
         if self.alpha_drop > 0.0 and self.training:
             # the whole batch's mask, as one process draws it
             keep = 1.0 - self.alpha_drop
-            n_edges = alpha.shape[0] if rows is None else x.shape[0] * blocks[3]
+            n_edges = alpha.shape[0] * (1 if shard is None else shard.mp.size)
             mask = keep_mask((n_edges, self.num_heads), keep, generator, alpha.device)
-            if rows is not None:
-                mask = mask[rows.start * blocks[3] : rows.stop * blocks[3]]
+            if shard is not None:
+                mask = mask[shard.edges]
             if mp is not None:
                 mask = mask[:, mp.part(self.num_heads)]
             alpha = alpha * mask.to(alpha.dtype) / keep
@@ -242,4 +242,4 @@ class GraphAttention(nn.Module):
 
         msg = rotate_from_edge(wigner, msg, self.layout_red)
         return self.proj(segment_sum(msg, edge_dst, num_nodes, mask=edge_mask, sorted_ids=True,
-                                     blocks=blocks, fixed_dst=True))
+                                     blocks=blocks, fixed_dst=True, shard=shard))

@@ -11,11 +11,11 @@ With ``gata=True`` (GATA-V2) HTR first refines the edge stream ``t_ij``
 equivariant dropout (whole channels); both are active only in
 ``train()`` mode, with masks drawn from the caller's ``torch.Generator``.
 
-Sequence parallelism (``rows``: this rank's edges are the slots of these
-node rows; parallel/sharding.py): HTR and the attention run on the rank's
-edges with their weights whole (``ModelGroup.call_divergent``), the node
-features entering through ``copy_to``; the attention's node rows are
-gathered before the residual.  The FFN stays tensor-parallel on every node;
+Sequence parallelism (``shard``: this rank's ``EdgeShard``,
+parallel/sharding.py): HTR and the attention run on the rank's edges with
+their weights whole (``ModelGroup.call_divergent``), the node features
+entering through ``copy_to``; the attention's node rows are gathered
+before the residual.  The FFN stays tensor-parallel on every node;
 the dual stream's angular refinement runs on the rank's edges as HTR does.
 """
 
@@ -133,17 +133,16 @@ class TransBlock(nn.Module):
     def forward(self, x, atomic_numbers, edge_scalars, edge_src, edge_dst,
                 edge_mask, wigner, t_ij, rl_ij, blocks, graph_idx,
                 num_graphs: int, generator: Optional[torch.Generator] = None, phi_r=None,
-                a_ij=None, rows: slice | None = None):
+                a_ij=None, shard=None):
         """Returns (x, t_ij, a_ij); ``t_ij`` is None without GATA-V2,
         ``rl_ij`` without GATA (V2 or v1), ``a_ij`` without the dual
         stream, ``phi_r`` (the distance RBF) without ``use_phi_every_layer``;
-        ``rows``: sequence parallelism (module doc)."""
-        sp = self.mp if rows is not None else None
+        ``shard``: sequence parallelism (module doc)."""
+        sp = shard.mp if shard is not None else None
         if self.gata:
             xe = x if sp is None else sp.copy_to(x)
             X_i = gather_nodes(xe, edge_src, blocks)[:, 1:, :]
-            X_j = gather_nodes(xe if rows is None else xe[rows], edge_dst, blocks,
-                               canonical_dst=True)[:, 1:, :]
+            X_j = gather_nodes(xe, edge_dst, blocks, canonical_dst=True, shard=shard)[:, 1:, :]
             if sp is None:
                 t_ij = self.htr(t_ij, X_i, X_j, rl_ij)
             else:
@@ -152,22 +151,22 @@ class TransBlock(nn.Module):
                 a_ij = self.angular_htr(a_ij, t_ij, x, edge_src, edge_dst, edge_mask, blocks)
             elif self.dual_stream:
                 a_ij = sp.call_divergent(self.angular_htr, a_ij, t_ij, sp.copy_to(x), edge_src,
-                                         edge_dst, edge_mask, blocks, rows=rows)
+                                         edge_dst, edge_mask, blocks, shard=shard)
         args = (atomic_numbers, edge_scalars, edge_src, edge_dst, edge_mask, wigner, t_ij,
                 rl_ij, blocks, generator, phi_r)
         if sp is None:
             h = self.ga(self.attn_norm(x), *args)
         else:
             h = sp.gather(sp.call_divergent(self.ga, sp.copy_to(self.attn_norm(x)), *args,
-                                            rows=rows), dim=0)
+                                            shard=shard), dim=0)
         h = self.drop_path(h, graph_idx, num_graphs, generator)
         x = x + self.proj_drop(h, generator)
         h = self.ffn_norm(x)
         if self.ffn_variant in ("moe", "moe_breaking"):
-            h = self.ffn(h, t_ij, edge_dst, edge_mask, blocks, rows=rows)
+            h = self.ffn(h, t_ij, edge_dst, edge_mask, blocks, shard=shard)
         elif self.ffn_variant == "tensor_product":
             h = self.ffn(h, t_ij, a_ij if a_ij is not None else t_ij, edge_dst, edge_mask,
-                         blocks, rows=rows)
+                         blocks, shard=shard)
         else:
             h = self.ffn(h)
         h = self.drop_path(h, graph_idx, num_graphs, generator)

@@ -8,10 +8,11 @@ run through the blocks: ``t_ij`` (pairwise, HTR-refined) and ``a_ij``
 (angular, three-body).  Any edge layout (``blocks``, ops/segment.py).
 
 Neither module has a tensor-parallel role.  Under sequence parallelism
-(``rows``: the edges are the slots of these node rows, parallel/sharding.py)
-the angular stream's sums onto the edges' source nodes (the segment-id
-layout) are each rank's partial sums, summed over the ranks with
-``reduce_from``, and the tensor-product FFN's node means are gathered.
+(``shard``: the edges are this rank's, parallel/sharding.py) the angular
+stream's sums onto the edges' source nodes (the segment-id layout) are
+each rank's partial sums, summed over the ranks with ``reduce_from``, and
+the tensor-product FFN's node means of the rank's rows (completed over the
+ranks, ops/segment.py) are gathered.
 """
 
 from __future__ import annotations
@@ -48,18 +49,15 @@ class AngularHTR(nn.Module):
         self.gamma_a_2 = Linear(edge_channels, edge_channels)
         self.mp = None
 
-    def forward(self, a_ij, t_ij, x, edge_src, edge_dst, edge_mask, blocks=None,
-                rows: slice | None = None):
+    def forward(self, a_ij, t_ij, x, edge_src, edge_dst, edge_mask, blocks=None, shard=None):
         """a_ij / t_ij: [E, edge_C]; x: [N, K, C] (the block's input);
         ``blocks``: the batch layout (ops/segment.py)."""
         N, E = x.shape[0], a_ij.shape[0]
         X_all = self.x_norm(x)[:, 1:, :]
-        if rows is not None:
-            X_all = X_all[rows]
 
         def source_sum(v):   # onto the source nodes; every rank's edges under SP
             out = segment_sum(v, edge_src, N, mask=edge_mask)
-            return out if rows is None else self.mp.copy_to(self.mp.reduce_from(out))
+            return out if shard is None else shard.mp.copy_to(shard.mp.reduce_from(out))
 
         t_n = self.t_norm(t_ij)
         # edges per source node, at least 1 (reference :1433-1436)
@@ -69,7 +67,7 @@ class AngularHTR(nn.Module):
         for l in range(1, self.lmax + 1):
             d = 2 * l + 1
             Xl_dst = gather_nodes(X_all[:, offset : offset + d, :], edge_dst, blocks,
-                                  canonical_dst=True)
+                                  canonical_dst=True, shard=shard)
             offset += d
             q = getattr(self, f"W_q_{l}")(Xl_dst)
             kk = getattr(self, f"W_k_{l}")(Xl_dst)
@@ -97,13 +95,11 @@ class TensorProductFFN(nn.Module):
         self.linear_2 = Linear(hidden_channels, sphere_channels, bias=False)
         self.mp = None
 
-    def forward(self, x, t_ij, a_ij, edge_dst, edge_mask, blocks=None,
-                rows: slice | None = None):
-        n = x.shape[0] if rows is None else rows.stop - rows.start
-
+    def forward(self, x, t_ij, a_ij, edge_dst, edge_mask, blocks=None, shard=None):
         def node_mean(v):   # the rank's node rows gathered under SP
-            m = segment_mean(v, edge_dst, n, mask=edge_mask, blocks=blocks, fixed_dst=True)
-            m = m if rows is None else self.mp.gather(m, dim=0)
+            m = segment_mean(v, edge_dst, x.shape[0], mask=edge_mask, blocks=blocks,
+                             fixed_dst=True, shard=shard)
+            m = m if shard is None else shard.mp.gather(m, dim=0)
             return torch.nan_to_num(m, nan=0.0, posinf=1.0, neginf=-1.0)
 
         c_i, c_a = node_mean(t_ij), node_mean(a_ij)

@@ -43,10 +43,11 @@ class EdgeDegreeEmbedding(nn.Module):
                              persistent=False)
 
     def forward(self, atomic_numbers, edge_scalars, edge_src, edge_dst, edge_mask,
-                wigner, blocks=None) -> torch.Tensor:
+                wigner, blocks=None, shard=None) -> torch.Tensor:
         """The sum onto the edges' targets in the layout of ``blocks``
-        (ops/segment.py); under sequence parallelism (fixed-degree only) the
-        edges are the slots of some node rows, and the output holds those."""
+        (ops/segment.py); under sequence parallelism (``shard``) the edges
+        are the rank's, and the output holds the complete sums of its node
+        rows."""
         x_edge = edge_scalars
         if self.use_atom_edge_embedding:
             x_edge = torch.cat([edge_scalars,
@@ -58,6 +59,6 @@ class EdgeDegreeEmbedding(nn.Module):
                              self.sphere_channels)
         x = torch.cat([m0, zeros], dim=1)[:, self.from_m, :]
         x = rotate_from_edge(wigner, x, self.layout)
-        n = E // blocks[3] if blocks is not None and len(blocks) > 3 else atomic_numbers.shape[0]
-        return segment_sum(x, edge_dst, n, mask=edge_mask, sorted_ids=True, blocks=blocks,
-                           fixed_dst=True) / self.rescale_factor
+        return segment_sum(x, edge_dst, atomic_numbers.shape[0], mask=edge_mask,
+                           sorted_ids=True, blocks=blocks, fixed_dst=True,
+                           shard=shard) / self.rescale_factor

@@ -21,8 +21,11 @@ JAX package stops their gradient, and the HTR query / key are masked means
 over the valid pairs.  No library attention kernel takes their place (its
 all-masked rows give NaN).
 
-The JAX classes' attention-weight ``dropout`` field, which no model
-sets, is not ported.
+Each class takes the JAX class's attention-weight ``dropout`` (default 0,
+which no model changes): in ``train()`` mode each weight is kept with
+probability 1 - dropout and scaled by 1 / (1 - dropout), its mask drawn
+from the forward's ``generator``, as ``nn.Dropout`` does it in the JAX
+package; in ``eval()`` mode, or at 0, nothing is drawn.
 
 One batched attention core serves two layouts (``_Packing``).  With
 ``(node_slot, n_max, num_graphs)`` given, nodes are packed per graph into
@@ -43,7 +46,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.sph import real_sph_harm
-from .layers import LayerNorm, Linear
+from .layers import LayerNorm, Linear, keep_mask
 
 __all__ = ["GlobalScalarAttention", "GlobalFullAttention", "GlobalFullEquivariantAttention",
            "GlobalHTRAttention", "to_dense", "from_dense", "dense_mask"]
@@ -89,6 +92,14 @@ def _masked_softmax(logits, mask):
     """Softmax over the last axis with False -> 0 and all-masked rows -> 0."""
     w = torch.softmax(torch.where(mask, logits, torch.full_like(logits, _NEG)), dim=-1)
     return torch.where(mask, w, torch.zeros_like(w))
+
+
+def _attn_dropout(attn, rate: float, training: bool, generator):
+    """The JAX classes' ``nn.Dropout(rate)`` on the attention weights."""
+    if rate == 0.0 or not training:
+        return attn
+    keep = 1.0 - rate
+    return attn * keep_mask(attn.shape, keep, generator, attn.device).to(attn.dtype) / keep
 
 
 class _Packing:
@@ -160,10 +171,11 @@ def _heads(t, p: _Packing, H: int):
 class GlobalScalarAttention(nn.Module):
     """MHSA on the l = 0 scalars: x [N, C] -> LN(x + attn_out) [N, C]."""
 
-    def __init__(self, d_model: int, num_heads: int = 8, use_rope: bool = True,
-                 rope_dim: int = 16):
+    def __init__(self, d_model: int, num_heads: int = 8, dropout: float = 0.0,
+                 use_rope: bool = True, rope_dim: int = 16):
         super().__init__()
         self.d_model, self.H, self.use_rope = d_model, num_heads, use_rope
+        self.dropout = dropout
         self.qkv_proj = Linear(d_model, 3 * d_model, bias=False)
         if use_rope:
             self.rope_freqs = nn.Parameter(torch.empty(rope_dim))
@@ -172,13 +184,14 @@ class GlobalScalarAttention(nn.Module):
         self.norm = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, x, graph_idx, node_mask, pos, node_slot=None, n_max: int | None = None,
-                num_graphs: int | None = None):
+                num_graphs: int | None = None, generator: torch.Generator | None = None):
         p = _Packing(graph_idx, node_mask, node_slot, n_max, num_graphs)
         q, k, v = (_heads(t, p, self.H) for t in self.qkv_proj(x).chunk(3, dim=-1))
         logits = torch.einsum("bihd,bjhd->bhij", q, k) / math.sqrt(q.shape[-1])
         if self.use_rope:
             logits = logits + _rope_bias(p.pack(pos), p.pair, self.rope_freqs, self.rope_proj)
-        attn = _masked_softmax(logits, p.pair[:, None])
+        attn = _attn_dropout(_masked_softmax(logits, p.pair[:, None]), self.dropout,
+                             self.training, generator)
         out = torch.einsum("bhij,bjhd->bihd", attn, v).reshape(p.B, p.n, self.d_model)
         return self.norm(x + self.out_proj(p.unpack(out)))
 
@@ -188,9 +201,10 @@ class GlobalFullAttention(nn.Module):
     (ablation).  x [N, K, C] -> [N, K, C]."""
 
     def __init__(self, d_model: int, num_coeffs: int, num_heads: int = 8,
-                 use_rope: bool = True, rope_dim: int = 16):
+                 dropout: float = 0.0, use_rope: bool = True, rope_dim: int = 16):
         super().__init__()
         self.flat, self.H, self.use_rope = num_coeffs * d_model, num_heads, use_rope
+        self.dropout = dropout
         self.qkv_proj = Linear(self.flat, 3 * self.flat, bias=False)
         if use_rope:
             self.rope = _RopeBias(num_heads, rope_dim)
@@ -198,14 +212,15 @@ class GlobalFullAttention(nn.Module):
         self.norm = LayerNorm(self.flat, eps=1e-5)
 
     def forward(self, x, graph_idx, node_mask, pos, node_slot=None, n_max: int | None = None,
-                num_graphs: int | None = None):
+                num_graphs: int | None = None, generator: torch.Generator | None = None):
         p = _Packing(graph_idx, node_mask, node_slot, n_max, num_graphs)
         xf = x.reshape(x.shape[0], self.flat)
         q, k, v = (_heads(t, p, self.H) for t in self.qkv_proj(xf).chunk(3, dim=-1))
         logits = torch.einsum("bihd,bjhd->bhij", q, k) / math.sqrt(q.shape[-1])
         if self.use_rope:
             logits = logits + self.rope(p.pack(pos), p.pair)
-        attn = _masked_softmax(logits, p.pair[:, None])
+        attn = _attn_dropout(_masked_softmax(logits, p.pair[:, None]), self.dropout,
+                             self.training, generator)
         out = torch.einsum("bhij,bjhd->bihd", attn, v).reshape(p.B, p.n, self.flat)
         return self.norm(xf + self.out_proj(p.unpack(out))).reshape(x.shape)
 
@@ -214,10 +229,11 @@ class GlobalFullEquivariantAttention(nn.Module):
     """Per-degree attention: invariant Q / K from the degree norms,
     equivariant values.  x [N, (lmax+1)^2, C] -> same."""
 
-    def __init__(self, sphere_channels: int, lmax: int, num_heads: int = 8):
+    def __init__(self, sphere_channels: int, lmax: int, num_heads: int = 8,
+                 dropout: float = 0.0):
         super().__init__()
         C = sphere_channels
-        self.lmax, self.H = lmax, num_heads
+        self.lmax, self.H, self.dropout = lmax, num_heads, dropout
         for l in range(lmax + 1):
             setattr(self, f"q_proj_{l}", Linear(C, C))
             setattr(self, f"k_proj_{l}", Linear(C, C))
@@ -226,7 +242,8 @@ class GlobalFullEquivariantAttention(nn.Module):
             setattr(self, f"norm_{l}", LayerNorm(C, eps=1e-5))
 
     def forward(self, x, graph_idx, node_mask, pos=None, node_slot=None,
-                n_max: int | None = None, num_graphs: int | None = None):
+                n_max: int | None = None, num_graphs: int | None = None,
+                generator: torch.Generator | None = None):
         """``pos`` is not read (the signature matches the other classes')."""
         p = _Packing(graph_idx, node_mask, node_slot, n_max, num_graphs)
         N, C = x.shape[0], x.shape[2]
@@ -239,7 +256,8 @@ class GlobalFullEquivariantAttention(nn.Module):
             v = p.pack(getattr(self, f"v_proj_{l}")(feat)).reshape(
                 p.B, p.n, 2 * l + 1, self.H, -1)
             logits = torch.einsum("bihd,bjhd->bhij", q, k) / math.sqrt(q.shape[-1])
-            attn = _masked_softmax(logits, p.pair[:, None])
+            attn = _attn_dropout(_masked_softmax(logits, p.pair[:, None]), self.dropout,
+                                 self.training, generator)
             o = torch.einsum("bhij,bjmhd->bimhd", attn, v).reshape(p.B, p.n, 2 * l + 1, C)
             o = getattr(self, f"out_proj_{l}")(p.unpack(o))
             out.append(getattr(self, f"norm_{l}")(feat + o))
@@ -251,11 +269,11 @@ class GlobalHTRAttention(nn.Module):
     x [N, (lmax+1)^2, C] -> same."""
 
     def __init__(self, sphere_channels: int, lmax: int, num_heads: int = 8,
-                 use_distance: bool = False, num_rbf: int = 16, rbf_cutoff: float = 10.0,
-                 use_rope: bool = False, rope_dim: int = 16):
+                 dropout: float = 0.0, use_distance: bool = False, num_rbf: int = 16,
+                 rbf_cutoff: float = 10.0, use_rope: bool = False, rope_dim: int = 16):
         super().__init__()
         C = sphere_channels
-        self.lmax, self.H = lmax, num_heads
+        self.lmax, self.H, self.dropout = lmax, num_heads, dropout
         self.use_distance, self.use_rope = use_distance, use_rope
         self.num_rbf, self.rbf_cutoff = num_rbf, rbf_cutoff
         if use_distance:
@@ -270,7 +288,7 @@ class GlobalHTRAttention(nn.Module):
             setattr(self, f"norm_{l}", LayerNorm(C, eps=1e-5))
 
     def forward(self, x, graph_idx, node_mask, pos, node_slot=None, n_max: int | None = None,
-                num_graphs: int | None = None):
+                num_graphs: int | None = None, generator: torch.Generator | None = None):
         p = _Packing(graph_idx, node_mask, node_slot, n_max, num_graphs)
         C = x.shape[2]
         pm_noself = p.pair_no_self()
@@ -305,7 +323,8 @@ class GlobalHTRAttention(nn.Module):
         logits = torch.einsum("bihd,bjhd->bhij", q, k) / math.sqrt(q.shape[-1])
         if self.use_rope:
             logits = logits + self.rope(posd, p.pair)
-        attn = _masked_softmax(logits, p.pair[:, None])
+        attn = _attn_dropout(_masked_softmax(logits, p.pair[:, None]), self.dropout,
+                             self.training, generator)
 
         out = []
         for l in range(self.lmax + 1):

@@ -23,8 +23,9 @@ Expert parallelism: the stacked expert axis is declared ``"ep"`` (the JAX
 package's ``metadata_params``).  With a ``ModelGroup`` (``mp``) a rank holds
 num_experts / M experts of each kind and runs them on every atom; the router
 and the mixture weights are replicated, and the weighted sum of the rank's
-experts is reduced over ``model``.  ``rows`` (sequence parallelism): t_ij
-holds the slots of these node rows only, and the node means are gathered.
+experts is reduced over ``model``.  ``shard`` (sequence parallelism): t_ij
+holds the rank's edges only; the node means of its rows (sum and count
+completed over the ranks, ops/segment.py) are gathered.
 """
 
 from __future__ import annotations
@@ -95,13 +96,13 @@ class MoEHTRFeedForward(nn.Module):
         self.mp = None
 
     def forward(self, x: torch.Tensor, t_ij: torch.Tensor, edge_dst: torch.Tensor,
-                edge_mask: torch.Tensor, blocks=None, rows: slice | None = None) -> torch.Tensor:
+                edge_mask: torch.Tensor, blocks=None, shard=None) -> torch.Tensor:
         """x: [N, K, C]; t_ij: [E, edge_C] -> [N, K, C]; ``blocks``: the batch
         layout (ops/segment.py)."""
-        n = x.shape[0] if rows is None else rows.stop - rows.start
-        c_i = segment_mean(t_ij, edge_dst, n, mask=edge_mask, blocks=blocks, fixed_dst=True)
-        if rows is not None:   # the rank's node rows -> every node
-            c_i = self.mp.gather(c_i, dim=0)
+        c_i = segment_mean(t_ij, edge_dst, x.shape[0], mask=edge_mask, blocks=blocks,
+                           fixed_dst=True, shard=shard)
+        if shard is not None:   # the rank's node rows -> every node
+            c_i = shard.mp.gather(c_i, dim=0)
         c_i = torch.nan_to_num(c_i, nan=0.0, posinf=1.0, neginf=-1.0)
         w = torch.softmax(self.router_2(F.silu(self.router_1(c_i))), dim=-1)
         self.routing_entropy = (-(w * torch.log(w + 1e-8)).sum(-1)).mean().detach()

@@ -35,13 +35,25 @@ segment max is detached (JAX's ``stop_gradient``), masked logits are
 clamped to -1e30, the denominator is at least 1e-16 and a mean's count at
 least 1.
 
-Sequence parallelism (parallel/sharding.py) needs the fixed-degree layout:
-it splits E = N k contiguously, so a rank's edges are all the slots of its
-N/M node rows, and the slot reductions and the slot softmax run unchanged
-on them and give those rows, which the callers gather at the node boundary
-(``ModelGroup.gather``); the target gather reads the rank's rows.  A sum by
-other ids (onto the edges' source nodes, the dual stream's) gives each
-rank's partial sums, which the caller reduces (``reduce_from``).
+Sequence parallelism (parallel/sharding.py) splits the padded edge axis
+evenly: rank r of M takes edges [r E/M, (r+1) E/M) and node rows
+[r N/M, (r+1) N/M).  The reductions and the target gather take that
+rank's ``shard`` (``parallel/sharding.py:EdgeShard``), and their result
+holds the complete values of the rank's node rows.  In the fixed-degree
+layout a rank's edges are all the slots of its rows, so the slot functions
+run unchanged on them, and the target gather reads the rank's rows.  In
+the ragged and uniform layouts a node's incoming edges may lie on two
+ranks, and padded edges sit at the batch's end (ragged) or at each graph
+block's end (uniform), so the last rank holds most of them; nothing relies
+on an order of the edges.  There the sum over the rank's edges gives
+partial sums of every node, completed onto the rank's rows by
+``reduce_scatter``; the softmax takes each node's max over the ranks (an
+all-reduce MAX, detached) and its denominator as ``copy_to(reduce_from(
+partial))``, since each rank divides its own edges by it; the target
+gather reads the whole node array.  The callers gather the rows at the
+node boundary (``ModelGroup.gather``).  A sum by other ids (onto the
+edges' source nodes, the dual stream's) gives each rank's partial sums,
+which the caller reduces (``reduce_from``).
 """
 
 from __future__ import annotations
@@ -100,50 +112,65 @@ def _fixed(blocks, E: int, n: int) -> bool:
     return blocks is not None and len(blocks) > 3 and E == n * blocks[3]
 
 
+def _slots(blocks, shard, fixed_dst: bool, E: int, n: int) -> bool:
+    """Whether a reduction onto the targets runs over the fixed-degree slots:
+    the rank's under sequence parallelism (``shard``), else the batch's."""
+    if shard is not None:
+        return shard.fixed
+    return fixed_dst and _fixed(blocks, E, n)
+
+
 def gather_nodes(x: torch.Tensor, ids: torch.Tensor, blocks=None,
-                 canonical_dst: bool = False) -> torch.Tensor:
+                 canonical_dst: bool = False, shard=None) -> torch.Tensor:
     """x [N, ...] -> x[ids] [E, ...].  ``canonical_dst=True`` with a
     fixed-degree ``blocks`` (the caller asserts ``ids`` is the slot pattern
-    e -> e // k) is a broadcast over each node's k slots."""
+    e -> e // k) is a broadcast over each node's k slots; with a ``shard``
+    (sequence parallelism; module doc) over the slots of the rank's rows."""
     if canonical_dst and blocks is not None and len(blocks) > 3:
-        return gather_dst(x, blocks[3])
+        return gather_dst(x if shard is None else x[shard.rows], blocks[3])
     return _Gather.apply(x, ids)
 
 
 def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
                 mask: torch.Tensor | None = None, sorted_ids: bool = False, blocks=None,
-                fixed_dst: bool = False) -> torch.Tensor:
+                fixed_dst: bool = False, shard=None) -> torch.Tensor:
     """Sum ``values`` [E, ...] into ``num_segments`` rows by ``segment_ids``;
     masked entries contribute zero.  ``sorted_ids`` is accepted as in JAX
-    (no path needs it)."""
+    (no path needs it).  ``shard``: the values are the rank's edges and the
+    ids their targets; returns the complete sums of the rank's node rows
+    (module doc)."""
     del sorted_ids
-    if fixed_dst and _fixed(blocks, values.shape[0], num_segments):
+    if _slots(blocks, shard, fixed_dst, values.shape[0], num_segments):
         return sum_over_slots(values, blocks[3], mask)
-    return _SegmentSum.apply(_masked(values, mask), segment_ids, num_segments)
+    out = _SegmentSum.apply(_masked(values, mask), segment_ids, num_segments)
+    return out if shard is None else shard.mp.reduce_scatter(out, dim=0)
 
 
 def segment_mean(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
                  mask: torch.Tensor | None = None, blocks=None,
-                 fixed_dst: bool = False) -> torch.Tensor:
+                 fixed_dst: bool = False, shard=None) -> torch.Tensor:
     """Mean over each segment's real entries (zeros for an empty one); the
-    count is taken in ``values``' type, as in JAX."""
+    count is taken in ``values``' type, as in JAX.  ``shard``: as
+    ``segment_sum``'s, the sum and the count both completed."""
     E = values.shape[0]
-    if fixed_dst and _fixed(blocks, E, num_segments):
+    if _slots(blocks, shard, fixed_dst, E, num_segments):
         m = values.new_ones(E, dtype=torch.bool) if mask is None else mask
         return mean_over_slots(values, blocks[3], m)
-    s = segment_sum(values, segment_ids, num_segments, mask)
-    cnt = segment_sum(values.new_ones(E), segment_ids, num_segments, mask)
+    s = segment_sum(values, segment_ids, num_segments, mask, shard=shard)
+    cnt = segment_sum(values.new_ones(E), segment_ids, num_segments, mask, shard=shard)
     cnt = torch.clamp(cnt, min=1.0).reshape((-1,) + (1,) * (values.dim() - 1))
     return s / cnt
 
 
 def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
                     mask: torch.Tensor | None = None, sorted_ids: bool = False, blocks=None,
-                    fixed_dst: bool = False) -> torch.Tensor:
+                    fixed_dst: bool = False, shard=None) -> torch.Tensor:
     """Softmax of ``logits`` [E, ...] over the leading axis within each
-    segment, in float32; masked entries get weight 0."""
+    segment, in float32; masked entries get weight 0.  ``shard``: the
+    logits are the rank's edges, each segment's max and denominator are
+    taken over every rank's (module doc); the weights are the rank's."""
     del sorted_ids
-    if fixed_dst and _fixed(blocks, logits.shape[0], num_segments):
+    if _slots(blocks, shard, fixed_dst, logits.shape[0], num_segments):
         return softmax_over_slots(logits, blocks[3], mask)
     lg = logits.float()
     if mask is not None:
@@ -152,10 +179,14 @@ def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segment
     idx = segment_ids.reshape((-1,) + (1,) * (lg.dim() - 1)).expand_as(lg)
     seg_max = lg.new_full((num_segments,) + tuple(lg.shape[1:]), _NEG).scatter_reduce_(
         0, idx, lg.detach(), "amax")
+    if shard is not None:
+        seg_max = shard.mp.max(seg_max)
     ex = torch.exp(lg - seg_max.index_select(0, segment_ids))
     if mask is not None:
         ex = ex * m.to(ex.dtype)
     denom = _SegmentSum.apply(ex, segment_ids, num_segments)
+    if shard is not None:
+        denom = shard.mp.copy_to(shard.mp.reduce_from(denom))
     out = ex / torch.clamp(_Gather.apply(denom, segment_ids), min=1e-16)
     return out.to(logits.dtype)
 

@@ -36,16 +36,25 @@ guarded AdamW update, the EMA):
   weighting, rotation back and the slot sum on the rank's heads, ``proj``
   row-split then ``reduce_from``.  MoE: the rank's experts, their weighted
   sum reduced.
-* **SP** (``sp=True``): the edge axis is split over ``model``: each rank
-  takes the contiguous slice of E = N k edges that holds all the slots of
-  its N/M nodes (where M divides N).  The per-edge work (geometry, Wigner
-  tables, radial MLPs, the edge-degree embedding, HTR, the attention) runs
-  on the rank's edges with every channel, its weights gathered
+* **SP** (``sp=True``): the padded edge axis is split evenly over
+  ``model``, in any edge layout, where M divides E_pad and N_pad (the split
+  GSPMD makes from the JAX package's ``batch_shardings``): rank r takes the
+  edges [r E/M, (r+1) E/M) and owns the node rows [r N/M, (r+1) N/M)
+  (``EdgeShard``).  The per-edge work (geometry, Wigner tables, radial
+  MLPs, the edge-degree embedding, HTR, the attention) runs on the rank's
+  edges with every channel, its weights gathered
   (``ModelGroup.call_divergent``); node features and positions enter the
-  edge region through ``copy_to``, and the node rows come back by
-  ``gather`` at the node boundary.  The node-level FFNs stay TP.  The batch
-  keeps its whole edge arrays; the backbone takes its slice
-  (``ModelGroup.edge_rows``), so evaluation and serving paths need nothing.
+  edge region through ``copy_to``.  Each reduction onto the edges' targets
+  gives the complete sums of the rank's rows: over its slots in the
+  fixed-degree layout, where the rank's edges are exactly its rows' slots;
+  in the ragged and uniform layouts, where a node's edges may lie on two
+  ranks, as partial sums of every node completed by ``reduce_scatter``
+  (ops/segment.py, which also takes the softmax's max and denominator over
+  the ranks).  ``proj`` then runs on the rank's rows, and the rows come
+  back by ``gather`` at the node boundary.  The node-level FFNs stay TP.
+  The batch keeps its whole edge arrays; the backbone takes its slice
+  (``ModelGroup.edge_shard``), so evaluation and serving paths need
+  nothing.
 * **DP**: each data row runs its micro-batches through
   ``parallel/data_parallel.py``'s loop and one flat all-reduce, over the
   ``data`` group.
@@ -74,13 +83,19 @@ from .multihost import process_count, process_index
 
 __all__ = ["ModelGroup", "CompositeMesh", "CompositeStep", "make_composite_mesh", "shard_state",
            "gather_state", "gather_named", "batch_shards", "make_composite_matpes_step",
-           "edge_rows"]
+           "EdgeShard", "edge_shard"]
 
 # ── collectives (no autograd) ───────────────────────────────────────────────
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     y = x.contiguous().clone()
     dist.all_reduce(y, group=group)
+    return y
+
+
+def _all_max(x: torch.Tensor, group) -> torch.Tensor:
+    y = x.detach().contiguous().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
     return y
 
 
@@ -168,15 +183,30 @@ class _GatherToPartial(torch.autograd.Function):
         return _ReduceScatter.apply(dy, ctx.g, ctx.dim), None, None
 
 
-def edge_rows(num_nodes: int, num_edges: int, rank: int, size: int) -> slice | None:
-    """The node rows whose k = E / N slots (the contiguous edges
-    [rows.start k, rows.stop k) of the fixed-degree layout) ``rank`` of
-    ``size`` takes; None when the edge axis stays whole (``size`` does not
-    divide N)."""
-    if size == 1 or num_nodes % size or num_edges % num_nodes:
+@dataclass(frozen=True)
+class EdgeShard:
+    """This rank's share of a batch under sequence parallelism: the
+    contiguous ``edges`` of the padded edge axis, the node ``rows`` whose
+    complete sums it holds, whether the layout is ``fixed``-degree (the
+    edges are then exactly the rows' slots), and the ``ModelGroup`` ``mp``
+    that completes the sums (ops/segment.py)."""
+
+    edges: slice
+    rows: slice
+    fixed: bool
+    mp: "ModelGroup"
+
+
+def edge_shard(num_nodes: int, num_edges: int, mp: "ModelGroup",
+               fixed: bool = False) -> EdgeShard | None:
+    """The even split of ``mp``'s rank: edges [r E/M, (r+1) E/M) and node
+    rows [r N/M, (r+1) N/M); None when the edge axis stays whole (M = 1, or
+    M does not divide E or N)."""
+    M, r = mp.size, mp.rank
+    if M == 1 or num_nodes % M or num_edges % M:
         return None
-    w = num_nodes // size
-    return slice(rank * w, (rank + 1) * w)
+    w, e = num_nodes // M, num_edges // M
+    return EdgeShard(slice(r * e, (r + 1) * e), slice(r * w, (r + 1) * w), fixed, mp)
 
 
 class ModelGroup:
@@ -188,7 +218,8 @@ class ModelGroup:
 
     def __init__(self, size: int, rank: int, group=None, sp: bool = False):
         self.size, self.rank, self.group, self.sp = size, rank, group, sp
-        self.counts = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+        self.counts = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+                       "all_reduce_max": 0}
         self.bytes = dict.fromkeys(self.counts, 0)
 
     def tally(self, kind: str, x: torch.Tensor) -> None:
@@ -211,6 +242,12 @@ class ModelGroup:
         """Replicated -> this rank's contiguous part along ``dim``."""
         return _Scatter.apply(x, self, dim)
 
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the ranks, without autograd (for a
+        detached statistic)."""
+        self.tally("all_reduce_max", x)
+        return _all_max(x, self.group)
+
     def reduce_scatter(self, x, dim: int = -1):
         """Partial sums -> this rank's contiguous part of their sum."""
         return _ReduceScatter.apply(x, self, dim % x.dim())
@@ -220,10 +257,11 @@ class ModelGroup:
         w = n // self.size
         return slice(self.rank * w, (self.rank + 1) * w)
 
-    def edge_rows(self, num_nodes: int, num_edges: int) -> slice | None:
-        """Under ``sp``, the node rows whose slots this rank takes
-        (``edge_rows``); None without ``sp``."""
-        return edge_rows(num_nodes, num_edges, self.rank, self.size) if self.sp else None
+    def edge_shard(self, num_nodes: int, num_edges: int,
+                   fixed: bool = False) -> EdgeShard | None:
+        """Under ``sp``, this rank's ``edge_shard`` of a batch of N nodes and
+        E edges; None without ``sp``."""
+        return edge_shard(num_nodes, num_edges, self, fixed) if self.sp else None
 
     def _full_param(self, p: torch.Tensor, shard) -> torch.Tensor:
         if shard is None:
@@ -431,28 +469,24 @@ def _load_full_state(state, sd: dict, mesh: CompositeMesh) -> None:
 
 # ── batches ─────────────────────────────────────────────────────────────────
 
-# batch keys whose leading axis (after the micro-batch axis) is the edge axis
-_EDGE_KEYS = ("edge_src", "edge_dst", "edge_shift", "edge_mask")
-
-
 def batch_shards(stacked: dict, mesh: CompositeMesh, sp: bool = False):
     """This rank's part of a stacked micro-batch dict [data, ...] (the
     counterpart of ``batch_shardings``): data row d takes micro-batches
     [d n, (d+1) n), n = data / rows; every rank of the row takes the same.
-    Returns (local stacked, edge rows): with ``sp`` the rank's edges are the
-    slots of node rows ``edge rows`` (``ModelGroup.edge_rows``: where M
-    divides N_pad), which the backbone slices out of the whole edge arrays
-    it is given; None when the edge axis stays whole."""
+    Returns (local stacked, edge shard): with ``sp`` the rank's
+    ``edge_shard`` (where M divides E_pad and N_pad), whose edges the
+    backbone slices out of the whole edge arrays it is given; None when the
+    edge axis stays whole."""
     n_total = next(iter(stacked.values())).shape[0]
     if n_total % mesh.data:
         raise ValueError(f"{n_total} micro-batches do not split over {mesh.data} data rows")
     n = n_total // mesh.data
     local = {k: v[mesh.data_index * n:(mesh.data_index + 1) * n] for k, v in stacked.items()}
-    rows = None
+    shard = None
     if sp:
         N, E = stacked["atomic_numbers"].shape[1], stacked["edge_src"].shape[1]
-        rows = edge_rows(N, E, mesh.model_index, mesh.model)
-    return local, rows
+        shard = edge_shard(N, E, mesh.mp)
+    return local, shard
 
 
 # ── the step ────────────────────────────────────────────────────────────────

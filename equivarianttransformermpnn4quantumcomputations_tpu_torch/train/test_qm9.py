@@ -3,7 +3,7 @@ reference test_qm9v3.py).
 
     python -m equivarianttransformermpnn4quantumcomputations_tpu_torch.train.test_qm9 \\
         --checkpoint runs/qm9_fixture_torch/ckpt_best [--run-dir DIR] \\
-        [--split test|val] [--device cuda|cpu]
+        [--split test|val] [--use-ema] [--device cuda|cpu]
 
 Loads a checkpoint of the port (``<name>.pt`` + ``<name>.meta.json``, as
 train/train_qm9.py writes them), rebuilds the model from the stored config,
@@ -11,7 +11,9 @@ and writes ``eval_<split>.json`` (per-property MAE in paper units),
 ``predictions.npy`` and ``targets.npy`` into the run directory
 (``--run-dir``, where the checkpoint is read; default: the checkpoint's
 directory), with the
-EMA weights (as the JAX package's CLI does).  ``evaluate_state_dict`` does
+EMA weights (as the JAX package's CLI does: its ``--use-ema`` is a
+``store_true`` flag whose default is already True, so it is accepted here
+and the EMA weights are always used).  ``evaluate_state_dict`` does
 the same for any ``state_dict`` (for example one converted from the JAX
 package's Flax params by utils/convert.py).  The device is the card unless
 ``--device cpu`` is given.
@@ -60,6 +62,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--run-dir", default=None,
                     help="the checkpoint's directory (default: that of --checkpoint)")
     ap.add_argument("--split", default="test", choices=["val", "test"])
+    ap.add_argument("--use-ema", action="store_true", default=True,
+                    help="evaluate the EMA weights (always on, as in the JAX CLI)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     run_dir = args.run_dir or os.path.dirname(args.checkpoint) or "."

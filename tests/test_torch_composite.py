@@ -1,7 +1,7 @@
 """The composite step at (data, model) = (2, 2): 4 gloo ranks (spawned once
 for the file), both process groups at once: each data row runs its own
-micro-batch, TP (and with ``sp`` SP) over its two model ranks, and the rows
-average over their ``data`` columns.  Held against the JAX package's
+micro-batch, TP (and with ``sp`` SP, fixed-degree or ragged) over its two
+model ranks, and the rows average over their ``data`` columns.  Held against the JAX package's
 unsharded math (tests/torch_sharding_helpers.py: the mean over the two
 micro-batches of the force loss, one optax step) within the limits of
 tests/test_torch_sharding.py.
@@ -19,19 +19,23 @@ import torch_variant_helpers as V
 def ranks(tmp_path_factory):
     out = tmp_path_factory.mktemp("dp_tp")
     made = {sp: S.case(2, sp, n_micro=2, seed=11) for sp in (False, True)}
+    made["ragged"] = S.case(2, True, n_micro=2, seed=11, layout="ragged")
     cases = {f"sp={sp}": c for sp, (c, _, _) in made.items()}
     procs = H.start(H.composite_worker, 4, 4, H.free_port(), str(out), cases, 1, False)
-    case, jm, params = made[False]
-    ref = S.jax_reference(jm, params, case["batches"])   # the same for sp on and off
+    refs = {}
+    for sp in (False, "ragged"):   # sp on and off: the same fixed-degree reference
+        case, jm, params = made[sp]
+        refs[sp] = S.jax_reference(jm, params, case["batches"])
+    refs[True] = refs[False]
     codes = H.join(procs)
     assert codes == [0, 0, 0, 0], f"rank exit codes {codes}"
-    return ref, [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(4)]
+    return refs, [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(4)]
 
 
-@pytest.mark.parametrize("sp", [False, True])
+@pytest.mark.parametrize("sp", [False, True, "ragged"])
 def test_data_2_model_2_matches_jax(sp, ranks):
-    want, results = ranks
-    got = results[0][f"sp={sp}"]
+    refs, results = ranks
+    want, got = refs[sp], results[0][f"sp={sp}"]
     err_l = abs(got["loss"] / want["loss"] - 1)
     err_g = V.rel_l2(got["grads"], want["grads"])
     print(f"(2, 2) sp={sp}: loss {err_l:.2e}, gradients {err_g:.2e}")   # pytest -s
@@ -47,7 +51,7 @@ def test_data_2_model_2_matches_jax(sp, ranks):
             assert torch.all((v - want[part][k]).abs() <= atol), f"{part} {k}"
 
 
-@pytest.mark.parametrize("sp", [False, True])
+@pytest.mark.parametrize("sp", [False, True, "ragged"])
 def test_all_four_ranks_agree(sp, ranks):
     """Every rank of both data rows gathers the same state and loss, bit for
     bit."""

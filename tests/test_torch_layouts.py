@@ -345,16 +345,3 @@ def test_qm9_blocks_wigner_matches_jax(layout):
     assert V.rel(got["blocks"], want) <= 1e-5
     assert V.rel(got["dense"], got["blocks"]) <= 1e-5
 
-
-def test_sequence_parallelism_needs_the_fixed_degree_layout():
-    """The port's ``sp`` splits the fixed-degree layout's node rows: a
-    ragged model under it raises instead of running another split."""
-    from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel.sharding import (
-        ModelGroup,
-    )
-
-    model = EquiformerV2MatPES(**CFG)
-    model.backbone.mp = ModelGroup(1, 0, None, sp=True)
-    tb = tgraph.as_tensors(_collate(tgraph, _samples(), "ragged"), "cpu")
-    with pytest.raises(ValueError, match="fixed-degree"):
-        matpes_energy_forces(model, tb)

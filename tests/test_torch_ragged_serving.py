@@ -14,6 +14,7 @@ forces to 1e-4 of the largest.  The evaluation CLIs: ``test_oc20 --split X
 
 import json
 import os
+import shutil
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -123,17 +124,38 @@ def test_oc20_eval_cli_split_and_run_dir(tmp_path, split):
     assert not (run / "eval_oc20.json").exists()
 
 
-def test_qm9_eval_cli_run_dir(tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def qm9_run(tmp_path_factory):
+    """One epoch of a 1-layer QM9 fixture run: the eval CLI tests' checkpoint."""
+    run = tmp_path_factory.mktemp("qm9") / "train"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(ROOT)  # the fixture config names its db relative to the root
+        train_qm9.main(["--config", "fixture", "--device", "cpu", "--epochs", "1"],
+                       overrides=dict(run_dir=str(run), num_layers=1, sphere_channels=8,
+                                      attn_hidden_channels=8, ffn_hidden_channels=16,
+                                      edge_channels=8, num_rbf=16, lmax=2, mmax=1,
+                                      grid_resolution=None))
+    return run
+
+
+def test_qm9_eval_cli_run_dir(tmp_path, monkeypatch, qm9_run):
     """``test_qm9 --run-dir D --checkpoint NAME`` reads D/NAME and writes there."""
-    monkeypatch.chdir(ROOT)  # the fixture config names its db relative to the root
-    train_qm9.main(["--config", "fixture", "--device", "cpu", "--epochs", "1"],
-                   overrides=dict(run_dir=str(tmp_path / "train"), num_layers=1,
-                                  sphere_channels=8, attn_hidden_channels=8,
-                                  ffn_hidden_channels=16, edge_channels=8, num_rbf=16, lmax=2,
-                                  mmax=1, grid_resolution=None))
+    monkeypatch.chdir(ROOT)
     run = tmp_path / "elsewhere"
-    os.rename(tmp_path / "train", run)
+    shutil.copytree(qm9_run, run)
     out = test_qm9.main(["--checkpoint", "ckpt_best", "--run-dir", str(run), "--device", "cpu"])
     assert out["count"] == 8 and all(np.isfinite(v) for v in out["mae"].values())
     assert json.loads((run / "eval_test.json").read_text())["mae"] == out["mae"]
     assert np.load(run / "predictions.npy").shape == (8, 12)
+
+
+def test_qm9_eval_cli_accepts_use_ema(tmp_path, monkeypatch, qm9_run):
+    """``test_qm9 --use-ema`` parses, as in the JAX CLI (a ``store_true`` flag
+    that defaults to True), and changes nothing: the EMA weights either way."""
+    monkeypatch.chdir(ROOT)
+    run = tmp_path / "run"
+    shutil.copytree(qm9_run, run)
+    argv = ["--checkpoint", str(run / "ckpt_best"), "--device", "cpu"]
+    plain = test_qm9.main(argv)
+    flagged = test_qm9.main(argv + ["--use-ema"])
+    assert flagged == plain and flagged["count"] == 8

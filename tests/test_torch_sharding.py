@@ -8,12 +8,18 @@ the file), against the JAX package.
   baseline, MoE and dual-stream presets at model = 2, and with a width 3
   does not divide (the fallback: replicated whole).
 * The region functions in a small Megatron pair, in float64: forward,
-  gradient and grad-of-grad equal the one-process math to 1e-12.
+  gradient and grad-of-grad equal the one-process math to 1e-12; so do
+  the ragged layout's sequence-parallel segment sum and mean, and its
+  segment softmax (float32 statistics) to 1e-5.
+* ``edge_shard``: the even split of the edge axis and the node rows, and
+  the whole axis where the split does not divide.
 * ``shard_state`` -> ``gather_state`` is bit-identical, and so is loading a
   whole state into a sharded one and gathering it.
 * The step at (data, model) = (1, 2), ``sp`` off and on, with EP, with
-  stress and in bf16, against the mean loss of the JAX package's unsharded
-  step (tests/torch_sharding_helpers.py): loss 2e-5 relative (the JAX
+  stress and in bf16, and with ``sp`` in the ragged and uniform layouts
+  (their batches straddle a node's edges across the ranks and put padded
+  edges on the last rank), against the mean loss of the JAX package's
+  unsharded step in the same layout (tests/torch_sharding_helpers.py): loss 2e-5 relative (the JAX
   sharding test's limit), gradients 1e-4 relative L2 (float32 sums in
   another order, then a double backward; tests/test_torch_train.py),
   parameters and EMA 1e-2 x lr absolute (tests/test_torch_parallel.py),
@@ -23,8 +29,8 @@ the file), against the JAX package.
   own one-process step);
   bf16: loss 2e-2 relative, gradients 5e-2 relative L2
   (tests/test_torch_oc20.py's and test_torch_train.py's bf16 limits).
-* With dropout on, and for the dual stream under SP, the step equals the
-  port's own model = 1 step on the same micro-batch and seed: 1e-6
+* With dropout on, and for the dual stream under SP (fixed-degree and
+  ragged), the step equals the port's own model = 1 step on the same micro-batch and seed: 1e-6
   relative (the dual stream's one-process energies and forces are held
   against JAX in tests/test_torch_variants_models_*.py).
 * At model = 1 the composite step is the data-parallel step, bit for bit.
@@ -94,7 +100,11 @@ def test_param_roles_match_jax(preset, size):
         assert got["backbone.blocks.0.ffn.so3_linear_1.weight"] is None
 
 
-JAX_CHECKED = ("f32", "f32_sp", "moe", "stress", "bf16")
+JAX_CHECKED = ("f32", "f32_sp", "moe", "stress", "bf16", "f32_sp_ragged", "f32_sp_uniform",
+               "bf16_sp_ragged", "stress_sp_ragged", "moe_sp_ragged")
+# the cases whose edge axis splits inside a node's incoming edges
+SPLIT_LAYOUT_CASES = ("f32_sp_ragged", "f32_sp_uniform", "bf16_sp_ragged", "stress_sp_ragged",
+                      "moe_sp_ragged", "dropout_sp_ragged", "dual_stream_sp_ragged")
 CASES = {
     "f32": lambda: S.case(2, False),
     "f32_sp": lambda: S.case(2, True),
@@ -105,6 +115,17 @@ CASES = {
                                                     proj_drop=0.2)),
     "dropout_sp": lambda: S.case(2, True, cfg_kw=dict(alpha_drop=0.3, drop_path_rate=0.3)),
     "dual_stream_sp": lambda: S.case(2, True, kw=PRESETS["dual_stream"], seed=9),
+    "f32_sp_ragged": lambda: S.case(2, True, layout="ragged"),
+    "f32_sp_uniform": lambda: S.case(2, True, layout="uniform"),
+    "bf16_sp_ragged": lambda: S.case(2, True, kw=dict(compute_dtype="bfloat16"), seed=8,
+                                     layout="ragged"),
+    "stress_sp_ragged": lambda: S.case(2, True, stress=True, seed=5, layout="ragged"),
+    "moe_sp_ragged": lambda: S.case(2, True, kw=PRESETS["moe"], seed=3, layout="ragged"),
+    "dropout_sp_ragged": lambda: S.case(2, True, cfg_kw=dict(alpha_drop=0.3,
+                                                             drop_path_rate=0.3),
+                                        layout="ragged"),
+    "dual_stream_sp_ragged": lambda: S.case(2, True, kw=PRESETS["dual_stream"], seed=9,
+                                            layout="ragged"),
 }
 
 
@@ -136,6 +157,52 @@ def test_region_functions_match_one_process_math(ranks):
     for r in results:
         for kind, err in r["regions"].items():
             assert err <= 1e-12, (kind, err)
+
+
+def test_sp_segment_functions_match_one_process_math(ranks):
+    """The ``reduce_scatter`` node sums and means and the distributed segment
+    softmax (ops/segment.py with a ragged ``EdgeShard``) to the second
+    derivative, on ids that straddle the ranks: the sums in float64 to
+    1e-12; the softmax, whose statistics are float32 in one process too
+    (the ranks' partial denominators add in another order), to 1e-5."""
+    _, results, _ = ranks
+    for r in results:
+        got = r["sp_regions"]
+        assert got["straddling"] > 0
+        assert got["sums"] <= 1e-12 and got["softmax"] <= 1e-5, got
+
+
+@pytest.mark.parametrize("N,E,M", [(12, 72, 2), (12, 80, 2), (18, 120, 2), (16, 96, 4)])
+def test_edge_shard_splits_evenly(N, E, M):
+    """Rank r of M takes edges [r E/M, (r+1) E/M) and rows [r N/M, (r+1) N/M):
+    the ranks' slices tile both axes; ``fixed`` is carried; no ``sp``, no
+    shard."""
+    shards = [sharding.ModelGroup(M, r, sp=True).edge_shard(N, E, fixed=True)
+              for r in range(M)]
+    assert [(s.edges.start, s.edges.stop) for s in shards] == [
+        (r * E // M, (r + 1) * E // M) for r in range(M)]
+    assert [(s.rows.start, s.rows.stop) for s in shards] == [
+        (r * N // M, (r + 1) * N // M) for r in range(M)]
+    assert all(s.fixed and s.mp.rank == r for r, s in enumerate(shards))
+    assert sharding.ModelGroup(M, 0).edge_shard(N, E) is None
+
+
+@pytest.mark.parametrize("N,E,M", [(12, 70, 4), (10, 72, 4), (12, 72, 1)])
+def test_edge_shard_stays_whole(N, E, M):
+    """Where M does not divide E_pad or N_pad (or M = 1) the edge axis stays
+    whole, as the JAX package's ``batch_shardings`` leaves it."""
+    assert sharding.ModelGroup(M, 0, sp=True).edge_shard(N, E) is None
+
+
+@pytest.mark.parametrize("name", SPLIT_LAYOUT_CASES)
+def test_sp_batches_straddle_the_rank_boundary(name, ranks):
+    """The ragged and uniform cases exercise the partial sums: a node's real
+    incoming edges lie on both ranks, and the last rank holds padded
+    edges."""
+    made, _, _ = ranks
+    for pb in made[name][0]["batches"]:
+        straddling, padded_last = S.split_facts(pb, 2)
+        assert straddling >= 1 and padded_last >= 1, (straddling, padded_last)
 
 
 def test_shard_then_gather_is_bit_identical(ranks):
@@ -208,6 +275,15 @@ def test_bf16_step_matches_jax(ranks):
     _check_against_jax("bf16", ranks, bf16=True)
 
 
+@pytest.mark.parametrize("name", ["f32_sp_ragged", "f32_sp_uniform", "bf16_sp_ragged",
+                                  "stress_sp_ragged", "moe_sp_ragged"])
+def test_sp_in_ragged_and_uniform_layouts_matches_jax(name, ranks):
+    """``sp`` in the ragged and graph-uniform layouts (partial sums completed
+    over ``model``) against JAX's unsharded step in the same layout, at the
+    fixed-degree cases' limits."""
+    _check_against_jax(name, ranks, bf16=name.startswith("bf16"))
+
+
 def _one_process_step(case):
     state = H.new_state(case)
     gen = torch.Generator().manual_seed(data_parallel.rank_seed(case["seed"], 0))
@@ -218,11 +294,12 @@ def _one_process_step(case):
     return float(loss), step.mean_grads(), dict(state.model.named_parameters()), state
 
 
-@pytest.mark.parametrize("name", ["dropout", "dropout_sp", "dual_stream_sp"])
+@pytest.mark.parametrize("name", ["dropout", "dropout_sp", "dual_stream_sp", "dropout_sp_ragged",
+                                  "dual_stream_sp_ragged"])
 def test_step_matches_model_1(name, ranks):
     """Dropout on (the ranks draw the whole batch's masks and keep their
     share), and the dual stream under SP (its source-node sums reduced over
-    the ranks): the port's own one-process step."""
+    the ranks), fixed-degree and ragged: the port's own one-process step."""
     made, results, _ = ranks
     case = made[name][0]
     loss, grads, params, state = _one_process_step(case)

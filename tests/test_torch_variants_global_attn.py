@@ -11,6 +11,15 @@ parameter are held to 1e-5 (relative to the largest value; the parameter
 gradients relative L2).  The positions' gradient is zero on both sides:
 both detach the geometry at the same places.  The flat and the dense
 layout agree with each other too.
+
+The attention-weight ``dropout`` field: at 0 a training forward is the
+evaluation forward bit for bit and draws nothing; with dropout > 0 the
+evaluation forward still matches JAX's (deterministic) module at the same
+limit; a training forward equals the same module's plain computation with
+each softmax's weights multiplied by the mask replayed from the
+generator's seed and scaled by 1 / (1 - dropout).  Flax draws its masks
+from its own RNG streams, so the training masks themselves cannot be
+matched bit for bit against JAX.
 """
 
 import jax
@@ -27,17 +36,19 @@ C, LMAX, HEADS, N_MAX = 8, 2, 2, 8
 K = (LMAX + 1) ** 2
 
 CLASSES = {
-    "scalar": (lambda: jga.GlobalScalarAttention(C, HEADS),
-               lambda: tga.GlobalScalarAttention(C, HEADS), (C,)),
-    "full": (lambda: jga.GlobalFullAttention(C, K, HEADS),
-             lambda: tga.GlobalFullAttention(C, K, HEADS), (K, C)),
-    "full_equivariant": (lambda: jga.GlobalFullEquivariantAttention(C, LMAX, HEADS),
-                         lambda: tga.GlobalFullEquivariantAttention(C, LMAX, HEADS), (K, C)),
-    "htr_rope": (lambda: jga.GlobalHTRAttention(C, LMAX, HEADS, use_rope=True),
-                 lambda: tga.GlobalHTRAttention(C, LMAX, HEADS, use_rope=True), (K, C)),
-    "htr_distance": (lambda: jga.GlobalHTRAttention(C, LMAX, HEADS, use_distance=True),
-                     lambda: tga.GlobalHTRAttention(C, LMAX, HEADS, use_distance=True),
-                     (K, C)),
+    "scalar": (lambda **kw: jga.GlobalScalarAttention(C, HEADS, **kw),
+               lambda **kw: tga.GlobalScalarAttention(C, HEADS, **kw), (C,)),
+    "full": (lambda **kw: jga.GlobalFullAttention(C, K, HEADS, **kw),
+             lambda **kw: tga.GlobalFullAttention(C, K, HEADS, **kw), (K, C)),
+    "full_equivariant": (
+        lambda **kw: jga.GlobalFullEquivariantAttention(C, LMAX, HEADS, **kw),
+        lambda **kw: tga.GlobalFullEquivariantAttention(C, LMAX, HEADS, **kw), (K, C)),
+    "htr_rope": (lambda **kw: jga.GlobalHTRAttention(C, LMAX, HEADS, use_rope=True, **kw),
+                 lambda **kw: tga.GlobalHTRAttention(C, LMAX, HEADS, use_rope=True, **kw),
+                 (K, C)),
+    "htr_distance": (
+        lambda **kw: jga.GlobalHTRAttention(C, LMAX, HEADS, use_distance=True, **kw),
+        lambda **kw: tga.GlobalHTRAttention(C, LMAX, HEADS, use_distance=True, **kw), (K, C)),
 }
 
 
@@ -50,8 +61,14 @@ def _inputs(kind):
 @pytest.mark.parametrize("dense", [False, True], ids=["flat", "dense"])
 @pytest.mark.parametrize("kind", list(CLASSES))
 def test_global_attention_matches_jax(kind, dense):
+    _check_against_jax(kind, dense, {})
+
+
+def _check_against_jax(kind, dense, kw):
+    """The port's module (``kw``, in eval mode) against the JAX module's
+    deterministic apply."""
     jb, tb, x, pos = _inputs(kind)
-    jm, tm = CLASSES[kind][0](), CLASSES[kind][1]()
+    jm, tm = CLASSES[kind][0](**kw), CLASSES[kind][1](**kw).eval()
     equivariant = kind == "full_equivariant"   # takes no positions
     jkw = dict(node_slot=jb["node_slot"], n_max=N_MAX, num_graphs=3) if dense else {}
     tkw = dict(node_slot=tb["node_slot"], n_max=N_MAX, num_graphs=3) if dense else {}
@@ -85,3 +102,61 @@ def test_flat_and_dense_layouts_agree(kind):
         dense = tm(*args, node_slot=tb["node_slot"], n_max=N_MAX, num_graphs=3)
     m = tb["node_mask"].numpy()
     assert h.rel(dense.numpy()[m], flat.numpy()[m]) <= 1e-5
+
+
+def _args(kind):
+    _, tb, x, pos = _inputs(kind)
+    return (torch.as_tensor(x), tb["graph_idx"], tb["node_mask"], torch.as_tensor(pos))
+
+
+def _seeded(tm):
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import (
+        init_weights,
+    )
+    return init_weights(tm, torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("kind", list(CLASSES))
+def test_dropout_0_changes_nothing(kind):
+    """At dropout 0 a training forward with a generator is the evaluation
+    forward bit for bit, and the generator is not drawn from."""
+    tm = _seeded(CLASSES[kind][1](dropout=0.0))
+    gen = torch.Generator().manual_seed(3)
+    state = gen.get_state()
+    with torch.no_grad():
+        trained = tm.train()(*_args(kind), generator=gen)
+        evaluated = tm.eval()(*_args(kind))
+    assert torch.equal(trained, evaluated)
+    assert torch.equal(gen.get_state(), state)
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["flat", "dense"])
+@pytest.mark.parametrize("kind", list(CLASSES))
+def test_dropout_in_eval_matches_jax(kind, dense):
+    """With dropout 0.3, the evaluation forward (JAX: deterministic) matches
+    the JAX module at the limits of test_global_attention_matches_jax."""
+    _check_against_jax(kind, dense, dict(dropout=0.3))
+
+
+@pytest.mark.parametrize("kind", list(CLASSES))
+def test_dropout_in_training_is_the_masked_computation(kind, monkeypatch):
+    """A training forward with dropout 0.3 equals the evaluation forward in
+    which each softmax's weights are multiplied by the mask the generator
+    draws (``torch.rand(shape) < 0.7``, in the order of the softmaxes) and
+    scaled by 1 / 0.7, to the bit."""
+    rate, keep = 0.3, 0.7
+    tm = _seeded(CLASSES[kind][1](dropout=rate))
+    with torch.no_grad():
+        got = tm.train()(*_args(kind), generator=torch.Generator().manual_seed(4))
+        plain = tm.eval()(*_args(kind))
+        replay = torch.Generator().manual_seed(4)
+        softmax = tga._masked_softmax
+
+        def masked(logits, mask):
+            w = softmax(logits, mask)
+            return w * (torch.rand(w.shape, generator=replay) < keep).to(w.dtype) / keep
+
+        monkeypatch.setattr(tga, "_masked_softmax", masked)
+        want = tm(*_args(kind))
+    assert torch.equal(got, want)
+    assert not torch.equal(got, plain)

@@ -30,6 +30,7 @@ from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.oc20 import
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.qm9 import (
     EquiformerV2QM9,
 )
+from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops import segment
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel import data_parallel
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel import multihost
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.parallel import sharding
@@ -236,6 +237,7 @@ def composite_worker(rank: int, world: int, port: int, out_dir: str, cases: dict
         out = {name: composite_step(case) for name, case in cases.items()}
         if checks:
             out["regions"] = region_checks(rank, world, None)
+            out["sp_regions"] = sp_region_checks(rank, world, None)
             out["roundtrip"] = shard_gather_roundtrip(
                 dict(next(iter(cases.values())), model=world))
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
@@ -261,3 +263,57 @@ def cli_worker(rank: int, world: int, port: int, run_dir: str, mesh: str, overri
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def sp_region_checks(rank: int, size: int, group) -> dict:
+    """The ragged layout's sequence-parallel reductions against the same
+    math in this process: unsorted target ids over an edge axis split
+    evenly over the ranks (so nodes straddle the split), some edges masked,
+    float64 inputs.  "sums": a sum and a mean onto the targets
+    (``reduce_scatter`` onto the rank's rows, then ``gather``); "softmax":
+    the segment softmax (max and denominator over the ranks; its statistics
+    in float32, as in one process) weighting a sum.  The forward, the
+    gradient of the logits kept for a second differentiation, and the
+    gradients of a loss of both by the logits and the values
+    (grad-of-grad).  Returns the max relative errors by kind, and the
+    straddling nodes."""
+    mp = sharding.ModelGroup(size, rank, group, sp=True)
+    g = torch.Generator().manual_seed(1)
+    N, E, H = 6, 24, 2
+    ids = torch.randint(0, N, (E,), generator=g)
+    mask = torch.rand(E, generator=g) > 0.2
+    lg0 = torch.randn(E, H, generator=g, dtype=torch.float64)
+    v0 = torch.randn(E, H, 3, generator=g, dtype=torch.float64)
+    w = torch.randn(N, H, 3, generator=g, dtype=torch.float64)
+    shard = sharding.edge_shard(N, E, mp)
+
+    def run(kind: str, sharded: bool):
+        lg = lg0.clone().requires_grad_(True)
+        v = v0.clone().requires_grad_(True)
+        sh = shard if sharded else None
+        e = shard.edges if sharded else slice(None)
+        ids_e, mask_e = ids[e], mask[e]
+        if kind == "softmax":
+            alpha = segment.segment_softmax(lg[e], ids_e, N, mask=mask_e, shard=sh)
+            y = segment.segment_sum(v[e] * alpha[..., None], ids_e, N, mask=mask_e, shard=sh)
+        else:
+            y = (segment.segment_sum(v[e] * torch.tanh(lg[e])[..., None], ids_e, N,
+                                     mask=mask_e, shard=sh)
+                 + torch.sin(segment.segment_mean(v[e], ids_e, N, mask=mask_e, shard=sh)))
+        if sharded:
+            y = mp.gather(y, 0)
+        (dlg,) = torch.autograd.grad((y ** 3 * w).sum(), lg, create_graph=True)
+        loss = (dlg * dlg).sum() + (y * y).sum()
+        loss.backward()
+        return [y.detach(), dlg.detach(), lg.grad, v.grad]
+
+    out = {}
+    for kind in ("sums", "softmax"):
+        want, got = run(kind, False), run(kind, True)
+        # a rank's logits and values take gradients on its own edges: sum them
+        got[1:] = [sharding._all_reduce(t, group) for t in got[1:]]
+        out[kind] = max(float((u - v).abs().max() / v.abs().max()) for u, v in zip(got, want))
+    owners = [set((torch.arange(E)[mask & (ids == n)] // (E // size)).tolist())
+              for n in range(N)]
+    out["straddling"] = sum(len(o) > 1 for o in owners)
+    return out

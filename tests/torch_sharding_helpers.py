@@ -44,11 +44,26 @@ LR, WD, EMA_DECAY = 1e-3, 1e-3, 0.999
 CUTOFF, MAX_NEIGHBORS = 5.0, 6
 
 
-def crystals(seed: int, stress: bool = False):
-    """Two periodic crystals (4 and 6 atoms), padded to 12 nodes x 6 slots."""
+# layout -> (atoms per crystal, N_pad, E_pad, the collate's and the models'
+# layout flags)
+LAYOUTS = {
+    "fixed_degree": ((4, 6), 12, 12 * MAX_NEIGHBORS, dict(fixed_degree=True),
+                     dict(uniform_blocks=True, fixed_degree=True)),
+    "ragged": ((4, 6), 12, 80, {}, dict(uniform_blocks=False, fixed_degree=False)),
+    "uniform": ((4, 6, 5), 18, 120, dict(uniform=True),
+                dict(uniform_blocks=True, fixed_degree=False)),
+}
+
+
+def crystals(seed: int, stress: bool = False, layout: str = "fixed_degree"):
+    """Periodic crystals collated in ``layout``: fixed-degree, two (4 and 6
+    atoms) padded to 12 nodes x 6 slots; ragged, the same two in 12 nodes
+    and 80 edges; uniform, three (4, 6 and 5 atoms) in blocks of 6 nodes
+    and 40 edges."""
+    sizes, n_pad, e_pad, collate_kw, _ = LAYOUTS[layout]
     rng = np.random.default_rng(seed)
     samples = []
-    for n in (4, 6):
+    for n in sizes:
         cell = (np.eye(3) * 4.0 + rng.normal(size=(3, 3)) * 0.1).astype(np.float32)
         samples.append(tgraph.GraphSample(
             atomic_numbers=rng.integers(1, 9, size=n).astype(np.int32),
@@ -56,24 +71,38 @@ def crystals(seed: int, stress: bool = False):
             pbc=True, energy=float(rng.normal()),
             forces=rng.normal(size=(n, 3)).astype(np.float32),
             stress=rng.normal(size=6).astype(np.float32) if stress else None))
-    pb = tgraph.collate(samples, CUTOFF, MAX_NEIGHBORS, 12, 12 * MAX_NEIGHBORS,
-                        fixed_degree=True)
+    pb = tgraph.collate(samples, CUTOFF, MAX_NEIGHBORS, n_pad, e_pad, **collate_kw)
     assert not (pb.overflow_atoms or pb.overflow_edges)
     return pb
 
 
-def jax_model(**kw):
-    return JaxMatPES(**{**TINY, **V.JAX_LAYOUT, **kw})
+def split_facts(pb, size: int = 2) -> tuple[int, int]:
+    """(the nodes whose real incoming edges lie on more than one of ``size``
+    ranks' even slices of the edge axis, the padded edges on the last
+    rank's)."""
+    E = pb.edge_dst.shape[0]
+    ranks = np.arange(E) // (E // size)
+    real = pb.edge_mask
+    owners = {}
+    for d, r in zip(pb.edge_dst[real], ranks[real]):
+        owners.setdefault(int(d), set()).add(int(r))
+    straddling = sum(len(rs) > 1 for rs in owners.values())
+    return straddling, int((~real[ranks == size - 1]).sum())
+
+
+def jax_model(layout: str = "fixed_degree", **kw):
+    return JaxMatPES(**{**TINY, **V.JAX_LAYOUT, **LAYOUTS[layout][4], **kw})
 
 
 def case(model_size: int, sp: bool, n_micro: int = 1, kw: dict | None = None,
-         stress: bool = False, seed: int = 0, cfg_kw: dict | None = None):
+         stress: bool = False, seed: int = 0, cfg_kw: dict | None = None,
+         layout: str = "fixed_degree"):
     """(case for the ranks, JAX model, Flax params): random Flax params of
     the JAX model with fields ``kw``, converted; ``cfg_kw`` only for the
-    port (dropouts)."""
+    port (dropouts); the batches and both models in ``layout``."""
     kw = kw or {}
-    batches = [crystals(seed + i, stress) for i in range(n_micro)]
-    jm = jax_model(**kw)
+    batches = [crystals(seed + i, stress, layout) for i in range(n_micro)]
+    jm = jax_model(layout, **kw)
     jb = {k: jnp.asarray(v) for k, v in batches[0].asdict().items()}
     params = V.random_flax_params(jm, jb, seed + 7)
     port_kw = {k: v for k, v in kw.items() if k != "compute_dtype"}
@@ -81,10 +110,8 @@ def case(model_size: int, sp: bool, n_micro: int = 1, kw: dict | None = None,
         import torch
         port_kw["compute_dtype"] = torch.bfloat16
     weights = {k: v.numpy() for k, v in flax_to_state_dict(params).items()}
-    # the port's model in the layout of the batches (sequence parallelism
-    # needs the fixed-degree layout)
-    layout = dict(uniform_blocks=True, fixed_degree=True)
-    c = dict(kind="matpes", cfg={**TINY, **layout, **port_kw, **(cfg_kw or {})},
+    # the port's model in the layout of the batches
+    c = dict(kind="matpes", cfg={**TINY, **LAYOUTS[layout][4], **port_kw, **(cfg_kw or {})},
              weights=weights,
              batches=batches, lr=LR, wd=WD, model=model_size, sp=sp, seed=seed,
              step_kw=dict(w_stress=0.1) if stress else {})
