@@ -25,6 +25,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils.trace import span, sync
 from .native import neighbor_list_native
 
 __all__ = ["GraphSample", "radius_graph", "radius_graph_pbc", "collate", "PaddedBatch",
@@ -142,9 +143,11 @@ _INDEX_KEYS = ("atomic_numbers", "edge_src", "edge_dst", "graph_idx")
 def as_tensors(pb: "PaddedBatch", device) -> dict:
     """The batch as torch tensors on ``device``; index arrays as int64."""
     out = {}
-    for k, v in pb.asdict().items():
-        t = torch.as_tensor(v, device=device)
-        out[k] = t.long() if k in _INDEX_KEYS else t
+    with span("etq.data.h2d"):
+        for k, v in pb.asdict().items():
+            with sync("h2d"):
+                t = torch.as_tensor(v, device=device)
+            out[k] = t.long() if k in _INDEX_KEYS else t
     return out
 
 

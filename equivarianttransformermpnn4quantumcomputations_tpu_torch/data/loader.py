@@ -17,6 +17,7 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
+from ..utils.trace import span
 from .graph import PaddedBatch, collate
 
 __all__ = ["PaddedLoader", "infer_pad_sizes", "bucket", "FIXED_DEGREE", "fixed_degree_pads"]
@@ -151,7 +152,9 @@ class PaddedLoader:
         self.overflow_atoms = self.overflow_edges = self.overflow_batches = 0
         if self.prefetch <= 0:
             for bi in self._index_batches():
-                yield self._build(bi)
+                with span("etq.data.wait"):
+                    pb = self._build(bi)
+                yield pb
             return
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
@@ -169,7 +172,8 @@ class PaddedLoader:
 
         threading.Thread(target=worker, daemon=True).start()
         while True:
-            item = q.get()
+            with span("etq.data.wait"):
+                item = q.get()
             if item is stop:
                 break
             if isinstance(item, Exception):

@@ -31,6 +31,7 @@ from .data.graph import GraphSample, as_tensors, collate, radius_graph, radius_g
 from .data.loader import bucket
 from .models.matpes import energy_and_forces
 from .utils.precision import full_f32_products
+from .utils.trace import span, sync
 
 __all__ = ["Predictor"]
 
@@ -85,39 +86,45 @@ class Predictor:
         multiple of 16 above the atom count and e_pad a multiple of 128
         above the edge count, which the neighbour search here counts (JAX
         inference.py:119-146)."""
-        samples = []
-        max_e = 1
-        n_tot = 0
-        for s in structures:
-            pbc = s.get("cell") is not None
-            gs = GraphSample(atomic_numbers=s["atomic_numbers"], pos=s["positions"],
-                             cell=s.get("cell"), pbc=pbc)
-            samples.append(gs)
-            n_tot += gs.pos.shape[0]
-            if pbc:
-                src, _, _ = radius_graph_pbc(gs.pos.astype(np.float64), gs.cell, self.cutoff,
+        with span("etq.data.collate"):
+            samples = []
+            max_e = 1
+            n_tot = 0
+            for s in structures:
+                pbc = s.get("cell") is not None
+                gs = GraphSample(atomic_numbers=s["atomic_numbers"], pos=s["positions"],
+                                 cell=s.get("cell"), pbc=pbc)
+                samples.append(gs)
+                n_tot += gs.pos.shape[0]
+                if pbc:
+                    src, _, _ = radius_graph_pbc(gs.pos.astype(np.float64), gs.cell,
+                                                 self.cutoff, self.max_neighbors)
+                else:
+                    src, _, _ = radius_graph(gs.pos.astype(np.float64), self.cutoff,
                                              self.max_neighbors)
-            else:
-                src, _, _ = radius_graph(gs.pos.astype(np.float64), self.cutoff,
-                                         self.max_neighbors)
-            max_e += src.size
-        return collate(samples, self.cutoff, self.max_neighbors, bucket(n_tot + 1),
-                       bucket(max_e, 128))
+                max_e += src.size
+            return collate(samples, self.cutoff, self.max_neighbors, bucket(n_tot + 1),
+                           bucket(max_e, 128))
 
     def predict_batch(self, structures: Sequence[dict]) -> dict:
-        pb = self.collate(structures)
-        batch = as_tensors(pb, self.device)
-        with full_f32_products():
-            outs = energy_and_forces(self.model, batch)
+        with span("etq.request"):
+            pb = self.collate(structures)
+            batch = as_tensors(pb, self.device)
+            with span("etq.request.model"), full_f32_products():
+                outs = energy_and_forces(self.model, batch)
 
-        natoms = np.asarray(pb.natoms)
-        e_per_atom = (outs["energy"][:, 0].cpu().numpy() * self.energy_std
-                      + self.energy_mean)
-        forces = outs["forces"].cpu().numpy() * self.energy_std
-        out_forces, off = [], 0
-        for n in natoms:   # the ragged layout's graphs follow one another from row 0
-            out_forces.append(forces[off : off + n])
-            off += n
+            with span("etq.request.d2h"):
+                natoms = np.asarray(pb.natoms)
+                with sync("d2h"):
+                    energy = outs["energy"][:, 0].cpu()
+                e_per_atom = energy.numpy() * self.energy_std + self.energy_mean
+                with sync("d2h"):
+                    forces = outs["forces"].cpu()
+                forces = forces.numpy() * self.energy_std
+                out_forces, off = [], 0
+                for n in natoms:   # the ragged layout's graphs follow one another from row 0
+                    out_forces.append(forces[off : off + n])
+                    off += n
         return {
             "energy": e_per_atom * natoms,
             "energy_per_atom": e_per_atom,

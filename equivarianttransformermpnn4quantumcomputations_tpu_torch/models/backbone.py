@@ -82,6 +82,7 @@ from ..ops.rotation import WignerBlocks, WignerFactors, compute_wigner, compute_
 from ..ops.s2grid import s2grid
 from ..ops.segment import gather_nodes
 from ..ops.sph import real_sph_harm
+from ..utils.trace import span
 
 __all__ = ["EquiformerV2Backbone", "BackboneOutput", "StackBroadcast", "block_step", "WIGNER_REPS",
            "BACKBONE_OPTIONS"]
@@ -262,47 +263,49 @@ class EquiformerV2Backbone(nn.Module):
                 + shift_cart - gather_nodes(pos_e, edge_src, blocks))
         dist = torch.sqrt(torch.clamp((dvec * dvec).sum(-1), min=1e-12))
 
-        if self.wigner_rep == "factored":
-            wigner = compute_wigner(self.lmax, dvec)
-        elif self.wigner_rep == "blocks":
-            wigner = compute_wigner_blocks(self.lmax, dvec)
-        else:
-            wigner = compute_wigner_dense(self.lmax, self.mmax, dvec)
-        phi_r = self.smear(dist)
-        edge_scalars = phi_r
-        if self.share:
-            edge_scalars = torch.cat([phi_r,
-                                      edge(self.shared_source_embedding,
-                                           atomic_numbers[edge_src]),
-                                      edge(self.shared_target_embedding,
-                                           atomic_numbers[edge_dst])],
-                                     dim=1)
+        with span("etq.model.wigner"):
+            if self.wigner_rep == "factored":
+                wigner = compute_wigner(self.lmax, dvec)
+            elif self.wigner_rep == "blocks":
+                wigner = compute_wigner_blocks(self.lmax, dvec)
+            else:
+                wigner = compute_wigner_dense(self.lmax, self.mmax, dvec)
+        with span("etq.model.embedding"):
+            phi_r = self.smear(dist)
+            edge_scalars = phi_r
+            if self.share:
+                edge_scalars = torch.cat([phi_r,
+                                          edge(self.shared_source_embedding,
+                                               atomic_numbers[edge_src]),
+                                          edge(self.shared_target_embedding,
+                                               atomic_numbers[edge_dst])],
+                                         dim=1)
 
-        x = pos.new_zeros(N, self.K_full, self.sphere_channels)
-        x = torch.cat([self.sphere_embedding(atomic_numbers)[:, None, :],
-                       x[:, 1:, :]], dim=1)
-        deg = edge(self.edge_degree_embedding, atomic_numbers, edge_scalars, edge_src,
-                   edge_dst, edge_mask, wigner, blocks, shard=shard)
-        x = x + (deg if shard is None else mp.gather(deg, dim=0))
+            x = pos.new_zeros(N, self.K_full, self.sphere_channels)
+            x = torch.cat([self.sphere_embedding(atomic_numbers)[:, None, :],
+                           x[:, 1:, :]], dim=1)
+            deg = edge(self.edge_degree_embedding, atomic_numbers, edge_scalars, edge_src,
+                       edge_dst, edge_mask, wigner, blocks, shard=shard)
+            x = x + (deg if shard is None else mp.gather(deg, dim=0))
 
-        cdt = self.compute_dtype
-        t_ij = rl_ij = a_ij = None
-        if self.gata or self.gata_v1:
-            # global-frame edge SH (l >= 1, 'norm', detached)
-            unit = dvec / dist[:, None]
-            rl_ij = real_sph_harm(self.lmax, unit, normalization="norm")[:, 1:].detach()
-            rl_ij = rl_ij.to(cdt)
-        if self.gata:
-            # t_ij = h_proj(h_i + h_j) * W_erp(phi(r)); the angular stream
-            # a_ij the same way with its own projections
-            h = x[:, 0, :]
-            if shard is not None:
-                h = mp.copy_to(h)
-            h_sum = (gather_nodes(h, edge_src, blocks)
-                     + gather_nodes(h, edge_dst, blocks, canonical_dst=True, shard=shard))
-            t_ij = (edge(self.h_proj, h_sum) * edge(self.W_erp, phi_r)).to(cdt)
-            if self.dual_stream:
-                a_ij = (edge(self.a_h_proj, h_sum) * edge(self.a_W_erp, phi_r)).to(cdt)
+            cdt = self.compute_dtype
+            t_ij = rl_ij = a_ij = None
+            if self.gata or self.gata_v1:
+                # global-frame edge SH (l >= 1, 'norm', detached)
+                unit = dvec / dist[:, None]
+                rl_ij = real_sph_harm(self.lmax, unit, normalization="norm")[:, 1:].detach()
+                rl_ij = rl_ij.to(cdt)
+            if self.gata:
+                # t_ij = h_proj(h_i + h_j) * W_erp(phi(r)); the angular stream
+                # a_ij the same way with its own projections
+                h = x[:, 0, :]
+                if shard is not None:
+                    h = mp.copy_to(h)
+                h_sum = (gather_nodes(h, edge_src, blocks)
+                         + gather_nodes(h, edge_dst, blocks, canonical_dst=True, shard=shard))
+                t_ij = (edge(self.h_proj, h_sum) * edge(self.W_erp, phi_r)).to(cdt)
+                if self.dual_stream:
+                    a_ij = (edge(self.a_h_proj, h_sum) * edge(self.a_W_erp, phi_r)).to(cdt)
         x, edge_scalars_c = x.to(cdt), edge_scalars.to(cdt)
         phi_c = phi_r.to(cdt) if self.use_phi_every_layer else None
         broadcast = StackBroadcast(atomic_numbers, edge_scalars_c, edge_src, edge_dst,

@@ -38,6 +38,7 @@ from ..nn.norms import EquivariantDegreeLayerScale, degree_scale_init
 from ..nn.remat import remat_call
 from ..ops.s2grid import s2grid
 from ..ops.segment import segment_sum
+from ..utils.trace import span
 from .backbone import BACKBONE_OPTIONS, EquiformerV2Backbone
 
 __all__ = ["EquiformerV2MatPES", "energy_and_forces", "matpes_energy_forces",
@@ -177,11 +178,12 @@ class EquiformerV2MatPES(nn.Module):
         x = x.x
         if self.global_attn_kind is not None:
             x = self._global(x, batch, pos, generator)
-        node_energy = self.energy_block(x)[:, 0, 0]
-        num_graphs = batch["cell"].shape[0]
-        energy_total = segment_sum(node_energy, batch["graph_idx"], num_graphs,
-                                   mask=batch["node_mask"])
-        natoms = torch.clamp(batch["natoms"].to(energy_total.dtype), min=1.0)
+        with span("etq.model.head"):
+            node_energy = self.energy_block(x)[:, 0, 0]
+            num_graphs = batch["cell"].shape[0]
+            energy_total = segment_sum(node_energy, batch["graph_idx"], num_graphs,
+                                       mask=batch["node_mask"])
+            natoms = torch.clamp(batch["natoms"].to(energy_total.dtype), min=1.0)
         return {
             "energy": (energy_total / natoms)[:, None],
             "energy_total": energy_total,
@@ -251,8 +253,9 @@ def matpes_energy_forces(model: EquiformerV2MatPES, batch: dict,
     pos = batch["pos"].detach().requires_grad_(True)
     with torch.enable_grad():
         outs = _energy(model, batch, pos, None, params, generator, inner_ckpt)
-        (dpos,) = torch.autograd.grad(outs["energy_total"].sum(), pos,
-                                      create_graph=create_graph)
+        with span("etq.model.forces"):
+            (dpos,) = torch.autograd.grad(outs["energy_total"].sum(), pos,
+                                          create_graph=create_graph)
     result = dict(outs) if create_graph else {k: v.detach() for k, v in outs.items()}
     result["forces"] = -dpos * batch["node_mask"][:, None].to(dpos.dtype)
     return result
@@ -278,8 +281,9 @@ def matpes_energy_forces_stress_pergraph(model: EquiformerV2MatPES, batch: dict,
     strain = torch.zeros_like(cell, requires_grad=True)
     with torch.enable_grad():
         outs = _energy(model, batch, pos, strain, params, generator, inner_ckpt)
-        dpos, dstrain = torch.autograd.grad(outs["energy_total"].sum(), (pos, strain),
-                                            create_graph=create_graph)
+        with span("etq.model.forces"):
+            dpos, dstrain = torch.autograd.grad(outs["energy_total"].sum(), (pos, strain),
+                                                create_graph=create_graph)
     result = dict(outs) if create_graph else {k: v.detach() for k, v in outs.items()}
     result["forces"] = -dpos * batch["node_mask"][:, None].to(dpos.dtype)
     sym = 0.5 * (dstrain + dstrain.transpose(-1, -2))

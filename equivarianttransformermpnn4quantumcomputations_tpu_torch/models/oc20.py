@@ -29,6 +29,7 @@ from ..nn.ffn import FeedForward
 from ..ops.irreps import layout as get_layout
 from ..ops.s2grid import s2grid
 from ..ops.segment import segment_sum
+from ..utils.trace import span, sync
 from .backbone import BACKBONE_OPTIONS, EquiformerV2Backbone
 from .qm9 import HEAD_OPTIONS, check_options
 
@@ -102,13 +103,15 @@ class EquiformerV2OC20(nn.Module):
             batch["edge_src"], batch["edge_dst"], batch["edge_shift"],
             batch["edge_mask"], batch["cell"], generator,
         )
-        node_energy = self.energy_block(out.x)[:, 0, 0]
-        energy = segment_sum(node_energy, batch["graph_idx"], batch["cell"].shape[0],
-                             mask=batch["node_mask"]) / self.avg_num_nodes
-        f = self.force_block(out.x, batch["atomic_numbers"], out.edge_scalars,
-                             batch["edge_src"], batch["edge_dst"], batch["edge_mask"],
-                             out.wigner, None, None, out.blocks, generator)
-        # l = 1 coefficients (m = -1, 0, +1) ~ (y, z, x) -> Cartesian (x, y, z)
-        forces = f[:, [3, 1, 2], 0]
+        with span("etq.model.head"):
+            node_energy = self.energy_block(out.x)[:, 0, 0]
+            energy = segment_sum(node_energy, batch["graph_idx"], batch["cell"].shape[0],
+                                 mask=batch["node_mask"]) / self.avg_num_nodes
+            f = self.force_block(out.x, batch["atomic_numbers"], out.edge_scalars,
+                                 batch["edge_src"], batch["edge_dst"], batch["edge_mask"],
+                                 out.wigner, None, None, out.blocks, generator)
+            # l = 1 coefficients (m = -1, 0, +1) ~ (y, z, x) -> Cartesian (x, y, z)
+            with sync("force_index"):
+                forces = f[:, [3, 1, 2], 0]
         return {"energy": energy,
                 "forces": forces * batch["node_mask"][:, None].to(forces.dtype)}

@@ -18,6 +18,7 @@ import torch.nn as nn
 from ..nn.ffn import FeedForward
 from ..ops.s2grid import s2grid
 from ..ops.segment import segment_sum
+from ..utils.trace import span
 from .backbone import EquiformerV2Backbone
 
 __all__ = ["EquiformerV2QM9", "BASELINE_OPTIONS"]
@@ -90,6 +91,7 @@ class EquiformerV2QM9(nn.Module):
             batch["edge_src"], batch["edge_dst"], batch["edge_shift"],
             batch["edge_mask"], batch["cell"], generator,
         ).x
-        node_c = self.output_blocks(x)[:, :, 0, 0]       # [T, N]
-        return segment_sum(node_c.t(), batch["graph_idx"], batch["cell"].shape[0],
-                           mask=batch["node_mask"])
+        with span("etq.model.head"):
+            node_c = self.output_blocks(x)[:, :, 0, 0]       # [T, N]
+            return segment_sum(node_c.t(), batch["graph_idx"], batch["cell"].shape[0],
+                               mask=batch["node_mask"])

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from ..ops.cuda.s2act import s2act_fused, s2act_reference
 from ..ops.s2grid import S2Grid
+from ..utils.trace import sync
 
 __all__ = ["gate_activation", "s2_activation", "separable_s2_activation"]
 
@@ -34,7 +35,9 @@ def gate_activation(gating_scalars: torch.Tensor, x: torch.Tensor, lmax: int, mm
     gating_scalars: [N, lmax * C]; x: [N, K_red, C].
     """
     g = torch.sigmoid(gating_scalars).reshape(-1, lmax, num_channels)
-    g = g[:, torch.as_tensor(_gate_expand_index(lmax, mmax), device=g.device), :]
+    with sync("gate_index"):
+        idx = torch.as_tensor(_gate_expand_index(lmax, mmax), device=g.device)
+    g = g[:, idx, :]
     return torch.cat([F.silu(x[:, :1, :]), x[:, 1:, :] * g], dim=1)
 
 

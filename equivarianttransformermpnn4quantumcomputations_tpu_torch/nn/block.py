@@ -29,6 +29,7 @@ import torch.nn as nn
 from ..ops.irreps import IrrepsLayout
 from ..ops.s2grid import S2Grid
 from ..ops.segment import gather_nodes
+from ..utils.trace import span
 from .attention import GraphAttention
 from .dual_stream import AngularHTR, TensorProductFFN
 from .ffn import ESENFeedForward, FeedForward
@@ -139,36 +140,40 @@ class TransBlock(nn.Module):
         stream, ``phi_r`` (the distance RBF) without ``use_phi_every_layer``;
         ``shard``: sequence parallelism (module doc)."""
         sp = shard.mp if shard is not None else None
-        if self.gata:
-            xe = x if sp is None else sp.copy_to(x)
-            X_i = gather_nodes(xe, edge_src, blocks)[:, 1:, :]
-            X_j = gather_nodes(xe, edge_dst, blocks, canonical_dst=True, shard=shard)[:, 1:, :]
+        with span("etq.model.attention"):
+            if self.gata:
+                xe = x if sp is None else sp.copy_to(x)
+                X_i = gather_nodes(xe, edge_src, blocks)[:, 1:, :]
+                X_j = gather_nodes(xe, edge_dst, blocks, canonical_dst=True,
+                                   shard=shard)[:, 1:, :]
+                if sp is None:
+                    t_ij = self.htr(t_ij, X_i, X_j, rl_ij)
+                else:
+                    t_ij = sp.call_divergent(self.htr, t_ij, X_i, X_j, rl_ij)
+                if self.dual_stream and sp is None:
+                    a_ij = self.angular_htr(a_ij, t_ij, x, edge_src, edge_dst, edge_mask,
+                                            blocks)
+                elif self.dual_stream:
+                    a_ij = sp.call_divergent(self.angular_htr, a_ij, t_ij, sp.copy_to(x),
+                                             edge_src, edge_dst, edge_mask, blocks, shard=shard)
+            args = (atomic_numbers, edge_scalars, edge_src, edge_dst, edge_mask, wigner, t_ij,
+                    rl_ij, blocks, generator, phi_r)
             if sp is None:
-                t_ij = self.htr(t_ij, X_i, X_j, rl_ij)
+                h = self.ga(self.attn_norm(x), *args)
             else:
-                t_ij = sp.call_divergent(self.htr, t_ij, X_i, X_j, rl_ij)
-            if self.dual_stream and sp is None:
-                a_ij = self.angular_htr(a_ij, t_ij, x, edge_src, edge_dst, edge_mask, blocks)
-            elif self.dual_stream:
-                a_ij = sp.call_divergent(self.angular_htr, a_ij, t_ij, sp.copy_to(x), edge_src,
-                                         edge_dst, edge_mask, blocks, shard=shard)
-        args = (atomic_numbers, edge_scalars, edge_src, edge_dst, edge_mask, wigner, t_ij,
-                rl_ij, blocks, generator, phi_r)
-        if sp is None:
-            h = self.ga(self.attn_norm(x), *args)
-        else:
-            h = sp.gather(sp.call_divergent(self.ga, sp.copy_to(self.attn_norm(x)), *args,
-                                            shard=shard), dim=0)
+                h = sp.gather(sp.call_divergent(self.ga, sp.copy_to(self.attn_norm(x)), *args,
+                                                shard=shard), dim=0)
         h = self.drop_path(h, graph_idx, num_graphs, generator)
         x = x + self.proj_drop(h, generator)
-        h = self.ffn_norm(x)
-        if self.ffn_variant in ("moe", "moe_breaking"):
-            h = self.ffn(h, t_ij, edge_dst, edge_mask, blocks, shard=shard)
-        elif self.ffn_variant == "tensor_product":
-            h = self.ffn(h, t_ij, a_ij if a_ij is not None else t_ij, edge_dst, edge_mask,
-                         blocks, shard=shard)
-        else:
-            h = self.ffn(h)
+        with span("etq.model.ffn"):
+            h = self.ffn_norm(x)
+            if self.ffn_variant in ("moe", "moe_breaking"):
+                h = self.ffn(h, t_ij, edge_dst, edge_mask, blocks, shard=shard)
+            elif self.ffn_variant == "tensor_product":
+                h = self.ffn(h, t_ij, a_ij if a_ij is not None else t_ij, edge_dst, edge_mask,
+                             blocks, shard=shard)
+            else:
+                h = self.ffn(h)
         h = self.drop_path(h, graph_idx, num_graphs, generator)
         x = x + self.proj_drop(h, generator)
         return x, t_ij, a_ij

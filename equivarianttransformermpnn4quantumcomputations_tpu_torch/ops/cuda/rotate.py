@@ -38,6 +38,7 @@ import functools
 import numpy as np
 import torch
 
+from ...utils.trace import sync
 from ..irreps import layout as get_layout
 from ..rotation import _J_dense, _abs_m_index, _flip_index, _flip_index_reduced, _sign_m
 
@@ -115,8 +116,10 @@ def _W_tensors(lmax: int, mmax: int, kind: str, device: str):
 
 def _cs(cos_m, sin_m, absm, sign):
     """[E, K] cos / sin(m t) tables from [E, lmax+1] per-|m| tables."""
-    idx = torch.as_tensor(absm, dtype=torch.long, device=cos_m.device)
-    sgn = torch.as_tensor(sign, dtype=torch.float32, device=cos_m.device)
+    with sync("rot_consts"):
+        idx = torch.as_tensor(absm, dtype=torch.long, device=cos_m.device)
+    with sync("rot_consts"):
+        sgn = torch.as_tensor(sign, dtype=torch.float32, device=cos_m.device)
     return cos_m[:, idx].contiguous(), (sin_m[:, idx] * sgn[None, :]).contiguous()
 
 
@@ -128,7 +131,8 @@ def _tabs_to(w, lmax: int, mmax: int, rescale_in: bool):
     c_b, s_b = _cs(w.cb, w.sb, k["absm_f"], k["sign_f"])
     c_a, s_a = _cs(w.ca, w.sa, k["absm_r"], k["sign_r"])
     if rescale_in:
-        r = torch.as_tensor(k["rescale"], device=c_g.device)[None, :]
+        with sync("rot_consts"):
+            r = torch.as_tensor(k["rescale"], device=c_g.device)[None, :]
         c_g, s_g = c_g * r, s_g * r
     return (c_g, s_g, c_b, s_b, c_a, -s_a, *_W_tensors(lmax, mmax, "to", str(c_g.device)))
 
@@ -140,7 +144,8 @@ def _tabs_from(w, lmax: int, mmax: int, rescale_out: bool):
     c_b, s_b = _cs(w.cb, w.sb, k["absm_f"], k["sign_f"])
     c_a, s_a = _cs(w.ca, w.sa, k["absm_r"], k["sign_r"])
     if rescale_out:
-        r = torch.as_tensor(k["rescale"], device=c_g.device)[None, :]
+        with sync("rot_consts"):
+            r = torch.as_tensor(k["rescale"], device=c_g.device)[None, :]
         c_g, s_g = c_g * r, s_g * r
     return (c_a, s_a, c_b, s_b, c_g, s_g, *_W_tensors(lmax, mmax, "from", str(c_g.device)))
 
@@ -149,8 +154,9 @@ def _slice_m0(ts, ta, lmax: int, mmax: int):
     """Restrict a (to_edge, adjoint from_edge) table pair to the m = 0
     OUTPUT rows: t3 and W2's rows of "to", t1 and W1's columns of "from"
     (the W slices are the "to_m0" / "from_m0" constants)."""
-    m0 = torch.as_tensor(_consts(lmax, mmax)["m0_rows"], dtype=torch.long,
-                         device=ts[0].device)
+    with sync("rot_consts"):
+        m0 = torch.as_tensor(_consts(lmax, mmax)["m0_rows"], dtype=torch.long,
+                             device=ts[0].device)
     dev = str(ts[0].device)
     ts_m0 = (*ts[:4], ts[4][:, m0].contiguous(), ts[5][:, m0].contiguous(),
              *_W_tensors(lmax, mmax, "to_m0", dev))

@@ -27,6 +27,7 @@ import functools
 import numpy as np
 import torch
 
+from ...utils.trace import sync
 from ..irreps import layout as get_layout
 from ..rotation import _m_keep_rows, compute_wigner_blocks
 
@@ -156,16 +157,19 @@ def compute_wigner_dense(lmax: int, mmax: int, edge_vec: torch.Tensor) -> Wigner
     for l in range(lmax + 1):
         D = blocks[l]
         if mmax < l:
-            D = D[:, _m_keep_rows(l, mmax), :]
+            with sync("wigner_index"):   # a host index of a device tensor
+                D = D[:, _m_keep_rows(l, mmax), :]
         cols.append(D.reshape(D.shape[0], -1))
     v_to = torch.cat(cols, dim=1).contiguous()
     dev = v_to.device
 
     def idx(a):
-        return torch.as_tensor(a, dtype=torch.long, device=dev)
+        with sync("wigner_consts"):
+            return torch.as_tensor(a, dtype=torch.long, device=dev)
 
     def scale(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=dev)[None, :]
+        with sync("wigner_consts"):
+            return torch.as_tensor(a, dtype=torch.float32, device=dev)[None, :]
 
     pairs = info["pairs"]
     res = info["rescale_full"]

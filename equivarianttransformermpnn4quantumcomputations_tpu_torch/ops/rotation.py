@@ -28,6 +28,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.trace import sync
 from .irreps import IrrepsLayout
 from .wigner_np import J_matrices
 
@@ -136,7 +137,8 @@ def compute_wigner_blocks(lmax: int, edge_vec: torch.Tensor) -> WignerBlocks:
     for l, Jl in enumerate(J_matrices(lmax)):
         if l == 0:
             continue
-        J = torch.as_tensor(Jl, dtype=torch.float32, device=alpha.device)
+        with sync("wigner_j"):
+            J = torch.as_tensor(Jl, dtype=torch.float32, device=alpha.device)
         xa, xb, xc = _z_rot(l, alpha), _z_rot(l, beta), _z_rot(l, gamma)
         blocks.append(xa @ (J @ (xb @ (J @ xc))))
     return WignerBlocks(blocks)
@@ -238,7 +240,9 @@ def _blocks_to_edge(w: WignerBlocks, x: torch.Tensor, layout: IrrepsLayout) -> t
     for l in range(layout.lmax + 1):
         wl = w.blocks[l]
         if layout.mmax < l:
-            wl = wl[:, torch.as_tensor(_m_keep_rows(l, layout.mmax), device=wl.device), :]
+            with sync("wigner_index"):
+                keep = torch.as_tensor(_m_keep_rows(l, layout.mmax), device=wl.device)
+            wl = wl[:, keep, :]
         out.append(torch.matmul(wl, x[:, l * l : l * l + 2 * l + 1, :].float()))
     return torch.cat(out, dim=1).to(x.dtype)
 
@@ -251,7 +255,8 @@ def _blocks_from_edge(w: WignerBlocks, x: torch.Tensor, layout: IrrepsLayout) ->
         offset += width
         winv = w.blocks[l].transpose(-1, -2)
         if layout.mmax < l:
-            keep = torch.as_tensor(_m_keep_rows(l, layout.mmax), device=winv.device)
+            with sync("wigner_index"):
+                keep = torch.as_tensor(_m_keep_rows(l, layout.mmax), device=winv.device)
             winv = winv[:, :, keep] * float(layout.rescale[l * l])
         out.append(torch.matmul(winv, xl))
     return torch.cat(out, dim=1).to(x.dtype)
@@ -289,7 +294,9 @@ def rotate_to_edge_m0(wigner, x: torch.Tensor, layout: IrrepsLayout) -> torch.Te
     _check(wigner, layout)
     if isinstance(wigner, WignerBlocks):
         m0_rows = np.nonzero(np.asarray(layout.m_complex) == 0)[0]
-        return _blocks_to_edge(wigner, x, layout)[:, torch.as_tensor(m0_rows), :]
+        y = _blocks_to_edge(wigner, x, layout)
+        with sync("wigner_index"):   # a host index of a device tensor
+            return y[:, torch.as_tensor(m0_rows), :]
     if isinstance(wigner, WignerFactors):
         from .cuda.rotate import rotate_to_edge_m0_fused
 

@@ -37,7 +37,10 @@ Port of the JAX package's train/trainer.py (the MatPES and QM9 parts):
 * Each step is two halves, which ``parallel/data_parallel.py`` runs with a
   gradient all-reduce between them: ``*_loss_grad`` (the loss, its
   gradients in the masters' ``.grad``) and ``apply_updates`` (the guarded
-  AdamW, the EMA, ``state.step``).
+  AdamW, the EMA, ``state.step``).  Under a profiler the step and its
+  phases are spans (``utils/trace.py``: ``etq.step``, ``etq.step.cast`` /
+  ``forward`` / ``backward`` / ``update``), in both halves, so the
+  parallel steps get them too; the guard's host read is ``etq.sync.guard``.
 * Sharded state (``parallel/sharding.py:shard_state``, tensor / expert
   parallelism): the optimizer's ``model_group`` and ``sharded`` flags make
   the global norm sum the squared norms of the shards over the ``model``
@@ -57,6 +60,7 @@ import torch.nn as nn
 
 from ..models.matpes import matpes_energy_forces
 from ..utils.precision import full_f32_products
+from ..utils.trace import span, sync
 
 __all__ = ["decays", "wd_mask", "GuardedAdamW", "TrainState", "create_train_state",
            "ema_update", "cast_params", "apply_updates", "matpes_loss", "matpes_loss_grad",
@@ -117,7 +121,8 @@ class GuardedAdamW:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
         gnorm = self._global_norm(grads)
-        finite = bool(torch.isfinite(gnorm))  # the step's one host sync
+        with sync("guard"):
+            finite = bool(torch.isfinite(gnorm))  # the step's one host sync
         self.notfinite_count = 0 if finite else self.notfinite_count + 1
         self.total_notfinite += 0 if finite else 1
         self.last_finite = finite
@@ -227,9 +232,11 @@ def apply_updates(state: TrainState, ema_decay: float = 0.999) -> dict:
     ``parallel/data_parallel.py:_apply_updates_factory``): the guarded AdamW
     from the parameters' ``.grad``, then the EMA and ``state.step``.
     Returns the optimizer's info (grad_norm, lr, accepted)."""
-    with full_f32_products():
-        info = state.optimizer.step()
-        ema_update(state.ema, state.model, ema_decay)
+    with span("etq.step.update"), full_f32_products():
+        with span("etq.step.adamw"):
+            info = state.optimizer.step()
+        with span("etq.step.ema"):
+            ema_update(state.ema, state.model, ema_decay)
     state.step += 1
     return info
 
@@ -238,8 +245,9 @@ def _train_step(state: TrainState, loss_grad: Callable, ema_decay: float):
     """``step(batch) -> (loss, metrics)``: ``loss_grad`` then ``apply_updates``."""
 
     def step(batch: dict):
-        loss, metrics = loss_grad(batch)
-        info = apply_updates(state, ema_decay)
+        with span("etq.step"):
+            loss, metrics = loss_grad(batch)
+            info = apply_updates(state, ema_decay)
         return loss, {**metrics, "loss": loss, **info}
 
     return step
@@ -261,12 +269,15 @@ def matpes_loss_grad(state: TrainState, w_energy: float = 1.0, w_force: float = 
         model.train()
         with full_f32_products():
             model.zero_grad(set_to_none=True)
-            params = cast_params(model, cdt) if cast and cdt != torch.float32 else None
-            outs = matpes_energy_forces(model, batch, create_graph=True, params=params,
-                                        generator=generator, regress_stress=w_stress > 0.0,
-                                        inner_ckpt=inner_ckpt)
-            loss, metrics = matpes_loss(outs, batch, w_energy, w_force, w_stress)
-            loss.backward()
+            with span("etq.step.cast"):
+                params = cast_params(model, cdt) if cast and cdt != torch.float32 else None
+            with span("etq.step.forward"):
+                outs = matpes_energy_forces(model, batch, create_graph=True, params=params,
+                                            generator=generator, regress_stress=w_stress > 0.0,
+                                            inner_ckpt=inner_ckpt)
+            with span("etq.step.backward"):
+                loss, metrics = matpes_loss(outs, batch, w_energy, w_force, w_stress)
+                loss.backward()
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
     return loss_grad
@@ -306,9 +317,12 @@ def _forward(model: nn.Module, batch: dict, generator: torch.Generator | None):
     computes in bfloat16."""
     cdt = model.backbone.compute_dtype
     if cdt == torch.float32:
-        return model(batch, generator=generator)
-    return torch.func.functional_call(model, cast_params(model, cdt), (batch,),
-                                      dict(generator=generator))
+        with span("etq.step.forward"):
+            return model(batch, generator=generator)
+    with span("etq.step.cast"):
+        params = cast_params(model, cdt)
+    with span("etq.step.forward"):
+        return torch.func.functional_call(model, params, (batch,), dict(generator=generator))
 
 
 def qm9_loss_grad(state: TrainState, loss_kind: str = "l1",
@@ -321,8 +335,10 @@ def qm9_loss_grad(state: TrainState, loss_kind: str = "l1",
         model.train()
         with full_f32_products():
             model.zero_grad(set_to_none=True)
-            loss = qm9_loss(_forward(model, batch, generator), batch["y"], loss_kind)
-            loss.backward()
+            pred = _forward(model, batch, generator)
+            with span("etq.step.backward"):
+                loss = qm9_loss(pred, batch["y"], loss_kind)
+                loss.backward()
         return loss.detach(), {}
 
     return loss_grad
@@ -364,9 +380,11 @@ def oc20_loss_grad(state: TrainState, w_energy: float = 2.0, w_force: float = 10
         with full_f32_products():
             model.zero_grad(set_to_none=True)
             outs = _forward(model, batch, generator)
-            loss, metrics = oc20_loss(outs["energy"], batch["energy"], outs["forces"],
-                                      batch["forces"], batch["node_mask"], w_energy, w_force)
-            loss.backward()
+            with span("etq.step.backward"):
+                loss, metrics = oc20_loss(outs["energy"], batch["energy"], outs["forces"],
+                                          batch["forces"], batch["node_mask"], w_energy,
+                                          w_force)
+                loss.backward()
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
     return loss_grad

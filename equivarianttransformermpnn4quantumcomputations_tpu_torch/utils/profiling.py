@@ -43,6 +43,20 @@ device time and launches of the edge-rotation kernels (K1 ``pairs_kernel``
 and K4 ``rot_kernel``) and of the S2 activation kernels (K2a, K2b, K2c:
 every kernel named ``s2act_*``; K2c apart), and the top kernels.  Every line carries the card's
 name and power limit.  Without a CUDA device it raises.
+
+The program's spans (``utils/trace.py``) get a table of their own
+(``span_table``, the record's ``spans``): for each ``etq.`` span name its
+calls, its host ms, and the device ms and launches of the kernels launched
+inside it, taken from the profiler's parent links (an operation's
+``cpu_parent`` chain up to the span), not from time overlap; a second pair
+of columns, ``backward``, gives the kernels of the backward functions
+whose forward operation ran inside the span (the profiler's own link of a
+backward function to its forward operation: sequence number and forward
+thread; the engine's sums of the gradients a backward function hands on
+go with that function), so the autograd engine's work on its own thread,
+and the second backward of force training, are put down to the model
+sites (``etq.model.*``) that made them.  The row ``(no span)`` holds the
+kernels that no span holds either way.
 """
 
 from __future__ import annotations
@@ -59,8 +73,8 @@ import torch
 from ..data.loader import FIXED_DEGREE, fixed_degree_pads
 
 __all__ = ["random_structures", "random_molecules", "qm9_batch", "qm9_train_state",
-           "oc20_batch", "oc20_train_state", "variant_model", "profile_call", "run", "main",
-           "MIXED", "mixed_structures"]
+           "oc20_batch", "oc20_train_state", "variant_model", "profile_call", "span_table",
+           "run", "main", "MIXED", "mixed_structures"]
 
 _BUCKETS = (
     # s2act_tc_kernel: K2a, K2b and K2c; s2act_kernel and s2act_k3_kernel:
@@ -208,6 +222,77 @@ def _bucket(name: str) -> str:
     return "other"
 
 
+# RecordScope::BACKWARD_FUNCTION: a backward function's event, which carries
+# its forward operation's sequence number and thread
+_BACKWARD_SCOPE = 1
+# the autograd engine's event around a backward function and the sums of the
+# gradients it hands on (which lie outside the function's own event)
+_ENGINE = "autograd::engine::evaluate_function"
+# the row of the kernels that no span holds, directly or by its backward
+NO_SPAN = "(no span)"
+
+
+def span_table(events) -> dict:
+    """Per ``etq.`` span name of ``events`` (``prof.events()``): calls, host
+    ms, and the device ms and launches of the kernels inside it and of its
+    backward (module doc)."""
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    # the first operation of each (sequence number, thread): the forward one
+    # (the engine's events carry their function's number on the engine's
+    # thread, so they are no forward operation)
+    forward = {}
+    for e in sorted(cpu, key=lambda e: e.time_range.start):
+        if (e.scope != _BACKWARD_SCOPE and e.sequence_nr >= 0
+                and not e.name.startswith(_ENGINE)):
+            forward.setdefault((e.sequence_nr, e.thread), e)
+    memo: dict = {}
+
+    def spans_of(e) -> tuple[frozenset, frozenset]:
+        """(the spans over ``e`` by parent links, those over the forward
+        operations of the backward functions ``e`` runs in)."""
+        key = id(e)
+        if key not in memo:
+            own, back, p = set(), frozenset(), e
+            while p is not None:
+                if p.name.startswith("etq."):
+                    own.add(p.name)
+                if p.scope == _BACKWARD_SCOPE or p.name.startswith(_ENGINE):
+                    fn = p if p.scope == _BACKWARD_SCOPE else next(
+                        (c for c in p.cpu_children if c.scope == _BACKWARD_SCOPE), None)
+                    f = fn and forward.get((fn.sequence_nr, fn.fwd_thread))
+                    if f is not None:
+                        back = frozenset().union(*spans_of(f))
+                    break
+                p = p.cpu_parent
+            memo[key] = (frozenset(own), back)
+        return memo[key]
+
+    rows: dict = {}
+
+    def row(name):
+        return rows.setdefault(name, dict(calls=0, host_ms=0.0, device_ms=0.0, launches=0,
+                                          backward_device_ms=0.0, backward_launches=0))
+
+    for e in cpu:
+        if e.name.startswith("etq."):
+            r = row(e.name)
+            r["calls"] += 1
+            r["host_ms"] += (e.time_range.end - e.time_range.start) / 1e3
+        if not e.kernels:
+            continue
+        own, back = spans_of(e)
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        for name in own or ({NO_SPAN} if not back else ()):
+            r = row(name)
+            r["device_ms"] += ms
+            r["launches"] += len(e.kernels)
+        for name in back - own:
+            r = row(name)
+            r["backward_device_ms"] += ms
+            r["backward_launches"] += len(e.kernels)
+    return dict(sorted(rows.items()))
+
+
 def profile_call(fn) -> dict:
     """Time one ``fn()`` on the card unprofiled, then profile another."""
     from torch.profiler import ProfilerActivity, profile
@@ -265,6 +350,7 @@ def profile_call(fn) -> dict:
         k2c_kernel_ms=sum(ms for ms, _ in k2c),
         k2c_kernel_launches=sum(n for _, n in k2c),
         top_kernels=[dict(name=k[:160], ms=v[0], count=v[1]) for k, v in top],
+        spans=span_table(prof.events()),
     )
 
 
@@ -431,7 +517,13 @@ def _report(card: str, what: str, rec: dict, args) -> dict:
           f"{rec['k2c_kernel_launches']} launches  [{card}]")
     for k in rec["top_kernels"]:
         print(f"  {k['ms']:8.2f} ms x{k['count']:4d}  {k['name'][:110]}")
-    print(json.dumps({k: v for k, v in rec.items() if k != "top_kernels"}))
+    if rec["spans"]:
+        print(f"  {'span':24s} {'calls':>5s} {'host ms':>9s} {'device ms':>9s} {'launches':>8s} "
+              f"{'bwd ms':>9s} {'bwd launches':>12s}  [{card}]")
+    for name, r in rec["spans"].items():
+        print(f"  {name:24s} {r['calls']:5d} {r['host_ms']:9.2f} {r['device_ms']:9.2f} "
+              f"{r['launches']:8d} {r['backward_device_ms']:9.2f} {r['backward_launches']:12d}")
+    print(json.dumps({k: v for k, v in rec.items() if k not in ("top_kernels", "spans")}))
     return rec
 
 
