@@ -7,6 +7,7 @@
     python3 chip_smoke.py --composite-only
     python3 chip_smoke.py --pipeline-only
     python3 chip_smoke.py --remat-only
+    python3 chip_smoke.py --gata-value-only
 
 ``--rotation-only`` runs phases 1 and 2 and phase 3's K1 / K4 rows, and
 stops; ``--s2act-only`` the same with phase 3's K2 rows.  Those rows call
@@ -14,7 +15,8 @@ only the kernels' wrappers, whose interface is the same since K4 (K2) was
 ported, so this script copied into the root of an older checkout times
 that checkout's kernels with the same timers and shapes.
 ``--composite-only`` runs phases 1 and 2 and phase 15, and stops;
-``--pipeline-only`` phases 1, 2 and 16; ``--remat-only`` phases 1, 2 and 20.
+``--pipeline-only`` phases 1, 2 and 16; ``--remat-only`` phases 1, 2 and 20;
+``--gata-value-only`` phases 1 and 2 and phase 3's K5 rows.
 
 Phase 3 times each kernel two ways, at the same shapes: CUDA events around
 one call (median of 15, L2 flushed before each), which also hold the part
@@ -50,7 +52,9 @@ Phases, each of which raises on failure:
      128])), and K2c at the flagship's, OC20's and the MatPES baseline's,
      each in f32 and bf16, all three on the tensor cores, with the
      tensor-core bound, the FFMA bound, the SFU floor and the tables' L2
-     bytes;
+     bytes; K5a, K5b and K5c (GATA-V2's value activation, ``K5_SITES``) at
+     the flagship training step's 39,680 edges and K5a / K5b at the
+     mixed-size request's 7,296, f32 and bf16, beside their bytes bound;
   4. serve 3 requests of 16 periodic structures of 30 atoms through the
      flagship MatPES GATA-V2 ``Predictor`` (bench.py:327-335 widths, seeded
      random weights; ragged batches, as the JAX ``Predictor`` pads them)
@@ -66,8 +70,8 @@ Phases, each of which raises on failure:
      f32 master weights, guarded AdamW, EMA; bench.py:308-359's step) on
      labelled batches of 16 structures x 30 atoms, with the launch counts
      zeroed just before the timed steps; fail if a kernel of the path (the
-     four K1 kinds, K2a, K2b, K2c) was never launched, a loss is not finite
-     or the guard skipped a step;
+     four K1 kinds, K2a, K2b, K2c, K5a, K5b, K5c) was never launched, a loss
+     is not finite or the guard skipped a step;
   7. one float32 training step of a 2-layer flagship-width model on 2
      structures, on the card and on the CPU plain path from the same
      weights: loss and gradients must agree, and so must the parameters and
@@ -656,6 +660,101 @@ def check_k2(n_flagship: int, tag: str, sites=K2_SITES) -> list[dict]:
                 bound_by=row["bound_by_f32"], library_ms=None, shape=[N, K, C], grid_points=P,
                 sites=[row])
     return list(records.values())
+
+
+# K5's sites: (site, E, lmax, mmax, C, the dtype of the path, K5c timed,
+# the record name suffix).  The flagship bf16 training step's edges (64 x 30
+# atoms, fixed degree: the benchmark's training cell) and the mixed-size f32
+# request's (1 x 120 + 15 x 16 atoms, ragged E_pad); both without p and
+# without rl's gradient (the edge SH are detached), as the paths call them
+K5_SITES = [
+    ("flagship train (64 x 30)", 39680, 4, 2, 128, torch.bfloat16, True, ""),
+    ("mixed request", 7296, 4, 2, 128, torch.float32, False, "[mixed]"),
+]
+
+
+def k5_values(kernel: str, E: int, lmax: int, mmax: int, C: int) -> int:
+    """Values K5a / K5b / K5c read and write at the paths' calls (no p, no
+    rl gradient, no cotangent of it): a, r, g, the kept rows of xp and rl,
+    dout, the cotangents of a, r, g, xp; K5b and K5c write da, dr, dg and
+    all rows of dxp, K5c also ddout."""
+    S, K1 = 1 + 2 * lmax, lmax * (lmax + 2)
+    w = sum(min(2 * l + 1, 2 * mmax + 1) for l in range(1, lmax + 1))
+    chunks, kept, out = 3 * S * C, w * C + w, (1 + w) * C
+    if kernel == "k5a":
+        per = chunks + kept + out
+    elif kernel == "k5b":
+        per = chunks + kept + out + chunks + K1 * C
+    else:
+        per = chunks + kept + out + chunks + w * C + chunks + K1 * C + out
+    return E * per
+
+
+def check_k5(tag: str, sites=K5_SITES) -> list[dict]:
+    """Phase 3, K5: K5a, K5b (and K5c where ``K5_SITES`` says) against their
+    plain versions (float32, from the same inputs) at each site, f32 and
+    bf16, timed with CUDA events and the device-only timer beside their
+    bytes bound and the plain version's (CUDA events; in the row's dtype;
+    the plain K5a is the module's eager arithmetic, K5b / K5c its
+    formulas in float32)."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import gata_value as gv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    records = []
+    for site, E, lmax, mmax, C, path_dt, with_k5c, suffix in sites:
+        S, K1 = 1 + 2 * lmax, lmax * (lmax + 2)
+        kred = 1 + sum(gv.out_rows(lmax, mmax))
+        need_b, need_c = (True, True, True, False, True, False), (True,) * 5 + (False, True)
+        specs = [("k5a", lambda i, d, c: gv.k5a(*i, lmax, mmax),
+                  lambda i, d, c: gv.k5a_plain(*i, lmax, mmax)),
+                 ("k5b", lambda i, d, c: gv.k5b(*i, d, lmax, mmax, need=need_b),
+                  lambda i, d, c: gv.k5b_plain(*i, d, lmax, mmax))]
+        if with_k5c:
+            specs.append(("k5c", lambda i, d, c: gv.k5c(*i, d, *c, lmax, mmax, need=need_c),
+                          lambda i, d, c: gv.k5c_plain(*i, d, *c, lmax, mmax)))
+        for kname, kern, plain in specs:
+            row = dict(site=site, shape=[E, kred, C], lmax=lmax, mmax=mmax)
+            parts = []
+            for dt, t in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dt)  # noqa: E731
+                ins = [rnd(E, S * C), rnd(E, S * C), rnd(E, S * C), None, rnd(E, K1, C),
+                       rnd(E, K1)]
+                dout = rnd(E, kred, C)
+                cots = [rnd(E, S * C), rnd(E, S * C), rnd(E, S * C), None, rnd(E, K1, C), None]
+                f32 = lambda ts: [x.float() if x is not None else None for x in ts]  # noqa: E731
+                got = kern(ins, dout, cots)
+                want = plain(f32(ins), dout.float(), f32(cots))
+                torch.cuda.synchronize()
+                pairs = [(g_, w_) for g_, w_ in zip(*(((o,) if kname == "k5a" else o)
+                                                      for o in (got, want))) if g_ is not None]
+                e = [_max_err(g_, w_, dt, f"gata_value.{kname} at {site}") for g_, w_ in pairs]
+                del got, want
+                b_ms, b_by = bound(dt.itemsize * k5_values(kname, E, lmax, mmax, C), 0.0)
+                r = dict(err=max(a for a, _ in e), limit=max(b for _, b in e),
+                         ms=time_ms(lambda: kern(ins, dout, cots), flush),
+                         device_ms=device_ms(lambda: kern(ins, dout, cots), flush),
+                         plain_ms=time_ms(lambda: plain(ins, dout, cots), flush),
+                         bound_ms=b_ms, bound_by=b_by)
+                r["device_bound_share"] = b_ms / r["device_ms"]
+                row.update({f"{k}_{t}": v for k, v in r.items()})
+                parts.append(
+                    f"{t}: ms {r['ms']:.4f}, device ms {r['device_ms']:.4f}, bound {b_ms:.4f} "
+                    f"({b_by}, device {100 * r['device_bound_share']:.0f} %), plain ms "
+                    f"{r['plain_ms']:.4f}, err {r['err']:.2e} (limit {r['limit']:.1e})")
+                del ins, dout, cots
+            print(f"kernel gata_value.{kname} {site} [{E},{kred},{C}]  " + "; ".join(parts)
+                  + f"  [{tag}]", flush=True)
+            t = "bf16" if path_dt == torch.bfloat16 else "f32"
+            name = f"gata_value.{kname}{suffix}"
+            records.append(dict(
+                name=name, route="cuda", source=f"{PKG}/csrc/gata_value.cu",
+                replaces=None, launches=0, max_abs_err=row[f"err_{t}"], ms=row[f"ms_{t}"],
+                device_ms=row[f"device_ms_{t}"], plain_ms=row[f"plain_ms_{t}"],
+                bound_ms=row[f"bound_ms_{t}"], bound_by=row[f"bound_by_{t}"], library_ms=None,
+                shape=[E, kred, C], dtype=t, sites=[row]))
+    return records
 
 
 def _k3_gradgrad(x, ws, cout, extra, plain: bool):
@@ -3414,14 +3513,17 @@ def pp_phase(tag: str) -> dict:
 
 
 def _train_counters() -> dict:
-    """The launch counters of the flagship's paths: K1's four kinds, K2a-c."""
+    """The launch counters of the flagship's paths: K1's four kinds, K2a-c,
+    K5a-c."""
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
+        gata_value,
         rotate_dense,
         s2act,
     )
 
     return {**{f"rotate_pairs.{k}": (rotate_dense.launches, k) for k in rotate_dense.launches},
-            **{f"s2act.{k}": (s2act.launches, k) for k in s2act.launches}}
+            **{f"s2act.{k}": (s2act.launches, k) for k in s2act.launches},
+            **{f"gata_value.{k}": (gata_value.launches, k) for k in gata_value.launches}}
 
 
 def main(argv: list[str]) -> int:
@@ -3430,8 +3532,9 @@ def main(argv: list[str]) -> int:
     composite_only = argv == ["--composite-only"]
     pipeline_only = argv == ["--pipeline-only"]
     remat_only = argv == ["--remat-only"]
+    gata_value_only = argv == ["--gata-value-only"]
     if argv and not (rotation_only or s2act_only or composite_only or pipeline_only
-                     or remat_only):
+                     or remat_only or gata_value_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3481,7 +3584,8 @@ def main(argv: list[str]) -> int:
                                      "s2act_tc_kernel<f32,19,", "s2act_tc_kernel<bf16,19,",
                                      "so2conv_kernel<", "b_operand_kernel<", "rot_kernel<f32,6,2,",
                                      "rot_kernel<bf16,6,2,", "rot_kernel<f32,4,2,",
-                                     "rot_kernel<bf16,4,2,")) or re.search(
+                                     "rot_kernel<bf16,4,2,", "gata_value_kernel<f32,4,",
+                                     "gata_value_kernel<bf16,4,")) or re.search(
                                          r"s2act_tc_kernel<\w+,(49|29|14),", r["name"]):
                 print(f"    {r['name']}: {r['registers']} registers, "
                       f"{r['spill_bytes']} B spill stores")
@@ -3520,6 +3624,11 @@ def main(argv: list[str]) -> int:
         check_k2(int(pb.pos.shape[0]), tag)
         print(f"S2 activation kernels checked and timed  [{tag}]")
         return 0
+    if gata_value_only:
+        del pred
+        print(json.dumps({"kernels": check_k5(tag)}))
+        print(f"GATA value activation kernels checked and timed  [{tag}]")
+        return 0
     if composite_only:
         del pred
         print(json.dumps({"kernels": tp_phase(batch, tag)}))
@@ -3546,6 +3655,7 @@ def main(argv: list[str]) -> int:
     next(r for r in k2 if r["name"] == "s2act.k3")["oc20_instances"] = [
         r for r in k2 if r["name"].startswith("s2act.k3[K=")]
     records += [r for r in k2 if not r["name"].startswith("s2act.k3[K=")]
+    records += check_k5(tag)
 
     # phase 4: serve, counting launches from zero
     counters = _train_counters()
@@ -3571,8 +3681,9 @@ def main(argv: list[str]) -> int:
     print(f"launches over {N_REQUESTS} requests: {launches}  [{tag}]", flush=True)
     print(f"peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  "
           f"[{tag}]", flush=True)
-    # K2c is the grad-of-grad kernel: training runs it, serving never does
-    idle = [n for n, c in launches.items() if c == 0 and n != "s2act.k3"]
+    # K2c and K5c are grad-of-grad kernels: training runs them, serving never does
+    idle = [n for n, c in launches.items()
+            if c == 0 and n not in ("s2act.k3", "gata_value.k5c")]
     if idle:
         raise RuntimeError(f"kernels never launched on the serving path: {idle}")
     for r in records:

@@ -58,6 +58,7 @@ from ..ops.rotation import rotate_from_edge, rotate_to_edge, rotate_to_edge_m0
 from ..ops.s2grid import S2Grid
 from ..ops.segment import gather_nodes, segment_softmax, segment_sum
 from .activations import gate_activation, s2_activation, separable_s2_activation
+from .embedding import atom_edge_features
 from .gata import GATAValueActivation, gata_value_activation_v1
 from .layers import LayerNorm, RadialMLP, keep_mask, smooth_leaky_relu
 from .so3_layers import SO2Conv, SO3Linear
@@ -170,9 +171,8 @@ class GraphAttention(nn.Module):
         mp = self.mp
         x_edge = edge_scalars
         if self.use_atom_edge_embedding:
-            x_edge = torch.cat([edge_scalars,
-                                self.src_embedding(atomic_numbers[edge_src]),
-                                self.dst_embedding(atomic_numbers[edge_dst])], dim=1)
+            x_edge = atom_edge_features(edge_scalars, self.src_embedding, self.dst_embedding,
+                                        atomic_numbers, edge_src, edge_dst, blocks, shard)
         num_nodes = x.shape[0]
         x_src = gather_nodes(x, edge_src, blocks)
         x_dst = gather_nodes(x, edge_dst, blocks, canonical_dst=True, shard=shard)

@@ -16,10 +16,27 @@ import torch.nn as nn
 
 from ..ops.irreps import IrrepsLayout
 from ..ops.rotation import rotate_from_edge
-from ..ops.segment import segment_sum
+from ..ops.segment import gather_nodes, segment_sum
 from .layers import RadialMLP
 
-__all__ = ["EdgeDegreeEmbedding"]
+__all__ = ["EdgeDegreeEmbedding", "atom_edge_features"]
+
+
+def atom_edge_features(edge_scalars: torch.Tensor, src_embedding: nn.Embedding,
+                       dst_embedding: nn.Embedding, atomic_numbers: torch.Tensor,
+                       edge_src: torch.Tensor, edge_dst: torch.Tensor, blocks=None,
+                       shard=None) -> torch.Tensor:
+    """The edge scalars with the source and target atoms' embeddings beside
+    them: each embedding looked up per node, then gathered to the edges as
+    the node features are (``ops/segment.py:gather_nodes``, in the layout of
+    ``blocks``, the targets of a ``shard``'s rows).  Both gathers add their
+    backward in a fixed order; the CUDA backward of ``nn.Embedding`` at the
+    edges (over 3,072 indices) does not, and made two bf16 force-training
+    gradients from one state differ in the embedding's weight."""
+    src = gather_nodes(gather_nodes(src_embedding.weight, atomic_numbers), edge_src, blocks)
+    dst = gather_nodes(gather_nodes(dst_embedding.weight, atomic_numbers), edge_dst, blocks,
+                       canonical_dst=True, shard=shard)
+    return torch.cat([edge_scalars, src, dst], dim=1)
 
 
 class EdgeDegreeEmbedding(nn.Module):
@@ -50,9 +67,8 @@ class EdgeDegreeEmbedding(nn.Module):
         rows."""
         x_edge = edge_scalars
         if self.use_atom_edge_embedding:
-            x_edge = torch.cat([edge_scalars,
-                                self.src_embedding(atomic_numbers[edge_src]),
-                                self.dst_embedding(atomic_numbers[edge_dst])], dim=1)
+            x_edge = atom_edge_features(edge_scalars, self.src_embedding, self.dst_embedding,
+                                        atomic_numbers, edge_src, edge_dst, blocks, shard)
         m0 = self.rad(x_edge).reshape(-1, self.L0, self.sphere_channels)
         E = m0.shape[0]
         zeros = m0.new_zeros(E, self.layout.num_coefficients - self.L0,

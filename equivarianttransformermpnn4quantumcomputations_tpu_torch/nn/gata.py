@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.cuda.gata_value import gata_value
 from .layers import Linear
 from .partition import chunked_index
 
@@ -141,22 +142,17 @@ class GATAValueActivation(nn.Module):
         return F.linear(x.to(dt), w[idx].to(dt), b[idx].to(dt))
 
     def forward(self, attn_output, t_ij, h_j, X_j, rl_ij, phi_r=None, copied: bool = False):
-        C, lmax = self.C // (self.mp.size if self.mp is not None else 1), self.lmax
-        rl_ij = rl_ij.to(attn_output.dtype)
-        bias = self.W_rs(t_ij) * F.silu(self.gamma_s(h_j, copied=copied))
-        if self.use_phi:
-            bias = bias * self._phi(phi_r)
-        combined = attn_output + bias
-        out = [F.silu(combined[:, :C])[:, None, :]]
+        r = self.W_rs(t_ij)
+        g = self.gamma_s(h_j, copied=copied)
+        p = self._phi(phi_r) if self.use_phi else None
         Xp = self.xj_proj(X_j, copied=copied)
-        offset = 0
-        for l in range(1, lmax + 1):
-            d = 2 * l + 1
-            w = min(d, 2 * self.mmax + 1)
-            Xl = Xp[:, offset : offset + w, :]
-            rl = rl_ij[:, offset : offset + w, None]
-            offset += d
-            od = combined[:, l * C : (l + 1) * C][:, None, :]
-            ot = combined[:, (lmax + l) * C : (lmax + l + 1) * C][:, None, :]
-            out.append(od * rl + ot * Xl)
-        return torch.cat(out, dim=1)
+        # one dtype for the kernels: the composite step's f32 masters in a
+        # bf16 model make the linears' outputs f32 beside bf16 rl_ij
+        dt = attn_output.dtype
+        for t in (r, g, p, Xp):
+            if t is not None:
+                dt = torch.promote_types(dt, t.dtype)
+        cast = lambda t: t.to(dt) if t is not None else None  # noqa: E731
+        # the elementwise body: kernels K5a-c on the card (ops/cuda/gata_value.py)
+        return gata_value(cast(attn_output), cast(r), cast(g), cast(p), cast(Xp),
+                          cast(rl_ij), self.lmax, self.mmax)

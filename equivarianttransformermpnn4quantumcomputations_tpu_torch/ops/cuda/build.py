@@ -34,7 +34,7 @@ __all__ = ["SOURCES", "build", "library", "check", "ptxas_report"]
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("rotate_dense", "s2act", "so2conv", "rotate")
+SOURCES = ("rotate_dense", "s2act", "so2conv", "rotate", "gata_value")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -64,6 +64,9 @@ _SIGNATURES = {
         "etq_rotate_const_offset": ([_I, _I, _I], _I),
         "etq_rotate_set_consts": ([_P, _I], _I),
     },
+    "gata_value": {
+        "etq_gata_value": ([_I, _I, _I, _I, _I, _I, ctypes.c_longlong, _P, _P], _I),
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -89,7 +92,7 @@ def _parse_ptxas(log: str) -> list[dict]:
         if m:
             mangled = m.group(1)
             base = re.search(r"(pairs_kernel|s2act_tc_kernel|so2conv_kernel|"
-                             r"b_operand_kernel|rot_kernel)I", mangled)
+                             r"b_operand_kernel|rot_kernel|gata_value_kernel)I", mangled)
             args = ["bf16" if "bfloat16" in mangled else "f32"]
             args += re.findall(r"L[ib](\d+)E", mangled)
             out.append(dict(name=f"{base.group(1) if base else mangled}<{','.join(args)}>",

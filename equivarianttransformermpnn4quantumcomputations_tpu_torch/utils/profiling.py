@@ -41,7 +41,8 @@ device busy share (union of kernel intervals over the profiled call's wall
 time), the number of kernel launches, the kernel time by bucket, the
 device time and launches of the edge-rotation kernels (K1 ``pairs_kernel``
 and K4 ``rot_kernel``) and of the S2 activation kernels (K2a, K2b, K2c:
-every kernel named ``s2act_*``; K2c apart), and the top kernels.  Every line carries the card's
+every kernel named ``s2act_*``; K2c apart), of the GATA value activation
+kernels (K5a, K5b, K5c: ``gata_value_kernel``), and the top kernels.  Every line carries the card's
 name and power limit.  Without a CUDA device it raises.
 
 The program's spans (``utils/trace.py``) get a table of their own
@@ -78,10 +79,11 @@ __all__ = ["random_structures", "random_molecules", "qm9_batch", "qm9_train_stat
 
 _BUCKETS = (
     # s2act_tc_kernel: K2a, K2b and K2c; s2act_kernel and s2act_k3_kernel:
-    # their FFMA kernels in older trees (this file copied there for an A/B)
-    ("port kernels (pairs, s2act, so2conv, rot)",
+    # their FFMA kernels in older trees (this file copied there for an A/B);
+    # gata_value_kernel: K5a, K5b and K5c
+    ("port kernels (pairs, s2act, so2conv, rot, gata_value)",
      ("pairs_kernel", "s2act_tc_kernel", "so2conv_kernel", "b_operand_kernel", "rot_kernel",
-      "s2act_kernel", "s2act_k3_kernel")),
+      "s2act_kernel", "s2act_k3_kernel", "gata_value_kernel")),
     ("optimizer (multi-tensor)", ("multi_tensor",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "gemv", "splitK")),
     ("gather / scatter / index", ("index", "gather", "scatter")),
@@ -332,6 +334,7 @@ def profile_call(fn) -> dict:
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     rotation = [v for k, v in per_kernel.items() if "pairs_kernel" in k or "rot_kernel" in k]
     s2 = [v for k, v in per_kernel.items() if "s2act_" in k]
+    k5 = [v for k, v in per_kernel.items() if "gata_value_kernel" in k]
     # K2c: the tensor-core kernel's third instance, or its FFMA kernel in older trees
     k2c = [v for k, v in per_kernel.items()
            if "s2act_k3_kernel" in k or re.search(r"s2act_tc_kernel<[^>]*, 2>", k)]
@@ -349,6 +352,8 @@ def profile_call(fn) -> dict:
         s2act_kernel_launches=sum(n for _, n in s2),
         k2c_kernel_ms=sum(ms for ms, _ in k2c),
         k2c_kernel_launches=sum(n for _, n in k2c),
+        gata_value_kernel_ms=sum(ms for ms, _ in k5),
+        gata_value_kernel_launches=sum(n for _, n in k5),
         top_kernels=[dict(name=k[:160], ms=v[0], count=v[1]) for k, v in top],
         spans=span_table(prof.events()),
     )
@@ -515,6 +520,8 @@ def _report(card: str, what: str, rec: dict, args) -> dict:
           f"{rec['s2act_kernel_launches']} launches  [{card}]")
     print(f"  {'  of which K2c (grad-of-grad)':38s} {rec['k2c_kernel_ms']:8.2f} ms in "
           f"{rec['k2c_kernel_launches']} launches  [{card}]")
+    print(f"  {'GATA value kernels (K5a, K5b, K5c)':38s} {rec['gata_value_kernel_ms']:8.2f} ms in "
+          f"{rec['gata_value_kernel_launches']} launches  [{card}]")
     for k in rec["top_kernels"]:
         print(f"  {k['ms']:8.2f} ms x{k['count']:4d}  {k['name'][:110]}")
     if rec["spans"]:

@@ -27,6 +27,7 @@ from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes impo
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops import rotation as rot
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import build
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import edge_rotate
+from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import gata_value as gv
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import rotate as k4
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
     rotate_dense as rd,
@@ -742,3 +743,178 @@ def test_remat_step_on_the_card_matches_the_step_without(dev, mode):
     num = sum(float(((g1[k] - g0[k]).double() ** 2).sum()) for k in g0)
     den = sum(float((g0[k].double() ** 2).sum()) for k in g0)
     assert (num / den) ** 0.5 <= 1e-5
+
+
+# K5 (GATA-V2's value activation): (E, C, lmax, mmax, with p, a's column
+# offset).  The flagship training step's edges (64 x 30 atoms, fixed
+# degree); a ragged E, not a multiple of a block's 16 (bf16) or 8 (f32)
+# edges, with p; the model=2 shard's C with a as a column slice; the small
+# test models' C; C = 24, whose 16-byte vectors do not fill a power-of-two
+# group of lanes, at lmax = mmax = 3
+K5_CASES = [(39680, 128, 4, 2, False, 0), (9923, 128, 4, 2, True, 0),
+            (7296, 64, 4, 2, False, 128), (37, 16, 4, 2, True, 8), (501, 24, 3, 3, False, 0)]
+
+
+def _k5_case(E, C, lmax, mmax, with_p, extra, dtype, dev, seed):
+    """The six inputs, dout and the six cotangents of K5b's outputs, in
+    ``dtype`` on the card (p's and its cotangent None without p)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    S, K1 = 1 + 2 * lmax, lmax * (lmax + 2)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)  # noqa: E731
+    base = rnd(E, extra + S * C)
+    ins = [base[:, extra:], rnd(E, S * C), rnd(E, S * C), rnd(E, S * C) if with_p else None,
+           rnd(E, K1, C), rnd(E, K1)]
+    dout = rnd(E, 1 + sum(gv.out_rows(lmax, mmax)), C)
+    cots = [rnd(E, S * C), rnd(E, S * C), rnd(E, S * C), rnd(E, S * C) if with_p else None,
+            rnd(E, K1, C), rnd(E, K1)]
+    return ins, dout, cots
+
+
+def _f32(ts):
+    return [t.float() if t is not None else None for t in ts]
+
+
+def _close_all(got, want, dtype):
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert (x is None) == (y is None)
+        if y is not None:
+            _close(x, y, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", K5_CASES, ids=str)
+def test_gata_value_kernels_match_plain(dev, case, dtype):
+    """K5a, K5b and K5c against their plain versions (float32, from the same
+    inputs), every output, each launch counted."""
+    E, C, lmax, mmax, with_p, extra = case
+    ins, dout, cots = _k5_case(*case, dtype, dev, seed=22)
+    before = dict(gv.launches)
+    _close(gv.k5a(*ins, lmax, mmax), gv.k5a_plain(*_f32(ins), lmax, mmax), dtype)
+    _close_all(gv.k5b(*ins, dout, lmax, mmax),
+               gv.k5b_plain(*_f32(ins), dout.float(), lmax, mmax), dtype)
+    _close_all(gv.k5c(*ins, dout, *cots, lmax, mmax),
+               gv.k5c_plain(*_f32(ins), dout.float(), *_f32(cots), lmax, mmax), dtype)
+    assert {k: gv.launches[k] - before[k] for k in gv.KERNELS} == dict(k5a=1, k5b=1, k5c=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gata_value_kernels_leave_out_what_no_one_needs(dev, dtype):
+    """The flagship step's calls: no rl gradient (the edge SH are detached),
+    no p; K5c with rl's cotangent absent.  The outputs left out are None,
+    the others match the plain versions, and the rows of xp the activation
+    drops get zero gradients."""
+    lmax, mmax = 4, 2
+    ins, dout, cots = _k5_case(9920, 128, lmax, mmax, False, 0, dtype, dev, seed=23)
+    cots[5] = None
+    need_b = (True, True, True, False, True, False)
+    got = gv.k5b(*ins, dout, lmax, mmax, need=need_b)
+    want = gv.k5b_plain(*_f32(ins), dout.float(), lmax, mmax)
+    _close_all(got, [w if n else None for w, n in zip(want, need_b)], dtype)
+    unused = torch.ones(lmax * (lmax + 2), dtype=torch.bool, device=dev)
+    for l, w in enumerate(gv.out_rows(lmax, mmax), start=1):
+        unused[l * l - 1 : l * l - 1 + w] = False
+    assert (got[4][:, unused] == 0).all()
+    need_c = (True, True, True, False, True, False, True)
+    got = gv.k5c(*ins, dout, *cots, lmax, mmax, need=need_c)
+    want = gv.k5c_plain(*_f32(ins), dout.float(), *_f32(cots), lmax, mmax)
+    _close_all(got, [w if n else None for w, n in zip(want, need_c)], dtype)
+    assert (got[4][:, unused] == 0).all()
+
+
+def test_gata_value_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    ins, _, _ = _k5_case(64, 20, 2, 1, False, 0, torch.float32, dev, seed=24)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        gv.k5a(*ins, 2, 1)
+    ins, _, _ = _k5_case(64, 16, 2, 1, False, 0, torch.float64, dev, seed=24)
+    with pytest.raises(TypeError):
+        gv.k5a(*ins, 2, 1)
+
+
+def _flagship_gata(dtype=None):
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.loader import (
+        FIXED_DEGREE,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes import FLAGSHIP
+
+    kw = dict(compute_dtype=dtype, **FIXED_DEGREE) if dtype is not None else {}
+    model = EquiformerV2MatPES(**{**FLAGSHIP, "alpha_drop": 0.0, "drop_path_rate": 0.0}, **kw)
+    return init_weights(model, torch.Generator().manual_seed(0)), FLAGSHIP
+
+
+def _flagship_step_batch(n: int, dev, seed: int = 0):
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import (
+        as_tensors,
+        collate,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.loader import (
+        fixed_degree_pads,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.synthetic import (
+        labelled_structures,
+    )
+
+    pb = collate(labelled_structures(np.random.default_rng(seed), n, 30), 6.0, 20,
+                 *fixed_degree_pads([30] * n, 20), fixed_degree=True)
+    return as_tensors(pb, dev)
+
+
+def test_flagship_step_and_mixed_request_launch_k5(dev):
+    """The flagship bf16 force-training step launches K5a / K5b / K5c 6 /
+    12 / 6 times (one per layer; K5b in the force pass and the loss
+    backward), a mixed-size f32 request 6 / 6 / 0: every CUDA call of the
+    activation goes through the kernels."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        GuardedAdamW,
+        create_train_state,
+        make_matpes_train_step,
+    )
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils import profiling
+
+    model, _ = _flagship_gata(torch.bfloat16)
+    model.to(dev)
+    state = create_train_state(model, GuardedAdamW(model.named_parameters(), lambda s: 1e-4,
+                                                   1e-3, 1.0))
+    step = make_matpes_train_step(state)
+    batch = _flagship_step_batch(4, dev)
+    before = dict(gv.launches)
+    _, m = step(batch)
+    torch.cuda.synchronize()
+    assert m["accepted"]
+    assert {k: gv.launches[k] - before[k] for k in gv.KERNELS} == dict(k5a=6, k5b=12, k5c=6)
+    del state, step, model
+    model, widths = _flagship_gata()
+    pred = Predictor(model, model.state_dict(), widths["cutoff"], 20, device="cuda")
+    req = profiling.mixed_structures(np.random.default_rng(0))
+    before = dict(gv.launches)
+    out = pred.predict_batch(req)
+    assert np.isfinite(out["energy"]).all()
+    assert {k: gv.launches[k] - before[k] for k in gv.KERNELS} == dict(k5a=6, k5b=6, k5c=0)
+
+
+def test_bf16_flagship_loss_gradient_repeats_bit_for_bit(dev):
+    """Two bf16 loss gradients of the flagship from one state on one batch
+    are bit for bit equal: K5a-c, like the segment sums, use no atomics."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer import (
+        GuardedAdamW,
+        create_train_state,
+        matpes_loss_grad,
+    )
+
+    model, _ = _flagship_gata(torch.bfloat16)
+    model.to(dev)
+    state = create_train_state(model, GuardedAdamW(model.named_parameters(), lambda s: 1e-4,
+                                                   1e-3, 1.0))
+    loss_grad = matpes_loss_grad(state)
+    batch = _flagship_step_batch(8, dev, seed=19)
+    runs = []
+    for _ in range(3):   # the first call warms up
+        before = gv.launches["k5c"]
+        loss, _ = loss_grad(batch)
+        assert gv.launches["k5c"] == before + 6
+        runs.append((float(loss), {n: p.grad.detach().clone()
+                                   for n, p in model.named_parameters() if p.grad is not None}))
+    (la, ga), (lb, gb) = runs[1:]
+    assert ga.keys() == gb.keys()
+    assert [n for n in ga if not torch.equal(ga[n], gb[n])] == []
+    assert la == lb
