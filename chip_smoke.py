@@ -8,6 +8,7 @@
     python3 chip_smoke.py --pipeline-only
     python3 chip_smoke.py --remat-only
     python3 chip_smoke.py --gata-value-only
+    python3 chip_smoke.py --qm9-only
 
 ``--rotation-only`` runs phases 1 and 2 and phase 3's K1 / K4 rows, and
 stops; ``--s2act-only`` the same with phase 3's K2 rows.  Those rows call
@@ -16,7 +17,8 @@ ported, so this script copied into the root of an older checkout times
 that checkout's kernels with the same timers and shapes.
 ``--composite-only`` runs phases 1 and 2 and phase 15, and stops;
 ``--pipeline-only`` phases 1, 2 and 16; ``--remat-only`` phases 1, 2 and 20;
-``--gata-value-only`` phases 1 and 2 and phase 3's K5 rows.
+``--gata-value-only`` phases 1 and 2 and phase 3's K5 rows;
+``--qm9-only`` phases 1 and 2, phase 3's K3 rows, and phases 8 and 9.
 
 Phase 3 times each kernel two ways, at the same shapes: CUDA events around
 one call (median of 15, L2 flushed before each), which also hold the part
@@ -36,8 +38,10 @@ Phases, each of which raises on failure:
      flagship's serving shapes and QM9's, f32 and bf16, with a same-bytes
      copy probe, and first order and grad-of-grad through its autograd
      pair; K3 (the fused SO(2)
-     convolution and its adjoint) at QM9's conv 1 and conv 2 and the
-     flagship's conv 2, with its grad-of-grad, the three cuBLAS GEMMs of
+     convolution and its adjoint) at QM9's conv 1 at the ragged E_pad of
+     the benchmark cell ``qm9-train-b64`` (59,520), QM9's conv 1 and conv 2
+     at 64 molecules x 18 atoms fixed-degree, and the flagship's conv 2,
+     with its grad-of-grad, the three cuBLAS GEMMs of
      the site (library, f32 with TF32 off, and bf16) and the port's unfused
      SO2Conv beside it, its bound on the tensor cores (3xTF32 in f32, bf16)
      and the FFMA bound, its f32 error against float64, and its B operands
@@ -77,12 +81,16 @@ Phases, each of which raises on failure:
      weights: loss and gradients must agree, and so must the parameters and
      EMA that the card's step and the CPU's optimizer make of the card's
      gradients;
-  8. QM9: 2 + 5 full-width f32 steps (64 molecules x 18 atoms) with K3, the
-     same without K3 in turns (the composed A/B), 2 + 5 bf16 steps with K3
-     (bf16 compute, f32 masters: step ms by CUDA events, peak memory,
-     launches), then 3 evaluation requests with the EMA weights; fail if a
-     kernel of the path was never launched, a loss is not finite or the
-     guard skipped a step;
+  8. QM9: 2 + 5 full-width f32 steps (64 molecules x 18 atoms, fixed-degree)
+     with K3, the same without K3 in turns (the composed A/B), 2 + 5 bf16
+     steps with K3 (bf16 compute, f32 masters: step ms by CUDA events, peak
+     memory, launches), 3 evaluation requests with the EMA weights; then the
+     f32 A/B again in the configuration's ragged layout on the batches of
+     the benchmark cell ``qm9-train-b64`` (64 QM9-like molecules of 3-29
+     atoms at the cell's pads, 2,320 / 59,520), its launches counted from
+     zero; fail if a kernel of the path was never launched, K3's forward or
+     adjoint missed one of the 16 conv sites of a step, a loss is not
+     finite or the guard skipped a step;
   9. one f32 QM9 step (2 layers, full width) on the card against the CPU;
   10. OC20 S2EF: 2 + 5 full-width bf16 training steps (configs/oc20.py:
      12 layers, lmax 6 / mmax 2; f32 masters, dropouts 0) on 4 labelled
@@ -253,6 +261,7 @@ CUTOFF, MAX_NEIGHBORS = 6.0, 20        # bench.py:338-340
 N_STRUCTURES, N_ATOMS, N_REQUESTS = 16, 30, 3
 N_WARMUP_STEPS, N_TRAIN_STEPS = 2, 5
 QM9_MOLECULES, QM9_ATOMS = 64, 18      # configs/qm9.py batch; QM9's mean size
+QM9_CELL = "qm9-train-b64"              # the benchmark's QM9 training cell (BENCHMARK.json)
 OC20_GRAPHS, OC20_ATOMS = 4, 72        # bench.py:435 (N_pad 320, E_pad 6,400)
 # H100 SXM published peaks: HBM3 bandwidth; FP32 on FFMA, dense TF32 and
 # BF16 on the tensor cores
@@ -803,9 +812,11 @@ def check_k3_b_operands(ws, flush, tag: str) -> dict:
                 library_ms=None)
 
 
-def check_k3(e_flagship: int, e_qm9: int, tag: str) -> list[dict]:
+def check_k3(e_flagship: int, e_qm9: int, e_qm9_ragged: int, tag: str) -> list[dict]:
     """Phase 3, K3: forward, adjoint and grad-of-grad against the plain
-    versions at three sites, f32 and bf16; times at each site in both.
+    versions at four sites, f32 and bf16; times at each site in both.  The
+    first site, QM9's conv 1 at the ragged ``e_qm9_ragged`` rows of the
+    benchmark cell's batches, is the main path's and gives the records.
 
     The kernel runs f32 as 3xTF32 on the tensor cores, so its bound is the
     larger of bytes / 3.35 TB/s and 3 flops / 495 TFLOP/s; bf16 runs bf16
@@ -825,7 +836,8 @@ def check_k3(e_flagship: int, e_qm9: int, tag: str) -> list[dict]:
     groups = k3._row_maps(4, 2)
     idx = [torch.as_tensor(r, device=dev) for r in groups]
     K = sum(map(len, groups))
-    sites = [("QM9 conv 1", e_qm9, 256, 128, 384), ("QM9 conv 2", e_qm9, 128, 128, 0),
+    sites = [("QM9 conv 1", e_qm9_ragged, 256, 128, 384),
+             ("QM9 conv 1 64x18", e_qm9, 256, 128, 384), ("QM9 conv 2 64x18", e_qm9, 128, 128, 0),
              ("flagship conv 2", e_flagship, 128, 128, 0)]
     rows = {"fwd": [], "adj": []}
     for site, E, cin, cout, extra in sites:
@@ -948,7 +960,7 @@ def check_k3(e_flagship: int, e_qm9: int, tag: str) -> list[dict]:
               f"{errs['gradgrad'][torch.bfloat16][1]:.1e})  [{tag}]", flush=True)
     records = []
     for kind, line in (("fwd", 111), ("adj", 140)):
-        main = rows[kind][0]   # QM9 conv 1, the largest site of the main path
+        main = rows[kind][0]   # QM9 conv 1 at the cell's ragged E_pad, the main path's
         records.append(dict(
             name=f"so2conv.{kind}", route="cuda", source=f"{PKG}/csrc/so2conv.cu",
             replaces=f"{TPU_PKG}/ops/pallas/so2conv.py:{line}", launches=0,
@@ -1159,10 +1171,112 @@ def train_parity_phase(tag: str) -> None:
         raise RuntimeError("the training step on the card disagrees with the CPU plain path")
 
 
-def qm9_phase(counters: dict, tag: str) -> tuple[dict, dict]:
-    """Phase 8: the QM9 step with K3 (and the composed A/B without it), and
-    3 evaluation requests.  Returns the launches of the timed K3 steps and
-    of the requests."""
+def qm9_cell_batches(n: int, seed: int = 5) -> list:
+    """``n`` ragged batches of the benchmark cell ``QM9_CELL``'s traffic
+    (``portbench/traffic/qm9-pool64.json``: 64 QM9-like molecules of 3-29
+    atoms each, in the order of the pool of ``seed``) at the pads the cell
+    trains at: the program's rule (``data/loader.py:infer_pad_sizes``,
+    ragged) over the pool of the traffic's ``pads_seed``.  Fails if a batch
+    overflowed its pads."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.data import graph, loader
+    from portbench.entries.qm9_train import pads, samples
+    from portbench.harness.common import load_cell
+    from portbench.traffic import molecules
+
+    cell = load_cell(QM9_CELL)
+    n_pad, e_pad = pads(loader, graph, cell)
+    B = int(cell.traffic["structures_per_step"])
+    pool = samples(graph, molecules.generate(cell.traffic, seed))
+    cutoff, k = cell.config["model"]["cutoff"], cell.config["max_neighbors"]
+    out = [graph.collate(pool[i * B:(i + 1) * B], cutoff, k, n_pad, e_pad) for i in range(n)]
+    if any(pb.overflow_atoms or pb.overflow_edges for pb in out):
+        raise RuntimeError(f"a batch of {QM9_CELL}'s traffic overflowed its pads")
+    return out
+
+
+def _qm9_counters() -> dict:
+    """Phase 8's launch counters: K1 to / from, K2a / K2b (the edge site, the
+    FFNs and the heads), K3's forward, adjoint and B operands."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
+        rotate_dense,
+        s2act,
+        so2conv,
+    )
+
+    return {**{f"rotate_pairs.{k}": (rotate_dense.launches, k) for k in ("to", "from")},
+            **{f"s2act.{k}": (s2act.launches, k) for k in ("k1", "k2")},
+            **{f"so2conv.{k}": (so2conv.launches, k) for k in so2conv.launches}}
+
+
+def _qm9_ab(arms: dict, batches: list, counters: dict, layout: str, tag: str) -> dict:
+    """Phase 8's composed A/B in one layout: 2 warm-up steps per arm (K3 on,
+    K3 off), then 5 timed steps per arm in turns A B B A; each arm's median
+    step, molecules/s and peak memory.  Returns the launches of the first
+    timed block with K3, counted from zero.  Fails if a loss is not finite,
+    the guard skipped a step, a counted kernel never launched, or K3's
+    forward or adjoint did not run once at each of the model's conv sites
+    (two a layer) in every step."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.configs.qm9 import config
+
+    def run(on: bool, i, batch):
+        before = {n: d[k] for n, (d, k) in counters.items()}
+        t = time.perf_counter()
+        loss, m = arms[on][1](batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        loss = float(loss)
+        if not (np.isfinite(loss) and m["accepted"]):
+            raise RuntimeError(f"QM9 {layout} step {i} (conv_fused {on}): loss {loss}, "
+                               f"accepted {m['accepted']}")
+        per = {n: d[k] - before[n] for n, (d, k) in counters.items()}
+        print(f"QM9 {layout} step {i} conv_fused {'on ' if on else 'off'}: {dt * 1e3:.1f} ms, "
+              f"{QM9_MOLECULES / dt:.1f} molecules/s, loss {loss:.4f}, "
+              f"|g| {float(m['grad_norm']):.3f}, launches {per}  [{tag}]", flush=True)
+        return dt
+
+    for on in (True, False):
+        for i in range(N_WARMUP_STEPS):
+            run(on, f"warm-up {i}", batches[i])
+    timed = batches[N_WARMUP_STEPS:]
+    times = {True: [], False: []}
+    peak = {}
+    for block, on in enumerate((True, False, False, True)):   # in turns: A B B A
+        if block < 2:
+            torch.cuda.reset_peak_memory_stats()
+        if block == 0:
+            _zero(counters)
+        times[on] += [run(on, i, b) for i, b in enumerate(timed)]
+        if block == 0:
+            launches = {n: d[k] for n, (d, k) in counters.items()}
+        if block < 2:
+            peak[on] = torch.cuda.max_memory_allocated() / 2**30
+    for on in (True, False):
+        med = float(np.median(times[on]))
+        print(f"QM9 training {layout}, conv_fused {'on ' if on else 'off'}: median step "
+              f"{med * 1e3:.1f} ms ({min(times[on]) * 1e3:.1f}-{max(times[on]) * 1e3:.1f} over "
+              f"{len(times[on])} steps in two blocks), {QM9_MOLECULES / med:.1f} molecules/s, "
+              f"peak memory {peak[on]:.3f} GiB  [{tag}]", flush=True)
+    print(f"QM9 composed A/B {layout}: step with K3 / without = "
+          f"{np.median(times[True]) / np.median(times[False]):.3f}; launches per step "
+          f"with K3 {({n: c / len(timed) for n, c in launches.items()})}  [{tag}]",
+          flush=True)
+    idle = [n for n, c in launches.items() if c == 0]
+    sites = 2 * config["num_layers"]
+    k3 = {k: launches[f"so2conv.{k}"] / len(timed) for k in ("fwd", "adj")}
+    if idle or any(c != sites for c in k3.values()):
+        raise RuntimeError(f"QM9 {layout} training path: kernels never launched {idle}; K3 "
+                           f"launches per step {k3}, {sites} conv sites each")
+    return launches
+
+
+def qm9_phase(counters: dict, ragged: list, tag: str) -> tuple[dict, dict, dict]:
+    """Phase 8: the QM9 step with K3 and the composed A/B without it on
+    fixed-degree batches of 64 molecules x 18 atoms, the bf16 step and 3
+    evaluation requests on those; then the A/B in the configuration's own
+    ragged layout on ``ragged`` (``qm9_cell_batches``: the benchmark cell's
+    batches at its pads).  Returns the launches of the timed K3 steps of
+    each layout, fixed-degree and ragged, each counted from zero, and of the
+    requests."""
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import as_tensors
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.train_qm9 import (
         predict,
@@ -1181,62 +1295,15 @@ def qm9_phase(counters: dict, tag: str) -> tuple[dict, dict]:
     n_pad, e_pad = pbs[0].pos.shape[0], pbs[0].edge_src.shape[0]
     print(f"QM9: full-width EquiformerV2QM9 (8 layers, 128 channels, lmax 4 / mmax 2, "
           f"8 heads, FFN 512, 600 RBF, default S2 grid), f32, {QM9_MOLECULES} molecules x "
-          f"{QM9_ATOMS} atoms, N_pad {n_pad}, E_pad {e_pad} "
+          f"{QM9_ATOMS} atoms, fixed-degree N_pad {n_pad}, E_pad {e_pad} "
           f"({int(pbs[0].edge_mask.sum())} real edges), AdamW lr 5e-4 wd 5e-3, EMA 0.999, "
           f"dropouts of configs/qm9.py  [{tag}]", flush=True)
-
-    def run(on: bool, i, batch):
-        before = {n: d[k] for n, (d, k) in counters.items()}
-        t = time.perf_counter()
-        loss, m = arms[on][1](batch)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        loss = float(loss)
-        if not (np.isfinite(loss) and m["accepted"]):
-            raise RuntimeError(f"QM9 step {i} (conv_fused {on}): loss {loss}, "
-                               f"accepted {m['accepted']}")
-        per = {n: d[k] - before[n] for n, (d, k) in counters.items()}
-        print(f"QM9 step {i} conv_fused {'on ' if on else 'off'}: {dt * 1e3:.1f} ms, "
-              f"{QM9_MOLECULES / dt:.1f} molecules/s, loss {loss:.4f}, "
-              f"|g| {float(m['grad_norm']):.3f}, launches {per}  [{tag}]", flush=True)
-        return dt
-
-    for on in (True, False):
-        for i in range(N_WARMUP_STEPS):
-            run(on, f"warm-up {i}", train[i])
-    timed = train[N_WARMUP_STEPS:]
-    times = {True: [], False: []}
-    peak = {}
-    for block, on in enumerate((True, False, False, True)):   # in turns: A B B A
-        if block < 2:
-            torch.cuda.reset_peak_memory_stats()
-        if block == 0:
-            for d, k in counters.values():
-                d[k] = 0
-        times[on] += [run(on, i, b) for i, b in enumerate(timed)]
-        if block == 0:
-            launches = {n: d[k] for n, (d, k) in counters.items()}
-        if block < 2:
-            peak[on] = torch.cuda.max_memory_allocated() / 2**30
-    for on in (True, False):
-        med = float(np.median(times[on]))
-        print(f"QM9 training, conv_fused {'on ' if on else 'off'}: median step "
-              f"{med * 1e3:.1f} ms ({min(times[on]) * 1e3:.1f}-{max(times[on]) * 1e3:.1f} over "
-              f"{len(times[on])} steps in two blocks), {QM9_MOLECULES / med:.1f} molecules/s, "
-              f"peak memory {peak[on]:.3f} GiB  [{tag}]", flush=True)
-    print(f"QM9 composed A/B: step with K3 / without = "
-          f"{np.median(times[True]) / np.median(times[False]):.3f}; launches per step "
-          f"with K3 {({n: c / N_TRAIN_STEPS for n, c in launches.items()})}  [{tag}]",
-          flush=True)
-    idle = [n for n, c in launches.items() if c == 0]
-    if idle:
-        raise RuntimeError(f"kernels never launched on the QM9 training path: {idle}")
+    launches = _qm9_ab(arms, train, counters, "fixed-degree", tag)
     qm9_bf16_step(counters, train, tag)
 
     state = arms[True][0]
     del arms[False]
-    for d, k in counters.values():
-        d[k] = 0
+    _zero(counters)
     for i, batch in enumerate(requests):
         t = time.perf_counter()
         pred = predict(state.model, batch, state.ema)
@@ -1248,7 +1315,21 @@ def qm9_phase(counters: dict, tag: str) -> tuple[dict, dict]:
               f"{QM9_MOLECULES / dt:.1f} molecules/s  [{tag}]", flush=True)
     eval_launches = {n: d[k] for n, (d, k) in counters.items()}
     print(f"launches over {N_REQUESTS} QM9 requests: {eval_launches}  [{tag}]", flush=True)
-    return launches, eval_launches
+
+    del state, arms, batches, train, requests, pred
+    torch.cuda.empty_cache()
+    arms = {on: qm9_train_state(conv_fused=on, fixed_degree=False) for on in (True, False)}
+    real = [int(pb.edge_mask.sum()) for pb in ragged]
+    n_pad, e_pad = ragged[0].pos.shape[0], ragged[0].edge_src.shape[0]
+    print(f"QM9 ragged (the configuration's layout): the batches of the benchmark cell "
+          f"{QM9_CELL}, {QM9_MOLECULES} molecules of 3-29 atoms, N_pad {n_pad}, E_pad {e_pad} "
+          f"({min(real)}-{max(real)} real edges, {min(real) / e_pad:.1%}-{max(real) / e_pad:.1%} "
+          f"of the slots)  [{tag}]", flush=True)
+    ragged_launches = _qm9_ab(arms, [as_tensors(pb, "cuda") for pb in ragged], counters,
+                              "ragged", tag)
+    del arms
+    torch.cuda.empty_cache()
+    return launches, ragged_launches, eval_launches
 
 
 def qm9_bf16_step(counters: dict, batches: list[dict], tag: str) -> dict:
@@ -1311,7 +1392,8 @@ def qm9_parity_phase(tag: str) -> None:
         qm9_batch,
     )
 
-    cfg = dict(config, num_layers=2, alpha_drop=0.0, drop_path_rate=0.0, conv_fused=True)
+    cfg = dict(config, num_layers=2, alpha_drop=0.0, drop_path_rate=0.0, conv_fused=True,
+               fixed_degree=True)   # qm9_batch's layout
     weights = init_weights(build_model(cfg), torch.Generator().manual_seed(4)).state_dict()
     pb = qm9_batch(np.random.default_rng(6), 8, QM9_ATOMS)
     res = {}
@@ -3533,8 +3615,9 @@ def main(argv: list[str]) -> int:
     pipeline_only = argv == ["--pipeline-only"]
     remat_only = argv == ["--remat-only"]
     gata_value_only = argv == ["--gata-value-only"]
+    qm9_only = argv == ["--qm9-only"]
     if argv and not (rotation_only or s2act_only or composite_only or pipeline_only
-                     or remat_only or gata_value_only):
+                     or remat_only or gata_value_only or qm9_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3552,7 +3635,6 @@ def main(argv: list[str]) -> int:
         rotate,
         rotate_dense,
         s2act,
-        so2conv,
     )
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils.profiling import (
         oc20_batch,
@@ -3646,8 +3728,23 @@ def main(argv: list[str]) -> int:
         remat_phase(_train_counters(), tag)
         print(f"remat step checked  [{tag}]")
         return 0
+    # the QM9 cell's ragged batches: phase 3's K3 rows at their E_pad, phase 8's steps
+    qm9_ragged = qm9_cell_batches(N_WARMUP_STEPS + N_TRAIN_STEPS)
+    e_qm9_ragged = int(qm9_ragged[0].edge_src.shape[0])
+    if qm9_only:
+        del pred, batch
+        torch.cuda.empty_cache()
+        records = check_k3(int(pb.edge_src.shape[0]), e_qm9, e_qm9_ragged, tag)
+        qm9_fixed, qm9_train, _ = qm9_phase(_qm9_counters(), qm9_ragged, tag)
+        for r in records:
+            r["launches"] = qm9_train.get(r["name"], 0)
+            r["launches_qm9_train_fixed_degree"] = qm9_fixed.get(r["name"], 0)
+        print(json.dumps({"kernels": records}))
+        qm9_parity_phase(tag)
+        print(f"QM9 kernels and steps checked  [{tag}]")
+        return 0
     records = check_kernels(batch, e_qm9, tag)
-    records += check_k3(int(pb.edge_src.shape[0]), e_qm9, tag)
+    records += check_k3(int(pb.edge_src.shape[0]), e_qm9, e_qm9_ragged, tag)
     records += check_k4(edge_vectors(batch), oc20_vec, tag)
     k2 = check_k2(int(pb.pos.shape[0]), tag)
     # K2c is not on the OC20 path (a first-order step): its OC20 instances
@@ -3659,7 +3756,6 @@ def main(argv: list[str]) -> int:
 
     # phase 4: serve, counting launches from zero
     counters = _train_counters()
-    k3_counters = {f"so2conv.{k}": (so2conv.launches, k) for k in so2conv.launches}
     for d, k in counters.values():
         d[k] = 0
     torch.cuda.reset_peak_memory_stats()
@@ -3738,14 +3834,12 @@ def main(argv: list[str]) -> int:
         r["launches_remat_step"] = remat[("16 x 30", "remat")]["launches"].get(r["name"], 0)
 
     # phase 8: QM9 with K3 (K1 to / from, K2a / K2b at the edge site, the
-    # FFNs and the heads, K3 at both conv sites), counting from zero
-    qm9_counters = {**{f"rotate_pairs.{k}": (rotate_dense.launches, k)
-                       for k in ("to", "from")},
-                    **{f"s2act.{k}": (s2act.launches, k) for k in ("k1", "k2")},
-                    **k3_counters}
-    qm9_train, qm9_eval = qm9_phase(qm9_counters, tag)
+    # FFNs and the heads, K3 at both conv sites), counting from zero, fixed-
+    # degree and in the configuration's ragged layout (its main path)
+    qm9_fixed, qm9_train, qm9_eval = qm9_phase(_qm9_counters(), qm9_ragged, tag)
     for r in records:
         r["launches_qm9_train"] = qm9_train.get(r["name"], 0)
+        r["launches_qm9_train_fixed_degree"] = qm9_fixed.get(r["name"], 0)
         r["launches_qm9_eval"] = qm9_eval.get(r["name"], 0)
         if r["name"].startswith("so2conv."):
             r["launches"] = r["launches_qm9_train"]

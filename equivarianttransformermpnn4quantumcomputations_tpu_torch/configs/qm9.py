@@ -9,8 +9,11 @@ neighbours, batches of 64, AdamW lr 5e-4 on a warmup + cosine schedule, L1
 loss, EMA 0.999.  The run directories are the port's own
 (``runs/qm9_torch*``): the JAX package's ``runs/qm9_fixture`` holds
 committed evidence, which the port reads and never writes.
-``conv_fused`` sends the SO(2)-conv sites through kernel K3 (off by
-default, as in the JAX package).
+``conv_fused`` sends the SO(2)-conv sites through kernel K3 and
+``fixed_degree`` False trains in the ragged layout, both unlike the JAX
+package's defaults: on an H100 at the published batch of 64 QM9-like
+molecules (PERF.md §5) the fixed-degree pads (50 edge slots a node, 128,000
+rows) do not fit the card's 80 GB, and K3 makes the ragged step faster.
 """
 
 config = {
@@ -41,7 +44,8 @@ config = {
     "drop_path_rate": 0.05,
     "proj_drop": 0.0,
     "avg_degree": 6.0,
-    "conv_fused": False,
+    "conv_fused": True,
+    "fixed_degree": False,
     # optimization (reference train_qm9v3.py:193-226)
     "lr": 5e-4,
     "weight_decay": 5e-3,

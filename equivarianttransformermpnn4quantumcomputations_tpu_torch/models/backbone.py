@@ -80,7 +80,7 @@ from ..ops.cuda.rotate_dense import WignerDense, compute_wigner_dense
 from ..ops.irreps import layout as get_layout
 from ..ops.rotation import WignerBlocks, WignerFactors, compute_wigner, compute_wigner_blocks
 from ..ops.s2grid import s2grid
-from ..ops.segment import gather_nodes
+from ..ops.segment import gather_nodes, spread_padding
 from ..ops.sph import real_sph_harm
 from ..utils.trace import span
 
@@ -249,6 +249,9 @@ class EquiformerV2Backbone(nn.Module):
             return module(*args, **kw) if shard is None else mp.call_divergent(module, *args,
                                                                                **kw)
 
+        if blocks is None:   # ragged: the padding edges onto the padding nodes
+            edge_src, edge_dst = spread_padding(edge_src, edge_dst, edge_mask,
+                                                atomic_numbers > 0)
         pos_e = pos
         if shard is not None:   # this rank's edges; positions enter the edge region
             edge_src, edge_dst, edge_shift, edge_mask = (

@@ -158,17 +158,21 @@ def qm9_batch(rng: np.random.Generator, n: int, atoms: int, cutoff: float = 5.0)
     return pb
 
 
-def qm9_train_state(conv_fused: bool, compute_dtype: torch.dtype = torch.float32):
+def qm9_train_state(conv_fused: bool, compute_dtype: torch.dtype = torch.float32,
+                    fixed_degree: bool = True):
     """The full-width QM9 model (``configs/qm9.py:config``, its dropouts)
-    computing in ``compute_dtype`` (float32 masters) with seeded random
-    weights on the card, its guarded AdamW, EMA and step."""
+    in the fixed-degree layout of ``qm9_batch`` (``fixed_degree=False``:
+    the ragged layout, the configuration's own), computing in
+    ``compute_dtype`` (float32 masters) with seeded random weights on the
+    card, its guarded AdamW, EMA and step."""
     from ..configs.qm9 import config as cfg
     from ..models.matpes import init_weights
     from ..train.schedules import warmup_cosine
     from ..train.train_qm9 import build_model
     from ..train.trainer import GuardedAdamW, create_train_state, make_qm9_train_step
 
-    model = build_model({**cfg, "conv_fused": conv_fused}, compute_dtype)
+    model = build_model({**cfg, "conv_fused": conv_fused, "fixed_degree": fixed_degree},
+                        compute_dtype)
     init_weights(model, torch.Generator().manual_seed(0)).to("cuda")
     opt = GuardedAdamW(model.named_parameters(), warmup_cosine(cfg["lr"], 100, 10000),
                        cfg["weight_decay"], cfg["grad_clip"])

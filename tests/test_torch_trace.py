@@ -2,9 +2,10 @@
 change to any number with one, the phases of each unit in place, and one
 sync span per host sync.
 
-The units are the benchmark's: a bf16 fixed-degree MatPES training step and
-a bf16 OC20 step, each with its loader read and upload, and one ragged
-float32 ``Predictor`` request.  On the CPU at tiny widths; the ``cuda``
+The units are the benchmark's: a bf16 fixed-degree MatPES training step, a
+bf16 OC20 step and a ragged float32 QM9 step with K3 (``conv_fused``), each
+with its loader read and upload, and one ragged float32 ``Predictor``
+request.  On the CPU at tiny widths; the ``cuda``
 tests run the same units at the configurations' widths on the card, where
 ``torch.cuda.set_sync_debug_mode("warn")`` names every operation that
 blocks the host on the stream.  This file imports no JAX:
@@ -27,6 +28,7 @@ from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.graph import 
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.loader import (
     FIXED_DEGREE,
     PaddedLoader,
+    infer_pad_sizes,
 )
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.data.synthetic import (
     labelled_structures,
@@ -40,6 +42,7 @@ from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.matpes impo
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.oc20 import (
     EquiformerV2OC20,
 )
+from equivarianttransformermpnn4quantumcomputations_tpu_torch.models.qm9 import EquiformerV2QM9
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.schedules import (
     warmup_cosine,
 )
@@ -48,10 +51,11 @@ from equivarianttransformermpnn4quantumcomputations_tpu_torch.train.trainer impo
     create_train_state,
     make_matpes_train_step,
     make_oc20_train_step,
+    make_qm9_train_step,
 )
 from equivarianttransformermpnn4quantumcomputations_tpu_torch.utils import profiling, trace
 
-UNITS = ("matpes_step", "oc20_step", "request")
+UNITS = ("matpes_step", "oc20_step", "qm9_step", "request")
 TINY = dict(num_layers=1, sphere_channels=8, attn_hidden_channels=8, num_heads=2,
             attn_alpha_channels=4, attn_value_channels=4, ffn_hidden_channels=16,
             edge_channels=8, num_rbf=8, cutoff=5.0, alpha_drop=0.0, drop_path_rate=0.0)
@@ -60,11 +64,13 @@ TINY = dict(num_layers=1, sphere_channels=8, attn_hidden_channels=8, num_heads=2
 # (lmax 4 / mmax 2: 4 J blocks, 2 kept-row indexes, 5 constants), the
 # factored Wigner's tables (OC20: 12 for the "to" pair, 14 for the rescaled
 # "from" pair), the guard, the OC20 force head's host index, and a
-# request's two copies back
+# request's two copies back; a QM9 batch uploads 12 keys (targets, no
+# energies or forces)
 CPU_SYNCS = {
     "matpes_step": {"h2d": 13, "wigner_j": 4, "wigner_index": 2, "wigner_consts": 5,
                     "guard": 1},
     "oc20_step": {"h2d": 13, "rot_consts": 26, "guard": 1, "force_index": 1},
+    "qm9_step": {"h2d": 12, "wigner_j": 4, "wigner_index": 2, "wigner_consts": 5, "guard": 1},
     "request": {"h2d": 11, "wigner_j": 4, "wigner_index": 2, "wigner_consts": 5, "d2h": 2},
 }
 
@@ -119,6 +125,37 @@ def _train_unit(kind: str, device, full: bool):
     return unit, outputs
 
 
+def _qm9_unit(device, full: bool):
+    """``(unit, outputs)``: the loader's next ragged batch of molecules,
+    uploaded, and one float32 QM9 step with K3 (``conv_fused``)."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.configs.qm9 import config
+
+    torch.manual_seed(0)
+    keys = ("num_layers", "sphere_channels", "attn_hidden_channels", "num_heads",
+            "attn_alpha_channels", "attn_value_channels", "ffn_hidden_channels", "lmax",
+            "mmax", "edge_channels", "num_rbf", "max_num_elements", "cutoff", "avg_degree")
+    widths = ({k: config[k] for k in keys} if full
+              else dict(TINY, lmax=4, mmax=2, max_num_elements=10, avg_degree=6.0))
+    model = EquiformerV2QM9(**{**widths, "alpha_drop": 0.0, "drop_path_rate": 0.0},
+                            conv_fused=True)
+    init_weights(model, torch.Generator().manual_seed(0)).to(device)
+    state = create_train_state(model, _optimizer(model))
+    step = make_qm9_train_step(state)
+    n, atoms = (16, 18) if full else (2, 6)
+    data = profiling.random_molecules(np.random.default_rng(0), 4 * n, atoms)
+    n_pad, e_pad = infer_pad_sizes(data, widths["cutoff"], 50, n)
+    batches = iter(PaddedLoader(data, n, widths["cutoff"], 50, n_pad, e_pad, prefetch=2))
+
+    def unit():
+        loss, met = step(as_tensors(next(batches), device))
+        return [loss, met["grad_norm"]]
+
+    def outputs():
+        return [p.detach() for p in model.parameters()] + list(state.ema.values())
+
+    return unit, outputs
+
+
 def _request_unit(device, full: bool):
     widths = FLAGSHIP if full else dict(TINY, lmax=4, mmax=2)
     model = EquiformerV2MatPES(**widths)
@@ -136,7 +173,11 @@ def _request_unit(device, full: bool):
 
 
 def _unit(kind: str, device="cpu", full: bool = False):
-    return _request_unit(device, full) if kind == "request" else _train_unit(kind, device, full)
+    if kind == "request":
+        return _request_unit(device, full)
+    if kind == "qm9_step":
+        return _qm9_unit(device, full)
+    return _train_unit(kind, device, full)
 
 
 def _spans(prof) -> list:
@@ -198,8 +239,9 @@ def test_phase_spans_nest_in_their_unit(kind):
     (whole,) = [s for s in spans if s[0] == top]
     if kind == "request":
         phases = ("etq.data.collate", "etq.data.h2d", "etq.request.model", "etq.request.d2h")
-    else:
-        phases = ("etq.step.cast", "etq.step.forward", "etq.step.backward", "etq.step.update")
+    else:   # a float32 step (QM9) casts nothing
+        phases = (("etq.step.cast",) if kind != "qm9_step" else ()) + (
+            "etq.step.forward", "etq.step.backward", "etq.step.update")
         for n in ("etq.data.wait", "etq.data.h2d"):   # the loader and upload precede the step
             (s,) = [s for s in spans if s[0] == n]
             assert s[2] <= whole[1], n
