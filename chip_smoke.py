@@ -45,7 +45,10 @@ Phases, each of which raises on failure:
      the site (library, f32 with TF32 off, and bf16) and the port's unfused
      SO2Conv beside it, its bound on the tensor cores (3xTF32 in f32, bf16)
      and the FFMA bound, its f32 error against float64, and its B operands
-     (the weight transposed and split into TF32 parts); K4 (the fused
+     (the weight transposed and split into TF32 parts); K3-dW (K3's weight
+     gradient) at QM9's conv 1 and conv 2 at the cell's E_pad, over its
+     batch's real rows and over all rows, against its plain version, with
+     cuBLAS on gathered rows and the copies + f32 matmul it replaced; K4 (the fused
      factored rotation) at OC20's "to" / "from" (lmax 6 / mmax 2) and the
      flagship's "to_m0" / "from_m0" / "from" (lmax 4 / mmax 2), f32 and
      bf16 (as K1), with first-order and grad-of-grad through its autograd
@@ -974,6 +977,91 @@ def check_k3(e_flagship: int, e_qm9: int, e_qm9_ragged: int, tag: str) -> list[d
     return records + [b_record]
 
 
+def check_k3_dw(e_pad: int, e_live: int, tag: str) -> list[dict]:
+    """Phase 3, K3-dW (K3's weight gradient, ``so2conv_dw_kernel`` and its
+    reduce): QM9's conv 1 and conv 2 at the benchmark cell's ``e_pad`` edge
+    rows, reducing its batch's ``e_live`` real rows and all rows, f32 and
+    bf16, against ``dws_plain`` over the same rows; times beside the bound
+    (the larger of X, Y and dW moved once and 3 flops / 495 TFLOP/s in f32;
+    the bf16 kernel runs one TF32 product a product: flops / 495), the plain
+    version, the library (one cuBLAS GEMM a group on operands already
+    gathered, the same rows, f32 with TF32 off) and the route it replaced
+    (``dws_plain`` over all rows: copies and f32 ``torch.matmul``)."""
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import (
+        so2conv as k3,
+    )
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(11)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    idx = [torch.as_tensor(r, device=dev) for r in k3._row_maps(4, 2)]
+    K = sum(len(r) for r in idx)
+    rows = []
+    for site, cin, cout, extra in (("QM9 conv 1", 256, 128, 384), ("QM9 conv 2", 128, 128, 0)):
+        for live in (e_live, e_pad):
+            row = dict(site=site, shape=[e_pad, K, cin], live=live)
+            lv = torch.tensor(live, dtype=torch.int32, device=dev)
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn(e_pad, K, cin, generator=gen, device=dev).to(dt)
+                y = torch.randn(e_pad, K, cout, generator=gen, device=dev).to(dt)
+                ye = torch.randn(e_pad, extra, generator=gen, device=dev).to(dt) if extra else None
+                got = k3.dws(x, y, ye, 4, 2, lv)
+                again = k3.dws(x, y, ye, 4, 2, lv)
+                want = k3.dws_plain(x, y, ye, 4, 2, live)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise RuntimeError(f"so2conv.dw at {site}: two calls differ")
+                err = max(_max_err(a, b, dt, f"so2conv.dw at {site} live {live}")[0]
+                          for a, b in zip(got, want))
+                n = dt.itemsize
+                w_el = sum(w.numel() for w in want)
+                flops = 2.0 * live * w_el
+                nbytes = n * (live * K * (cin + cout) + live * extra + w_el)
+                b_ms, b_by = bound(nbytes, (3 if dt == torch.float32 else 1) * flops, "tf32")
+                kern = lambda: k3.dws(x, y, ye, 4, 2, lv)   # noqa: E731
+                t = "f32" if dt == torch.float32 else "bf16"
+                row[f"err_{t}"] = err
+                row[f"ms_{t}"] = time_ms(kern, flush)
+                row[f"device_ms_{t}"] = device_ms(kern, flush)
+                row[f"bound_ms_{t}"], row[f"bound_by_{t}"] = b_ms, b_by
+                row[f"share_{t}"] = b_ms / row[f"device_ms_{t}"]
+                if dt == torch.float32:
+                    xs, ys = x[:live], y[:live]
+                    yes = None if ye is None else ye[:live]
+                    xg = [xs.index_select(1, r).reshape(live, -1).contiguous() for r in idx]
+                    yg = [k3._group_rows(ys, yes if g == 0 else None, r).contiguous()
+                          for g, r in enumerate(idx)]
+                    row["plain_ms"] = time_ms(lambda: k3.dws_plain(x, y, ye, 4, 2, live), flush)
+                    row["library_ms"] = time_ms(lambda: [a.t() @ b for a, b in zip(xg, yg)],
+                                                flush)
+                    row["replaced_ms"] = time_ms(lambda: k3.dws_plain(x, y, ye, 4, 2), flush)
+                    del xg, yg
+                del x, y, ye, got, again, want
+                torch.cuda.empty_cache()
+            rows.append(row)
+            print(f"kernel so2conv.dw {site} E {e_pad} live {live} Cin {cin} Cout {cout} extra "
+                  f"{extra}: f32 ms {row['ms_f32']:.4f}  device ms {row['device_ms_f32']:.4f}  "
+                  f"bound {row['bound_ms_f32']:.4f} ({row['bound_by_f32']}; 3xTF32 at 495 "
+                  f"TFLOP/s; {100 * row['share_f32']:.1f} %)  plain {row['plain_ms']:.4f}  "
+                  f"library(cuBLAS f32 GEMMs on gathered rows) {row['library_ms']:.4f}  "
+                  f"replaced(copies + f32 matmul, all {e_pad} rows) {row['replaced_ms']:.4f}  |  "
+                  f"bf16 ms {row['ms_bf16']:.4f}  device ms {row['device_ms_bf16']:.4f}  bound "
+                  f"{row['bound_ms_bf16']:.4f} ({100 * row['share_bf16']:.1f} %)  |  err f32 "
+                  f"{row['err_f32']:.2e} bf16 {row['err_bf16']:.2e}  [{tag}]", flush=True)
+    at_live = [r for r in rows if r["live"] == e_live]
+    per_step = 8 * sum(r["device_ms_f32"] for r in at_live)
+    print(f"kernel so2conv.dw: a QM9 cell step (8 layers x conv 1 + conv 2, live {e_live}) "
+          f"~{per_step:.1f} device ms; the replaced route "
+          f"~{8 * sum(r['replaced_ms'] for r in at_live):.1f} ms  [{tag}]", flush=True)
+    main = at_live[0]
+    return [dict(name="so2conv.dw", route="cuda", source=f"{PKG}/csrc/so2conv.cu",
+                 replaces=None, launches=0, max_abs_err=main["err_f32"], ms=main["ms_f32"],
+                 device_ms=main["device_ms_f32"], plain_ms=main["plain_ms"],
+                 bound_ms=main["bound_ms_f32"], bound_by=main["bound_by_f32"],
+                 library_ms=main["library_ms"], sites=rows)]
+
+
 def _flagship_batches(n: int, seed: int = 2, structures: int = N_STRUCTURES,
                       layout: str = "fixed") -> list[dict]:
     """``n`` labelled batches of ``structures`` x ``N_ATOMS`` on the card, in
@@ -1217,6 +1305,7 @@ def _qm9_ab(arms: dict, batches: list, counters: dict, layout: str, tag: str) ->
     forward or adjoint did not run once at each of the model's conv sites
     (two a layer) in every step."""
     from equivarianttransformermpnn4quantumcomputations_tpu_torch.configs.qm9 import config
+    from equivarianttransformermpnn4quantumcomputations_tpu_torch.ops.cuda import so2conv
 
     def run(on: bool, i, batch):
         before = {n: d[k] for n, (d, k) in counters.items()}
@@ -1245,9 +1334,11 @@ def _qm9_ab(arms: dict, batches: list, counters: dict, layout: str, tag: str) ->
             torch.cuda.reset_peak_memory_stats()
         if block == 0:
             _zero(counters)
+            rows0 = so2conv.dw_rows("cuda").clone()
         times[on] += [run(on, i, b) for i, b in enumerate(timed)]
         if block == 0:
             launches = {n: d[k] for n, (d, k) in counters.items()}
+            reduced, offered = (so2conv.dw_rows("cuda") - rows0).tolist()
         if block < 2:
             peak[on] = torch.cuda.max_memory_allocated() / 2**30
     for on in (True, False):
@@ -1256,6 +1347,9 @@ def _qm9_ab(arms: dict, batches: list, counters: dict, layout: str, tag: str) ->
               f"{med * 1e3:.1f} ms ({min(times[on]) * 1e3:.1f}-{max(times[on]) * 1e3:.1f} over "
               f"{len(times[on])} steps in two blocks), {QM9_MOLECULES / med:.1f} molecules/s, "
               f"peak memory {peak[on]:.3f} GiB  [{tag}]", flush=True)
+    print(f"QM9 {layout}: K3-dW reduced {reduced} of the {offered} edge rows offered "
+          f"({100 * reduced / max(offered, 1):.1f} %) over {len(timed)} steps  [{tag}]",
+          flush=True)
     print(f"QM9 composed A/B {layout}: step with K3 / without = "
           f"{np.median(times[True]) / np.median(times[False]):.3f}; launches per step "
           f"with K3 {({n: c / len(timed) for n, c in launches.items()})}  [{tag}]",
@@ -3664,7 +3758,8 @@ def main(argv: list[str]) -> int:
                                      "pairs_kernel<f32,4,4,", "pairs_kernel<bf16,4,4,",
                                      "s2act_tc_kernel<f32,25,", "s2act_tc_kernel<bf16,25,",
                                      "s2act_tc_kernel<f32,19,", "s2act_tc_kernel<bf16,19,",
-                                     "so2conv_kernel<", "b_operand_kernel<", "rot_kernel<f32,6,2,",
+                                     "so2conv_kernel<", "b_operand_kernel<", "so2conv_dw_kernel<",
+                                     "so2conv_dw_reduce<", "rot_kernel<f32,6,2,",
                                      "rot_kernel<bf16,6,2,", "rot_kernel<f32,4,2,",
                                      "rot_kernel<bf16,4,2,", "gata_value_kernel<f32,4,",
                                      "gata_value_kernel<bf16,4,")) or re.search(
@@ -3731,10 +3826,12 @@ def main(argv: list[str]) -> int:
     # the QM9 cell's ragged batches: phase 3's K3 rows at their E_pad, phase 8's steps
     qm9_ragged = qm9_cell_batches(N_WARMUP_STEPS + N_TRAIN_STEPS)
     e_qm9_ragged = int(qm9_ragged[0].edge_src.shape[0])
+    e_qm9_live = int(qm9_ragged[0].edge_mask.sum())
     if qm9_only:
         del pred, batch
         torch.cuda.empty_cache()
         records = check_k3(int(pb.edge_src.shape[0]), e_qm9, e_qm9_ragged, tag)
+        records += check_k3_dw(e_qm9_ragged, e_qm9_live, tag)
         qm9_fixed, qm9_train, _ = qm9_phase(_qm9_counters(), qm9_ragged, tag)
         for r in records:
             r["launches"] = qm9_train.get(r["name"], 0)
@@ -3745,6 +3842,7 @@ def main(argv: list[str]) -> int:
         return 0
     records = check_kernels(batch, e_qm9, tag)
     records += check_k3(int(pb.edge_src.shape[0]), e_qm9, e_qm9_ragged, tag)
+    records += check_k3_dw(e_qm9_ragged, e_qm9_live, tag)
     records += check_k4(edge_vectors(batch), oc20_vec, tag)
     k2 = check_k2(int(pb.pos.shape[0]), tag)
     # K2c is not on the OC20 path (a first-order step): its OC20 instances

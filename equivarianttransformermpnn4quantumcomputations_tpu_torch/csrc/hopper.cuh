@@ -30,6 +30,15 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+// close this thread's open cp.async copies into a group; wait until at most
+// N of its groups are still in flight
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
 // global -> shared bulk copy of `bytes` (a multiple of 16), completing on bar
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
                                           uint32_t bar) {

@@ -358,6 +358,339 @@ int launch(const Params& prm, int blocks, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ── K3-dW: the weight gradient of a site ──────────────────────────────────
+//
+// For every m-group g of a site, over the edge rows [0, live):
+//
+//   dW_g[k, n] = sum_e X_g[e, k] Y_g[e, n],   dW_g [kdim_g, ndim_g] = W_g's shape
+//   X_g[e, j Cin + c]             = x[e, lrow_g(j), c]
+//   Y_g[e, n]                     = y_extra[e, n]                 (g = 0, n < extra)
+//   Y_g[e, extra_g + j Cout + c]  = y[e, lrow_g(j), c]
+//
+// the gradient of W_g in both directions of the site: (x, dy | dextra) in
+// the forward's backward and (ddx, dy | dextra) in the adjoint's.  It
+// replaces no Pallas kernel: the JAX package leaves dW to XLA (a per-group
+// gather, concatenation and dot).
+//
+// Live rows: in the ragged layout the padding edges lie in rows [E_real, E)
+// and take exactly zero cotangents (masked sums and softmax), so the
+// wrapper passes a device scalar `live` (the last real row + 1, made once
+// per forward without a host sync) and the kernel reduces [0, live) only:
+// the same sum, ~30 % of the rows of a QM9 batch.  Without it (null) every
+// row is reduced.  Block 0 adds (live, E) to a device counter pair.
+//
+// Bound: arithmetic.  QM9's conv 1 at 17,952 live rows: 2 x 17,952 x
+// 4,587,520 = 165 GFLOP; in 3xTF32, 3 flops / 495 TFLOP/s = 1.00 ms against
+// 0.17 ms for X, Y and dW moved once.
+//
+// Design: the GEMM depth is the edge axis, the slow axis of both X and Y, so
+// both operands lie M- (N-) major, and wgmma takes TF32 operands K-major
+// only.  The kernel issues warp-level mma.sync m16n8k8 TF32 products whose
+// fragments are read straight from the natural layout: a stage holds 32
+// edge rows of each operand's 128 columns, staged as they lie by cp.async
+// (4 stages in flight) into rows of 136 elements, so a fragment's 32 reads
+// (column g, depth row t) hit 32 distinct banks.
+//   - float32: 3xTF32, as so2conv_kernel: each operand split into TF32 big
+//     and small parts in registers (dw_split), a b ~ small big + big small
+//     + big big.  Each 32-deep stage accumulates from zero and is added to
+//     the running sum with a rounded f32 add: the depth (~18,000 rows)
+//     would otherwise grow the tensor core's truncation error with it.
+//   - bfloat16: a bf16 value is exact in TF32, so one TF32 product per
+//     product is the bf16 product exactly, summed in f32 (the same
+//     per-stage sums); one rounding to bf16 on the final store.
+// Measured (H100, QM9's conv 1 over 17,952 of 59,520 rows): 2.64 ms, 38 %
+// of the bound; without the copies (the stages never refilled) 2.31 ms,
+// without the products 1.38 ms: the mma.sync TF32 pipe bounds it, at about
+// a third of the tensor cores' TF32 rate (bf16, a third of the products,
+// 1.02 ms alone).  A faster kernel takes wgmma: X's fragments can come from
+// registers as read here, Y would be written K-major (transposed) and split
+// into shared memory by a producer warpgroup.  Eight warps of 64 x 32 (213
+// registers, 2.64 ms) beat sixteen of 32 x 32 (126 registers, 2.85 ms).
+// One launch covers every group: the grid is each group's 128 x 128 output
+// tiles times `slices` slices of the depth.  The tiles are few and deep
+// (QM9's conv 1 has 280, conv 2 125, for 132 SMs), so each block reads
+// `live` and takes an even share of [0, live), in 32-row stages, so no
+// block walks over padding.  A block writes its partial tile to a workspace
+// [slices][tiles][128 x 128] (float32, from the wrapper); so2conv_dw_reduce
+// then adds the slices of each element in slice order and stores dW_g in
+// the weight's type: no float atomics, the same bits every run.
+
+constexpr int DW_BM = 128;          // rows of dW per block tile (X's columns)
+constexpr int DW_BN = 128;          // columns of dW per block tile (Y's columns)
+constexpr int DW_BK = 32;           // edge rows per stage: the GEMM's depth
+constexpr int DW_LD = DW_BM + 8;    // elements per staged row: fragment reads free of conflicts
+constexpr int DW_STAGES = 4;        // cp.async ring depth
+constexpr int DW_WM = 2;            // warps along the tile's rows
+constexpr int DW_WN = 4;            // warps along its columns
+constexpr int DW_THREADS = 32 * DW_WM * DW_WN;
+constexpr int DW_MI = DW_BM / DW_WM / 16;   // m16 fragments of a warp's rows
+constexpr int DW_NJ = DW_BN / DW_WN / 8;    // n8 fragments of its columns
+constexpr int DW_REDUCE = 256;      // threads of a reduce block, 4 elements each
+static_assert(DW_BM == DW_BN, "one staging layout for both operands");
+
+struct DwGroup {
+  int rows;              // l-primary rows of the group
+  int lrow[MAXR];        // their indices, in the packed weight's order
+  int extra;             // leading columns of Y from y_extra (g = 0)
+  int kdim, ndim;        // dW_g's shape
+  int tiles_n;           // column tiles
+  int tile0;             // first tile of the group
+  void* out;             // dW_g [kdim, ndim], the operands' type
+};
+
+struct DwParams {
+  int n_groups, E, K;    // K: rows of the l-primary tensors
+  int c_in, c_out;       // channels of x's and y's rows
+  int tiles, slices;     // output tiles of all groups; depth slices
+  const void* x;         // [E, K, c_in]
+  const void* y;         // [E, K, c_out]
+  const void* y_extra;   // [E, extra of group 0]
+  const int* live;       // device scalar: rows [0, *live) are reduced; null: all E
+  unsigned long long* rows;  // device (rows reduced, rows offered), added to; null: none
+  float* work;           // [slices][tiles][DW_BM * DW_BN] partial sums
+  DwGroup g[MAXG];
+};
+
+template <typename T>
+struct DwCfg {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int EP = 16 / (int)sizeof(T);      // elements per 16-byte piece
+  static constexpr int PIECES = DW_BM / EP;            // pieces of a staged row
+  static constexpr int RSTEP = DW_THREADS / PIECES;    // rows one pass of the threads copies
+  static constexpr int TILE = DW_BK * DW_LD;           // elements of one staged operand
+  static constexpr int SMEM = DW_STAGES * 2 * TILE * (int)sizeof(T);
+  static_assert(DW_BK % RSTEP == 0 && CHUNK % EP == 0, "whole passes; a piece in one chunk");
+};
+
+__device__ __forceinline__ int dw_group(const DwParams& p, int tile) {
+  int g = 0;
+#pragma unroll
+  for (int i = 1; i < MAXG; ++i)
+    if (i < p.n_groups && tile >= p.g[i].tile0) g = i;
+  return g;
+}
+
+// The 3xTF32 split in integer and FP32 instructions: big = v rounded to
+// TF32 as cvt.rna.tf32.f32 rounds finite values (to nearest on the 13 low
+// bits, ties away from zero), small = v - big exactly, handed to the tensor
+// core as it is (which reads its top 19 bits).  Two cvt per element made
+// the kernel 1.2x slower (3.19 against 2.64 ms at QM9's conv 1) for the
+// same error.
+__device__ __forceinline__ void dw_split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ float dw_load(const float* s) { return *s; }
+__device__ __forceinline__ float dw_load(const __nv_bfloat16* s) { return __bfloat162float(*s); }
+
+template <typename T>
+__global__ void __launch_bounds__(DW_THREADS, 1)
+so2conv_dw_kernel(const DwParams p) {
+  using C = DwCfg<T>;
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  __shared__ int s_lrow[MAXR];
+
+  const int tile = (int)blockIdx.x % p.tiles, slice = (int)blockIdx.x / p.tiles;
+  const int g = dw_group(p, tile);
+  const int extra = p.g[g].extra, kdim = p.g[g].kdim, ndim = p.g[g].ndim;
+  const int local = tile - p.g[g].tile0, mt = local / p.g[g].tiles_n;
+  const int m0 = mt * DW_BM, n0 = (local - mt * p.g[g].tiles_n) * DW_BN;
+  const int tid = threadIdx.x;
+  if (tid < MAXR) s_lrow[tid] = p.g[g].lrow[tid];
+  const int live = p.live == nullptr ? p.E : min(max(__ldg(p.live), 0), p.E);
+  if (blockIdx.x == 0 && tid == 0 && p.rows != nullptr) {
+    atomicAdd(p.rows, (unsigned long long)live);
+    atomicAdd(p.rows + 1, (unsigned long long)p.E);
+  }
+  // this block's share of the live rows, whole stages
+  const int chunk = ((live + p.slices - 1) / p.slices + DW_BK - 1) / DW_BK * DW_BK;
+  const int r0 = min(slice * chunk, live), r1 = min(r0 + chunk, live);
+  const int nk = (r1 - r0 + DW_BK - 1) / DW_BK;
+  __syncthreads();  // s_lrow
+
+  // Copies: thread (row rr + i RSTEP, piece pc) of each staged operand.
+  // Each piece's column lies in one 8-wide chunk: one row lookup per thread.
+  const T* __restrict__ x = static_cast<const T*>(p.x);
+  const T* __restrict__ y = static_cast<const T*>(p.y);
+  const int pc = tid % C::PIECES, rr = tid / C::PIECES;
+  const int ka = m0 + pc * C::EP, kb = n0 + pc * C::EP;
+  const bool a_ok = ka < kdim, b_ok = kb < ndim;
+  const size_t a_stride = (size_t)p.K * p.c_in;
+  size_t a_col = 0;
+  if (a_ok) {
+    const int j = ka / p.c_in;
+    a_col = (size_t)s_lrow[j] * p.c_in + (ka - j * p.c_in);
+  }
+  const T* b_base = y;
+  size_t b_stride = (size_t)p.K * p.c_out, b_col = 0;
+  if (kb < extra) {
+    b_base = static_cast<const T*>(p.y_extra);
+    b_stride = (size_t)extra;
+    b_col = kb;
+  } else if (b_ok) {
+    const int nn = kb - extra, j = nn / p.c_out;
+    b_col = (size_t)s_lrow[j] * p.c_out + (nn - j * p.c_out);
+  }
+  const uint32_t s_base = smem_u32(dw_smem);
+  auto load = [&](int kt) {
+    const uint32_t sa = s_base + (uint32_t)((kt % DW_STAGES) * 2 * C::TILE * sizeof(T));
+    const uint32_t sb = sa + (uint32_t)(C::TILE * sizeof(T));
+    const int e0 = r0 + kt * DW_BK;
+#pragma unroll
+    for (int i = 0; i < DW_BK / C::RSTEP; ++i) {
+      const int r = rr + i * C::RSTEP, e = e0 + r;
+      const uint32_t off = (uint32_t)((r * DW_LD + pc * C::EP) * sizeof(T));
+      const bool in = e < r1;
+      cp_async16(sa + off, in && a_ok ? x + (size_t)e * a_stride + a_col : x, in && a_ok);
+      cp_async16(sb + off, in && b_ok ? b_base + (size_t)e * b_stride + b_col : y, in && b_ok);
+    }
+  };
+
+  // The products: warp (wm, wn) computes rows wm .. wm + 63, columns wn ..
+  // wn + 31 of the tile, 4 x 4 m16n8 accumulators.
+  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int wm = (warp % DW_WM) * (DW_BM / DW_WM), wn = (warp / DW_WM) * (DW_BN / DW_WN);
+  const T* smem = reinterpret_cast<const T*>(dw_smem);
+  float acc[DW_MI][DW_NJ][4];
+#pragma unroll
+  for (int i = 0; i < DW_MI; ++i)
+#pragma unroll
+    for (int j = 0; j < DW_NJ; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < DW_STAGES - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait_group<DW_STAGES - 2>();  // stage kt has landed (this thread's copies)
+    __syncthreads();  // everyone's copies; everyone is done with stage kt - 1's slot
+    if (kt + DW_STAGES - 1 < nk) load(kt + DW_STAGES - 1);
+    cp_async_commit();
+    const T* sa = smem + (kt % DW_STAGES) * 2 * C::TILE;
+    const T* sb = sa + C::TILE;
+    float part[DW_MI][DW_NJ][4];  // this stage's sum
+#pragma unroll
+    for (int i = 0; i < DW_MI; ++i)
+#pragma unroll
+      for (int j = 0; j < DW_NJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[i][j][c] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DW_BK / 8; ++kk) {
+      // A (16 x 8) = X^T: element (m, depth t) is staged row t, column m;
+      // B (8 x 8) = Y: element (depth t, n) is staged row t, column n
+      const T* ra = sa + (8 * kk + tq) * DW_LD;
+      const T* rb = sb + (8 * kk + tq) * DW_LD;
+      uint32_t ah[DW_MI][4], al[DW_MI][4], bh[DW_NJ][2], bl[DW_NJ][2];
+#pragma unroll
+      for (int i = 0; i < DW_MI; ++i) {
+        const int m = wm + 16 * i + gq;
+        const float v[4] = {dw_load(ra + m), dw_load(ra + m + 8), dw_load(ra + 4 * DW_LD + m),
+                            dw_load(ra + 4 * DW_LD + m + 8)};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if constexpr (C::F32) dw_split(v[c], ah[i][c], al[i][c]);
+          else ah[i][c] = __float_as_uint(v[c]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < DW_NJ; ++j) {
+        const int n = wn + 8 * j + gq;
+        const float v[2] = {dw_load(rb + n), dw_load(rb + 4 * DW_LD + n)};
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if constexpr (C::F32) dw_split(v[c], bh[j][c], bl[j][c]);
+          else bh[j][c] = __float_as_uint(v[c]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < DW_MI; ++i)
+#pragma unroll
+        for (int j = 0; j < DW_NJ; ++j) {
+          if constexpr (C::F32) {
+            mma_tf32(part[i][j], al[i], bh[j][0], bh[j][1]);
+            mma_tf32(part[i][j], ah[i], bl[j][0], bl[j][1]);
+          }
+          mma_tf32(part[i][j], ah[i], bh[j][0], bh[j][1]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < DW_MI; ++i)
+#pragma unroll
+      for (int j = 0; j < DW_NJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][j][c];  // the stage's sum, rounded
+  }
+  cp_async_wait_all();  // no copy outlives its thread
+
+  // the partial tile: m16n8 block (i, j) holds (row gq, columns 2 tq, + 1) in
+  // acc[i][j][0..1] and row gq + 8 in acc[i][j][2..3]
+  float* w = p.work + ((size_t)slice * p.tiles + tile) * (DW_BM * DW_BN);
+#pragma unroll
+  for (int i = 0; i < DW_MI; ++i)
+#pragma unroll
+    for (int j = 0; j < DW_NJ; ++j) {
+      const int m = wm + 16 * i + gq, n = wn + 8 * j + 2 * tq;
+      *reinterpret_cast<float2*>(w + m * DW_BN + n) = make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(w + (m + 8) * DW_BN + n) =
+          make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+}
+
+__device__ __forceinline__ void dw_store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void dw_store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// dW_g from the partial tiles: block (tile, q) adds, for 4 adjacent elements
+// a thread, the slices in slice order and stores them in the weight's type.
+template <typename T>
+__global__ void __launch_bounds__(DW_REDUCE)
+so2conv_dw_reduce(const DwParams p) {
+  const int tile = blockIdx.x, g = dw_group(p, tile);
+  const int kdim = p.g[g].kdim, ndim = p.g[g].ndim;
+  const int local = tile - p.g[g].tile0, mt = local / p.g[g].tiles_n;
+  const int idx = ((int)blockIdx.y * DW_REDUCE + (int)threadIdx.x) * 4;
+  const int m = mt * DW_BM + idx / DW_BN;
+  const int n = (local - mt * p.g[g].tiles_n) * DW_BN + idx % DW_BN;
+  if (m >= kdim || n >= ndim) return;  // ndim is a multiple of 8: 4 columns in or out
+  const size_t step = (size_t)p.tiles * DW_BM * DW_BN;
+  const float* w = p.work + (size_t)tile * DW_BM * DW_BN + idx;
+  float4 s = *reinterpret_cast<const float4*>(w);
+  for (int sl = 1; sl < p.slices; ++sl) {
+    const float4 v = *reinterpret_cast<const float4*>(w + sl * step);
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  dw_store4(static_cast<T*>(p.g[g].out) + (size_t)m * ndim + n, s);
+}
+
+template <typename T>
+int launch_dw(const DwParams& prm, cudaStream_t stream) {
+  constexpr int smem = DwCfg<T>::SMEM;
+  const cudaError_t e = cudaFuncSetAttribute(
+      so2conv_dw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  so2conv_dw_kernel<T><<<prm.tiles * prm.slices, DW_THREADS, smem, stream>>>(prm);
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess) return (int)e2;
+  so2conv_dw_reduce<T><<<dim3(prm.tiles, DW_BM * DW_BN / (4 * DW_REDUCE)), DW_REDUCE, 0,
+                         stream>>>(prm);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // One SO(2)-conv site, forward (adjoint = 0) or adjoint (adjoint = 1).
@@ -442,6 +775,66 @@ extern "C" int etq_so2conv_b(int dtype, int transpose, int R, int N, const void*
         static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(hi), nullptr, R, N,
         transpose);
   return (int)cudaGetLastError();
+}
+
+// K3-dW of one site (see so2conv_dw_kernel): dW_g = X_g^T Y_g for every
+// group, over the rows [0, *live) (live null: all E), then the reduce.
+//   dtype 0 = float32, 1 = bfloat16 (x, y, y_extra and the outputs alike).
+//   x [E, K, c_in]; y [E, K, c_out]; y_extra [E, extra] (extra 0: unused)
+//   rows: device (rows reduced, rows offered) that block 0 adds to, or null
+//   slices: depth slices per output tile (>= 1); work: float32 workspace of
+//   slices x tiles x 128 x 128 (tiles: every group's 128 x 128 tiles of dW_g)
+//   out: host array of n_groups device pointers, dW_g [rows_g c_in,
+//   (g == 0 ? extra : 0) + rows_g c_out]
+//   group_rows / lrows: as etq_so2conv.
+// Returns 0, a cudaError_t (> 0), -2 for sizes the kernel does not take,
+// -3 for a dtype.
+extern "C" int etq_so2conv_dw(int dtype, int E, int K, int c_in, int c_out, int n_groups,
+                              const int* group_rows, const int* lrows, int extra,
+                              const void* x, const void* y, const void* y_extra,
+                              const int* live, unsigned long long* rows, int slices,
+                              float* work, void* const* out, void* stream) {
+  if (dtype != 0 && dtype != 1) return -3;
+  if (n_groups < 1 || n_groups > MAXG || c_in % CHUNK || c_out % CHUNK || extra % CHUNK ||
+      slices < 1 || E < 0)
+    return -2;
+  DwParams prm = {};
+  prm.n_groups = n_groups;
+  prm.E = E;
+  prm.K = K;
+  prm.c_in = c_in;
+  prm.c_out = c_out;
+  prm.slices = slices;
+  prm.x = x;
+  prm.y = y;
+  prm.y_extra = y_extra;
+  prm.live = live;
+  prm.rows = rows;
+  prm.work = work;
+  long long tiles = 0;
+  int off = 0;
+  for (int g = 0; g < n_groups; ++g) {
+    DwGroup& G = prm.g[g];
+    G.rows = group_rows[g];
+    if (G.rows < 1 || G.rows > MAXR) return -2;
+    for (int j = 0; j < G.rows; ++j) {
+      if (lrows[off + j] < 0 || lrows[off + j] >= K) return -2;
+      G.lrow[j] = lrows[off + j];
+    }
+    off += G.rows;
+    G.extra = g == 0 ? extra : 0;
+    G.kdim = G.rows * c_in;
+    G.ndim = G.extra + G.rows * c_out;
+    G.tiles_n = (G.ndim + DW_BN - 1) / DW_BN;
+    G.tile0 = (int)tiles;
+    G.out = out[g];
+    tiles += (long long)((G.kdim + DW_BM - 1) / DW_BM) * G.tiles_n;
+  }
+  if (tiles * slices > 0x7fffffff) return -2;
+  prm.tiles = (int)tiles;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_dw<float>(prm, s);
+  return launch_dw<__nv_bfloat16>(prm, s);
 }
 
 extern "C" const char* etq_error_string(int code) {

@@ -76,6 +76,7 @@ from ..nn.embedding import EdgeDegreeEmbedding
 from ..nn.layers import GaussianSmearing, Linear
 from ..nn.norms import get_normalization_layer
 from ..nn.remat import remat_call
+from ..nn.so3_layers import SO2Conv
 from ..ops.cuda.rotate_dense import WignerDense, compute_wigner_dense
 from ..ops.irreps import layout as get_layout
 from ..ops.rotation import WignerBlocks, WignerFactors, compute_wigner, compute_wigner_blocks
@@ -85,7 +86,7 @@ from ..ops.sph import real_sph_harm
 from ..utils.trace import span
 
 __all__ = ["EquiformerV2Backbone", "BackboneOutput", "StackBroadcast", "block_step", "WIGNER_REPS",
-           "BACKBONE_OPTIONS"]
+           "BACKBONE_OPTIONS", "live_rows"]
 
 WIGNER_REPS = ("dense", "factored", "blocks")
 # the backbone's options beyond the widths, with the JAX package's defaults
@@ -180,6 +181,8 @@ class EquiformerV2Backbone(nn.Module):
             for _ in range(num_layers)
         )
         self.norm = get_normalization_layer(opt["norm_type"], lmax, sphere_channels)
+        # a K3 site reads the ragged layout's live edge rows (``live_rows``)
+        self.k3_sites = any(isinstance(m, SO2Conv) and m.fused for m in self.blocks.modules())
         self.mp = None
 
     def forward(self, atomic_numbers, pos, graph_idx, edge_src, edge_dst,
@@ -249,9 +252,12 @@ class EquiformerV2Backbone(nn.Module):
             return module(*args, **kw) if shard is None else mp.call_divergent(module, *args,
                                                                                **kw)
 
+        live = None
         if blocks is None:   # ragged: the padding edges onto the padding nodes
             edge_src, edge_dst = spread_padding(edge_src, edge_dst, edge_mask,
                                                 atomic_numbers > 0)
+            if shard is None and self.k3_sites:
+                live = live_rows(edge_mask)
         pos_e = pos
         if shard is not None:   # this rank's edges; positions enter the edge region
             edge_src, edge_dst, edge_shift, edge_mask = (
@@ -312,7 +318,7 @@ class EquiformerV2Backbone(nn.Module):
         x, edge_scalars_c = x.to(cdt), edge_scalars.to(cdt)
         phi_c = phi_r.to(cdt) if self.use_phi_every_layer else None
         broadcast = StackBroadcast(atomic_numbers, edge_scalars_c, edge_src, edge_dst,
-                                   edge_mask, wigner, graph_idx, rl_ij, phi_c, blocks)
+                                   edge_mask, wigner, graph_idx, rl_ij, phi_c, blocks, live)
         return (x, t_ij, a_ij), broadcast, edge_scalars
 
     def run_blocks(self, carry: tuple, broadcast: "StackBroadcast", num_graphs: int,
@@ -339,7 +345,8 @@ class StackBroadcast(NamedTuple):
     """What every block reads besides the carry (the JAX package's
     ``broadcast`` tuple, in its order): ``edge_scalars`` and ``rl_ij`` /
     ``phi_r`` in the compute type, None where the configuration has none;
-    then the layout's ``blocks`` tuple (None: ragged)."""
+    then the layout's ``blocks`` tuple (None: ragged); last, the port's
+    ``live`` (``live_rows``; None: every edge row)."""
 
     atomic_numbers: torch.Tensor
     edge_scalars: torch.Tensor
@@ -351,6 +358,20 @@ class StackBroadcast(NamedTuple):
     rl_ij: Optional[torch.Tensor]
     phi_r: Optional[torch.Tensor]
     blocks: Optional[tuple]
+    live: Optional[torch.Tensor] = None
+
+
+def live_rows(edge_mask: torch.Tensor) -> torch.Tensor:
+    """The ragged layout's live edge rows: the last real edge's row + 1, an
+    int32 scalar on the device, made without a host sync.  ``collate``
+    writes a batch's real edges to rows ``[0, E_real)``, so it is the real
+    edge count; past it every row is padding, whose edges take exactly zero
+    gradients (masked sums and softmax), so K3's weight gradient
+    (ops/cuda/so2conv.py) reduces rows ``[0, live)`` only.  The backbone
+    makes it once per forward, in the ragged layout without a sequence
+    shard, when a block has a fused K3 site."""
+    rows = torch.arange(1, edge_mask.shape[0] + 1, dtype=torch.int32, device=edge_mask.device)
+    return torch.where(edge_mask, rows, 0).amax() if rows.numel() else rows.new_zeros(())
 
 
 def block_step(block: nn.Module, carry: tuple, broadcast: StackBroadcast, num_graphs: int,
@@ -365,8 +386,8 @@ def block_step(block: nn.Module, carry: tuple, broadcast: StackBroadcast, num_gr
         args = (x, b.atomic_numbers, b.edge_scalars, b.edge_src, b.edge_dst, b.edge_mask,
                 b.wigner, t_ij, b.rl_ij, b.blocks, b.graph_idx, num_graphs, gen, b.phi_r, a_ij)
         if prm is None:
-            return block(*args, shard=shard)
-        return torch.func.functional_call(block, prm, args, {"shard": shard})
+            return block(*args, shard=shard, live=b.live)
+        return torch.func.functional_call(block, prm, args, {"shard": shard, "live": b.live})
 
     if not remat:
         return call(*carry, broadcast, params, generator)

@@ -162,12 +162,15 @@ class GraphAttention(nn.Module):
 
     def forward(self, x, atomic_numbers, edge_scalars, edge_src, edge_dst,
                 edge_mask, wigner, t_ij, rl_ij, blocks=None,
-                generator: Optional[torch.Generator] = None, phi_r=None, shard=None):
+                generator: Optional[torch.Generator] = None, phi_r=None, shard=None,
+                live=None):
         """``blocks``: the batch layout (ops/segment.py; None: ragged).
         ``t_ij`` / ``rl_ij``: the GATA edge streams (None when unused);
         ``phi_r``: the distance RBF (``use_phi_every_layer`` only);
         ``shard``: the edges are this rank's (sequence parallelism; ``x`` is
-        every node, the output holds the rank's node rows)."""
+        every node, the output holds the rank's node rows); ``live``: the
+        rows past which the edges take zero gradients (models/backbone.py),
+        for K3's weight gradient."""
         mp = self.mp
         x_edge = edge_scalars
         if self.use_atom_edge_embedding:
@@ -191,7 +194,8 @@ class GraphAttention(nn.Module):
             msg = rotate_to_edge_m0(wigner, msg, self.layout_red)
         else:
             msg = rotate_to_edge(wigner, msg, self.layout_red)
-        msg, x0_extra = self.so2_conv_1(msg, None if self.rad is not None else x_edge)
+        msg, x0_extra = self.so2_conv_1(msg, None if self.rad is not None else x_edge,
+                                        live=live)
         a_ch = self.alpha_ch // (mp.size if mp is not None else 1)
         alpha_in, rest = x0_extra[:, :a_ch], x0_extra[:, a_ch:]
         if self.use_gate_act:
@@ -225,7 +229,7 @@ class GraphAttention(nn.Module):
             msg = separable_s2_activation(rest, msg, self.grid_red)
             alpha = self._alpha(alpha_in, edge_dst, num_nodes, edge_mask, blocks, shard)
 
-        msg, _ = self.so2_conv_2(msg, None, scatter=mp is not None)
+        msg, _ = self.so2_conv_2(msg, None, scatter=mp is not None, live=live)
         if self.alpha_drop > 0.0 and self.training:
             # the whole batch's mask, as one process draws it
             keep = 1.0 - self.alpha_drop

@@ -134,11 +134,12 @@ class TransBlock(nn.Module):
     def forward(self, x, atomic_numbers, edge_scalars, edge_src, edge_dst,
                 edge_mask, wigner, t_ij, rl_ij, blocks, graph_idx,
                 num_graphs: int, generator: Optional[torch.Generator] = None, phi_r=None,
-                a_ij=None, shard=None):
+                a_ij=None, shard=None, live=None):
         """Returns (x, t_ij, a_ij); ``t_ij`` is None without GATA-V2,
         ``rl_ij`` without GATA (V2 or v1), ``a_ij`` without the dual
         stream, ``phi_r`` (the distance RBF) without ``use_phi_every_layer``;
-        ``shard``: sequence parallelism (module doc)."""
+        ``shard``: sequence parallelism (module doc); ``live``: the attention's
+        K3 weight gradients reduce rows ``[0, live)`` (models/backbone.py)."""
         sp = shard.mp if shard is not None else None
         with span("etq.model.attention"):
             if self.gata:
@@ -159,7 +160,7 @@ class TransBlock(nn.Module):
             args = (atomic_numbers, edge_scalars, edge_src, edge_dst, edge_mask, wigner, t_ij,
                     rl_ij, blocks, generator, phi_r)
             if sp is None:
-                h = self.ga(self.attn_norm(x), *args)
+                h = self.ga(self.attn_norm(x), *args, live=live)
             else:
                 h = sp.gather(sp.call_divergent(self.ga, sp.copy_to(self.attn_norm(x)), *args,
                                                 shard=shard), dim=0)

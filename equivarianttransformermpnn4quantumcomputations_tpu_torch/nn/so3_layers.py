@@ -172,8 +172,9 @@ class SO2Conv(nn.Module):
         return ws
 
     def _forward_fused(self, x: torch.Tensor, rad: torch.Tensor | None, cout: int,
-                       extra_m0: int, bias: bool = True):
-        """All orders in one K3 launch; biases added after the kernel."""
+                       extra_m0: int, bias: bool = True, live: torch.Tensor | None = None):
+        """All orders in one K3 launch; biases added after the kernel;
+        ``live``: K3's weight gradient reduces rows ``[0, live)`` only."""
         lay, E = self.layout, x.shape[0]
         if rad is not None:
             rr = rad.reshape(E, int(lay.m_size.sum()), self.cin)
@@ -181,7 +182,7 @@ class SO2Conv(nn.Module):
         if self.tp == "col" and self.mp is not None:
             x = self.mp.copy_to(x)
         y, extra = so2conv_fused(x, self._packed_weights(x.dtype), lay.lmax, lay.mmax,
-                                 cout, extra_m0)
+                                 cout, extra_m0, live)
         if not bias:
             return y, extra
         b = self.b_m0.to(y.dtype)
@@ -192,7 +193,10 @@ class SO2Conv(nn.Module):
         return y + bias_rows, extra
 
     def forward(self, x: torch.Tensor, edge_scalars: torch.Tensor | None = None,
-                scatter: bool = False):
+                scatter: bool = False, live: torch.Tensor | None = None):
+        """``live``: a device int32 scalar when the outputs' gradients are
+        zero in rows ``[live, E)`` (the ragged layout's padding edges), read
+        by K3's weight gradient only (ops/cuda/so2conv.py)."""
         mp, lay, E = self.mp, self.layout, x.shape[0]
         col, row = mp is not None and self.tp == "col", mp is not None and self.tp == "row"
         M = mp.size if mp is not None else 1
@@ -206,7 +210,7 @@ class SO2Conv(nn.Module):
         fused = (self.fused if mp is None
                  else self.conv_fused and so2conv_supported(lay, Cin, Cout, extra_m0))
         if fused:
-            y, extra = self._forward_fused(x, rad, Cout, extra_m0, bias=not row)
+            y, extra = self._forward_fused(x, rad, Cout, extra_m0, bias=not row, live=live)
         else:
             xm = x if self.m0_only else x[:, self.to_m, :]  # m-primary
             x0 = xm[:, :L0, :].reshape(E, L0 * Cin)

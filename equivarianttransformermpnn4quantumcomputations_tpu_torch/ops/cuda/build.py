@@ -56,6 +56,8 @@ _SIGNATURES = {
         "etq_so2conv": ([_I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
                         _I),
         "etq_so2conv_b": ([_I, _I, _I, _I, _P, _P, _P, _P], _I),
+        "etq_so2conv_dw": ([_I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                            _P], _I),
     },
     "rotate": {
         "etq_rotate": ([_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P], _I),
@@ -91,8 +93,9 @@ def _parse_ptxas(log: str) -> list[dict]:
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             mangled = m.group(1)
-            base = re.search(r"(pairs_kernel|s2act_tc_kernel|so2conv_kernel|"
-                             r"b_operand_kernel|rot_kernel|gata_value_kernel)I", mangled)
+            base = re.search(r"(pairs_kernel|s2act_tc_kernel|so2conv_kernel|so2conv_dw_kernel|"
+                             r"so2conv_dw_reduce|b_operand_kernel|rot_kernel|"
+                             r"gata_value_kernel)I", mangled)
             args = ["bf16" if "bfloat16" in mangled else "f32"]
             args += re.findall(r"L[ib](\d+)E", mangled)
             out.append(dict(name=f"{base.group(1) if base else mangled}<{','.join(args)}>",

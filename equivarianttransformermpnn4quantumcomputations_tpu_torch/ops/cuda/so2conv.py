@@ -20,11 +20,25 @@ Differentiation mirrors the JAX package's custom_vjp pair ``_core`` /
 ``_core_adj``: the operator is bilinear in (x, W).  The backward of
 ``_SO2Conv`` is ``_SO2ConvAdj`` (the adjoint kernel) for dx plus
 ``dW_g = X_g^T [dextra | dY rows]``; the backward of ``_SO2ConvAdj`` is
-``_SO2Conv`` plus the same product.  dW is ``torch.matmul``, as the JAX
-package leaves it to XLA, so grad-of-grad works to any order.
+``_SO2Conv`` plus the same product.  dW is K3-dW (``dws``: one launch of
+``so2conv_dw_kernel`` and its reduce per call, every group at once), inside
+``_SO2ConvDW``, which is bilinear in (X, Y) too: its backward is
+``_SO2ConvAdj`` for X and ``_SO2Conv`` for Y, with the upstream gradients
+as weights, so grad-of-grad works to any order on the kernels alone.  The
+JAX package leaves dW to XLA.
 
-CPU tensors run the plain versions ``fwd_plain`` / ``adj_plain``; CUDA
-tensors launch the kernels; nothing falls back.  ``so2conv_supported`` gives
+``live`` (``so2conv_fused``'s argument): a device int32 scalar such that the
+cotangents (dy, dextra) of the site's outputs are zero in rows ``[live,
+E)``, as in the ragged layout, whose padding edges lie at the tail and take
+zero gradients (``models/backbone.py`` makes it); K3-dW then reduces rows
+``[0, live)`` only, the same sum.  None reduces every row.  It holds for
+the cotangents of the model's own outputs: the convolution that
+``_SO2ConvAdj``'s and ``_SO2ConvDW``'s backwards run on upstream gradients
+takes none.  ``dw_rows`` (device int64: rows reduced, rows offered, summed
+over calls) counts what the skip saves; nothing in a step reads it.
+
+CPU tensors run the plain versions ``fwd_plain`` / ``adj_plain`` /
+``dws_plain``; CUDA tensors launch the kernels; nothing falls back.  ``so2conv_supported`` gives
 the kernel's own shape limits (every row segment a multiple of 8 wide); a
 site outside them takes the unfused path in nn/so3_layers.py, as in the JAX
 package.
@@ -41,15 +55,31 @@ import torch
 from ..irreps import IrrepsLayout
 from ..irreps import layout as get_layout
 
-__all__ = ["so2conv_fused", "so2conv_supported", "fwd_plain", "adj_plain", "launches",
-           "tf32_round", "b_operands", "b_operands_plain"]
+__all__ = ["so2conv_fused", "so2conv_supported", "fwd_plain", "adj_plain", "dws_plain", "dws",
+           "launches", "dw_rows", "tf32_round", "b_operands", "b_operands_plain"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _WIDTH = 8                  # csrc/so2conv.cu: CHUNK, the segment-width quantum
 _MAX_GROUPS, _MAX_ROWS = 8, 16
 
-# kernel launches (the launch wrappers add one per launch)
-launches = {"fwd": 0, "adj": 0, "b_operands": 0}
+# kernel launches (the launch wrappers add one per launch; "dw" one per
+# K3-dW call, its kernel and its reduce)
+launches = {"fwd": 0, "adj": 0, "b_operands": 0, "dw": 0}
+_DW_TILE = 128              # csrc/so2conv.cu: DW_BM = DW_BN, a dW tile's side
+_DW_WAVES = 8               # K3-dW's blocks: at least this many per SM
+_dw_rows: dict = {}         # device -> int64 [rows reduced, rows offered]
+
+
+def dw_rows(device) -> torch.Tensor:
+    """K3-dW's rows reduced and rows offered on ``device``, summed over its
+    calls since the process started (int64, on the device; block 0 of each
+    launch adds its call's ``live`` and E)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _dw_rows:
+        _dw_rows[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _dw_rows[device]
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,9 +151,26 @@ def adj_plain(dy: torch.Tensor, dextra: torch.Tensor | None, ws, lmax: int,
     return dx.to(dy.dtype)
 
 
+def dws_plain(x: torch.Tensor, y: torch.Tensor, y_extra: torch.Tensor | None, lmax: int,
+              mmax: int, live: torch.Tensor | int | None = None) -> list[torch.Tensor]:
+    """Plain version of K3-dW: dW_g = [rows of x]^T @ [y_extra (g = 0) | rows
+    of y] over the rows ``[0, live)`` (None: all), f32 accumulation, in x's
+    type."""
+    n = x.shape[0] if live is None else min(max(int(live), 0), x.shape[0])
+    x, y = x[:n], y[:n]
+    y_extra = None if y_extra is None else y_extra[:n]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    out = []
+    for g, rows in enumerate(_row_index(lmax, mmax, str(x.device))):
+        xg = _group_rows(x, None, rows).to(acc)
+        yg = _group_rows(y, y_extra if g == 0 else None, rows).to(acc)
+        out.append((xg.t() @ yg).to(x.dtype))
+    return out
+
+
 def _group_rows(t: torch.Tensor, lead: torch.Tensor | None, rows) -> torch.Tensor:
     """[lead | t[:, rows[0], :] | t[:, rows[1], :] | ...] as [E, width]."""
-    flat = t.index_select(1, rows).reshape(t.shape[0], -1)
+    flat = t.index_select(1, rows).reshape(t.shape[0], len(rows) * t.shape[2])
     return flat if lead is None else torch.cat([lead, flat], dim=1)
 
 
@@ -248,28 +295,116 @@ def adj(dy: torch.Tensor, dextra: torch.Tensor | None, ws, lmax: int, mmax: int,
     return adj_plain(dy, dextra, ws, lmax, mmax, Cin)
 
 
-# ── differentiable core (the JAX package's mutual custom_vjp pair) ─────────
+def _dw_slices(tiles: int, E: int, device: torch.device) -> int:
+    """Depth slices of each dW tile: enough blocks for ``_DW_WAVES`` per SM,
+    each slice at least 4 stages of E's 32-row stages."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-_DW_WAVES * sms // tiles), E // 128))
 
 
-def _dws(xr: torch.Tensor, yr: torch.Tensor, yextra: torch.Tensor | None,
-         ws, lmax: int, mmax: int) -> list[torch.Tensor]:
-    """dW_g = [rows of xr]^T @ [yextra (g = 0) | rows of yr]: the weight
-    gradient of both directions, by torch.matmul (differentiable)."""
-    out = []
-    for g, rows in enumerate(_row_index(lmax, mmax, str(xr.device))):
-        xg = _group_rows(xr, None, rows)
-        yg = _group_rows(yr, yextra if g == 0 else None, rows)
-        acc = torch.promote_types(xg.dtype, torch.float32)
-        out.append((xg.to(acc).t() @ yg.to(acc)).to(ws[g].dtype))
+def _launch_dw(x: torch.Tensor, y: torch.Tensor, y_extra: torch.Tensor | None, lmax: int,
+               mmax: int, live: torch.Tensor | None) -> list[torch.Tensor]:
+    """Launch ``csrc/so2conv.cu:so2conv_dw_kernel`` and its reduce on the
+    current stream: dW_g of every group in x's type."""
+    from . import build
+
+    groups = _row_maps(lmax, mmax)
+    E, K, c_in = x.shape
+    c_out = y.shape[2]
+    extra = 0 if y_extra is None else y_extra.shape[1]
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"so2conv dW kernel takes float32 or bfloat16, not {x.dtype}")
+    if K != sum(map(len, groups)) or tuple(y.shape[:2]) != (E, K):
+        raise ValueError(f"x {tuple(x.shape)} / y {tuple(y.shape)}: lmax {lmax} mmax {mmax} "
+                         f"has {sum(map(len, groups))} rows")
+    if min(c_in, c_out) % _WIDTH or extra % _WIDTH:
+        raise ValueError(f"so2conv dW kernel needs channel widths that are multiples of "
+                         f"{_WIDTH} (got {c_in}, {c_out}, extra {extra})")
+    if y_extra is not None and tuple(y_extra.shape) != (E, extra):
+        raise ValueError(f"y_extra has shape {tuple(y_extra.shape)}, expected {(E, extra)}")
+    for t in (x, y) + (() if y_extra is None else (y_extra,)):
+        if not (t.is_cuda and t.device == x.device and t.dtype == x.dtype):
+            raise ValueError("so2conv dW inputs must share one CUDA device and dtype")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("so2conv dW inputs must be contiguous and 16-byte aligned")
+    if live is not None and not (live.is_cuda and live.device == x.device
+                                 and live.dtype == torch.int32 and live.numel() == 1):
+        raise ValueError("so2conv dW: live must be an int32 scalar on x's device")
+    shapes = [(len(r) * c_in, (extra if g == 0 else 0) + len(r) * c_out)
+              for g, r in enumerate(groups)]
+    tiles = sum(-(-k // _DW_TILE) * -(-n // _DW_TILE) for k, n in shapes)
+    slices = _dw_slices(tiles, E, x.device)
+    work = torch.empty(slices * tiles * _DW_TILE * _DW_TILE, dtype=torch.float32,
+                       device=x.device)
+    out = [torch.empty(s, dtype=x.dtype, device=x.device) for s in shapes]
+    out_ptrs = (ctypes.c_void_p * len(out))(*[o.data_ptr() for o in out])
+    rows_c, lrows_c = _c_tables(lmax, mmax)
+    lib = build.library("so2conv")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.etq_so2conv_dw(
+        _DTYPE_CODE[x.dtype], E, K, c_in, c_out, len(groups), ctypes.addressof(rows_c),
+        ctypes.addressof(lrows_c), extra, x.data_ptr(), y.data_ptr(),
+        0 if y_extra is None else y_extra.data_ptr(), 0 if live is None else live.data_ptr(),
+        dw_rows(x.device).data_ptr(), slices, work.data_ptr(), ctypes.addressof(out_ptrs),
+        stream,
+    )
+    build.check("so2conv", rc, "so2conv.dw")
+    launches["dw"] += 1
     return out
 
 
-class _Aux:
-    """Static configuration of one conv site."""
+def dws(x: torch.Tensor, y: torch.Tensor, y_extra: torch.Tensor | None, lmax: int, mmax: int,
+        live: torch.Tensor | None = None) -> list[torch.Tensor]:
+    """K3-dW on CUDA tensors, its plain version on CPU tensors: dW_g of
+    every group over the rows ``[0, live)`` (None: all)."""
+    if x.is_cuda:
+        return _launch_dw(x, y, y_extra, lmax, mmax, live)
+    return dws_plain(x, y, y_extra, lmax, mmax, live)
 
-    def __init__(self, lmax: int, mmax: int, Cin: int, Cout: int, extra: int):
+
+# ── differentiable core (the JAX package's mutual custom_vjp pair) ─────────
+
+
+class _Aux:
+    """Static configuration of one conv site, and its ``live`` rows (None:
+    every row); ``whole`` is the same site without them."""
+
+    def __init__(self, lmax: int, mmax: int, Cin: int, Cout: int, extra: int,
+                 live: torch.Tensor | None = None):
         self.lmax, self.mmax = lmax, mmax
         self.Cin, self.Cout, self.extra = Cin, Cout, extra
+        self.live = live
+        self.whole = self if live is None else _Aux(lmax, mmax, Cin, Cout, extra)
+
+
+def _weight_grads(x, y, y_extra, aux: _Aux, ws) -> list[torch.Tensor]:
+    """dW_g of every group in each weight's type, through ``_SO2ConvDW``."""
+    return [d.to(w.dtype) for d, w in zip(_SO2ConvDW.apply(x, y, y_extra, aux), ws)]
+
+
+class _SO2ConvDW(torch.autograd.Function):
+    """dW_g = X_g^T Y_g (K3-dW) for every group; bilinear in (x, (y,
+    y_extra)), so for upstream gradients G_g the gradient in x is the adjoint
+    with weights G and the gradient in (y, y_extra) the forward with weights
+    G."""
+
+    @staticmethod
+    def forward(ctx, x, y, y_extra, aux: _Aux):
+        ctx.save_for_backward(x, y, y_extra)
+        ctx.aux = aux
+        return tuple(dws(x, y, y_extra, aux.lmax, aux.mmax, aux.live))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x, y, y_extra = ctx.saved_tensors
+        aux = ctx.aux
+        gs = [g.contiguous() for g in gs]
+        dx = _SO2ConvAdj.apply(y, y_extra, aux, *gs) if ctx.needs_input_grad[0] else None
+        dy = dy_extra = None
+        if any(ctx.needs_input_grad[1:3]):
+            out = _SO2Conv.apply(x, aux.whole, *gs)
+            dy, dy_extra = out if aux.extra else (out, None)
+        return dx, dy, dy_extra, None
 
 
 class _SO2Conv(torch.autograd.Function):
@@ -289,9 +424,9 @@ class _SO2Conv(torch.autograd.Function):
         dy = dy.contiguous()
         dextra = dextra.contiguous() if aux.extra else None
         dx = _SO2ConvAdj.apply(dy, dextra, aux, *ws) if ctx.needs_input_grad[0] else None
-        dws = (_dws(x, dy, dextra, ws, aux.lmax, aux.mmax) if any(ctx.needs_input_grad[2:])
-               else [None] * len(ws))
-        return (dx, None, *dws)
+        dw = (_weight_grads(x, dy, dextra, aux, ws) if any(ctx.needs_input_grad[2:])
+              else [None] * len(ws))
+        return (dx, None, *dw)
 
 
 class _SO2ConvAdj(torch.autograd.Function):
@@ -311,19 +446,21 @@ class _SO2ConvAdj(torch.autograd.Function):
         ddx = ddx.contiguous()
         ddy = ddextra = None
         if any(ctx.needs_input_grad[:2]):
-            out = _SO2Conv.apply(ddx, aux, *ws)
+            out = _SO2Conv.apply(ddx, aux.whole, *ws)
             ddy, ddextra = out if aux.extra else (out, None)
-        dws = (_dws(ddx, dy, dextra, ws, aux.lmax, aux.mmax) if any(ctx.needs_input_grad[3:])
-               else [None] * len(ws))
-        return (ddy, ddextra, None, *dws)
+        dw = (_weight_grads(ddx, dy, dextra, aux, ws) if any(ctx.needs_input_grad[3:])
+              else [None] * len(ws))
+        return (ddy, ddextra, None, *dw)
 
 
-def so2conv_fused(x: torch.Tensor, ws, lmax: int, mmax: int, Cout: int,
-                  extra: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+def so2conv_fused(x: torch.Tensor, ws, lmax: int, mmax: int, Cout: int, extra: int,
+                  live: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Fused SO(2) conv.  x: [E, K_red, Cin] l-primary (radial scaling, if
     any, already applied); ws: per-group packed weights (m = 0:
-    [L0 Cin, extra + L0 Cout]; m > 0: butterfly [2 Lm Cin, 2 Lm Cout]).
-    Returns (y [E, K_red, Cout], extra [E, extra] | None)."""
-    aux = _Aux(lmax, mmax, x.shape[2], Cout, extra)
+    [L0 Cin, extra + L0 Cout]; m > 0: butterfly [2 Lm Cin, 2 Lm Cout]);
+    ``live``: a device int32 scalar when the outputs' cotangents are zero in
+    rows ``[live, E)`` (module doc).  Returns (y [E, K_red, Cout], extra
+    [E, extra] | None)."""
+    aux = _Aux(lmax, mmax, x.shape[2], Cout, extra, live)
     out = _SO2Conv.apply(x.contiguous(), aux, *[w.contiguous() for w in ws])
     return out if extra else (out, None)

@@ -42,8 +42,10 @@ time), the number of kernel launches, the kernel time by bucket, the
 device time and launches of the edge-rotation kernels (K1 ``pairs_kernel``
 and K4 ``rot_kernel``) and of the S2 activation kernels (K2a, K2b, K2c:
 every kernel named ``s2act_*``; K2c apart), of the GATA value activation
-kernels (K5a, K5b, K5c: ``gata_value_kernel``), and the top kernels.  Every line carries the card's
-name and power limit.  Without a CUDA device it raises.
+kernels (K5a, K5b, K5c: ``gata_value_kernel``) and of K3's weight gradient
+(K3-dW: ``so2conv_dw_*``; ``--qm9`` also its edge rows reduced of those
+offered, ``so2conv.dw_rows``), and the top kernels.  Every line carries the
+card's name and power limit.  Without a CUDA device it raises.
 
 The program's spans (``utils/trace.py``) get a table of their own
 (``span_table``, the record's ``spans``): for each ``etq.`` span name its
@@ -80,10 +82,10 @@ __all__ = ["random_structures", "random_molecules", "qm9_batch", "qm9_train_stat
 _BUCKETS = (
     # s2act_tc_kernel: K2a, K2b and K2c; s2act_kernel and s2act_k3_kernel:
     # their FFMA kernels in older trees (this file copied there for an A/B);
-    # gata_value_kernel: K5a, K5b and K5c
+    # gata_value_kernel: K5a, K5b and K5c; so2conv_dw: K3-dW and its reduce
     ("port kernels (pairs, s2act, so2conv, rot, gata_value)",
      ("pairs_kernel", "s2act_tc_kernel", "so2conv_kernel", "b_operand_kernel", "rot_kernel",
-      "s2act_kernel", "s2act_k3_kernel", "gata_value_kernel")),
+      "s2act_kernel", "s2act_k3_kernel", "gata_value_kernel", "so2conv_dw")),
     ("optimizer (multi-tensor)", ("multi_tensor",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "gemv", "splitK")),
     ("gather / scatter / index", ("index", "gather", "scatter")),
@@ -339,6 +341,7 @@ def profile_call(fn) -> dict:
     rotation = [v for k, v in per_kernel.items() if "pairs_kernel" in k or "rot_kernel" in k]
     s2 = [v for k, v in per_kernel.items() if "s2act_" in k]
     k5 = [v for k, v in per_kernel.items() if "gata_value_kernel" in k]
+    dw = [v for k, v in per_kernel.items() if "so2conv_dw" in k]
     # K2c: the tensor-core kernel's third instance, or its FFMA kernel in older trees
     k2c = [v for k, v in per_kernel.items()
            if "s2act_k3_kernel" in k or re.search(r"s2act_tc_kernel<[^>]*, 2>", k)]
@@ -358,6 +361,8 @@ def profile_call(fn) -> dict:
         k2c_kernel_launches=sum(n for _, n in k2c),
         gata_value_kernel_ms=sum(ms for ms, _ in k5),
         gata_value_kernel_launches=sum(n for _, n in k5),
+        so2conv_dw_kernel_ms=sum(ms for ms, _ in dw),
+        so2conv_dw_kernel_launches=sum(n for _, n in dw),
         top_kernels=[dict(name=k[:160], ms=v[0], count=v[1]) for k, v in top],
         spans=span_table(prof.events()),
     )
@@ -478,6 +483,7 @@ def _variant(args) -> list[tuple[str, dict]]:
 
 def _qm9(args, conv_fused: bool) -> tuple[str, dict]:
     from ..data.graph import as_tensors
+    from ..ops.cuda import so2conv
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     state, step = qm9_train_state(conv_fused, dtype)
@@ -487,7 +493,9 @@ def _qm9(args, conv_fused: bool) -> tuple[str, dict]:
     batch = as_tensors(pb, "cuda")
     for _ in range(2):
         step(batch)
+    rows0 = so2conv.dw_rows("cuda").clone()
     rec = dict(host_graph_build_ms=host_ms, **profile_call(lambda: step(batch)))
+    rec["so2conv_dw_rows"] = (so2conv.dw_rows("cuda") - rows0).tolist()   # reduced, offered
     del state, step
     return (f"QM9 training step ({'bf16' if args.bf16 else 'f32'}, conv_fused "
             f"{'on' if conv_fused else 'off'})", rec)
@@ -526,6 +534,12 @@ def _report(card: str, what: str, rec: dict, args) -> dict:
           f"{rec['k2c_kernel_launches']} launches  [{card}]")
     print(f"  {'GATA value kernels (K5a, K5b, K5c)':38s} {rec['gata_value_kernel_ms']:8.2f} ms in "
           f"{rec['gata_value_kernel_launches']} launches  [{card}]")
+    print(f"  {'K3 weight gradient (K3-dW)':38s} {rec['so2conv_dw_kernel_ms']:8.2f} ms in "
+          f"{rec['so2conv_dw_kernel_launches']} launches  [{card}]")
+    if "so2conv_dw_rows" in rec:
+        reduced, offered = rec["so2conv_dw_rows"]
+        print(f"  K3-dW reduced {reduced} of the {offered} edge rows offered over the timed and "
+              f"the profiled call  [{card}]")
     for k in rec["top_kernels"]:
         print(f"  {k['ms']:8.2f} ms x{k['count']:4d}  {k['name'][:110]}")
     if rec["spans"]:

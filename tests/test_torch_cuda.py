@@ -420,6 +420,41 @@ def test_so2conv_b_operands_kernel_matches_plain(dev, dtype, adjoint):
         assert got.shape == want.shape and torch.equal(got, want)
 
 
+# K3-dW at the QM9 cell's E_pad and a batch's live (real) rows, and at the
+# narrow sites of K3_SITES with a ragged edge count
+K3_DW_CASES = ([((4, 2, 256, 128, 384), 59520, live) for live in (17952, None)]
+               + [((4, 2, 128, 128, 0), 59520, live) for live in (17952, None)]
+               + [((2, 1, 40, 24, 16), 301, 130), ((6, 2, 128, 128, 0), 129, None)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", K3_DW_CASES, ids=str)
+def test_so2conv_dw_kernel_matches_plain(dev, case, dtype):
+    """K3-dW (one call: the kernel and its reduce) against dws_plain over
+    the same rows [0, live), with the rows past ``live`` not zero (the
+    kernel must not read them); the same bits on a second call; one
+    ``launches["dw"]`` a call; (live, E) added to the row counter."""
+    (lmax, mmax, cin, cout, extra), E, live = case
+    g = torch.Generator(device=dev).manual_seed(9)
+    K = sum(map(len, k3._row_maps(lmax, mmax)))
+    x = torch.randn(E, K, cin, generator=g, device=dev).to(dtype)
+    y = torch.randn(E, K, cout, generator=g, device=dev).to(dtype)
+    ye = torch.randn(E, extra, generator=g, device=dev).to(dtype) if extra else None
+    lv = None if live is None else torch.tensor(live, dtype=torch.int32, device=dev)
+    rows0 = k3.dw_rows(dev).clone()
+    before = k3.launches["dw"]
+    got = k3.dws(x, y, ye, lmax, mmax, lv)
+    assert k3.launches["dw"] == before + 1
+    again = k3.dws(x, y, ye, lmax, mmax, lv)
+    want = k3.dws_plain(x, y, ye, lmax, mmax, live)
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert torch.equal(a, b)
+        _close(a, w, dtype)
+    counted = (k3.dw_rows(dev) - rows0).tolist()
+    assert counted == [2 * (E if live is None else live), 2 * E], counted
+
+
 def test_so2conv_grad_of_grad_on_the_card_matches_the_cpu(dev):
     """SO2Conv(conv_fused=True) with radial weights: the param gradient of
     |dL/dx|^2 on the card (K3-fwd and K3-adj twice each) against the CPU."""
@@ -446,6 +481,7 @@ def test_so2conv_grad_of_grad_on_the_card_matches_the_cpu(dev):
     before = dict(k3.launches)
     got = run(dev)
     assert (k3.launches["fwd"] - before["fwd"], k3.launches["adj"] - before["adj"]) == (2, 2)
+    assert k3.launches["dw"] > before["dw"]   # every weight gradient through K3-dW
     want = run("cpu")
     num = sum(float((got[k] - want[k]).double().square().sum()) for k in want)
     den = sum(float(want[k].double().square().sum()) for k in want)
